@@ -8,20 +8,31 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
   1. build    nvcc-builds the FedDPC kernels from the checkout's sources;
               prints the card's name and power limit (nvidia-smi).
   2. kernels  holds every kernel against its plain PyTorch version on the
-              card, at the main path's shape (K=10 clients x N=11,220,132
-              ResNet18-GN parameters) and at ragged shapes, with and
-              without a zero Delta_prev; times kernel and plain version
-              with CUDA events beside the kernel's bound.
-  3. trainer  the main path: FederatedTrainer runs 3 FedDPC and 3 FedAvg
-              rounds of ResNet18-GN at full width (CIFAR-100 shape,
-              synthetic Dirichlet(0.2) data, 10 of 30 clients per round)
-              with the launch counts set to 0 just before and read just
-              after; every FedDPC round must launch each kernel once.
-              Each algorithm's last round runs under torch.profiler: its
-              device time by kernel and the card's busy share.
-  4. parity   2 FedDPC rounds of LeNet5 at quickstart size on the card and
-              on the CPU from the same initial params; the per-round
-              losses must agree.
+              card: the reduction pass and the batched epilogue at the
+              main path's shape (K=10 clients x N=11,220,132 ResNet18-GN
+              parameters) and at ragged shapes, with and without a zero
+              Delta_prev; the buffered fold and the two dequant folds at
+              K = B in {1, 10, 33} (33 is past one shared-memory chunk of
+              rows), int8 and bf16 payloads, on ResNet18-GN's 62 leaves
+              and on a ragged synthetic layout with leaves shorter than a
+              warp. Times each kernel and its plain version with CUDA
+              events at K = B = 10, N = 11,220,132, beside its bound.
+  3. trainer  the main paths: FederatedTrainer runs ResNet18-GN at full
+              width (CIFAR-100 shape, synthetic Dirichlet(0.2) data, 10 of
+              30 clients per round) in five regimes — synchronous FedDPC
+              and FedAvg (3 rounds each), synchronous FedDPC with an int8
+              uplink, buffered-async FedDPC (B = 10, 2 waves in flight,
+              exponential latencies) and the same with an int8 uplink and
+              error feedback (4 rounds each). The launch counts are set to
+              0 just before each run and read just after; each round must
+              launch the kernels of its regime. The last round of sync
+              FedDPC, FedAvg and async-int8 runs under torch.profiler:
+              device time by kernel and by category (the codec's encode
+              and decode as their own) and the card's idle share.
+  4. parity   LeNet5 at quickstart size on the card and on the CPU from
+              the same initial params — 2 sync FedDPC rounds, and 3
+              buffered-async int8 rounds with error feedback; the
+              per-round losses must agree.
 
 The last lines are the kernels' JSON summary, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
@@ -30,6 +41,7 @@ prints no result. It imports torch and the port, nothing of JAX.
 from __future__ import annotations
 
 import functools
+import itertools
 import json
 import math
 import os
@@ -44,11 +56,13 @@ from torch.autograd import DeviceType
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
+from repro_torch.bridge import layout_of  # noqa: E402
 from repro_torch.configs import paper_lenet5, paper_resnet18  # noqa: E402
 from repro_torch.core import projection as proj  # noqa: E402
 from repro_torch.core.api import (AlgoConfig, ExecConfig,  # noqa: E402
                                   FederatedTrainer)
 from repro_torch.core.baselines import FedDPCHyper  # noqa: E402
+from repro_torch.core.runtime import ExponentialRuntime  # noqa: E402
 from repro_torch.core.samplers import UniformSampler  # noqa: E402
 from repro_torch.ingest.images import (StreamingImageSource,  # noqa: E402
                                        build_federated_image_data)
@@ -78,10 +92,19 @@ EPI_RTOL = 1e-5
 PARITY_ATOL = 1e-3
 
 SOURCE = "src/repro_torch/kernels/feddpc_project/csrc/feddpc_project.cu"
-REPLACES = {"feddpc_dots":
-            "src/repro/kernels/feddpc_project/kernel.py:44",
-            "feddpc_batched_epilogue":
-            "src/repro/kernels/feddpc_project/kernel.py:118"}
+_TPU = "src/repro/kernels/feddpc_project/kernel.py"
+REPLACES = {"feddpc_dots": f"{_TPU}:44",
+            "feddpc_batched_epilogue": f"{_TPU}:118",
+            "feddpc_buffer_fold": f"{_TPU}:197",
+            "feddpc_dequant_batched_epilogue": f"{_TPU}:269",
+            "feddpc_dequant_buffer_fold": f"{_TPU}:345"}
+# the folds of the async and codec rounds: K = B rows, and a synthetic
+# layout (ragged N = 1,000,003) whose leaves of 1-31 elements put leaf
+# boundaries inside every column tile
+FOLD_KS = (1, 10, 33)
+SYNTH_NUMELS = (5, 31, 1, 17) * 4 + (2048, 7, 997_732)
+# no single PyTorch call computes any of the five functions
+LIBRARY_NONE = "no single PyTorch call computes this function"
 
 
 def emit(obj):
@@ -185,8 +208,7 @@ def phase_kernels():
     g = ops.dots_num_blocks(n)             # the dots kernel's partials
     dots_bytes = 4 * ((k + 1) * n + 3 * k * g)
     dots_flops = 4 * k * n + 2 * n
-    epi_bytes = 4 * ((k + 2) * n + 2 * k + 2 * n)
-    epi_flops = 4 * k * n + 3 * n
+    epi_bytes, epi_flops = _fold_bytes_flops(k, n, False, False)
     rows = []
     for name, kern, plain, nbytes, flops in (
             ("feddpc_dots", lambda: ops.feddpc_dots(d, p),
@@ -203,9 +225,135 @@ def phase_kernels():
                      "replaces": REPLACES[name], "max_abs_err": err[name],
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": None,
+                     "library": LIBRARY_NONE,
                      "K": k, "N": n, "bytes": nbytes, "flops": flops})
         emit({"phase": "timing", **rows[-1]})
     return rows
+
+
+def _resnet18_offsets():
+    params = init_vision(paper_resnet18.CONFIG,
+                         torch.Generator().manual_seed(0))
+    return layout_of(params).leaf_offsets
+
+
+def _payload(gen, k, offsets, qdtype):
+    """A codec payload on the card: int8 codes in [-127, 127] or bf16
+    values, per-leaf scales and zero-points."""
+    n, nleaves = int(offsets[-1]), offsets.numel() - 1
+    if qdtype == torch.int8:
+        q = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                          dtype=torch.int8)
+    else:
+        q = torch.randn((k, n), generator=gen, device="cuda"
+                        ).to(torch.bfloat16)
+    qscale = torch.rand((k, nleaves), generator=gen, device="cuda") * 0.02
+    qzero = torch.randn((k, nleaves), generator=gen, device="cuda") * 0.1
+    return q, qscale, qzero
+
+
+def _fold_calls(q, qscale, qzero, offsets, p, w, coefs, scales, wgts):
+    """{kernel name: (kernel call, plain call)} for the three folds; the
+    buffered fold reads the dequantized payload as its f32 stack."""
+    d = ref.dequant_ref(q, qscale, qzero, offsets)
+    args = (q, qscale, qzero, offsets, p, w, coefs, scales)
+    return {
+        "feddpc_buffer_fold": (
+            lambda: ops.feddpc_buffer_fold(d, p, w, coefs, scales, wgts,
+                                           ETA_G),
+            lambda: ref.buffer_fold_ref(d, p, w, coefs, scales, wgts,
+                                        ETA_G)),
+        "feddpc_dequant_batched_epilogue": (
+            lambda: ops.feddpc_dequant_batched_epilogue(*args, ETA_G),
+            lambda: ref.dequant_batched_epilogue_ref(*args, ETA_G)),
+        "feddpc_dequant_buffer_fold": (
+            lambda: ops.feddpc_dequant_buffer_fold(*args, wgts, ETA_G),
+            lambda: ref.dequant_buffer_fold_ref(*args, wgts, ETA_G)),
+    }
+
+
+def _fold_inputs(gen, k, offsets, qdtype):
+    n = int(offsets[-1])
+    q, qscale, qzero = _payload(gen, k, offsets, qdtype)
+    p = torch.randn(n, generator=gen, device="cuda")
+    w = torch.randn(n, generator=gen, device="cuda")
+    coefs = torch.randn(k, generator=gen, device="cuda")
+    scales = 1.0 + torch.rand(k, generator=gen, device="cuda")
+    wgts = torch.linspace(0.3, 1.0, k, device="cuda")
+    return q, qscale, qzero, offsets, p, w, coefs, scales, wgts
+
+
+def _fold_bytes_flops(k, n, dequant, weighted, nleaves=0, itemsize=4):
+    """Bytes each input read once and each output written once, and the
+    f32 operations, of one fold launch over k rows of n columns."""
+    nbytes = (k * n * itemsize + 4 * 4 * n        # d or q; p, w, w', dt
+              + 4 * (2 + weighted) * k)           # coefs, scales, wgts
+    flops = (6 if dequant else 4) * k * n + 3 * n + weighted * k
+    if dequant:
+        nbytes += 4 * 2 * k * nleaves + 8 * (nleaves + 1)
+    return nbytes, flops
+
+
+def phase_folds():
+    """The three folds against their plain versions at every listed
+    shape; returns {name: max abs err} and the timing rows."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    layouts = {"resnet18": _resnet18_offsets(),
+               "synthetic": torch.tensor(
+                   [0] + list(itertools.accumulate(SYNTH_NUMELS)),
+                   dtype=torch.int64)}
+    if int(layouts["resnet18"][-1]) != N_MAIN:
+        raise AssertionError("ResNet18-GN layout does not hold N_MAIN")
+    err = {}
+    for (lname, offsets), k, qdtype in itertools.product(
+            layouts.items(), FOLD_KS, (torch.int8, torch.bfloat16)):
+        calls = _fold_calls(*_fold_inputs(gen, k, offsets, qdtype))
+        line = {"phase": "kernels", "layout": lname, "K": k,
+                "N": int(offsets[-1]), "leaves": offsets.numel() - 1,
+                "payload": str(qdtype).replace("torch.", "")}
+        for name, (kern, plain) in calls.items():
+            (w_k, dt_k), (w_r, dt_r) = kern(), plain()
+            torch.cuda.synchronize()
+            for what, a, b in (("delta_t", dt_k, dt_r), ("w", w_k, w_r)):
+                if not torch.allclose(a, b, rtol=EPI_RTOL, atol=EPI_ATOL):
+                    raise AssertionError(
+                        f"{name} {line}: {what} max abs err "
+                        f"{float((a - b).abs().max())}")
+            e = max(float((dt_k - dt_r).abs().max()),
+                    float((w_k - w_r).abs().max()))
+            err[name] = max(err.get(name, 0.0), e)
+            line[f"{name}_max_abs_err"] = e
+        emit(line)
+    rows = {}
+    offsets = layouts["resnet18"]
+    for qdtype in (torch.int8, torch.bfloat16):
+        inputs = _fold_inputs(gen, K_MAIN, offsets, qdtype)
+        for name, (kern, plain) in _fold_calls(*inputs).items():
+            if name == "feddpc_buffer_fold" and qdtype != torch.int8:
+                continue            # reads f32: one timing is enough
+            dequant = name != "feddpc_buffer_fold"
+            nbytes, flops = _fold_bytes_flops(
+                K_MAIN, N_MAIN, dequant,
+                name != "feddpc_dequant_batched_epilogue",
+                offsets.numel() - 1,
+                inputs[0].element_size() if dequant else 4)
+            ms = cuda_ms(kern)
+            plain_ms = cuda_ms(plain)
+            b_ms, b_by = bound_ms(nbytes, flops)
+            row = {"name": name, "route": "cuda", "source": SOURCE,
+                   "replaces": REPLACES[name], "max_abs_err": err[name],
+                   "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                   "bound_by": b_by, "library_ms": None,
+                   "library": LIBRARY_NONE, "K": K_MAIN, "N": N_MAIN,
+                   "payload": ("float32" if name == "feddpc_buffer_fold"
+                               else str(qdtype).replace("torch.", "")),
+                   "bytes": nbytes, "flops": flops}
+            emit({"phase": "timing", **row})
+            # the main path ships int8: its time stands in the summary
+            if qdtype == torch.int8:
+                rows[name] = row
+        del inputs
+    return list(rows.values())
 
 
 def _image_task(cfg, num_classes, samples_per_class, test_per_class):
@@ -217,7 +365,8 @@ def _image_task(cfg, num_classes, samples_per_class, test_per_class):
     return data, source, functools.partial(vision_loss_fn, cfg)
 
 
-def _trainer(cfg, data, source, loss_fn, params, name, rounds, device):
+def _trainer(cfg, data, source, loss_fn, params, name, rounds, device,
+             exec_kw=None, runtime=None):
     te_x = torch.from_numpy(data.test_images).to(device)
     te_y = torch.from_numpy(data.test_labels).to(device)
     algo = AlgoConfig(name=name, eta_l=0.02, eta_g=0.02,
@@ -226,13 +375,17 @@ def _trainer(cfg, data, source, loss_fn, params, name, rounds, device):
     return FederatedTrainer(
         loss_fn, params, data.num_clients, source,
         ExecConfig(rounds=rounds, clients_per_round=10, seed=0,
-                   eval_every=1),
+                   eval_every=1, **(exec_kw or {})),
         lambda p: vision_accuracy(cfg, p, te_x, te_y), algo=algo,
-        sampler=UniformSampler(data.num_clients, 10), device=device)
+        sampler=UniformSampler(data.num_clients, 10), runtime=runtime,
+        device=device)
+
+
+CODEC_CATEGORY = "codec encode/decode (plain PyTorch)"
 
 
 def _category(kernel: str) -> str:
-    if "dots_kernel" in kernel or "epilogue_kernel" in kernel:
+    if "dots_kernel" in kernel or "fold_kernel" in kernel:
         return "feddpc kernels"
     if any(tag in kernel for tag in ("cudnn", "xmma", "fft", "grad",
                                      "pointwise_mult_and_sum_complex")):
@@ -242,10 +395,25 @@ def _category(kernel: str) -> str:
     return "other"
 
 
+def _annotate_codec(trainer):
+    """Wrap the trainer's codec in profiler ranges, so the kernels its
+    encode and decode launch can be told apart from training's."""
+    codec = trainer._codec
+    for meth in ("encode_cohort", "decode_cohort"):
+        fn = getattr(codec, meth)
+
+        def wrapped(*args, _fn=fn, _name=f"codec.{meth}"):
+            with torch.profiler.record_function(_name):
+                return _fn(*args)
+        setattr(codec, meth, wrapped)
+
+
 def profile_round(trainer, t):
     """Run round t (and its eval) under torch.profiler: kernel time by
     name and by category, and the card's busy share of the window — the
-    union of the kernels' intervals over the window's wall time."""
+    union of the kernels' intervals over the window's wall time. With a
+    lossy codec the kernels launched inside its encode and decode are a
+    category of their own."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -253,8 +421,10 @@ def profile_round(trainer, t):
         rec = trainer.run_round(t)
         torch.cuda.synchronize()
         window_s = time.perf_counter() - tic
+    events = prof.events()
     spans = sorted((e.time_range.start, e.time_range.end, e.key)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+                   for e in events if e.device_type == DeviceType.CUDA
+                   and not e.key.startswith("codec."))
     busy_us, end = 0.0, float("-inf")
     by_name, by_cat = {}, {}
     for lo, hi, name in spans:
@@ -263,52 +433,110 @@ def profile_round(trainer, t):
         by_name[name] = by_name.get(name, 0.0) + (hi - lo) / 1e3
         cat = _category(name)
         by_cat[cat] = by_cat.get(cat, 0.0) + (hi - lo) / 1e3
+    # codec kernels: those launched by CPU ops inside a codec range
+    ranges = [(e.time_range.start, e.time_range.end) for e in events
+              if e.device_type == DeviceType.CPU
+              and e.key.startswith("codec.")]
+    codec_ms, codec_n = 0.0, 0
+    for e in events:
+        if (e.device_type != DeviceType.CPU or e.key.startswith("codec.")
+                or not any(lo <= e.time_range.start <= hi
+                           for lo, hi in ranges)):
+            continue
+        for k in e.kernels:
+            ms = k.duration / 1e3
+            cat = _category(k.name)
+            by_cat[cat] = by_cat.get(cat, 0.0) - ms
+            codec_ms += ms
+            codec_n += 1
+    if ranges:
+        by_cat[CODEC_CATEGORY] = codec_ms
     top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:10]
     emit({"phase": "profile", "round": t, "round_seconds": rec.seconds,
           "window_seconds": window_s, "kernels": len(spans),
           "kernel_sum_ms": sum(by_name.values()),
           "device_busy_ms": busy_us / 1e3,
           "device_idle_share": 1.0 - busy_us / 1e6 / window_s,
-          "by_category_ms": by_cat,
+          "by_category_ms": by_cat, "codec_kernels": codec_n,
           "feddpc_kernels_ms": {k: v for k, v in by_name.items()
                                 if _category(k) == "feddpc kernels"},
           "top_ms": [[name[:70], ms] for name, ms in top]})
     return rec
 
 
+# the trainer runs: (label, algorithm, ExecConfig overrides, exponential
+# latencies?, rounds, kernels each round must launch once)
+ASYNC = {"async_buffer": True, "buffer_size": 10, "async_concurrency": 2}
+RUNS = (
+    ("feddpc", "feddpc", {}, False, 3,
+     ("feddpc_dots", "feddpc_batched_epilogue")),
+    ("fedavg", "fedavg", {}, False, 3, ()),
+    ("feddpc_int8", "feddpc", {"codec": "int8"}, False, 4,
+     ("feddpc_dots", "feddpc_dequant_batched_epilogue")),
+    ("feddpc_async", "feddpc", ASYNC, True, 4,
+     ("feddpc_dots", "feddpc_buffer_fold")),
+    ("feddpc_async_int8_ef", "feddpc",
+     {**ASYNC, "codec": "int8", "codec_ef": True}, True, 4,
+     ("feddpc_dots", "feddpc_dequant_buffer_fold")),
+)
+PROFILED = ("feddpc", "fedavg", "feddpc_async_int8_ef")
+
+
 def phase_trainer():
     cfg = paper_resnet18.CONFIG
     data, source, loss_fn = _image_task(cfg, 100, 50, 10)
     params = init_vision(cfg, torch.Generator().manual_seed(0))
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()                   # the main path starts here
-    for name in ("feddpc", "fedavg"):
-        trainer = _trainer(cfg, data, source, loss_fn, params, name, 3,
-                           "cuda")
+    launches = {fn.__name__: 0 for fn in ops.KERNELS}
+    for label, name, exec_kw, exp, rounds, want in RUNS:
+        trainer = _trainer(cfg, data, source, loss_fn, params, name, rounds,
+                           "cuda", exec_kw,
+                           ExponentialRuntime(mean=1.0) if exp else None)
         if trainer.layout.size != N_MAIN:
             raise AssertionError(f"ResNet18-GN has {trainer.layout.size} "
                                  f"parameters, expected {N_MAIN}")
-        for t in range(3):
+        if label in PROFILED and trainer._codec_lossy:
+            _annotate_codec(trainer)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()               # this path starts here
+        for t in range(rounds):
             before = [fn.launches for fn in ops.KERNELS]
-            rec = (profile_round(trainer, t) if t == 2
+            rec = (profile_round(trainer, t)
+                   if label in PROFILED and t == rounds - 1
                    else trainer.run_round(t))
-            added = [fn.launches - b for fn, b in zip(ops.KERNELS, before)]
-            want = [1, 1] if name == "feddpc" else [0, 0]
-            if added != want:
-                raise AssertionError(f"{name} round {t}: kernel launches "
-                                     f"{added}, expected {want}")
+            added = {fn.__name__: fn.launches - b
+                     for fn, b in zip(ops.KERNELS, before)}
+            expect = {k: int(k in want) for k in added}
+            if added != expect:
+                raise AssertionError(f"{label} round {t}: kernel launches "
+                                     f"{added}, expected {expect}")
             if not math.isfinite(rec.train_loss):
-                raise AssertionError(f"{name} round {t}: loss "
+                raise AssertionError(f"{label} round {t}: loss "
                                      f"{rec.train_loss}")
-            emit({"phase": "trainer", "model": cfg.name, "algorithm": name,
-                  "round": t, "K": 10, "N": trainer.layout.size,
-                  "M": trainer._max_batches, "train_loss": rec.train_loss,
-                  "seconds": rec.seconds,
+            emit({"phase": "trainer", "run": label, "model": cfg.name,
+                  "algorithm": name, "round": t, "K": 10,
+                  "N": trainer.layout.size, "M": trainer._max_batches,
+                  "train_loss": rec.train_loss, "seconds": rec.seconds,
+                  "staleness_mean": rec.staleness_mean,
+                  "staleness_max": rec.staleness_max,
+                  "comm_bytes_up": rec.comm_bytes_up,
                   "test_accuracy": rec.test_accuracy,
                   "diagnostics": rec.diagnostics})
-    launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
-    emit({"phase": "trainer", "launches": launches,
-          "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+        run_launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
+        for k, v in run_launches.items():
+            launches[k] += v
+        hist = trainer.history
+        if exp and not max(r.staleness_max for r in hist) > 0:
+            raise AssertionError(f"{label}: no stale arrival in "
+                                 f"{rounds} rounds")
+        emit({"phase": "trainer", "run": label, "launches": run_launches,
+              "seconds_per_round_after_0": [r.seconds for r in hist[1:]],
+              "staleness_mean": [r.staleness_mean for r in hist],
+              "staleness_max": [r.staleness_max for r in hist],
+              "comm_bytes_up": [r.comm_bytes_up for r in hist],
+              "peak_memory_gib":
+                  torch.cuda.max_memory_allocated() / 2 ** 30})
+        del trainer
+    emit({"phase": "trainer", "launches": launches})
     return launches
 
 
@@ -316,21 +544,32 @@ def phase_parity():
     cfg = paper_lenet5.CONFIG
     data, source, loss_fn = _image_task(cfg, 10, 100, 20)
     params = init_vision(cfg, torch.Generator().manual_seed(0))
-    runs = {}
-    for device in ("cuda", "cpu"):
-        trainer = _trainer(cfg, data, source, loss_fn, params, "feddpc", 2,
-                           device)
-        runs[device] = (trainer.run(), trainer.flat.cpu())
-    (h_gpu, w_gpu), (h_cpu, w_cpu) = runs["cuda"], runs["cpu"]
-    diffs = [abs(a.train_loss - b.train_loss) for a, b in zip(h_gpu, h_cpu)]
-    emit({"phase": "parity", "model": cfg.name,
-          "loss_cuda": [r.train_loss for r in h_gpu],
-          "loss_cpu": [r.train_loss for r in h_cpu],
-          "max_loss_diff": max(diffs),
-          "max_param_diff": float((w_gpu - w_cpu).abs().max())})
-    if not max(diffs) <= PARITY_ATOL:
-        raise AssertionError(f"card vs CPU losses differ by {max(diffs)} "
-                             f"> {PARITY_ATOL}")
+    async_int8 = {"async_buffer": True, "buffer_size": 10,
+                  "async_concurrency": 2, "codec": "int8", "codec_ef": True}
+    for label, exec_kw, exp, rounds in (("feddpc", {}, False, 2),
+                                        ("feddpc_async_int8_ef", async_int8,
+                                         True, 3)):
+        runs = {}
+        for device in ("cuda", "cpu"):
+            trainer = _trainer(cfg, data, source, loss_fn, params, "feddpc",
+                               rounds, device, exec_kw,
+                               ExponentialRuntime(mean=1.0) if exp else None)
+            runs[device] = (trainer.run(), trainer.flat.cpu())
+        (h_gpu, w_gpu), (h_cpu, w_cpu) = runs["cuda"], runs["cpu"]
+        diffs = [abs(a.train_loss - b.train_loss)
+                 for a, b in zip(h_gpu, h_cpu)]
+        emit({"phase": "parity", "run": label, "model": cfg.name,
+              "loss_cuda": [r.train_loss for r in h_gpu],
+              "loss_cpu": [r.train_loss for r in h_cpu],
+              "staleness_max": [r.staleness_max for r in h_gpu],
+              "max_loss_diff": max(diffs),
+              "max_param_diff": float((w_gpu - w_cpu).abs().max())})
+        if [r.staleness_max for r in h_gpu] != \
+                [r.staleness_max for r in h_cpu]:
+            raise AssertionError(f"{label}: card and CPU schedules differ")
+        if not max(diffs) <= PARITY_ATOL:
+            raise AssertionError(f"{label}: card vs CPU losses differ by "
+                                 f"{max(diffs)} > {PARITY_ATOL}")
 
 
 def main() -> int:
@@ -339,7 +578,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     smi = phase_build()
-    rows = phase_kernels()
+    rows = phase_kernels() + phase_folds()
     launches = phase_trainer()
     for row in rows:
         row["launches"] = launches[row["name"]]

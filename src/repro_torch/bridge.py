@@ -93,6 +93,13 @@ class FlatLayout:
     def size(self) -> int:
         return int(sum(self.numels))
 
+    @property
+    def leaf_offsets(self) -> torch.Tensor:
+        """(L+1,) CPU int64: where each leaf starts in the flat buffer,
+        then N — the column segments of the codec's per-leaf scalars."""
+        return torch.tensor(np.concatenate([[0], np.cumsum(self.numels)]),
+                            dtype=torch.int64)
+
     def flatten(self, tree: Tree, device=None) -> torch.Tensor:
         """Tree (numpy or torch leaves) -> a new (N,) f32 tensor."""
         leaves = tree_leaves_with_path(tree)

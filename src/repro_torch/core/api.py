@@ -1,5 +1,6 @@
 """FederatedTrainer — the simulation-mode FL driver that reproduces the
-paper; counterpart of the part of repro/core/api.py the quickstart uses.
+paper; counterpart of the part of repro/core/api.py the quickstart, the
+buffered-async regime and the delta codecs use.
 
 The trainer drives three pluggable pieces through one loop:
 
@@ -17,30 +18,42 @@ padded minibatch stacks go to the device as one (K, M, ...) batch and
 local training runs for all of them at once; ``vectorize=False`` keeps
 the one-client-at-a-time reference path.
 
+``ExecConfig.async_buffer`` switches to buffered-async rounds
+(core/async_engine.py): cohorts become waves trained against possibly
+stale snapshots, a runtime model (core/runtime.py, drawn right after the
+sampler, wave by wave) decides when each update arrives, and the server
+folds every ``buffer_size`` arrivals with staleness discounts. A lossy
+codec (``codec``, repro_torch/codec) quantizes the uplink in either
+regime, with optional error feedback (``codec_ef``).
+
 Shape bucketing: M is padded to the cohort max and only grows, as in
 the reference, so later rounds with fewer batches reuse the bucket.
 
-Staging is blocking: each round's cohort is sampled, read and stacked
-on the host, then copied to the device from pinned memory. The
-reference's prefetch ring, async eval, checkpoints and chaos layer are
-not ported yet.
+Staging is blocking (ingest/pipeline.py): each round's cohort is
+sampled, read and stacked on the host, then copied to the device from
+pinned memory. The reference's prefetch ring, async eval, checkpoints,
+chaos layer and round deadline are not ported yet.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import bridge
+from repro_torch.codec import make_codec
 from repro_torch.core import client as client_mod
+from repro_torch.core.async_engine import BufferedAsyncEngine
 from repro_torch.core.baselines import ServerAlgo, make_algorithm
-from repro_torch.core.round import make_cohort_round
+from repro_torch.core.round import codec_stage, make_cohort_round
+from repro_torch.core.runtime import ClientRuntimeModel, DeterministicRuntime
 from repro_torch.core.samplers import ClientSampler, UniformSampler
+from repro_torch.ingest.pipeline import CohortStager, to_device
 from repro_torch.ingest.sources import DataSource, as_data_source
-from repro_torch.ingest.stack import stack_batches, stack_cohort
+from repro_torch.ingest.stack import stack_batches
 
 
 @dataclass
@@ -51,6 +64,10 @@ class AlgoConfig:
     eta_g: float = 1.0               # server learning rate
     local_optimizer: str = "sgd"
     hyper: Any = None
+    # uplink compression (repro_torch/codec): a registry name, None = off;
+    # codec_ef feeds the quantization error back (lossy codecs only)
+    codec: Optional[str] = None
+    codec_ef: bool = False
 
 
 @dataclass
@@ -61,6 +78,18 @@ class ExecConfig:
     seed: int = 0
     eval_every: int = 5
     vectorize: bool = True           # cohort-vectorized round (default)
+    # ---- buffered-async regime (core/async_engine.py) ----
+    async_buffer: bool = False
+    # arrivals per server step (B); None -> clients_per_round, which at
+    # async_concurrency=1 under DeterministicRuntime IS the sync round
+    buffer_size: Optional[int] = None
+    staleness_alpha: float = 0.5
+    # max waves in flight at once: >1 lets fresh waves overlap stale
+    # stragglers (staleness > 0 appears), 1 keeps waves serial
+    async_concurrency: int = 1
+    # execution-level codec overrides: None defers to AlgoConfig
+    codec: Optional[str] = None
+    codec_ef: Optional[bool] = None
 
 
 @dataclass
@@ -70,6 +99,13 @@ class RoundRecord:
     test_accuracy: Optional[float] = None
     seconds: float = 0.0
     diagnostics: Dict[str, float] = field(default_factory=dict)
+    # staleness of the arrivals this server step folded (buffered-async
+    # only; 0.0 in synchronous rounds)
+    staleness_mean: float = 0.0
+    staleness_max: float = 0.0
+    # uplink bytes this round: clients that shipped x the codec's wire
+    # bytes per delta (f32 bytes with no codec)
+    comm_bytes_up: int = 0
 
 
 def resolve_device(device=None) -> torch.device:
@@ -80,17 +116,6 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(f"device {dev} requested but CUDA is not "
                            "available; pass device='cpu' to run on the CPU")
     return dev
-
-
-def _to_device(tree, device: torch.device):
-    """Host numpy tree -> tensors on ``device``; to the card through
-    pinned memory with a non-blocking copy."""
-    def put(x):
-        t = torch.from_numpy(np.ascontiguousarray(x))
-        if device.type == "cuda":
-            return t.pin_memory().to(device, non_blocking=True)
-        return t.to(device)
-    return bridge.tree_map(put, tree)
 
 
 class FederatedTrainer:
@@ -104,15 +129,36 @@ class FederatedTrainer:
                  cfg: Optional[ExecConfig] = None,
                  eval_fn: Optional[Callable] = None, *,
                  algo: Optional[AlgoConfig] = None,
-                 sampler: Optional[ClientSampler] = None, device=None):
+                 sampler: Optional[ClientSampler] = None,
+                 runtime: Optional[ClientRuntimeModel] = None, device=None):
+        self.cfg = cfg if cfg is not None else ExecConfig()
+        self.algo_cfg = algo if algo is not None else AlgoConfig()
+        if runtime is not None and not self.cfg.async_buffer:
+            raise ValueError(
+                "a runtime model drives the buffered-async regime — pass "
+                "ExecConfig(async_buffer=True) with it")
+        if self.cfg.async_buffer and not self.cfg.vectorize:
+            raise ValueError("async_buffer dispatches whole waves through "
+                             "the cohort-vectorized update; it cannot "
+                             "combine with vectorize=False")
+        codec_name = (self.cfg.codec if self.cfg.codec is not None
+                      else self.algo_cfg.codec)
+        want_ef = (self.cfg.codec_ef if self.cfg.codec_ef is not None
+                   else self.algo_cfg.codec_ef)
+        self._codec = make_codec(codec_name)
+        lossy = self._codec is not None and self._codec.lossy
+        if want_ef and not lossy:
+            raise ValueError(
+                "codec_ef=True needs a LOSSY codec (bf16/int8 family): "
+                f"codec={codec_name!r} has no quantization residual to "
+                "feed back")
+        self._codec_lossy = lossy
         self.device = resolve_device(device)
         # The reference computes in full f32. cuDNN's TF32 default for
         # convolutions would put the card's losses about three digits
         # away from it, so TF32 is off for matmuls and convolutions.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        self.cfg = cfg if cfg is not None else ExecConfig()
-        self.algo_cfg = algo if algo is not None else AlgoConfig()
         self.flat, self.layout = bridge.load_params(params, self.device)
         self.num_clients = num_clients
         self.source: DataSource = as_data_source(data)
@@ -122,16 +168,37 @@ class FederatedTrainer:
         self.algo: ServerAlgo = make_algorithm(self.algo_cfg.name,
                                                self.algo_cfg.hyper)
         self.server_state = self.algo.init(self.flat, num_clients)
+        # server-side error-feedback accumulator (flat f32)
+        self._ef = (torch.zeros_like(self.flat) if lossy and want_ef
+                    else None)
+        # uplink bytes one client pays per round
+        self._client_bytes_up = (
+            self._codec.client_bytes(self.layout.numels)
+            if self._codec is not None else 4 * self.layout.size)
         self._cohort_round = make_cohort_round(
             loss_fn, self.layout, self.algo, self.algo_cfg.eta_l,
-            self.algo_cfg.eta_g, optimizer=self.algo_cfg.local_optimizer)
+            self.algo_cfg.eta_g, optimizer=self.algo_cfg.local_optimizer,
+            codec=self._codec)
         self.local_update = client_mod.make_local_update(
             loss_fn, self.layout, self.algo_cfg.eta_l,
             optimizer=self.algo_cfg.local_optimizer)
         self.rng = np.random.RandomState(self.cfg.seed)
         self.history: List[RoundRecord] = []
         self.schedule: List[np.ndarray] = []     # sampled cohort per round
-        self._max_batches: Optional[int] = None  # grow-once M bucket
+        self._stager = CohortStager(self.source, self._sample_clients,
+                                    self.device)
+        self._runtime = None
+        self._engine = None
+        self._wave_runtime: Dict[int, tuple] = {}
+        if self.cfg.async_buffer:
+            self._runtime = (runtime if runtime is not None
+                             else DeterministicRuntime())
+            self._engine = self._build_async_engine(loss_fn)
+
+    @property
+    def _max_batches(self) -> Optional[int]:
+        """The grow-once M bucket, owned by the stager."""
+        return self._stager.max_batches
 
     @property
     def params(self):
@@ -139,6 +206,51 @@ class FederatedTrainer:
         return self.layout.unflatten(self.flat)
 
     # ---- internals ----
+
+    def _build_async_engine(self, loss_fn):
+        """Split the round at the arrival buffer: a WAVE update (local
+        training against the dispatch-time snapshot, then the codec's
+        encode) and a staleness-weighted FOLD over the buffered deltas.
+        A staleness-aware rule (FedDPC) takes the discounts into its own
+        scalars; any other rule gets the deltas pre-scaled by them."""
+        local = client_mod.make_cohort_local_update(
+            loss_fn, self.layout, self.algo_cfg.eta_l,
+            optimizer=self.algo_cfg.local_optimizer)
+        algo, eta_g = self.algo, self.algo_cfg.eta_g
+        codec = self._codec if self._codec_lossy else None
+        offsets = self.layout.leaf_offsets
+
+        def wave_update(params, server_state, batches, masks):
+            # a fresh stack per wave: the arrival heap keeps rows of it
+            # until their fold, past later waves' training
+            deltas, losses = local(params, batches, masks)
+            if codec is None:
+                return deltas, losses
+            # entries carry the wire payload; EF advances here, in
+            # dispatch order, as in the reference
+            return self._uplink(deltas)[1], losses
+
+        def fold(server_state, params, deltas, ids, weights):
+            ids = torch.as_tensor(ids, device=self.device)
+            weights = torch.as_tensor(weights, device=self.device)
+            encoded = None
+            if codec is not None:
+                encoded = deltas
+                deltas = codec.decode_cohort(encoded, offsets)
+            if algo.staleness_aware:
+                return algo.step(server_state, params, deltas, ids, eta_g,
+                                 0, staleness_weights=weights,
+                                 encoded=encoded, leaf_offsets=offsets)
+            return algo.step(server_state, params, weights[:, None] * deltas,
+                             ids, eta_g, 0)
+
+        return BufferedAsyncEngine(
+            pipeline=self._stager, wave_update=wave_update, fold=fold,
+            runtime_take=self._wave_runtime.pop,
+            buffer_size=(self.cfg.buffer_size
+                         or self.cfg.clients_per_round),
+            alpha=self.cfg.staleness_alpha,
+            concurrency=self.cfg.async_concurrency)
 
     def _sample_clients(self, t: int) -> np.ndarray:
         clients = np.asarray(self.sampler.sample(self.rng, t))
@@ -154,44 +266,71 @@ class FederatedTrainer:
             raise ValueError(f"sampler returned duplicate client ids: "
                              f"{clients.tolist()}")
         self.schedule.append(clients)
+        if self._runtime is not None:
+            # the runtime draws right after the sampler's, wave by wave:
+            # the reference's RNG stream, draw for draw
+            lat, dropped = self._runtime.draw(self.rng, t, clients)
+            self._wave_runtime[t] = (np.asarray(lat, np.float64),
+                                     np.asarray(dropped, bool))
         return clients
 
-    def _client_lists(self, clients: Sequence[int], t: int):
-        """Read each sampled client's batches for round t and grow the M
-        bucket to the cohort max."""
-        per_client = [list(self.source.client_batches(int(c), t))
-                      for c in clients]
-        mx = max(len(b) for b in per_client)
-        if self._max_batches is None or mx > self._max_batches:
-            self._max_batches = mx
-        return per_client
+    def _uplink(self, deltas: torch.Tensor):
+        """The codec stage outside the cohort round (serial rounds, async
+        waves): returns (the deltas the server aggregates — decoded with
+        a lossy codec —, the payload or None) and advances the
+        error-feedback accumulator."""
+        if not self._codec_lossy:
+            return deltas, None
+        decoded, payload, new_ef = codec_stage(
+            self._codec, deltas, self._ef, self.layout.leaf_offsets)
+        if new_ef is not None:
+            self._ef = new_ef
+        return decoded, payload
 
     def _run_round_vectorized(self, t: int):
-        clients = self._sample_clients(t)
-        batches, masks = stack_cohort(self._client_lists(clients, t),
-                                      self._max_batches)
-        batches, masks = _to_device((batches, masks), self.device)
-        ids = torch.as_tensor(clients, dtype=torch.int32, device=self.device)
-        self.flat, self.server_state, losses, diag = self._cohort_round(
-            self.server_state, self.flat, batches, masks, ids)
-        return float(losses.mean()), diag
+        staged = self._stager.stage_blocking(t)
+        (self.flat, self.server_state, losses, diag,
+         new_ef) = self._cohort_round(self.server_state, self.flat,
+                                      staged.batches, staged.masks,
+                                      staged.ids, self._ef)
+        if new_ef is not None:
+            self._ef = new_ef
+        n = len(staged.clients)
+        return float(losses.mean()), diag, {
+            "comm_bytes_up": self._client_bytes_up * n}
 
     def _run_round_serial(self, t: int):
         clients = self._sample_clients(t)
-        lists = self._client_lists(clients, t)
+        lists = self._stager.client_lists(clients, t)
         deltas = torch.empty((len(clients), self.layout.size),
                              dtype=torch.float32, device=self.device)
         losses = []
         for j, blist in enumerate(lists):
-            batches, mask = _to_device(
+            batches, mask = to_device(
                 stack_batches(blist, self._max_batches), self.device)
             _, loss = self.local_update(self.flat, batches, mask,
                                         out=deltas[j])
             losses.append(float(loss))
+        # the reference's serial path decodes and aggregates the decoded
+        # rows with the plain fold (no payload to the server rule)
+        deltas, _ = self._uplink(deltas)
         ids = torch.as_tensor(clients, dtype=torch.int32, device=self.device)
         self.flat, self.server_state, diag = self.algo.step(
             self.server_state, self.flat, deltas, ids, self.algo_cfg.eta_g, 0)
-        return float(np.mean(losses)), diag
+        return float(np.mean(losses)), diag, {
+            "comm_bytes_up": self._client_bytes_up * len(clients)}
+
+    def _run_round_async(self, t: int):
+        """One buffered-async server step: the engine collects the next
+        buffer_size arrivals (dispatching waves as concurrency allows)
+        and folds them with their staleness discounts."""
+        self.flat, self.server_state, m = self._engine.run_server_round(
+            t, self.flat, self.server_state)
+        return m["train_loss"], m["diag"], {
+            "staleness_mean": m["staleness_mean"],
+            "staleness_max": m["staleness_max"],
+            # bytes are paid when an update ships, whichever fold takes it
+            "comm_bytes_up": self._client_bytes_up * int(m["n_shipped"])}
 
     # ---- public ----
 
@@ -201,12 +340,14 @@ class FederatedTrainer:
 
     def run_round(self, t: int) -> RoundRecord:
         tic = time.perf_counter()
-        run = (self._run_round_vectorized if self.cfg.vectorize
+        run = (self._run_round_async if self._engine is not None
+               else self._run_round_vectorized if self.cfg.vectorize
                else self._run_round_serial)
-        train_loss, diag = run(t)          # reads the losses: syncs
+        train_loss, diag, extra = run(t)   # reads the losses: syncs
         rec = RoundRecord(round=t, train_loss=train_loss,
                           seconds=time.perf_counter() - tic,
-                          diagnostics={k: float(v) for k, v in diag.items()})
+                          diagnostics={k: float(v) for k, v in diag.items()},
+                          **extra)
         if self.eval_fn and (t % self.cfg.eval_every == 0
                              or t == self.cfg.rounds - 1):
             rec.test_accuracy = self.evaluate()

@@ -6,6 +6,12 @@ paper's method and its control.
   algo.step(state, params, deltas, client_ids, eta_g, t,
             client_mask=None) -> (params', state', diag)
 
+A ``staleness_aware`` rule (FedDPC) also takes the buffered-async
+``staleness_weights`` and folds them into its own scalars; for any other
+rule the trainer pre-scales the buffered deltas by the weights (FedBuff
+mean semantics). FedDPC's step also takes the codec payload
+(``encoded``, ``leaf_offsets``) for its dequant folds.
+
 params and every state vector are flat (N,) f32 buffers
 (repro_torch.bridge); deltas are the (K, N) client stack.
 
@@ -31,6 +37,7 @@ class ServerAlgo:
     init: Callable[[torch.Tensor, int], Dict[str, torch.Tensor]]
     step: Callable[..., Tuple[torch.Tensor, Dict, Dict]]
     hyper: Any = None
+    staleness_aware: bool = False
 
 
 @dataclass(frozen=True)
@@ -110,11 +117,14 @@ def _build_fedavg(h):
 @register_algorithm("feddpc", FedDPCHyper)
 def _build_feddpc(h):
     def step(state, params, deltas, client_ids, eta_g, t,
-             client_mask=None, **_):
-        return feddpc_mod.server_step(state, params, deltas, eta_g, h.lam,
-                                      client_mask=client_mask)
+             client_mask=None, staleness_weights=None, encoded=None,
+             leaf_offsets=None, **_):
+        return feddpc_mod.server_step(
+            state, params, deltas, eta_g, h.lam, client_mask=client_mask,
+            staleness_weights=staleness_weights, encoded=encoded,
+            leaf_offsets=leaf_offsets)
 
-    return ServerAlgo("feddpc", _init, step)
+    return ServerAlgo("feddpc", _init, step, staleness_aware=True)
 
 
 ALGORITHM_NAMES = tuple(_REGISTRY)

@@ -1,7 +1,13 @@
 """Wrappers for the FedDPC server-step kernels (csrc/feddpc_project.cu).
 
-``feddpc_dots`` is the reduction pass and ``feddpc_batched_epilogue`` the
-whole-cohort epilogue, both over the flat (K, N) stack of client deltas.
+``feddpc_dots`` is the reduction pass over the flat (K, N) stack of
+client deltas; the four folds compute Δ_t and w' from it:
+
+  feddpc_batched_epilogue          synchronous round, f32 deltas
+  feddpc_buffer_fold               buffered-async round (staleness weights)
+  feddpc_dequant_batched_epilogue  synchronous round, int8/bf16 payload
+  feddpc_dequant_buffer_fold       buffered-async round, int8/bf16 payload
+
 Each wrapper checks device, dtype, shape and contiguity, then
 
   * for CUDA tensors launches its kernel on the current stream (or
@@ -35,6 +41,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lib = None           # the loaded library, once per process
 build_seconds = None  # wall time of this process's nvcc build (None: cached)
+MAX_LEAVES = 6143     # the dequant folds keep L+1 offsets in 48 KB of smem
+QTYPES = {torch.int8: 0, torch.bfloat16: 1}   # payload dtype -> kernel code
+# device copies of leaf offsets, keyed by (device, offsets); a handful of
+# layouts per process, so the copy (which waits for the stream) happens
+# once per layout and not once per round
+_device_offsets_cache = {}
 
 
 def _nvcc() -> str:
@@ -80,15 +92,25 @@ def _load():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        vp, i64 = ctypes.c_void_p, ctypes.c_int64
+        vp, i64, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
         lib.feddpc_num_blocks.argtypes = [i64]
         lib.feddpc_num_blocks.restype = i64
         lib.feddpc_dots.argtypes = [vp, vp, vp, i64, i64, vp]
         lib.feddpc_dots.restype = ctypes.c_int
-        lib.feddpc_batched_epilogue.argtypes = [vp, vp, vp, vp, vp,
-                                                ctypes.c_float, vp, vp,
-                                                i64, i64, vp]
-        lib.feddpc_batched_epilogue.restype = ctypes.c_int
+        lib.feddpc_batched_epilogue.argtypes = [vp, vp, vp, vp, vp, f32,
+                                                vp, vp, i64, i64, vp]
+        lib.feddpc_buffer_fold.argtypes = [vp, vp, vp, vp, vp, vp, f32, vp,
+                                           vp, i64, i64, vp]
+        lib.feddpc_dequant_batched_epilogue.argtypes = [
+            vp, ctypes.c_int, vp, vp, vp, i64, vp, vp, vp, vp, f32, vp, vp,
+            i64, i64, vp]
+        lib.feddpc_dequant_buffer_fold.argtypes = [
+            vp, ctypes.c_int, vp, vp, vp, i64, vp, vp, vp, vp, vp, f32, vp,
+            vp, i64, i64, vp]
+        for fn in (lib.feddpc_batched_epilogue, lib.feddpc_buffer_fold,
+                   lib.feddpc_dequant_batched_epilogue,
+                   lib.feddpc_dequant_buffer_fold):
+            fn.restype = ctypes.c_int
         lib.feddpc_error_string.argtypes = [ctypes.c_int]
         lib.feddpc_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -101,18 +123,27 @@ def _check_launch(lib, err: int, name: str):
                            f"({lib.feddpc_error_string(err).decode()})")
 
 
-def _check(name: str, d: torch.Tensor, **vectors: torch.Tensor):
-    """d (K, N) plus named vectors whose length is N ('p', 'w') or K
-    ('coefs', 'scales'): f32, contiguous, one device (CPU or CUDA)."""
+def _check(name: str, d: torch.Tensor, dtypes, **named: torch.Tensor):
+    """d (K, N) of one of ``dtypes`` plus named f32 tensors whose shape
+    follows from the name: 'p', 'w' (N,); 'coefs', 'scales', 'wgts'
+    (K,); 'qscale', 'qzero' (K, L) with L from qscale. All contiguous,
+    on one device (CPU or CUDA)."""
     if d.dim() != 2 or d.shape[0] < 1 or d.shape[1] < 1:
         raise ValueError(f"{name}: d must be (K, N) with K, N >= 1, got "
                          f"{tuple(d.shape)}")
     k, n = d.shape
     if d.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: tensors on {d.device} are not supported")
-    for key, t in (("d", d), *vectors.items()):
-        want = (k,) if key in ("coefs", "scales") else (n,)
-        if key != "d" and tuple(t.shape) != want:
+    if d.dtype not in dtypes:
+        raise TypeError(f"{name}: d must be one of {list(dtypes)}, got "
+                        f"{d.dtype}")
+    if not d.is_contiguous():
+        raise ValueError(f"{name}: d must be contiguous")
+    nleaves = named["qscale"].shape[-1] if "qscale" in named else None
+    for key, t in named.items():
+        want = {"p": (n,), "w": (n,), "qscale": (k, nleaves),
+                "qzero": (k, nleaves)}.get(key, (k,))
+        if tuple(t.shape) != want:
             raise ValueError(f"{name}: {key} must be {want}, got "
                              f"{tuple(t.shape)}")
         if t.dtype != torch.float32:
@@ -122,6 +153,33 @@ def _check(name: str, d: torch.Tensor, **vectors: torch.Tensor):
                              f"{d.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
+
+
+def _check_offsets(name: str, offsets: torch.Tensor, n: int, nleaves: int):
+    """Leaf offsets are host-side layout metadata: a CPU int64 (L+1,)
+    tensor, 0 first, N last, strictly increasing."""
+    if (offsets.device.type != "cpu" or offsets.dtype != torch.int64
+            or tuple(offsets.shape) != (nleaves + 1,)):
+        raise ValueError(f"{name}: leaf_offsets must be a CPU int64 tensor "
+                         f"of shape ({nleaves + 1},), got {offsets.dtype} "
+                         f"{tuple(offsets.shape)} on {offsets.device}")
+    if nleaves > MAX_LEAVES:
+        raise ValueError(f"{name}: {nleaves} leaves; the kernels take at "
+                         f"most {MAX_LEAVES}")
+    if (int(offsets[0]) != 0 or int(offsets[-1]) != n
+            or not bool((offsets[1:] > offsets[:-1]).all())):
+        raise ValueError(f"{name}: leaf_offsets must run from 0 to N={n}, "
+                         "strictly increasing")
+
+
+def _device_offsets(offsets: torch.Tensor, device: torch.device):
+    key = (str(device), offsets.numpy().tobytes())
+    out = _device_offsets_cache.get(key)
+    if out is None:
+        if len(_device_offsets_cache) >= 16:
+            _device_offsets_cache.clear()
+        out = _device_offsets_cache[key] = offsets.to(device)
+    return out
 
 
 def dots_num_blocks(n: int) -> int:
@@ -135,7 +193,7 @@ def feddpc_dots(d: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     [<d_j,p>, <d_j,d_j>, <p,p>] per client row j, all rows in one launch.
     The kernel writes per-block partials (K, G, 3); one ``torch.sum``
     over G finishes them."""
-    _check("feddpc_dots", d, p=p)
+    _check("feddpc_dots", d, (torch.float32,), p=p)
     if d.device.type == "cpu":
         return ref.dots_ref(d, p)
     lib = _load()
@@ -151,6 +209,31 @@ def feddpc_dots(d: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return torch.sum(partials, dim=1)
 
 
+def _fold(name: str, d: torch.Tensor, p: torch.Tensor, w: torch.Tensor,
+          coefs: torch.Tensor, scales: torch.Tensor, wgts, eta_g: float,
+          qscale=None, qzero=None, leaf_offsets=None):
+    """Launch the fold whose C entry point is ``name`` on the card;
+    returns new (new_w, delta_t)."""
+    lib = _load()
+    k, n = d.shape
+    new_w = torch.empty_like(w)
+    dt = torch.empty_like(p)
+    stream = torch.cuda.current_stream(d.device).cuda_stream
+    tail = (p.data_ptr(), w.data_ptr(), coefs.data_ptr(), scales.data_ptr(),
+            *(() if wgts is None else (wgts.data_ptr(),)), float(eta_g),
+            new_w.data_ptr(), dt.data_ptr(), k, n, stream)
+    with torch.cuda.device(d.device):
+        if qscale is None:
+            err = getattr(lib, name)(d.data_ptr(), *tail)
+        else:
+            offs = _device_offsets(leaf_offsets, d.device)
+            err = getattr(lib, name)(
+                d.data_ptr(), QTYPES[d.dtype], qscale.data_ptr(),
+                qzero.data_ptr(), offs.data_ptr(), qscale.shape[1], *tail)
+    _check_launch(lib, err, name)
+    return new_w, dt
+
+
 def feddpc_batched_epilogue(d: torch.Tensor, p: torch.Tensor,
                             w: torch.Tensor, coefs: torch.Tensor,
                             scales: torch.Tensor, eta_g: float):
@@ -159,27 +242,80 @@ def feddpc_batched_epilogue(d: torch.Tensor, p: torch.Tensor,
     (new_w, delta_t), both new (N,) f32 tensors:
     delta_t = mean_j scale_j (d_j - coef_j p), new_w = w - eta_g delta_t.
     f32 w only."""
-    _check("feddpc_batched_epilogue", d, p=p, w=w, coefs=coefs,
-           scales=scales)
+    _check("feddpc_batched_epilogue", d, (torch.float32,), p=p, w=w,
+           coefs=coefs, scales=scales)
     if d.device.type == "cpu":
         return ref.batched_epilogue_ref(d, p, w, coefs, scales, eta_g)
-    lib = _load()
-    k, n = d.shape
-    new_w = torch.empty_like(w)
-    dt = torch.empty_like(p)
-    with torch.cuda.device(d.device):
-        err = lib.feddpc_batched_epilogue(
-            d.data_ptr(), p.data_ptr(), w.data_ptr(), coefs.data_ptr(),
-            scales.data_ptr(), float(eta_g), new_w.data_ptr(),
-            dt.data_ptr(), k, n, torch.cuda.current_stream().cuda_stream)
-    _check_launch(lib, err, "feddpc_batched_epilogue")
+    out = _fold("feddpc_batched_epilogue", d, p, w, coefs, scales, None,
+                eta_g)
     feddpc_batched_epilogue.launches += 1
-    return new_w, dt
+    return out
 
 
-feddpc_dots.launches = 0
-feddpc_batched_epilogue.launches = 0
-KERNELS = (feddpc_dots, feddpc_batched_epilogue)
+def feddpc_buffer_fold(d: torch.Tensor, p: torch.Tensor, w: torch.Tensor,
+                       coefs: torch.Tensor, scales: torch.Tensor,
+                       wgts: torch.Tensor, eta_g: float):
+    """Buffered-async fold: d (B, N) arrivals, wgts (B,) staleness
+    discounts -> (new_w, delta_t) with
+    delta_t = mean_j wgt_j scale_j (d_j - coef_j p)."""
+    _check("feddpc_buffer_fold", d, (torch.float32,), p=p, w=w, coefs=coefs,
+           scales=scales, wgts=wgts)
+    if d.device.type == "cpu":
+        return ref.buffer_fold_ref(d, p, w, coefs, scales, wgts, eta_g)
+    out = _fold("feddpc_buffer_fold", d, p, w, coefs, scales, wgts, eta_g)
+    feddpc_buffer_fold.launches += 1
+    return out
+
+
+def feddpc_dequant_batched_epilogue(q: torch.Tensor, qscale: torch.Tensor,
+                                    qzero: torch.Tensor,
+                                    leaf_offsets: torch.Tensor,
+                                    p: torch.Tensor, w: torch.Tensor,
+                                    coefs: torch.Tensor,
+                                    scales: torch.Tensor, eta_g: float):
+    """The batched epilogue over the codec's payload: q (K, N) int8 or
+    bf16, qscale/qzero (K, L) f32, leaf_offsets (L+1,) CPU int64;
+    d_j = q_j * qscale[j, leaf] + qzero[j, leaf] is formed in registers."""
+    name = "feddpc_dequant_batched_epilogue"
+    _check(name, q, tuple(QTYPES), qscale=qscale, qzero=qzero, p=p, w=w,
+           coefs=coefs, scales=scales)
+    _check_offsets(name, leaf_offsets, q.shape[1], qscale.shape[1])
+    if q.device.type == "cpu":
+        return ref.dequant_batched_epilogue_ref(q, qscale, qzero,
+                                                leaf_offsets, p, w, coefs,
+                                                scales, eta_g)
+    out = _fold(name, q, p, w, coefs, scales, None, eta_g, qscale, qzero,
+                leaf_offsets)
+    feddpc_dequant_batched_epilogue.launches += 1
+    return out
+
+
+def feddpc_dequant_buffer_fold(q: torch.Tensor, qscale: torch.Tensor,
+                               qzero: torch.Tensor,
+                               leaf_offsets: torch.Tensor, p: torch.Tensor,
+                               w: torch.Tensor, coefs: torch.Tensor,
+                               scales: torch.Tensor, wgts: torch.Tensor,
+                               eta_g: float):
+    """The buffered-async fold over a quantized arrival buffer: q (B, N),
+    qscale/qzero (B, L), wgts (B,); as ``feddpc_dequant_batched_epilogue``
+    otherwise."""
+    name = "feddpc_dequant_buffer_fold"
+    _check(name, q, tuple(QTYPES), qscale=qscale, qzero=qzero, p=p, w=w,
+           coefs=coefs, scales=scales, wgts=wgts)
+    _check_offsets(name, leaf_offsets, q.shape[1], qscale.shape[1])
+    if q.device.type == "cpu":
+        return ref.dequant_buffer_fold_ref(q, qscale, qzero, leaf_offsets,
+                                           p, w, coefs, scales, wgts, eta_g)
+    out = _fold(name, q, p, w, coefs, scales, wgts, eta_g, qscale, qzero,
+                leaf_offsets)
+    feddpc_dequant_buffer_fold.launches += 1
+    return out
+
+
+KERNELS = (feddpc_dots, feddpc_batched_epilogue, feddpc_buffer_fold,
+           feddpc_dequant_batched_epilogue, feddpc_dequant_buffer_fold)
+for _fn in KERNELS:
+    _fn.launches = 0
 
 
 def reset_launches():

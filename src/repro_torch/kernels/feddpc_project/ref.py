@@ -1,6 +1,12 @@
 """Plain PyTorch versions of the FedDPC server-step kernels, on the flat
 (K, N) layout (counterparts of repro/kernels/feddpc_project/ref.py's
-``dots_ref`` and ``batched_epilogue_ref``).
+``dots_ref``, ``batched_epilogue_ref``, ``buffer_fold_ref``,
+``dequant_ref`` and the two dequant folds).
+
+The dequant folds read the codec's flat payload: q (K, N) int8 or bf16
+and one (scale, zero) pair per client and leaf, qscale/qzero (K, L),
+with the leaves' columns given by ``leaf_offsets`` (L+1,) int64 — 0,
+then each leaf's end, N last.
 
 The CPU path runs these; on the card they are only the yardstick the
 kernels are held against (tests, chip_smoke.py), never the path.
@@ -30,3 +36,42 @@ def batched_epilogue_ref(d: torch.Tensor, p: torch.Tensor, w: torch.Tensor,
     dt = torch.mean(s * (d.float() - c * p.float()[None]), dim=0)
     new_w = (w.float() - eta_g * dt).to(w.dtype)
     return new_w, dt
+
+
+def buffer_fold_ref(d: torch.Tensor, p: torch.Tensor, w: torch.Tensor,
+                    coefs: torch.Tensor, scales: torch.Tensor,
+                    wgts: torch.Tensor, eta_g: float):
+    """The buffered-async fold: the staleness discount multiplies the
+    adaptive scale (the geometry, coef, stays raw), then the math is the
+    batched epilogue — the reference trainer's order (scales * wgts,
+    then a mean over the B arrivals)."""
+    return batched_epilogue_ref(d, p, w, coefs,
+                                scales.float() * wgts.float(), eta_g)
+
+
+def dequant_ref(q: torch.Tensor, qscale: torch.Tensor, qzero: torch.Tensor,
+                leaf_offsets: torch.Tensor) -> torch.Tensor:
+    """The codec's dequant on the flat payload: column c of leaf l of row
+    j is q[j, c] * qscale[j, l] + qzero[j, l], in f32 (a multiply, then
+    an add: two roundings)."""
+    counts = (leaf_offsets[1:] - leaf_offsets[:-1]).to(q.device)
+    n = q.shape[-1]
+    s = torch.repeat_interleave(qscale.float(), counts, dim=-1,
+                                output_size=n)
+    z = torch.repeat_interleave(qzero.float(), counts, dim=-1,
+                                output_size=n)
+    return q.float() * s + z
+
+
+def dequant_batched_epilogue_ref(q, qscale, qzero, leaf_offsets, p, w,
+                                 coefs, scales, eta_g):
+    """Dequantize the (K, N) payload, then the batched epilogue."""
+    return batched_epilogue_ref(dequant_ref(q, qscale, qzero, leaf_offsets),
+                                p, w, coefs, scales, eta_g)
+
+
+def dequant_buffer_fold_ref(q, qscale, qzero, leaf_offsets, p, w, coefs,
+                            scales, wgts, eta_g):
+    """Dequantize the (B, N) arrival buffer, then the buffered fold."""
+    return buffer_fold_ref(dequant_ref(q, qscale, qzero, leaf_offsets),
+                           p, w, coefs, scales, wgts, eta_g)

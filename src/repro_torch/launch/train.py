@@ -6,10 +6,15 @@ experiment on synthetic heterogeneous data), on the card by default:
       --rounds 50 --alpha 0.2 --clients 100 --participation 0.1 \\
       --eta-l 0.01 --eta-g 0.01
 
-Counterpart of repro/launch/train.py with its main-path flags; vision
-data streams from the synthetic Dirichlet-partitioned image task, and
-the participation model is uniform. ``--device cpu`` runs on the CPU;
-without it the driver raises when CUDA is absent.
+Counterpart of repro/launch/train.py with its main-path, buffered-async
+and codec flags; vision data streams from the synthetic Dirichlet-
+partitioned image task, and the participation model is uniform.
+``--device cpu`` runs on the CPU; without it the script raises when CUDA
+is absent. Buffered-async rounds with an int8 uplink and error feedback:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --model lenet5 --async-buffer --runtime exponential \\
+      --buffer-size 2 --async-concurrency 3 --codec int8 --codec-ef
 """
 from __future__ import annotations
 
@@ -21,7 +26,9 @@ import torch
 
 from repro_torch.core.api import (AlgoConfig, ExecConfig, FederatedTrainer,
                                   resolve_device)
+from repro_torch.codec import codec_names
 from repro_torch.core.baselines import default_hyper
+from repro_torch.core.runtime import make_runtime
 from repro_torch.core.samplers import UniformSampler
 from repro_torch.ingest.images import (StreamingImageSource,
                                        build_federated_image_data)
@@ -79,6 +86,35 @@ def main(argv=None):
     ap.add_argument("--serial", action="store_true",
                     help="one client at a time instead of the "
                          "cohort-vectorized round (reference path)")
+    ap.add_argument("--async-buffer", action="store_true",
+                    help="buffered-async rounds: waves train against "
+                         "possibly-stale snapshots and the server steps "
+                         "every --buffer-size arrivals with staleness-"
+                         "discounted aggregation")
+    ap.add_argument("--buffer-size", type=int, default=None,
+                    help="arrivals per async server step (default: the "
+                         "cohort size — the sync-equivalent anchor)")
+    ap.add_argument("--staleness-alpha", type=float, default=0.5,
+                    help="staleness discount exponent: w(s)=(1+s)^-alpha")
+    ap.add_argument("--async-concurrency", type=int, default=1,
+                    help="max waves in flight at once (>1 lets fresh "
+                         "waves overlap stale stragglers)")
+    ap.add_argument("--runtime", default="deterministic",
+                    choices=["deterministic", "exponential", "heavytail",
+                             "markov"],
+                    help="client runtime model: arrival latencies + "
+                         "dropout of the async waves (core/runtime.py)")
+    ap.add_argument("--runtime-dropout", type=float, default=0.0,
+                    help="per-wave client dropout probability of the "
+                         "exponential/heavytail/markov runtime models")
+    ap.add_argument("--codec", default=None, choices=codec_names(),
+                    help="delta codec for the client->server uplink: "
+                         "quantized wire payloads with per-leaf scales; "
+                         "identity is bitwise equal to no codec")
+    ap.add_argument("--codec-ef", action="store_true",
+                    help="server-side error feedback for a lossy --codec: "
+                         "clients ship delta + the running mean "
+                         "quantization residual (needs a lossy codec)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; the default needs a card")
     ap.add_argument("--out", default=None)
@@ -92,11 +128,22 @@ def main(argv=None):
                       hyper=default_hyper(args.algorithm, lam=args.lam))
     cfg = ExecConfig(rounds=args.rounds, clients_per_round=cohort,
                      seed=args.seed, eval_every=args.eval_every,
-                     vectorize=not args.serial)
+                     vectorize=not args.serial,
+                     async_buffer=args.async_buffer,
+                     buffer_size=args.buffer_size,
+                     staleness_alpha=args.staleness_alpha,
+                     async_concurrency=args.async_concurrency,
+                     codec=args.codec,
+                     codec_ef=True if args.codec_ef else None)
+    runtime = None
+    if args.async_buffer:
+        rt_kw = ({} if args.runtime == "deterministic"
+                 else {"dropout": args.runtime_dropout})
+        runtime = make_runtime(args.runtime, args.clients, **rt_kw)
     trainer = FederatedTrainer(loss_fn, params, args.clients, source, cfg,
                                eval_fn, algo=algo,
                                sampler=UniformSampler(args.clients, cohort),
-                               device=device)
+                               runtime=runtime, device=device)
     hist = trainer.run(verbose=True)
     best, at = trainer.best_accuracy
     print(f"best eval {best} @ round {at}")

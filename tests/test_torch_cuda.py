@@ -11,9 +11,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import paper_lenet5
+from repro_torch.bridge import layout_of
+from repro_torch.configs import paper_lenet5, paper_resnet18
 from repro_torch.core import feddpc
 from repro_torch.core.api import AlgoConfig, ExecConfig, FederatedTrainer
+from repro_torch.core.runtime import ExponentialRuntime
 from repro_torch.ingest.images import (StreamingImageSource,
                                        build_federated_image_data)
 from repro_torch.kernels.feddpc_project import ops, ref
@@ -62,7 +64,95 @@ def test_kernels_match_plain_versions(cuda, k, n, zero_prev):
     # by 1/K (about one ulp)
     torch.testing.assert_close(got_dt, want_dt, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(got_w, want_w, rtol=1e-5, atol=1e-5)
-    assert [fn.launches - b for fn, b in zip(ops.KERNELS, before)] == [1, 1]
+    assert [fn.launches - b for fn, b in zip(ops.KERNELS, before)] == \
+        [1, 1, 0, 0, 0]
+
+
+def _offsets(numels):
+    return torch.tensor(np.concatenate([[0], np.cumsum(numels)]),
+                        dtype=torch.int64)
+
+
+@functools.lru_cache(maxsize=None)
+def _resnet18_offsets():
+    params = init_vision(paper_resnet18.CONFIG,
+                         torch.Generator().manual_seed(0))
+    return layout_of(params).leaf_offsets
+
+
+def _payload(k, offsets, qdtype, seed):
+    """A codec payload: q (k, N) int8 or bf16 codes, qscale/qzero (k, L)."""
+    rng = np.random.default_rng(seed)
+    n, nleaves = int(offsets[-1]), len(offsets) - 1
+    if qdtype == torch.int8:
+        q = torch.from_numpy(rng.integers(-127, 128, (k, n), dtype=np.int8))
+    else:
+        q = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32)
+                             ).to(torch.bfloat16)
+    qscale = torch.from_numpy(rng.uniform(1e-3, 2e-2, (k, nleaves))
+                              .astype(np.float32))
+    qzero = torch.from_numpy(rng.standard_normal((k, nleaves),
+                                                 dtype=np.float32) * 0.1)
+    return q, qscale, qzero
+
+
+# (K, leaf sizes): leaves shorter than a warp, a boundary inside every
+# 2,048-column tile, K = 33 past one shared-memory chunk of rows, and
+# ResNet18-GN's real layout (62 leaves, 11,220,132 parameters)
+FOLD_CASES = [(1, (5, 37, 3, 2048, 1, 999)), (10, (7,) * 300 + (4099,)),
+              (33, (31, 64, 5000, 17)), (10, "resnet18")]
+
+
+@pytest.mark.parametrize("k,numels", FOLD_CASES)
+@pytest.mark.parametrize("qdtype", [torch.int8, torch.bfloat16])
+def test_folds_match_plain_versions(cuda, k, numels, qdtype):
+    offsets = (_resnet18_offsets() if numels == "resnet18"
+               else _offsets(numels))
+    n = int(offsets[-1])
+    q, qscale, qzero = [x.to(cuda) for x in _payload(k, offsets, qdtype, k)]
+    _, p, w, coefs, scales = [x.to(cuda) for x in _case(k, n, False)]
+    wgts = torch.linspace(0.3, 1.0, k, device=cuda)
+    d = ref.dequant_ref(q, qscale, qzero, offsets)
+    before = [fn.launches for fn in ops.KERNELS]
+    got = {
+        "buffer_fold": ops.feddpc_buffer_fold(d, p, w, coefs, scales, wgts,
+                                              0.3),
+        "dequant_epilogue": ops.feddpc_dequant_batched_epilogue(
+            q, qscale, qzero, offsets, p, w, coefs, scales, 0.3),
+        "dequant_fold": ops.feddpc_dequant_buffer_fold(
+            q, qscale, qzero, offsets, p, w, coefs, scales, wgts, 0.3)}
+    want = {
+        "buffer_fold": ref.buffer_fold_ref(d, p, w, coefs, scales, wgts,
+                                           0.3),
+        "dequant_epilogue": ref.dequant_batched_epilogue_ref(
+            q, qscale, qzero, offsets, p, w, coefs, scales, 0.3),
+        "dequant_fold": ref.dequant_buffer_fold_ref(
+            q, qscale, qzero, offsets, p, w, coefs, scales, wgts, 0.3)}
+    torch.cuda.synchronize()
+    # the same element-wise rounding (the kernels' _rn intrinsics, the
+    # dequant a multiply then an add); the mean divides where torch
+    # multiplies by 1/K: about one ulp
+    for key in got:
+        for a, b in zip(got[key], want[key]):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5,
+                                       msg=key)
+    assert [fn.launches - b for fn, b in zip(ops.KERNELS, before)] == \
+        [0, 0, 1, 1, 1]
+
+
+def test_dequant_folds_reject_bad_offsets_on_the_card(cuda):
+    offsets = _offsets((10, 20))
+    q, qscale, qzero = [x.to(cuda) for x in _payload(2, offsets, torch.int8,
+                                                     0)]
+    _, p, w, coefs, scales = [x.to(cuda) for x in _case(2, 30, False)]
+    with pytest.raises(ValueError, match="leaf_offsets"):
+        ops.feddpc_dequant_batched_epilogue(q, qscale, qzero,
+                                            offsets.to(cuda), p, w, coefs,
+                                            scales, 0.1)
+    with pytest.raises(ValueError, match="strictly increasing"):
+        ops.feddpc_dequant_batched_epilogue(
+            q, qscale, qzero, torch.tensor([0, 31, 30]), p, w, coefs,
+            scales, 0.1)
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -107,6 +197,38 @@ def test_trainer_round_on_card_matches_cpu(cuda):
         before = [fn.launches for fn in ops.KERNELS]
         losses[dev] = [r.train_loss for r in tr.run()]
         added = [fn.launches - b for fn, b in zip(ops.KERNELS, before)]
-        assert added == ([2, 2] if dev == "cuda" else [0, 0])
+        assert added == ([2, 2, 0, 0, 0] if dev == "cuda"
+                         else [0] * 5)
     # TF32 off: card and CPU differ by conv algorithms and sum orders
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=1e-3)
+
+
+def test_async_int8_trainer_on_card_matches_cpu(cuda):
+    """Buffered-async FedDPC with an int8 uplink and error feedback:
+    every fold goes through feddpc_dequant_buffer_fold on the card, and
+    the run agrees with the same run on the CPU."""
+    cfg = paper_lenet5.CONFIG
+    data = build_federated_image_data(num_classes=10, num_clients=8,
+                                      alpha=0.5, samples_per_class=16,
+                                      test_per_class=2, seed=0)
+    params = init_vision(cfg, torch.Generator().manual_seed(0))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        tr = FederatedTrainer(
+            functools.partial(vision_loss_fn, cfg), params, 8,
+            StreamingImageSource(data, 16),
+            ExecConfig(rounds=3, clients_per_round=4, async_buffer=True,
+                       buffer_size=2, async_concurrency=3, codec="int8",
+                       codec_ef=True),
+            algo=AlgoConfig(eta_l=0.02, eta_g=0.02),
+            runtime=ExponentialRuntime(mean=1.0), device=dev)
+        before = [fn.launches for fn in ops.KERNELS]
+        runs[dev] = tr.run()
+        added = [fn.launches - b for fn, b in zip(ops.KERNELS, before)]
+        assert added == ([3, 0, 0, 0, 3] if dev == "cuda" else [0] * 5)
+    assert [r.staleness_max for r in runs["cuda"]] == \
+        [r.staleness_max for r in runs["cpu"]]
+    # TF32 off: card and CPU differ by conv algorithms and sum orders
+    np.testing.assert_allclose([r.train_loss for r in runs["cuda"]],
+                               [r.train_loss for r in runs["cpu"]],
+                               atol=1e-3)

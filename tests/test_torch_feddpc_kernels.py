@@ -105,3 +105,127 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         ops.feddpc_batched_epilogue(d, p, w, coefs[:2], scales, 0.1)
     with pytest.raises(ValueError, match=r"\(K, N\)"):
         ops.feddpc_dots(d[0], p)
+
+
+# ---- the three folds of the buffered-async and codec rounds, on a
+# multi-leaf tree: 'a' is shorter than a warp, so leaf boundaries fall
+# inside the kernels' column tiles ----
+
+TREE = {"a": (6, 5), "b": (64,), "c": (40, 37), "conv": (3, 3, 4, 8)}
+
+
+def _tree_case(k, codec, seed):
+    """Reference trees (client-stacked deltas; prev, params), the
+    reference's payload of the deltas, and the port's flat views."""
+    from repro.codec import make_codec as ref_make_codec
+    from repro_torch.bridge import layout_of
+    rng = np.random.default_rng(seed)
+    deltas = {n: rng.standard_normal((k,) + s, dtype=np.float32)
+              for n, s in TREE.items()}
+    prev = {n: rng.standard_normal(s, dtype=np.float32)
+            for n, s in TREE.items()}
+    params = {n: rng.standard_normal(s, dtype=np.float32)
+              for n, s in TREE.items()}
+    coefs = rng.standard_normal(k, dtype=np.float32)
+    scales = (1.0 + np.abs(rng.standard_normal(k))).astype(np.float32)
+    wgts = rng.uniform(0.2, 1.0, k).astype(np.float32)
+    payload = ref_make_codec(codec).encode_cohort(
+        {n: jnp.asarray(v) for n, v in deltas.items()})
+    keys = sorted(TREE)
+
+    def flat(tree, lead):
+        return torch.from_numpy(np.concatenate(
+            [np.asarray(tree[n]).reshape(lead + (-1,)) for n in keys], -1))
+
+    port = {"d": flat(deltas, (k,)), "p": flat(prev, ()),
+            "w": flat(params, ()),
+            "q": torch.from_numpy(np.concatenate(
+                [np.asarray(payload["q"][n].astype(jnp.float32)
+                            ).reshape(k, -1) for n in keys], -1)),
+            "qscale": torch.from_numpy(np.stack(
+                [np.asarray(payload["scale"][n]) for n in keys], 1)),
+            "qzero": torch.from_numpy(np.stack(
+                [np.asarray(payload["zero"][n]) for n in keys], 1)),
+            "offsets": layout_of(params).leaf_offsets}
+    port["q"] = port["q"].to(torch.int8 if codec.startswith("int8")
+                             else torch.bfloat16)
+    scalars = [torch.from_numpy(x) for x in (coefs, scales, wgts)]
+    return (deltas, prev, params, payload, coefs, scales, wgts), port, \
+        scalars
+
+
+def _assert_fold_close(got, want_tree):
+    """Δ_t and w' within 1e-6 absolute: the same element-wise math, with
+    the sum over rows in another order (the reference's kernel multiplies
+    each arrival by 1/B, the port divides the sum once)."""
+    want_w, want_dt = want_tree
+    for g, wt in zip(got, (want_w, want_dt)):
+        want = np.concatenate([np.asarray(wt[n]).reshape(-1)
+                               for n in sorted(TREE)])
+        np.testing.assert_allclose(g.numpy(), want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("k", [1, 5])
+def test_buffer_fold_matches_pallas(k):
+    (deltas, prev, params, _, coefs, scales, wgts), port, (c, s, wg) = \
+        _tree_case(k, "int8", seed=k)
+    got = ops.feddpc_buffer_fold(port["d"], port["p"], port["w"], c, s, wg,
+                                 0.3)
+    want = ref_ops.buffered_server_fold(
+        deltas, prev, params, jnp.asarray(coefs), jnp.asarray(scales),
+        jnp.asarray(wgts), 0.3, interpret=True)
+    _assert_fold_close(got, want)
+
+
+@pytest.mark.parametrize("codec", ["int8", "int8_sym", "bf16"])
+@pytest.mark.parametrize("k", [1, 5])
+def test_dequant_folds_match_pallas(codec, k):
+    (_, prev, params, payload, coefs, scales, wgts), port, (c, s, wg) = \
+        _tree_case(k, codec, seed=10 + k)
+    flat_payload = (port["q"], port["qscale"], port["qzero"],
+                    port["offsets"], port["p"], port["w"], c, s)
+    _assert_fold_close(
+        ops.feddpc_dequant_batched_epilogue(*flat_payload, 0.3),
+        ref_ops.dequant_batched_server_epilogue(
+            payload, prev, params, jnp.asarray(coefs), jnp.asarray(scales),
+            0.3, interpret=True))
+    _assert_fold_close(
+        ops.feddpc_dequant_buffer_fold(*flat_payload, wg, 0.3),
+        ref_ops.dequant_buffered_server_fold(
+            payload, prev, params, jnp.asarray(coefs), jnp.asarray(scales),
+            jnp.asarray(wgts), 0.3, interpret=True))
+
+
+def test_dequant_ref_is_the_codec_decode():
+    """The plain dequant equals the reference codec's decode bitwise."""
+    from repro.codec import make_codec as ref_make_codec
+    (deltas, _, _, payload, *_), port, _ = _tree_case(4, "int8", seed=3)
+    dec = ref_make_codec("int8").decode_cohort(payload)
+    want = np.concatenate([np.asarray(dec[n]).reshape(4, -1)
+                           for n in sorted(TREE)], -1)
+    got = ref.dequant_ref(port["q"], port["qscale"], port["qzero"],
+                          port["offsets"])
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_fold_wrappers_reject_what_the_kernels_do_not_take():
+    _, port, (c, s, wg) = _tree_case(3, "int8", seed=0)
+    q, qs, qz, offs = port["q"], port["qscale"], port["qzero"], \
+        port["offsets"]
+    p, w = port["p"], port["w"]
+    with pytest.raises(TypeError, match="int8"):
+        ops.feddpc_dequant_batched_epilogue(q.float(), qs, qz, offs, p, w,
+                                            c, s, 0.1)
+    with pytest.raises(ValueError, match="qzero must be"):
+        ops.feddpc_dequant_buffer_fold(q, qs, qz[:, :-1], offs, p, w, c, s,
+                                       wg, 0.1)
+    with pytest.raises(ValueError, match="wgts must be"):
+        ops.feddpc_buffer_fold(port["d"][:3], p, w, c, s, wg[:2], 0.1)
+    bad = offs.clone()
+    bad[2] = bad[1]
+    for offsets, match in ((bad, "strictly increasing"),
+                           (offs.int(), "CPU int64"),
+                           (offs[:-1], "CPU int64")):
+        with pytest.raises(ValueError, match=match):
+            ops.feddpc_dequant_batched_epilogue(q, qs, qz, offsets, p, w, c,
+                                                s, 0.1)

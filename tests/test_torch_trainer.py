@@ -2,88 +2,33 @@
 FederatedTrainer at quickstart size, the copied host modules against
 their originals, the launch driver, and the no-fallback rule for the
 device."""
-import functools
 import json
 
-import jax
 import numpy as np
 import pytest
 import torch
 
-from repro.core.api import AlgoConfig as RefAlgoConfig
-from repro.core.api import ExecConfig as RefExecConfig
-from repro.core.api import FederatedTrainer as RefTrainer
-from repro.core.baselines import FedDPCHyper as RefFedDPCHyper
+from _torch_parity import port_trainer, run_reference
 from repro.core.samplers import UniformSampler as RefUniformSampler
 from repro.data import dirichlet as ref_dirichlet
 from repro.data import synthetic as ref_synthetic
 from repro.ingest import images as ref_images
 from repro.ingest import stack as ref_stack
-from repro.models import vision as ref_vision
-from repro_torch.configs import paper_lenet5
 from repro_torch.core import api
-from repro_torch.core.baselines import FedDPCHyper
+from repro_torch.core.runtime import ExponentialRuntime
 from repro_torch.core.samplers import UniformSampler
 from repro_torch.data import dirichlet, synthetic
 from repro_torch.ingest import images, stack
 from repro_torch.launch import train
-from repro_torch.models import vision
 
-ROUNDS, CLIENTS, COHORT = 3, 30, 10
-
-
-@functools.lru_cache(maxsize=None)
-def _quickstart_data():
-    return ref_images.build_federated_image_data(
-        num_classes=10, num_clients=CLIENTS, alpha=0.2,
-        samples_per_class=100, test_per_class=20, seed=0)
-
-
-@functools.lru_cache(maxsize=None)
-def _ref_init():
-    vc = ref_vision.VisionConfig(name="quickstart", family="lenet5",
-                                 num_classes=10)
-    return jax.tree.map(np.asarray, jax.jit(functools.partial(
-        ref_vision.init_vision, vc))(jax.random.PRNGKey(0)))
-
-
-def _algo_kwargs(name):
-    return dict(name=name, eta_l=0.02, eta_g=0.02)
-
-
-@functools.lru_cache(maxsize=None)
-def _reference_run(name):
-    """The reference's default (vectorized) round, quickstart sizes."""
-    vc = ref_vision.VisionConfig(name="quickstart", family="lenet5",
-                                 num_classes=10)
-    data = _quickstart_data()
-    algo = RefAlgoConfig(hyper=RefFedDPCHyper(lam=1.0)
-                         if name == "feddpc" else None, **_algo_kwargs(name))
-    with RefTrainer(functools.partial(ref_vision.vision_loss_fn, vc),
-                    _ref_init(), CLIENTS,
-                    ref_images.StreamingImageSource(data, batch_size=64),
-                    RefExecConfig(rounds=ROUNDS, clients_per_round=COHORT,
-                                  eval_every=5),
-                    algo=algo,
-                    sampler=RefUniformSampler(CLIENTS, COHORT)) as tr:
-        hist = tr.run()
-        return hist, [s.copy() for s in tr.schedule]
+ROUNDS = 3
 
 
 @pytest.mark.parametrize("name", ["feddpc", "fedavg"])
 @pytest.mark.parametrize("vectorize", [True, False])
 def test_trainer_matches_reference_quickstart(name, vectorize):
-    ref_hist, ref_schedule = _reference_run(name)
-    data = _quickstart_data()
-    tr = api.FederatedTrainer(
-        functools.partial(vision.vision_loss_fn, paper_lenet5.CONFIG),
-        _ref_init(), CLIENTS, images.StreamingImageSource(data, 64),
-        api.ExecConfig(rounds=ROUNDS, clients_per_round=COHORT,
-                       vectorize=vectorize),
-        algo=api.AlgoConfig(hyper=FedDPCHyper(lam=1.0)
-                            if name == "feddpc" else None,
-                            **_algo_kwargs(name)),
-        sampler=UniformSampler(CLIENTS, COHORT), device="cpu")
+    ref_hist, ref_schedule, _ = run_reference(name, ROUNDS)
+    tr = port_trainer(name, ROUNDS, (("vectorize", vectorize),))
     hist = tr.run()
     # identical client draws, round by round
     assert len(tr.schedule) == ROUNDS
@@ -151,11 +96,41 @@ def test_launch_train_cpu_smoke(tmp_path):
     assert set(hist[0]["diagnostics"]) >= {"mean_coef", "global_dot_prev"}
 
 
+def test_launch_train_async_codec_cpu_smoke(tmp_path):
+    """The async and codec flags reach the trainer, and the history JSON
+    carries staleness and uplink bytes."""
+    out = tmp_path / "hist.json"
+    rc = train.main(["--model", "lenet5", "--rounds", "3", "--clients", "6",
+                     "--participation", "0.5", "--samples-per-class", "20",
+                     "--batch-size", "16", "--eval-every", "1",
+                     "--async-buffer", "--runtime", "exponential",
+                     "--buffer-size", "2", "--async-concurrency", "3",
+                     "--codec", "int8", "--codec-ef", "--device", "cpu",
+                     "--out", str(out)])
+    assert rc == 0
+    hist = json.loads(out.read_text())
+    assert [r["round"] for r in hist] == [0, 1, 2]
+    assert all(np.isfinite(r["train_loss"]) for r in hist)
+    assert max(r["staleness_max"] for r in hist) > 0
+    # waves of 3 clients ship int8 payloads: N bytes + 8 per leaf each
+    per_client = 61_984 + 8 * 8
+    assert sum(r["comm_bytes_up"] for r in hist) % per_client == 0
+    assert hist[0]["comm_bytes_up"] >= 3 * per_client
+
+
 def test_no_device_means_the_card_and_raises_without_one(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         api.FederatedTrainer(lambda p, b: 0.0, {"w": np.zeros(3)}, 4,
                              lambda c, t: [])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
+        api.FederatedTrainer(lambda p, b: 0.0, {"w": np.zeros(3)}, 4,
+                             lambda c, t: [],
+                             api.ExecConfig(async_buffer=True, codec="int8"),
+                             runtime=ExponentialRuntime())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         train.main(["--rounds", "1", "--clients", "4"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--rounds", "1", "--clients", "4", "--async-buffer",
+                    "--runtime", "exponential", "--codec", "int8"])
     assert api.resolve_device("cpu") == torch.device("cpu")
