@@ -15,24 +15,43 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               K = B in {1, 10, 33} (33 is past one shared-memory chunk of
               rows), int8 and bf16 payloads, on ResNet18-GN's 62 leaves
               and on a ragged synthetic layout with leaves shorter than a
-              warp. Times each kernel and its plain version with CUDA
-              events at K = B = 10, N = 11,220,132, beside its bound.
-  3. trainer  the main paths: FederatedTrainer runs ResNet18-GN at full
+              warp; the guard's reduction pass (with and without
+              Delta_prev) at K in {1, 10, 33}, N = 11,220,132 and ragged
+              1,000,003, on rows that are clean, hold scattered NaN/Inf,
+              are all NaN or scaled by 1e12 (the non-finite count must
+              match exactly); the one-client epilogue on f32 and bf16
+              deltas. Times each kernel and its plain version with CUDA
+              events at K = B = 10, N = 11,220,132, beside its bound:
+              per call, over windows of 10 back-to-back calls (``ms``)
+              and of one call (``ms_one_call``, with the host's launch
+              path), median of 20 windows.
+  3. project  projection.project_and_scale(use_kernel=True) on one
+              ResNet18-GN-sized flat delta: one feddpc_fused_epilogue
+              launch, held against the same call on the CPU.
+  4. trainer  the main paths: FederatedTrainer runs ResNet18-GN at full
               width (CIFAR-100 shape, synthetic Dirichlet(0.2) data, 10 of
-              30 clients per round) in five regimes — synchronous FedDPC
+              30 clients per round) in seven regimes — synchronous FedDPC
               and FedAvg (3 rounds each), synchronous FedDPC with an int8
               uplink, buffered-async FedDPC (B = 10, 2 waves in flight,
               exponential latencies) and the same with an int8 uplink and
-              error feedback (4 rounds each). The launch counts are set to
-              0 just before each run and read just after; each round must
-              launch the kernels of its regime. The last round of sync
-              FedDPC, FedAvg and async-int8 runs under torch.profiler:
-              device time by kernel and by category (the codec's encode
-              and decode as their own) and the card's idle share.
-  4. parity   LeNet5 at quickstart size on the card and on the CPU from
-              the same initial params — 2 sync FedDPC rounds, and 3
-              buffered-async int8 rounds with error feedback; the
-              per-round losses must agree.
+              error feedback (4 rounds each); and the chaos layer: sync
+              FedDPC with the update guard, a seeded fault plan (NaN and
+              exploded deltas) and a round deadline of 2.0 under
+              exponential latencies (4 rounds), and the async int8+EF
+              regime with guard, faults and deadline (6 rounds). The
+              launch counts are set to 0 just before each run and read
+              just after; each round must launch the kernels of its
+              regime. The chaos runs must quarantine exactly the plan's
+              targets among the rows that arrive. The last round of sync
+              FedDPC, FedAvg, sync chaos and async-int8 runs under
+              torch.profiler: device time by kernel and by category (the
+              codec's encode and decode as their own) and the card's idle
+              share.
+  5. parity   LeNet5 at quickstart size on the card and on the CPU from
+              the same initial params — 2 sync FedDPC rounds, 3
+              buffered-async int8 rounds with error feedback, and 3 sync
+              rounds with guard, faults and deadline; the per-round losses
+              (and the chaos counters) must agree.
 
 The last lines are the kernels' JSON summary, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
@@ -50,6 +69,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 
@@ -62,6 +82,7 @@ from repro_torch.core import projection as proj  # noqa: E402
 from repro_torch.core.api import (AlgoConfig, ExecConfig,  # noqa: E402
                                   FederatedTrainer)
 from repro_torch.core.baselines import FedDPCHyper  # noqa: E402
+from repro_torch.core.faults import FaultPlan  # noqa: E402
 from repro_torch.core.runtime import ExponentialRuntime  # noqa: E402
 from repro_torch.core.samplers import UniformSampler  # noqa: E402
 from repro_torch.ingest.images import (StreamingImageSource,  # noqa: E402
@@ -97,35 +118,49 @@ REPLACES = {"feddpc_dots": f"{_TPU}:44",
             "feddpc_batched_epilogue": f"{_TPU}:118",
             "feddpc_buffer_fold": f"{_TPU}:197",
             "feddpc_dequant_batched_epilogue": f"{_TPU}:269",
-            "feddpc_dequant_buffer_fold": f"{_TPU}:345"}
+            "feddpc_dequant_buffer_fold": f"{_TPU}:345",
+            "feddpc_guard_dots": f"{_TPU}:79",
+            "feddpc_fused_epilogue": f"{_TPU}:394"}
 # the folds of the async and codec rounds: K = B rows, and a synthetic
 # layout (ragged N = 1,000,003) whose leaves of 1-31 elements put leaf
 # boundaries inside every column tile
 FOLD_KS = (1, 10, 33)
 SYNTH_NUMELS = (5, 31, 1, 17) * 4 + (2048, 7, 997_732)
-# no single PyTorch call computes any of the five functions
+# no single PyTorch call computes any of the seven functions
 LIBRARY_NONE = "no single PyTorch call computes this function"
+# the guard's reduction pass: K rows of N, ResNet18-GN's N and a ragged one
+GUARD_KS = (1, 10, 33)
+GUARD_NS = (N_MAIN, 1_000_003)
 
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, reps: int = 20) -> float:
-    """Median CUDA-event time of one call, after warm-up."""
+def cuda_ms(fn, reps: int = 20, calls: int = 10):
+    """(ms, one_call_ms), each the median over ``reps`` windows of the
+    CUDA-event time per call, after warm-up: ``ms`` from windows of
+    ``calls`` back-to-back calls — the queue stays full, so the host's
+    launch path (checks, allocation, the ctypes call) hides behind the
+    kernels — and ``one_call_ms`` from windows of one call, the host's
+    launch path included."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    out = []
+    for n in (calls, 1):
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(n):
+                fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / n)
+        out.append(statistics.median(times))
+    return tuple(out)
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -218,17 +253,192 @@ def phase_kernels():
                                                  ETA_G),
              lambda: ref.batched_epilogue_ref(d, p, w, coefs, scales,
                                               ETA_G), epi_bytes, epi_flops)):
-        ms = cuda_ms(kern)
-        plain_ms = cuda_ms(plain)
+        ms, ms_one = cuda_ms(kern)
+        plain_ms, _ = cuda_ms(plain)
         b_ms, b_by = bound_ms(nbytes, flops)
         rows.append({"name": name, "route": "cuda", "source": SOURCE,
                      "replaces": REPLACES[name], "max_abs_err": err[name],
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "ms": ms, "ms_one_call": ms_one, "plain_ms": plain_ms,
+                     "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": None,
                      "library": LIBRARY_NONE,
                      "K": k, "N": n, "bytes": nbytes, "flops": flops})
         emit({"phase": "timing", **rows[-1]})
     return rows
+
+
+def _guard_rows(gen, k, n):
+    """(k, n) on the card, row j of kind j % 4 in (scattered NaN/+-Inf,
+    clean, all NaN, scaled by 1e12) — K = 1 is the scattered row."""
+    d = torch.randn((k, n), generator=gen, device="cuda")
+    bad = torch.tensor([float("nan"), float("inf"), float("-inf")] * 3,
+                       device="cuda")
+    for j in range(k):
+        kind = j % 4
+        if kind == 0:
+            at = torch.randint(0, n, (bad.numel(),), generator=gen,
+                               device="cuda")
+            d[j, at] = bad
+        elif kind == 2:
+            d[j] = float("nan")
+        elif kind == 3:
+            d[j] *= 1e12
+    return d
+
+
+def _check_guard(name, got, want, with_p):
+    """Exact counts, dots within DOTS_RTOL of their Cauchy-Schwarz scale;
+    returns (max abs err over the rows not scaled by 1e12 — theirs are
+    ~1e31, where one f32 step is ~1e24 —, max rel err over all rows)."""
+    if not torch.equal(got[:, 3], want[:, 3]):
+        raise AssertionError(f"{name}: non-finite counts "
+                             f"{got[:, 3].tolist()} != {want[:, 3].tolist()}")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: non-finite dots")
+    scale = torch.stack([torch.sqrt(want[:, 1] * want[:, 2]), want[:, 1],
+                         want[:, 2]], -1).clamp(min=1.0)
+    rel = float(((got[:, :3] - want[:, :3]).abs() / scale).max())
+    if not rel <= DOTS_RTOL:
+        raise AssertionError(f"{name}: rel err {rel} > {DOTS_RTOL}")
+    if not with_p and not bool((got[:, [0, 2]] == 0).all()):
+        raise AssertionError(f"{name}: without p, columns 0 and 2 must be 0")
+    plain_rows = want[:, 1] < 1e20
+    err = (float((got - want)[plain_rows].abs().max())
+           if bool(plain_rows.any()) else 0.0)
+    return err, rel
+
+
+def _epilogue_bytes_flops(n, itemsize):
+    # d read, out written in d's type; p read in f32; coef, scale
+    return 2 * itemsize * n + 4 * n + 8, 3 * n
+
+
+def phase_guard_epilogue():
+    """The guard's reduction pass and the one-client epilogue against
+    their plain versions at every listed shape, then timed at the main
+    path's shape; returns their timing rows."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    err = {"feddpc_guard_dots": 0.0, "feddpc_fused_epilogue": 0.0}
+    for k, n in itertools.product(GUARD_KS, GUARD_NS):
+        d = _guard_rows(gen, k, n)
+        for zero_prev in (False, True):
+            p = (torch.zeros(n, device="cuda") if zero_prev
+                 else torch.randn(n, generator=gen, device="cuda"))
+            line = {"phase": "kernels", "kernel": "feddpc_guard_dots",
+                    "K": k, "N": n, "zero_prev": zero_prev}
+            for with_p in (True, False):
+                pv = p if with_p else None
+                got, want = ops.feddpc_guard_dots(d, pv), \
+                    ref.guard_dots_ref(d, pv)
+                torch.cuda.synchronize()
+                e, rel = _check_guard(f"feddpc_guard_dots K={k} N={n} "
+                                      f"with_p={with_p} zero_prev="
+                                      f"{zero_prev}", got, want, with_p)
+                err["feddpc_guard_dots"] = max(err["feddpc_guard_dots"], e)
+                tag = "with_p" if with_p else "without_p"
+                line[f"{tag}_max_abs_err"] = e
+                line[f"{tag}_max_rel_err"] = rel
+            line["nonfinite"] = got[:, 3].tolist()[:4]
+            emit(line)
+        del d
+    for n, dtype, zero_prev in itertools.product(
+            (N_MAIN, 1_000_003, 37), (torch.float32, torch.bfloat16),
+            (False, True)):
+        d = torch.randn(n, generator=gen, device="cuda").to(dtype)
+        p = (torch.zeros(n, device="cuda") if zero_prev
+             else torch.randn(n, generator=gen, device="cuda"))
+        coef = torch.randn(1, generator=gen, device="cuda")
+        scale = 1.0 + torch.rand(1, generator=gen, device="cuda")
+        got = ops.feddpc_fused_epilogue(d, p, coef, scale)
+        want = ref.epilogue_ref(d, p, coef, scale)
+        torch.cuda.synchronize()
+        # the same three f32 roundings, then the same cast
+        if got.dtype != dtype or not torch.allclose(
+                got.float(), want.float(), rtol=EPI_RTOL, atol=EPI_ATOL):
+            raise AssertionError(
+                f"feddpc_fused_epilogue N={n} {dtype}: max abs err "
+                f"{float((got.float() - want.float()).abs().max())}")
+        e = float((got.float() - want.float()).abs().max())
+        err["feddpc_fused_epilogue"] = max(err["feddpc_fused_epilogue"], e)
+        emit({"phase": "kernels", "kernel": "feddpc_fused_epilogue", "N": n,
+              "dtype": str(dtype).replace("torch.", ""),
+              "zero_prev": zero_prev, "max_abs_err": e})
+    # timing at the main path's shapes, on clean rows
+    k, n = K_MAIN, N_MAIN
+    d = torch.randn((k, n), generator=gen, device="cuda")
+    p = torch.randn(n, generator=gen, device="cuda")
+    g = ops.dots_num_blocks(n)
+    coef = torch.randn(1, generator=gen, device="cuda")
+    scale = 1.0 + torch.rand(1, generator=gen, device="cuda")
+    cases = [
+        # (name, form, kernel, plain, bytes, flops): the guard's route
+        # (no p) first — it is the main path's form
+        ("feddpc_guard_dots", "without_p",
+         lambda: ops.feddpc_guard_dots(d),
+         lambda: ref.guard_dots_ref(d), 4 * (k * n + 4 * k * g),
+         3 * k * n),
+        ("feddpc_guard_dots", "with_p",
+         lambda: ops.feddpc_guard_dots(d, p),
+         lambda: ref.guard_dots_ref(d, p),
+         4 * ((k + 1) * n + 4 * k * g), 5 * k * n + 2 * n)]
+    for dtype in (torch.float32, torch.bfloat16):
+        d1 = d[0].to(dtype)
+        cases.append(("feddpc_fused_epilogue", str(dtype).replace(
+            "torch.", ""),
+            lambda d1=d1: ops.feddpc_fused_epilogue(d1, p, coef, scale),
+            lambda d1=d1: ref.epilogue_ref(d1, p, coef, scale),
+            *_epilogue_bytes_flops(n, d1.element_size())))
+    rows = {}
+    for name, form, kern, plain, nbytes, flops in cases:
+        ms, ms_one = cuda_ms(kern)
+        plain_ms, _ = cuda_ms(plain)
+        b_ms, b_by = bound_ms(nbytes, flops)
+        row = {"name": name, "route": "cuda", "source": SOURCE,
+               "replaces": REPLACES[name], "max_abs_err": err[name],
+               "ms": ms, "ms_one_call": ms_one, "plain_ms": plain_ms,
+               "bound_ms": b_ms,
+               "bound_by": b_by, "library_ms": None, "library": LIBRARY_NONE,
+               "form": form, "K": 1 if name == "feddpc_fused_epilogue"
+               else k, "N": n, "bytes": nbytes, "flops": flops}
+        emit({"phase": "timing", **row})
+        rows.setdefault(name, row)      # the main path's form
+    return list(rows.values())
+
+
+def phase_project_and_scale():
+    """projection.project_and_scale(use_kernel=True) on one ResNet18-GN-
+    sized flat delta: the launch counts are set to 0 just before the call
+    and read just after; the result is held against the same call on the
+    CPU. Returns the launch counts."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    delta = torch.randn(N_MAIN, generator=gen, device="cuda")
+    prev = torch.randn(N_MAIN, generator=gen, device="cuda")
+    ops.reset_launches()                   # this path starts here
+    scaled, diag = proj.project_and_scale(delta, prev, 1.0, use_kernel=True)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
+    want = {k: int(k == "feddpc_fused_epilogue") for k in launches}
+    if launches != want:
+        raise AssertionError(f"project_and_scale launches {launches}, "
+                             f"expected {want}")
+    c_scaled, c_diag = proj.project_and_scale(delta.cpu(), prev.cpu(), 1.0,
+                                              use_kernel=True)
+    # scalars from f32 sums in other orders (card vs CPU): ~1e-6 relative
+    err = float((scaled.cpu() - c_scaled).abs().max())
+    tol = 1e-5 * float(c_scaled.abs().max())
+    if not err <= tol:
+        raise AssertionError(f"project_and_scale card vs CPU: {err} > {tol}")
+    flat = ops.project_and_scale_flat(delta, prev, 1.0)
+    flat_ref = ref.project_and_scale_flat_ref(delta, prev, 1.0)
+    torch.cuda.synchronize()
+    err_flat = float((flat - flat_ref).abs().max())
+    if not err_flat <= tol:
+        raise AssertionError(f"project_and_scale_flat: {err_flat} > {tol}")
+    emit({"phase": "project", "N": N_MAIN, "launches": launches,
+          "scale": float(diag["scale"]), "coef": float(diag["coef"]),
+          "card_vs_cpu_max_abs_err": err,
+          "flat_vs_plain_max_abs_err": err_flat})
+    return launches
 
 
 def _resnet18_offsets():
@@ -337,12 +547,13 @@ def phase_folds():
                 name != "feddpc_dequant_batched_epilogue",
                 offsets.numel() - 1,
                 inputs[0].element_size() if dequant else 4)
-            ms = cuda_ms(kern)
-            plain_ms = cuda_ms(plain)
+            ms, ms_one = cuda_ms(kern)
+            plain_ms, _ = cuda_ms(plain)
             b_ms, b_by = bound_ms(nbytes, flops)
             row = {"name": name, "route": "cuda", "source": SOURCE,
                    "replaces": REPLACES[name], "max_abs_err": err[name],
-                   "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                   "ms": ms, "ms_one_call": ms_one, "plain_ms": plain_ms,
+                   "bound_ms": b_ms,
                    "bound_by": b_by, "library_ms": None,
                    "library": LIBRARY_NONE, "K": K_MAIN, "N": N_MAIN,
                    "payload": ("float32" if name == "feddpc_buffer_fold"
@@ -366,7 +577,7 @@ def _image_task(cfg, num_classes, samples_per_class, test_per_class):
 
 
 def _trainer(cfg, data, source, loss_fn, params, name, rounds, device,
-             exec_kw=None, runtime=None):
+             exec_kw=None, runtime=None, fault_plan=None):
     te_x = torch.from_numpy(data.test_images).to(device)
     te_y = torch.from_numpy(data.test_labels).to(device)
     algo = AlgoConfig(name=name, eta_l=0.02, eta_g=0.02,
@@ -378,14 +589,15 @@ def _trainer(cfg, data, source, loss_fn, params, name, rounds, device,
                    eval_every=1, **(exec_kw or {})),
         lambda p: vision_accuracy(cfg, p, te_x, te_y), algo=algo,
         sampler=UniformSampler(data.num_clients, 10), runtime=runtime,
-        device=device)
+        fault_plan=fault_plan, device=device)
 
 
 CODEC_CATEGORY = "codec encode/decode (plain PyTorch)"
 
 
 def _category(kernel: str) -> str:
-    if "dots_kernel" in kernel or "fold_kernel" in kernel:
+    if any(tag in kernel for tag in ("dots_kernel", "fold_kernel",
+                                     "epilogue_kernel")):
         return "feddpc kernels"
     if any(tag in kernel for tag in ("cudnn", "xmma", "fft", "grad",
                                      "pointwise_mult_and_sum_complex")):
@@ -464,22 +676,75 @@ def profile_round(trainer, t):
     return rec
 
 
+# the chaos runs: the update guard, a round deadline of 2.0 virtual
+# seconds under exponential latencies (mean 1), and a seeded fault plan
+# of NaN deltas (10 % of the clients in every round) and deltas exploded
+# by 1e12 (10 %) once the guard has warmed up (+inf threshold until 8
+# norms are accepted: an explosion before that goes through, by design).
+# Sync round 0 accepts 8 norms, so explosions start in round 1. Async
+# round 0 folds arrivals of waves 0 and 1 (2 waves in flight), so there
+# they start with wave 2.
+CHAOS = {"guard": True, "round_deadline": 2.0}
+SYNC_PLAN = {"nan_rate": 0.1, "explode_rate": 0.1,
+             "explode_rounds": (1, 2, 3)}
+ASYNC_PLAN = {"nan_rate": 0.1, "explode_rate": 0.1,
+              "explode_rounds": (2, 3, 4, 5)}
+PLAN_SEED = 0
+
 # the trainer runs: (label, algorithm, ExecConfig overrides, exponential
-# latencies?, rounds, kernels each round must launch once)
+# latencies?, rounds, kernels each round must launch once, fault plan)
 ASYNC = {"async_buffer": True, "buffer_size": 10, "async_concurrency": 2}
+ASYNC_INT8_EF = {**ASYNC, "codec": "int8", "codec_ef": True}
 RUNS = (
     ("feddpc", "feddpc", {}, False, 3,
-     ("feddpc_dots", "feddpc_batched_epilogue")),
-    ("fedavg", "fedavg", {}, False, 3, ()),
+     ("feddpc_dots", "feddpc_batched_epilogue"), None),
+    ("fedavg", "fedavg", {}, False, 3, (), None),
     ("feddpc_int8", "feddpc", {"codec": "int8"}, False, 4,
-     ("feddpc_dots", "feddpc_dequant_batched_epilogue")),
+     ("feddpc_dots", "feddpc_dequant_batched_epilogue"), None),
     ("feddpc_async", "feddpc", ASYNC, True, 4,
-     ("feddpc_dots", "feddpc_buffer_fold")),
-    ("feddpc_async_int8_ef", "feddpc",
-     {**ASYNC, "codec": "int8", "codec_ef": True}, True, 4,
-     ("feddpc_dots", "feddpc_dequant_buffer_fold")),
+     ("feddpc_dots", "feddpc_buffer_fold"), None),
+    ("feddpc_async_int8_ef", "feddpc", ASYNC_INT8_EF, True, 4,
+     ("feddpc_dots", "feddpc_dequant_buffer_fold"), None),
+    ("feddpc_chaos", "feddpc", CHAOS, True, 4,
+     ("feddpc_guard_dots", "feddpc_dots", "feddpc_batched_epilogue"),
+     SYNC_PLAN),
+    # the guard rewrites rows after decode (and the faults before it), so
+    # the fold reads the decoded f32 rows, not the int8 payload
+    ("feddpc_async_int8_chaos", "feddpc", {**ASYNC_INT8_EF, **CHAOS}, True,
+     6, ("feddpc_guard_dots", "feddpc_dots", "feddpc_buffer_fold"),
+     ASYNC_PLAN),
 )
-PROFILED = ("feddpc", "fedavg", "feddpc_async_int8_ef")
+PROFILED = ("feddpc", "fedavg", "feddpc_async_int8_ef", "feddpc_chaos")
+
+
+def _expected_sync_quarantine(rounds, deadline, plan):
+    """Per round, the plan's fault targets among the clients that arrive
+    by the deadline — re-derived from a fresh sampler and runtime on the
+    trainer's seed (the trainer's RNG stream, draw for draw)."""
+    rng = np.random.RandomState(0)
+    sampler = UniformSampler(30, 10)
+    runtime = ExponentialRuntime(mean=1.0)
+    out = []
+    for t in range(rounds):
+        clients = sampler.sample(rng, t)
+        lat, dropped = runtime.draw(rng, t, clients)
+        live = ~dropped & (lat + plan.latency_boost(t, clients) <= deadline)
+        out.append(int((plan.delta_targets(t, clients) & live).sum()))
+    return out
+
+
+def _record_fold_targets(trainer):
+    """Wrap the async engine's fold_extras: per fold, how many folded
+    arrivals the plan targets (the rows the guard must quarantine)."""
+    engine, counts = trainer._engine, []
+    inner = engine.fold_extras
+
+    def fold_extras(entries):
+        out = inner(entries)
+        counts.append(int((out[0] != 0).sum()))
+        return out
+    engine.fold_extras = fold_extras
+    return counts
 
 
 def phase_trainer():
@@ -487,15 +752,25 @@ def phase_trainer():
     data, source, loss_fn = _image_task(cfg, 100, 50, 10)
     params = init_vision(cfg, torch.Generator().manual_seed(0))
     launches = {fn.__name__: 0 for fn in ops.KERNELS}
-    for label, name, exec_kw, exp, rounds, want in RUNS:
+    for label, name, exec_kw, exp, rounds, want, plan_kw in RUNS:
+        plan = (None if plan_kw is None
+                else FaultPlan.seeded(PLAN_SEED, **plan_kw))
         trainer = _trainer(cfg, data, source, loss_fn, params, name, rounds,
                            "cuda", exec_kw,
-                           ExponentialRuntime(mean=1.0) if exp else None)
+                           ExponentialRuntime(mean=1.0) if exp else None,
+                           plan)
         if trainer.layout.size != N_MAIN:
             raise AssertionError(f"ResNet18-GN has {trainer.layout.size} "
                                  f"parameters, expected {N_MAIN}")
         if label in PROFILED and trainer._codec_lossy:
             _annotate_codec(trainer)
+        expect_q = None
+        if plan is not None and trainer._engine is None:
+            expect_q = _expected_sync_quarantine(rounds,
+                                                 exec_kw["round_deadline"],
+                                                 plan)
+        elif plan is not None:
+            expect_q = _record_fold_targets(trainer)
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()               # this path starts here
         for t in range(rounds):
@@ -512,6 +787,10 @@ def phase_trainer():
             if not math.isfinite(rec.train_loss):
                 raise AssertionError(f"{label} round {t}: loss "
                                      f"{rec.train_loss}")
+            if expect_q is not None and rec.quarantined != expect_q[t]:
+                raise AssertionError(
+                    f"{label} round {t}: quarantined {rec.quarantined}, "
+                    f"the plan's targets among the arrivals {expect_q[t]}")
             emit({"phase": "trainer", "run": label, "model": cfg.name,
                   "algorithm": name, "round": t, "K": 10,
                   "N": trainer.layout.size, "M": trainer._max_batches,
@@ -519,20 +798,33 @@ def phase_trainer():
                   "staleness_mean": rec.staleness_mean,
                   "staleness_max": rec.staleness_max,
                   "comm_bytes_up": rec.comm_bytes_up,
+                  "quarantined": rec.quarantined, "clipped": rec.clipped,
+                  "deadline_dropped": rec.deadline_dropped,
                   "test_accuracy": rec.test_accuracy,
                   "diagnostics": rec.diagnostics})
         run_launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
         for k, v in run_launches.items():
             launches[k] += v
         hist = trainer.history
-        if exp and not max(r.staleness_max for r in hist) > 0:
+        if (trainer._engine is not None
+                and not max(r.staleness_max for r in hist) > 0):
             raise AssertionError(f"{label}: no stale arrival in "
                                  f"{rounds} rounds")
+        if not bool(torch.isfinite(trainer.flat).all()):
+            raise AssertionError(f"{label}: non-finite parameters")
+        if plan is not None and not (
+                sum(r.quarantined for r in hist) > 0
+                and sum(r.deadline_dropped for r in hist) > 0):
+            raise AssertionError(f"{label}: the guard or the deadline "
+                                 "never acted")
         emit({"phase": "trainer", "run": label, "launches": run_launches,
               "seconds_per_round_after_0": [r.seconds for r in hist[1:]],
               "staleness_mean": [r.staleness_mean for r in hist],
               "staleness_max": [r.staleness_max for r in hist],
               "comm_bytes_up": [r.comm_bytes_up for r in hist],
+              "quarantined": [r.quarantined for r in hist],
+              "clipped": [r.clipped for r in hist],
+              "deadline_dropped": [r.deadline_dropped for r in hist],
               "peak_memory_gib":
                   torch.cuda.max_memory_allocated() / 2 ** 30})
         del trainer
@@ -544,16 +836,18 @@ def phase_parity():
     cfg = paper_lenet5.CONFIG
     data, source, loss_fn = _image_task(cfg, 10, 100, 20)
     params = init_vision(cfg, torch.Generator().manual_seed(0))
-    async_int8 = {"async_buffer": True, "buffer_size": 10,
-                  "async_concurrency": 2, "codec": "int8", "codec_ef": True}
-    for label, exec_kw, exp, rounds in (("feddpc", {}, False, 2),
-                                        ("feddpc_async_int8_ef", async_int8,
-                                         True, 3)):
+    for label, exec_kw, exp, rounds, plan_kw in (
+            ("feddpc", {}, False, 2, None),
+            ("feddpc_async_int8_ef", ASYNC_INT8_EF, True, 3, None),
+            ("feddpc_chaos", CHAOS, True, 3, SYNC_PLAN)):
         runs = {}
         for device in ("cuda", "cpu"):
-            trainer = _trainer(cfg, data, source, loss_fn, params, "feddpc",
-                               rounds, device, exec_kw,
-                               ExponentialRuntime(mean=1.0) if exp else None)
+            trainer = _trainer(
+                cfg, data, source, loss_fn, params, "feddpc", rounds,
+                device, exec_kw,
+                ExponentialRuntime(mean=1.0) if exp else None,
+                None if plan_kw is None
+                else FaultPlan.seeded(PLAN_SEED, **plan_kw))
             runs[device] = (trainer.run(), trainer.flat.cpu())
         (h_gpu, w_gpu), (h_cpu, w_cpu) = runs["cuda"], runs["cpu"]
         diffs = [abs(a.train_loss - b.train_loss)
@@ -562,11 +856,16 @@ def phase_parity():
               "loss_cuda": [r.train_loss for r in h_gpu],
               "loss_cpu": [r.train_loss for r in h_cpu],
               "staleness_max": [r.staleness_max for r in h_gpu],
+              "quarantined": [r.quarantined for r in h_gpu],
+              "deadline_dropped": [r.deadline_dropped for r in h_gpu],
               "max_loss_diff": max(diffs),
               "max_param_diff": float((w_gpu - w_cpu).abs().max())})
-        if [r.staleness_max for r in h_gpu] != \
-                [r.staleness_max for r in h_cpu]:
-            raise AssertionError(f"{label}: card and CPU schedules differ")
+        for key in ("staleness_max", "quarantined", "clipped",
+                    "deadline_dropped", "comm_bytes_up"):
+            if [getattr(r, key) for r in h_gpu] != \
+                    [getattr(r, key) for r in h_cpu]:
+                raise AssertionError(f"{label}: card and CPU differ in "
+                                     f"{key}")
         if not max(diffs) <= PARITY_ATOL:
             raise AssertionError(f"{label}: card vs CPU losses differ by "
                                  f"{max(diffs)} > {PARITY_ATOL}")
@@ -578,8 +877,12 @@ def main() -> int:
               file=sys.stderr)
         return 1
     smi = phase_build()
-    rows = phase_kernels() + phase_folds()
+    rows = phase_kernels() + phase_folds() + phase_guard_epilogue()
+    project_launches = phase_project_and_scale()
     launches = phase_trainer()
+    # the one-client epilogue's path is project_and_scale, not a round
+    launches["feddpc_fused_epilogue"] = \
+        project_launches["feddpc_fused_epilogue"]
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["launches"] < 1:

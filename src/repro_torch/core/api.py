@@ -1,6 +1,6 @@
 """FederatedTrainer — the simulation-mode FL driver that reproduces the
 paper; counterpart of the part of repro/core/api.py the quickstart, the
-buffered-async regime and the delta codecs use.
+buffered-async regime, the delta codecs and the chaos layer use.
 
 The trainer drives three pluggable pieces through one loop:
 
@@ -26,13 +26,22 @@ folds every ``buffer_size`` arrivals with staleness discounts. A lossy
 codec (``codec``, repro_torch/codec) quantizes the uplink in either
 regime, with optional error feedback (``codec_ef``).
 
+Chaos hardening, as in the reference: a ``FaultPlan`` (core/faults.py)
+injects NaN or exploded deltas after local training and hangs into the
+runtime draws; ``ExecConfig.guard`` validates every delta before the
+server rule (core/guards.py: quarantine non-finite or exploded rows,
+clip outliers against a rolling median of accepted norms);
+``ExecConfig.round_deadline`` drops and masks the clients of a sync
+round whose runtime draw misses it (a runtime model is drawn for sync
+rounds too), and makes the async engine fold a partial buffer.
+
 Shape bucketing: M is padded to the cohort max and only grows, as in
 the reference, so later rounds with fewer batches reuse the bucket.
 
 Staging is blocking (ingest/pipeline.py): each round's cohort is
 sampled, read and stacked on the host, then copied to the device from
-pinned memory. The reference's prefetch ring, async eval, checkpoints,
-chaos layer and round deadline are not ported yet.
+pinned memory. The reference's prefetch ring, async eval, checkpoints
+and edges are not ported yet; nor are the fault kinds that need them.
 """
 from __future__ import annotations
 
@@ -48,12 +57,24 @@ from repro_torch.codec import make_codec
 from repro_torch.core import client as client_mod
 from repro_torch.core.async_engine import BufferedAsyncEngine
 from repro_torch.core.baselines import ServerAlgo, make_algorithm
-from repro_torch.core.round import codec_stage, make_cohort_round
+from repro_torch.core import projection as proj
+from repro_torch.core.guards import GuardConfig, UpdateGuard
+from repro_torch.core.round import (ID_SENTINEL, apply_fault_codes,
+                                    apply_guard, codec_stage,
+                                    make_cohort_round)
 from repro_torch.core.runtime import ClientRuntimeModel, DeterministicRuntime
 from repro_torch.core.samplers import ClientSampler, UniformSampler
 from repro_torch.ingest.pipeline import CohortStager, to_device
 from repro_torch.ingest.sources import DataSource, as_data_source
 from repro_torch.ingest.stack import stack_batches
+
+# fault kinds with no consumer in the port yet: kind -> what brings it
+UNCONSUMED_FAULTS = {
+    "ingest_crash": "the supervised staging prefetcher (ROADMAP Queue 1 "
+                    "item 11)",
+    "ckpt_corrupt": "checkpoints (ROADMAP Queue 1 item 7)",
+    "edge_drop": "hierarchical edge folds (ROADMAP Queue 1 item 13)",
+}
 
 
 @dataclass
@@ -90,6 +111,18 @@ class ExecConfig:
     # execution-level codec overrides: None defers to AlgoConfig
     codec: Optional[str] = None
     codec_ef: Optional[bool] = None
+    # ---- chaos hardening (core/guards.py, core/faults.py) ----
+    # update guard: quarantine non-finite / exploded-norm client deltas,
+    # clip outliers against the rolling median of accepted norms
+    guard: bool = False
+    guard_quarantine_mult: float = 1e3
+    guard_clip_mult: float = 1e2
+    guard_window: int = 64
+    guard_min_history: int = 8
+    # round deadline in VIRTUAL seconds (the runtime model's unit): sync
+    # rounds drop and mask clients whose latency exceeds it; the async
+    # engine folds a partial buffer. None = wait forever.
+    round_deadline: Optional[float] = None
 
 
 @dataclass
@@ -106,6 +139,10 @@ class RoundRecord:
     # uplink bytes this round: clients that shipped x the codec's wire
     # bytes per delta (f32 bytes with no codec)
     comm_bytes_up: int = 0
+    quarantined: int = 0           # deltas zeroed and masked by the guard
+    clipped: int = 0               # deltas norm-clipped by the guard
+    deadline_fired: int = 0        # 1 if the round hit round_deadline
+    deadline_dropped: int = 0      # clients dropped by the deadline
 
 
 def resolve_device(device=None) -> torch.device:
@@ -122,21 +159,37 @@ class FederatedTrainer:
     """loss_fn(params_tree, batch) -> scalar; eval_fn(params_tree) ->
     accuracy. ``params`` is a parameter tree (numpy or torch leaves),
     copied into the trainer's flat buffer. ``data`` is a DataSource or a
-    ``batch_fn(client, round) -> list`` callable. ``device=None`` means
-    "cuda" and raises when CUDA is absent."""
+    ``batch_fn(client, round) -> list`` callable. ``runtime`` is the
+    client runtime model of the async regime or a round deadline
+    (DeterministicRuntime by default); ``fault_plan`` a
+    core/faults.FaultPlan. ``device=None`` means "cuda" and raises when
+    CUDA is absent."""
 
     def __init__(self, loss_fn: Callable, params, num_clients: int, data,
                  cfg: Optional[ExecConfig] = None,
                  eval_fn: Optional[Callable] = None, *,
                  algo: Optional[AlgoConfig] = None,
                  sampler: Optional[ClientSampler] = None,
-                 runtime: Optional[ClientRuntimeModel] = None, device=None):
+                 runtime: Optional[ClientRuntimeModel] = None,
+                 fault_plan=None, device=None):
         self.cfg = cfg if cfg is not None else ExecConfig()
         self.algo_cfg = algo if algo is not None else AlgoConfig()
-        if runtime is not None and not self.cfg.async_buffer:
+        deadline = self.cfg.round_deadline
+        if (runtime is not None and not self.cfg.async_buffer
+                and deadline is None):
             raise ValueError(
-                "a runtime model drives the buffered-async regime — pass "
-                "ExecConfig(async_buffer=True) with it")
+                "a runtime model drives the buffered-async regime or a "
+                "round deadline — pass ExecConfig(async_buffer=True) or "
+                "ExecConfig(round_deadline=...) with it")
+        if deadline is not None and deadline <= 0:
+            raise ValueError(f"round_deadline must be positive, got "
+                             f"{deadline}")
+        if fault_plan is not None:
+            for kind, needs in UNCONSUMED_FAULTS.items():
+                if any(i.kind == kind for i in fault_plan.injectors):
+                    raise ValueError(
+                        f"fault plan holds a {kind!r} injector, which the "
+                        f"port cannot apply yet: it needs {needs}")
         if self.cfg.async_buffer and not self.cfg.vectorize:
             raise ValueError("async_buffer dispatches whole waves through "
                              "the cohort-vectorized update; it cannot "
@@ -175,10 +228,32 @@ class FederatedTrainer:
         self._client_bytes_up = (
             self._codec.client_bytes(self.layout.numels)
             if self._codec is not None else 4 * self.layout.size)
+        # ---- chaos hardening ----
+        self.fault_plan = fault_plan
+        self._inject_deltas = (fault_plan is not None
+                               and fault_plan.injects_deltas)
+        self._magnitude = (fault_plan.explode_magnitude
+                           if fault_plan is not None else 1e12)
+        self._guard = None
+        if self.cfg.guard:
+            self._guard = UpdateGuard(GuardConfig(
+                quarantine_mult=self.cfg.guard_quarantine_mult,
+                clip_mult=self.cfg.guard_clip_mult,
+                window=self.cfg.guard_window,
+                min_history=self.cfg.guard_min_history))
+        # sync rounds mask timed-out clients; the async engine instead
+        # stops collecting arrivals at the deadline
+        self._deadline_mask = (deadline is not None
+                               and not self.cfg.async_buffer)
         self._cohort_round = make_cohort_round(
             loss_fn, self.layout, self.algo, self.algo_cfg.eta_l,
             self.algo_cfg.eta_g, optimizer=self.algo_cfg.local_optimizer,
-            codec=self._codec)
+            codec=self._codec, codec_ef=self._ef is not None,
+            guard=self._guard is not None,
+            guard_cfg=None if self._guard is None else self._guard.config,
+            inject_faults=self._inject_deltas,
+            deadline_mask=self._deadline_mask,
+            fault_magnitude=self._magnitude)
         self.local_update = client_mod.make_local_update(
             loss_fn, self.layout, self.algo_cfg.eta_l,
             optimizer=self.algo_cfg.local_optimizer)
@@ -187,12 +262,15 @@ class FederatedTrainer:
         self.schedule: List[np.ndarray] = []     # sampled cohort per round
         self._stager = CohortStager(self.source, self._sample_clients,
                                     self.device)
+        # a round deadline without async_buffer needs latencies too: the
+        # runtime model decides who times out
         self._runtime = None
         self._engine = None
         self._wave_runtime: Dict[int, tuple] = {}
-        if self.cfg.async_buffer:
+        if self.cfg.async_buffer or deadline is not None:
             self._runtime = (runtime if runtime is not None
                              else DeterministicRuntime())
+        if self.cfg.async_buffer:
             self._engine = self._build_async_engine(loss_fn)
 
     @property
@@ -211,6 +289,8 @@ class FederatedTrainer:
         """Split the round at the arrival buffer: a WAVE update (local
         training against the dispatch-time snapshot, then the codec's
         encode) and a staleness-weighted FOLD over the buffered deltas.
+        The fold decodes first, then applies the chaos extras in the sync
+        round's order — fault codes derived per arrival, then the guard.
         A staleness-aware rule (FedDPC) takes the discounts into its own
         scalars; any other rule gets the deltas pre-scaled by them."""
         local = client_mod.make_cohort_local_update(
@@ -219,6 +299,7 @@ class FederatedTrainer:
         algo, eta_g = self.algo, self.algo_cfg.eta_g
         codec = self._codec if self._codec_lossy else None
         offsets = self.layout.leaf_offsets
+        inject, guard = self._inject_deltas, self._guard is not None
 
         def wave_update(params, server_state, batches, masks):
             # a fresh stack per wave: the arrival heap keeps rows of it
@@ -227,22 +308,52 @@ class FederatedTrainer:
             if codec is None:
                 return deltas, losses
             # entries carry the wire payload; EF advances here, in
-            # dispatch order, as in the reference
-            return self._uplink(deltas)[1], losses
+            # dispatch order, over the whole wave, as in the reference
+            _, payload, resid = codec_stage(codec, deltas, self._ef, offsets)
+            if resid is not None:
+                self._ef = proj.masked_client_mean(resid)
+            return payload, losses
 
-        def fold(server_state, params, deltas, ids, weights):
+        def fold(server_state, params, deltas, ids, weights, *chaos):
             ids = torch.as_tensor(ids, device=self.device)
             weights = torch.as_tensor(weights, device=self.device)
             encoded = None
             if codec is not None:
                 encoded = deltas
                 deltas = codec.decode_cohort(encoded, offsets)
+            it = iter(chaos)
+            cm = gstats = None
+            if inject:
+                deltas = apply_fault_codes(deltas, next(it), self._magnitude)
+                encoded = None       # the payload no longer holds the rows
+            if guard:
+                deltas, ids, cm, gstats = apply_guard(
+                    deltas, ids, cm, next(it), self._guard.config)
+                encoded = None
             if algo.staleness_aware:
-                return algo.step(server_state, params, deltas, ids, eta_g,
-                                 0, staleness_weights=weights,
-                                 encoded=encoded, leaf_offsets=offsets)
-            return algo.step(server_state, params, weights[:, None] * deltas,
-                             ids, eta_g, 0)
+                out = algo.step(server_state, params, deltas, ids, eta_g, 0,
+                                client_mask=cm, staleness_weights=weights,
+                                encoded=encoded, leaf_offsets=offsets)
+            else:
+                out = algo.step(server_state, params,
+                                weights[:, None] * deltas, ids, eta_g, 0,
+                                client_mask=cm)
+            return out + (gstats,) if guard else out
+
+        fold_extras = None
+        if inject or guard:
+            def fold_extras(entries):
+                out = []
+                if inject:
+                    # per (kind, wave) the draws are prefix-stable in the
+                    # client id: per arrival equals the whole-cohort query
+                    out.append(torch.as_tensor(np.asarray(
+                        [self.fault_plan.delta_codes(
+                            e.wave, np.asarray([e.client]))[0]
+                         for e in entries], np.int32)))
+                if guard:
+                    out.append(self._guard.threshold())
+                return tuple(out)
 
         return BufferedAsyncEngine(
             pipeline=self._stager, wave_update=wave_update, fold=fold,
@@ -250,7 +361,9 @@ class FederatedTrainer:
             buffer_size=(self.cfg.buffer_size
                          or self.cfg.clients_per_round),
             alpha=self.cfg.staleness_alpha,
-            concurrency=self.cfg.async_concurrency)
+            concurrency=self.cfg.async_concurrency,
+            deadline=self.cfg.round_deadline, fold_extras=fold_extras,
+            fold_returns_stats=guard)
 
     def _sample_clients(self, t: int) -> np.ndarray:
         clients = np.asarray(self.sampler.sample(self.rng, t))
@@ -270,40 +383,79 @@ class FederatedTrainer:
             # the runtime draws right after the sampler's, wave by wave:
             # the reference's RNG stream, draw for draw
             lat, dropped = self._runtime.draw(self.rng, t, clients)
-            self._wave_runtime[t] = (np.asarray(lat, np.float64),
-                                     np.asarray(dropped, bool))
+            lat = np.asarray(lat, np.float64)
+            if self.fault_plan is not None:
+                # hangs: stateless, added after the draw, so the RNG
+                # stream is the no-faults stream
+                lat = lat + self.fault_plan.latency_boost(t, clients)
+            self._wave_runtime[t] = (lat, np.asarray(dropped, bool))
         return clients
 
-    def _uplink(self, deltas: torch.Tensor):
-        """The codec stage outside the cohort round (serial rounds, async
-        waves): returns (the deltas the server aggregates — decoded with
-        a lossy codec —, the payload or None) and advances the
-        error-feedback accumulator."""
-        if not self._codec_lossy:
-            return deltas, None
-        decoded, payload, new_ef = codec_stage(
-            self._codec, deltas, self._ef, self.layout.leaf_offsets)
-        if new_ef is not None:
-            self._ef = new_ef
-        return decoded, payload
+    def _deadline_live(self, t: int, extra: Dict[str, Any]):
+        """(live, shipped) masks of round t's clients under the deadline.
+        A late client shipped its update (it pays its uplink) but arrived
+        too late for the fold; a runtime dropout shipped nothing."""
+        lat, dropped = self._wave_runtime.pop(t)
+        live = ~dropped & (lat <= self.cfg.round_deadline)
+        extra["deadline_dropped"] = int((~live).sum())
+        extra["deadline_fired"] = int((~live).any())
+        return live, ~dropped
+
+    def _observe_guard(self, gstats, live: np.ndarray,
+                       extra: Dict[str, Any]):
+        """Count the round's quarantined and clipped rows among the live
+        ones (a row both dropped and bad counts as dropped) and feed the
+        accepted norms to the guard's window, in round order."""
+        q = gstats["quarantined"].cpu().numpy()
+        c = gstats["clipped"].cpu().numpy()
+        norms = gstats["norm"].cpu().numpy()
+        extra["quarantined"] = int((q & live).sum())
+        extra["clipped"] = int((c & live).sum())
+        self._guard.observe(norms[live & ~q],
+                            quarantined=extra["quarantined"],
+                            clipped=extra["clipped"])
 
     def _run_round_vectorized(self, t: int):
         staged = self._stager.stage_blocking(t)
-        (self.flat, self.server_state, losses, diag,
-         new_ef) = self._cohort_round(self.server_state, self.flat,
-                                      staged.batches, staged.masks,
-                                      staged.ids, self._ef)
-        if new_ef is not None:
-            self._ef = new_ef
         n = len(staged.clients)
-        return float(losses.mean()), diag, {
-            "comm_bytes_up": self._client_bytes_up * n}
+        args = [self.server_state, self.flat, staged.batches, staged.masks,
+                staged.ids]
+        extra: Dict[str, Any] = {}
+        live = shipped = np.ones(n, bool)
+        if self._inject_deltas:
+            args.append(torch.as_tensor(
+                self.fault_plan.delta_codes(t, staged.clients),
+                device=self.device))
+        if self._deadline_mask:
+            live, shipped = self._deadline_live(t, extra)
+            args.append(torch.as_tensor(live, device=self.device))
+        if self._guard is not None:
+            args.append(self._guard.threshold())
+        if self._ef is not None:
+            args.append(self._ef)
+        outs = list(self._cohort_round(*args))
+        if self._ef is not None:
+            self._ef = outs.pop()
+        gstats = outs.pop() if self._guard is not None else None
+        self.flat, self.server_state, losses, diag = outs
+        if gstats is not None:
+            self._observe_guard(gstats, live, extra)
+        extra["comm_bytes_up"] = self._client_bytes_up * int(shipped.sum())
+        # the loss over the clients whose update arrived
+        losses_h = losses.cpu().numpy()
+        return (float(losses_h[live].mean()) if live.any() else 0.0), \
+            diag, extra
 
     def _run_round_serial(self, t: int):
+        """One client at a time, then the round's stages on the stacked
+        deltas in the reference's serial order: faults, encode and
+        decode, deadline mask, guard, error feedback; the server rule
+        gets the decoded rows (no payload)."""
         clients = self._sample_clients(t)
         lists = self._stager.client_lists(clients, t)
-        deltas = torch.empty((len(clients), self.layout.size),
-                             dtype=torch.float32, device=self.device)
+        n = len(clients)
+        deltas = torch.empty((n, self.layout.size), dtype=torch.float32,
+                             device=self.device)
         losses = []
         for j, blist in enumerate(lists):
             batches, mask = to_device(
@@ -311,26 +463,54 @@ class FederatedTrainer:
             _, loss = self.local_update(self.flat, batches, mask,
                                         out=deltas[j])
             losses.append(float(loss))
-        # the reference's serial path decodes and aggregates the decoded
-        # rows with the plain fold (no payload to the server rule)
-        deltas, _ = self._uplink(deltas)
         ids = torch.as_tensor(clients, dtype=torch.int32, device=self.device)
+        extra: Dict[str, Any] = {}
+        cm = resid = None
+        live = shipped = np.ones(n, bool)
+        if self._inject_deltas:
+            deltas = apply_fault_codes(
+                deltas, torch.as_tensor(self.fault_plan.delta_codes(
+                    t, clients)), self._magnitude)
+        if self._codec_lossy:
+            deltas, _, resid = codec_stage(self._codec, deltas, self._ef,
+                                           self.layout.leaf_offsets)
+        if self._deadline_mask:
+            live, shipped = self._deadline_live(t, extra)
+            cm = torch.as_tensor(live, device=self.device)
+            ids = torch.where(cm, ids, torch.full_like(ids, ID_SENTINEL))
+        if self._guard is not None:
+            deltas, ids, cm, gstats = apply_guard(
+                deltas, ids, cm, self._guard.threshold(), self._guard.config)
+            self._observe_guard(gstats, live, extra)
+        if resid is not None:
+            self._ef = proj.masked_client_mean(resid, cm)
         self.flat, self.server_state, diag = self.algo.step(
-            self.server_state, self.flat, deltas, ids, self.algo_cfg.eta_g, 0)
-        return float(np.mean(losses)), diag, {
-            "comm_bytes_up": self._client_bytes_up * len(clients)}
+            self.server_state, self.flat, deltas, ids, self.algo_cfg.eta_g,
+            0, client_mask=cm)
+        extra["comm_bytes_up"] = self._client_bytes_up * int(shipped.sum())
+        losses_h = np.asarray(losses)
+        return (float(losses_h[live].mean()) if live.any() else 0.0), \
+            diag, extra
 
     def _run_round_async(self, t: int):
         """One buffered-async server step: the engine collects the next
-        buffer_size arrivals (dispatching waves as concurrency allows)
-        and folds them with their staleness discounts."""
+        buffer_size arrivals (dispatching waves as concurrency allows,
+        stopping at the round deadline) and folds them with their
+        staleness discounts."""
         self.flat, self.server_state, m = self._engine.run_server_round(
             t, self.flat, self.server_state)
-        return m["train_loss"], m["diag"], {
-            "staleness_mean": m["staleness_mean"],
-            "staleness_max": m["staleness_max"],
-            # bytes are paid when an update ships, whichever fold takes it
-            "comm_bytes_up": self._client_bytes_up * int(m["n_shipped"])}
+        extra = {"staleness_mean": m["staleness_mean"],
+                 "staleness_max": m["staleness_max"],
+                 # bytes are paid when an update ships, whichever fold
+                 # takes it
+                 "comm_bytes_up": self._client_bytes_up * int(m["n_shipped"])}
+        if self.cfg.round_deadline is not None:
+            extra["deadline_fired"] = int(m["deadline_fired"])
+            extra["deadline_dropped"] = int(m["deadline_dropped"])
+        if m["guard_stats"] is not None:
+            self._observe_guard(m["guard_stats"],
+                                np.ones(int(m["n_arrivals"]), bool), extra)
+        return m["train_loss"], m["diag"], extra
 
     # ---- public ----
 

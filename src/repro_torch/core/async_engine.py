@@ -77,16 +77,20 @@ class BufferedAsyncEngine:
                      (deltas (K, ...), losses (K,)) — the cohort local
                      update against the CURRENT snapshot, in new tensors
       fold           (server_state, params, deltas (B, ...), ids (B,)
-                     int32, weights (B,) f32, both numpy) ->
-                     (new_params, new_state, diag)
+                     int32, weights (B,) f32, both numpy, *extras) ->
+                     (new_params, new_state, diag[, guard_stats])
       runtime_take   wave -> (latencies (k,), dropped (k,)) — the
                      latency draws made at sampling time
+      fold_extras    optional: the arrival list -> extra fold inputs
+                     (the chaos layer's fault codes and guard threshold)
     """
 
     def __init__(self, *, pipeline, wave_update: Callable,
                  fold: Callable, runtime_take: Callable,
                  buffer_size: int, alpha: float = 0.5,
-                 concurrency: int = 1, deadline: float = None):
+                 concurrency: int = 1, deadline: float = None,
+                 fold_extras: Callable = None,
+                 fold_returns_stats: bool = False):
         if buffer_size < 1:
             raise ValueError(f"buffer_size must be >= 1, got {buffer_size}")
         if concurrency < 1:
@@ -108,6 +112,11 @@ class BufferedAsyncEngine:
         # arrival always folds). Stragglers stay in flight and fold later
         # with their staleness discount; nothing is discarded.
         self.deadline = None if deadline is None else float(deadline)
+        # chaos hooks (trainer-owned): fold_extras maps the arrivals to
+        # extra fold inputs; fold_returns_stats marks a fold that returns
+        # the guard's stats as a 4th element, surfaced in the metrics
+        self.fold_extras = fold_extras
+        self.fold_returns_stats = fold_returns_stats
         self.clock = 0.0               # virtual time of the last arrival
         self.seq = 0                   # global dispatch counter (tiebreak)
         self.wave_frontier = 0         # next wave to dispatch
@@ -198,8 +207,14 @@ class BufferedAsyncEngine:
         ids = np.asarray([e.client for e in arrivals], np.int32)
         stacked = tree_map(lambda *xs: torch.stack(xs),
                            *[e.delta for e in arrivals])
-        params, server_state, diag = self.fold(server_state, params,
-                                               stacked, ids, weights)
+        extras = self.fold_extras(arrivals) if self.fold_extras else ()
+        out = self.fold(server_state, params, stacked, ids, weights,
+                        *extras)
+        gstats = None
+        if self.fold_returns_stats:
+            params, server_state, diag, gstats = out
+        else:
+            params, server_state, diag = out
         self.version += 1
         metrics = {
             "train_loss": float(np.mean([e.loss for e in arrivals])),
@@ -209,6 +224,7 @@ class BufferedAsyncEngine:
             "host_seconds": host_s,
             "device_seconds": dev_s,
             "n_arrivals": len(arrivals),
+            "guard_stats": gstats,
             # uplink accounting: updates SHIPPED (pushed in flight) while
             # this round collected — bytes are paid at ship time whether
             # or not this fold consumed the update

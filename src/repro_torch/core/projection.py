@@ -29,6 +29,13 @@ def tree_norm(a: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(tree_sqnorm(a))
 
 
+def tree_nonfinite_count(a: torch.Tensor) -> torch.Tensor:
+    """Number of NaN/Inf entries over the flat vector (last axis), as f32
+    — the update guard's validity reduction; on the card the guard takes
+    it from ``feddpc_guard_dots`` in the same pass as ||Δ||²."""
+    return torch.sum(~torch.isfinite(a), dim=-1).float()
+
+
 def masked_client_mean(x: torch.Tensor,
                        client_mask: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
@@ -79,3 +86,25 @@ def projection_scalars(delta: torch.Tensor, delta_prev: torch.Tensor,
     dd = tree_sqnorm(delta)
     pp = tree_sqnorm(delta_prev).expand_as(dp)
     return scalars_from_dots(dp, dd, pp, lam)
+
+
+def project_and_scale(delta: torch.Tensor, delta_prev: torch.Tensor,
+                      lam: float, use_kernel: bool = False
+                      ) -> Tuple[torch.Tensor, dict]:
+    """Paper Algorithm 1 lines 17–17b for ONE client's flat delta (N,):
+
+        resid  = delta - Proj_{delta_prev}(delta)
+        scaled = (lam + ||delta|| / ||resid||) * resid
+
+    Returns (scaled residual in delta's dtype, diagnostics). The
+    epilogue is ``feddpc_fused_epilogue``: its kernel for CUDA tensors,
+    its plain version for CPU tensors — the tensors' device decides, as
+    in ``feddpc.server_step``; ``use_kernel`` is accepted for the
+    reference's signature and changes nothing."""
+    # imported here: ops imports this module for scalars_from_dots
+    from repro_torch.kernels.feddpc_project import ops as k_ops
+    del use_kernel
+    coef, scale, diag = projection_scalars(delta, delta_prev, lam)
+    scaled = k_ops.feddpc_fused_epilogue(delta, delta_prev.float(), coef,
+                                         scale)
+    return scaled, diag

@@ -7,6 +7,12 @@
 //   partials (K, G, 3); the caller sums over G (one small reduction), as
 //   the reference sums its (G, 3) partials outside the kernel.
 //
+// feddpc_guard_dots  replaces kernel.py:guard_dots
+//   the same pass for the update guard: the dots on d with its non-finite
+//   entries zeroed, plus the count of those entries, as (K, G, 4)
+//   partials. Without p (the guard's route: it needs only ||d~||^2 and
+//   the count) p is not read and columns 0 and 2 are 0.
+//
 // feddpc_batched_epilogue  replaces
 //   src/repro/kernels/feddpc_project/kernel.py:batched_epilogue
 //   dt = mean_j scale_j * (d_j - coef_j * p);  w' = w - eta_g * dt.
@@ -21,8 +27,13 @@
 //   d_j = q_j * qscale[j, leaf] + qzero[j, leaf], one (scale, zero) pair
 //   per client and parameter leaf; the f32 deltas never reach HBM.
 //
-// The four folds are one templated kernel (payload type, dequant,
-// weights). All five kernels are bound by HBM bytes: a few flops per element against 4 bytes
+// feddpc_fused_epilogue  replaces kernel.py:fused_epilogue
+//   one client's epilogue, out = scale * (d - coef * p), cast to d's type
+//   (f32 or bf16; p f32) — projection.project_and_scale's second pass.
+//
+// The two reduction passes are one templated kernel (guard column or
+// not), the four folds another (payload type, dequant, weights). All
+// seven kernels are bound by HBM bytes: a few flops per element against 4 bytes
 // read, far below the card's ~20 flops per byte of f32 ridge. So each
 // moves only what it must:
 //   * one block owns a tile of columns and walks ALL K rows for it, so
@@ -60,10 +71,19 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// The reduction pass. kGuard adds the update guard's column: non-finite
+// entries of d count (in integers, per thread, then per warp and block:
+// a block's count is at most kTile, so its f32 partial is exact, and so
+// are the caller's sums over G for any N below 2^24) and are zeroed
+// before they enter the dots. p == nullptr (kGuard only) reads no p:
+// every p value is 0, so columns 0 and 2 come out 0.
+template <bool kGuard>
 __global__ void __launch_bounds__(kThreads)
 dots_kernel(const float* __restrict__ d, const float* __restrict__ p,
             float* __restrict__ out, int64_t k, int64_t n) {
+  constexpr int kCols = kGuard ? 4 : 3;
   __shared__ float red[kRowChunk][kWarps][2];
+  __shared__ int red_nf[kGuard ? kRowChunk : 1][kWarps];
   __shared__ float red_pp[kWarps];
   const int64_t g = blockIdx.x;
   const int64_t nblocks = gridDim.x;
@@ -78,7 +98,7 @@ dots_kernel(const float* __restrict__ d, const float* __restrict__ p,
 #pragma unroll
   for (int i = 0; i < kItems; ++i) {
     const int64_t c = col0 + (int64_t)i * kThreads;
-    pv[i] = c < n ? __ldg(p + c) : 0.f;
+    pv[i] = (c < n && (!kGuard || p != nullptr)) ? __ldg(p + c) : 0.f;
     pp = fmaf(pv[i], pv[i], pp);
   }
   pp = warp_sum(pp);
@@ -89,27 +109,48 @@ dots_kernel(const float* __restrict__ d, const float* __restrict__ p,
     for (int r = 0; r < rows; ++r) {
       const float* dj = d + (j0 + r) * n;
       float dp = 0.f, dd = 0.f;
+      int nf = 0;
 #pragma unroll
       for (int i = 0; i < kItems; ++i) {
         const int64_t c = col0 + (int64_t)i * kThreads;
-        const float dv = c < n ? __ldg(dj + c) : 0.f;
+        float dv = c < n ? __ldg(dj + c) : 0.f;
+        if constexpr (kGuard) {
+          // non-finite: all exponent bits set (Inf or NaN)
+          const bool bad =
+              (__float_as_uint(dv) & 0x7f800000u) == 0x7f800000u;
+          nf += bad;
+          dv = bad ? 0.f : dv;
+        }
         dp = fmaf(dv, pv[i], dp);
         dd = fmaf(dv, dv, dd);
       }
       dp = warp_sum(dp);
       dd = warp_sum(dd);
+      if constexpr (kGuard) {
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          nf += __shfl_xor_sync(0xffffffffu, nf, o);
+      }
       if (lane == 0) {
         red[r][warp][0] = dp;
         red[r][warp][1] = dd;
+        if constexpr (kGuard) red_nf[r][warp] = nf;
       }
     }
     __syncthreads();
-    for (int t = threadIdx.x; t < rows * 3; t += kThreads) {
-      const int r = t / 3;
-      const int col = t % 3;
+    for (int t = threadIdx.x; t < rows * kCols; t += kThreads) {
+      const int r = t / kCols;
+      const int col = t % kCols;
       float s = 0.f;
-      for (int w = 0; w < kWarps; ++w) s += col < 2 ? red[r][w][col] : red_pp[w];
-      out[((j0 + r) * nblocks + g) * 3 + col] = s;
+      if (col == 3) {
+        int cnt = 0;
+        for (int w = 0; w < kWarps; ++w) cnt += red_nf[kGuard ? r : 0][w];
+        s = (float)cnt;
+      } else {
+        for (int w = 0; w < kWarps; ++w)
+          s += col < 2 ? red[r][w][col] : red_pp[w];
+      }
+      out[((j0 + r) * nblocks + g) * kCols + col] = s;
     }
     __syncthreads();  // red is reused by the next chunk of rows
   }
@@ -240,6 +281,38 @@ int launch_fold(const void* d, const void* qscale, const void* qzero,
   return (int)cudaGetLastError();
 }
 
+// out = scale * (d - coef * p), one element per column, in d's type.
+// coef and scale are one f32 each in device memory (written by the
+// reduction pass's scalar math, no host sync). The _rn intrinsics keep
+// the plain version's three roundings (no FMA contraction).
+__device__ __forceinline__ void store_value(float* __restrict__ row,
+                                            int64_t c, float v) {
+  row[c] = v;
+}
+__device__ __forceinline__ void store_value(__nv_bfloat16* __restrict__ row,
+                                            int64_t c, float v) {
+  row[c] = __float2bfloat16_rn(v);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+epilogue_kernel(const T* __restrict__ d, const float* __restrict__ p,
+                const float* __restrict__ coef,
+                const float* __restrict__ scale, T* __restrict__ out,
+                int64_t n) {
+  const float cj = __ldg(coef);
+  const float sj = __ldg(scale);
+  const int64_t col0 = (int64_t)blockIdx.x * kTile + threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const int64_t c = col0 + (int64_t)i * kThreads;
+    if (c < n) {
+      const float r = __fsub_rn(load_value(d, c), __fmul_rn(cj, __ldg(p + c)));
+      store_value(out, c, __fmul_rn(sj, r));
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -250,8 +323,20 @@ int64_t feddpc_num_blocks(int64_t n) { return (n + kTile - 1) / kTile; }
 int feddpc_dots(const void* d, const void* p, void* out, int64_t k, int64_t n,
                 void* stream) {
   if (k < 1 || n < 1) return (int)cudaErrorInvalidValue;
-  dots_kernel<<<(unsigned)feddpc_num_blocks(n), kThreads, 0,
-                (cudaStream_t)stream>>>(
+  dots_kernel<false><<<(unsigned)feddpc_num_blocks(n), kThreads, 0,
+                       (cudaStream_t)stream>>>(
+      (const float*)d, (const float*)p, (float*)out, k, n);
+  return (int)cudaGetLastError();
+}
+
+// d (k, n), p (n,) or null -> out (k, feddpc_num_blocks(n), 4) partials
+// of <d~, p>, <d~, d~>, <p, p>, nonfinite(d) with d~ = d, non-finite
+// entries zeroed; null p gives 0 in columns 0 and 2
+int feddpc_guard_dots(const void* d, const void* p, void* out, int64_t k,
+                      int64_t n, void* stream) {
+  if (k < 1 || n < 1) return (int)cudaErrorInvalidValue;
+  dots_kernel<true><<<(unsigned)feddpc_num_blocks(n), kThreads, 0,
+                      (cudaStream_t)stream>>>(
       (const float*)d, (const float*)p, (float*)out, k, n);
   return (int)cudaGetLastError();
 }
@@ -316,6 +401,27 @@ int feddpc_dequant_buffer_fold(const void* q, int qtype, const void* qscale,
         q, qscale, qzero, offsets, nleaves, p, w, coefs, scales, wgts, eta_g,
         w_out, dt_out, b, n, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// d (n,) f32 (dtype 0) or bf16 (dtype 1), p (n,) f32, coef and scale one
+// f32 each on the device -> out (n,) of d's type; out must not alias
+int feddpc_fused_epilogue(const void* d, int dtype, const void* p,
+                          const void* coef, const void* scale, void* out,
+                          int64_t n, void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)feddpc_num_blocks(n);
+  if (dtype == 0)
+    epilogue_kernel<float><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)d, (const float*)p, (const float*)coef,
+        (const float*)scale, (float*)out, n);
+  else if (dtype == 1)
+    epilogue_kernel<__nv_bfloat16>
+        <<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+            (const __nv_bfloat16*)d, (const float*)p, (const float*)coef,
+            (const float*)scale, (__nv_bfloat16*)out, n);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }
 
 const char* feddpc_error_string(int err) {

@@ -8,6 +8,12 @@ client deltas; the four folds compute Δ_t and w' from it:
   feddpc_dequant_batched_epilogue  synchronous round, int8/bf16 payload
   feddpc_dequant_buffer_fold       buffered-async round, int8/bf16 payload
 
+``feddpc_guard_dots`` is the update guard's reduction pass (the dots on
+the stack with non-finite entries zeroed, plus their count), and
+``feddpc_fused_epilogue`` one client's epilogue, scale·(d − coef·p), the
+second pass of ``project_and_scale_flat`` and of
+``core/projection.project_and_scale``.
+
 Each wrapper checks device, dtype, shape and contiguity, then
 
   * for CUDA tensors launches its kernel on the current stream (or
@@ -32,6 +38,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.core import projection as proj
 from repro_torch.kernels.feddpc_project import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "feddpc_project.cu"
@@ -43,6 +50,7 @@ _lib = None           # the loaded library, once per process
 build_seconds = None  # wall time of this process's nvcc build (None: cached)
 MAX_LEAVES = 6143     # the dequant folds keep L+1 offsets in 48 KB of smem
 QTYPES = {torch.int8: 0, torch.bfloat16: 1}   # payload dtype -> kernel code
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # epilogue d dtype -> code
 # device copies of leaf offsets, keyed by (device, offsets); a handful of
 # layouts per process, so the copy (which waits for the stream) happens
 # once per layout and not once per round
@@ -95,8 +103,12 @@ def _load():
         vp, i64, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
         lib.feddpc_num_blocks.argtypes = [i64]
         lib.feddpc_num_blocks.restype = i64
-        lib.feddpc_dots.argtypes = [vp, vp, vp, i64, i64, vp]
-        lib.feddpc_dots.restype = ctypes.c_int
+        for fn in (lib.feddpc_dots, lib.feddpc_guard_dots):
+            fn.argtypes = [vp, vp, vp, i64, i64, vp]
+            fn.restype = ctypes.c_int
+        lib.feddpc_fused_epilogue.argtypes = [vp, ctypes.c_int, vp, vp, vp,
+                                              vp, i64, vp]
+        lib.feddpc_fused_epilogue.restype = ctypes.c_int
         lib.feddpc_batched_epilogue.argtypes = [vp, vp, vp, vp, vp, f32,
                                                 vp, vp, i64, i64, vp]
         lib.feddpc_buffer_fold.argtypes = [vp, vp, vp, vp, vp, vp, f32, vp,
@@ -209,6 +221,78 @@ def feddpc_dots(d: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return torch.sum(partials, dim=1)
 
 
+def feddpc_guard_dots(d: torch.Tensor, p=None) -> torch.Tensor:
+    """The update guard's reduction pass: d (K, N) f32, p (N,) f32 or
+    None -> (K, 4) f32 = [<d~_j,p>, <d~_j,d~_j>, <p,p>, nonfinite(d_j)]
+    per row j, where d~ is d with its NaN/Inf entries zeroed. Without p
+    (the guard's route) p is not read and columns 0 and 2 are 0. The
+    count is exact for N < 2^24."""
+    named = {} if p is None else {"p": p}
+    _check("feddpc_guard_dots", d, (torch.float32,), **named)
+    if d.device.type == "cpu":
+        return ref.guard_dots_ref(d, p)
+    lib = _load()
+    k, n = d.shape
+    partials = torch.empty((k, dots_num_blocks(n), 4),
+                           device=d.device, dtype=torch.float32)
+    with torch.cuda.device(d.device):
+        err = lib.feddpc_guard_dots(
+            d.data_ptr(), None if p is None else p.data_ptr(),
+            partials.data_ptr(), k, n,
+            torch.cuda.current_stream().cuda_stream)
+    _check_launch(lib, err, "feddpc_guard_dots")
+    feddpc_guard_dots.launches += 1
+    return torch.sum(partials, dim=1)
+
+
+def feddpc_fused_epilogue(d: torch.Tensor, p: torch.Tensor,
+                          coef: torch.Tensor, scale: torch.Tensor
+                          ) -> torch.Tensor:
+    """One client's epilogue: d (N,) f32 or bf16, p (N,) f32, coef and
+    scale one-element f32 tensors on d's device (from the reduction
+    pass, so no host sync) -> new (N,) tensor of d's dtype,
+    scale * (d - coef * p) computed in f32."""
+    name = "feddpc_fused_epilogue"
+    if d.dim() != 1 or d.shape[0] < 1:
+        raise ValueError(f"{name}: d must be (N,) with N >= 1, got "
+                         f"{tuple(d.shape)}")
+    _check(name, d[None], tuple(DTYPES), p=p)
+    for key, t in (("coef", coef), ("scale", scale)):
+        if not isinstance(t, torch.Tensor) or t.numel() != 1 or t.dim() > 1:
+            raise ValueError(f"{name}: {key} must be a tensor of shape () "
+                             "or (1,)")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {key} must be float32, got {t.dtype}")
+        if t.device != d.device:
+            raise ValueError(f"{name}: {key} is on {t.device}, d on "
+                             f"{d.device}")
+    if d.device.type == "cpu":
+        return ref.epilogue_ref(d, p, coef, scale)
+    lib = _load()
+    out = torch.empty_like(d)
+    with torch.cuda.device(d.device):
+        err = lib.feddpc_fused_epilogue(
+            d.data_ptr(), DTYPES[d.dtype], p.data_ptr(), coef.data_ptr(),
+            scale.data_ptr(), out.data_ptr(), d.shape[0],
+            torch.cuda.current_stream().cuda_stream)
+    _check_launch(lib, err, name)
+    feddpc_fused_epilogue.launches += 1
+    return out
+
+
+def project_and_scale_flat(d: torch.Tensor, p: torch.Tensor,
+                           lam: float = 1.0) -> torch.Tensor:
+    """FedDPC's whole per-client modification of one flat delta d (N,)
+    (f32 or bf16) against p = Δ_prev (N,) f32, in two passes: the dots
+    (``feddpc_dots``), the scalars on the device, then
+    ``feddpc_fused_epilogue``. Returns scale·(d − coef·p) in d's dtype."""
+    df = d if d.dtype == torch.float32 else d.float()
+    dots = feddpc_dots(df.reshape(1, -1), p)
+    coef, scale, _ = proj.scalars_from_dots(dots[:, 0], dots[:, 1],
+                                            dots[:, 2], lam)
+    return feddpc_fused_epilogue(d, p, coef, scale)
+
+
 def _fold(name: str, d: torch.Tensor, p: torch.Tensor, w: torch.Tensor,
           coefs: torch.Tensor, scales: torch.Tensor, wgts, eta_g: float,
           qscale=None, qzero=None, leaf_offsets=None):
@@ -313,7 +397,8 @@ def feddpc_dequant_buffer_fold(q: torch.Tensor, qscale: torch.Tensor,
 
 
 KERNELS = (feddpc_dots, feddpc_batched_epilogue, feddpc_buffer_fold,
-           feddpc_dequant_batched_epilogue, feddpc_dequant_buffer_fold)
+           feddpc_dequant_batched_epilogue, feddpc_dequant_buffer_fold,
+           feddpc_guard_dots, feddpc_fused_epilogue)
 for _fn in KERNELS:
     _fn.launches = 0
 

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the FedDPC server-step kernels, on the flat
 (K, N) layout (counterparts of repro/kernels/feddpc_project/ref.py's
-``dots_ref``, ``batched_epilogue_ref``, ``buffer_fold_ref``,
-``dequant_ref`` and the two dequant folds).
+``dots_ref``, ``guard_dots_ref``, ``epilogue_ref``,
+``batched_epilogue_ref``, ``buffer_fold_ref``, ``dequant_ref``, the two
+dequant folds and ``project_and_scale_flat_ref``).
 
 The dequant folds read the codec's flat payload: q (K, N) int8 or bf16
 and one (scale, zero) pair per client and leaf, qscale/qzero (K, L),
@@ -23,6 +24,50 @@ def dots_ref(d: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     pp = torch.sum(pf * pf).expand(d.shape[0])
     return torch.stack([torch.sum(df * pf, dim=-1),
                         torch.sum(df * df, dim=-1), pp], dim=-1)
+
+
+def guard_dots_ref(d: torch.Tensor, p=None) -> torch.Tensor:
+    """d (K, N), p (N,) or None -> (K, 4) = [<d~,p>, <d~,d~>, <p,p>,
+    nonfinite(d)] in f32, d~ being d with its non-finite entries zeroed.
+    Without p, columns 0 and 2 are 0."""
+    df = d.float()
+    finite = torch.isfinite(df)
+    dz = torch.where(finite, df, torch.zeros_like(df))
+    dd = torch.sum(dz * dz, dim=-1)
+    if p is None:
+        dp = pp = torch.zeros_like(dd)
+    else:
+        pf = p.float()
+        dp = torch.sum(dz * pf, dim=-1)
+        pp = torch.sum(pf * pf).expand(d.shape[0])
+    nf = torch.sum(~finite, dim=-1).float()
+    return torch.stack([dp, dd, pp, nf], dim=-1)
+
+
+def epilogue_ref(d: torch.Tensor, p: torch.Tensor, coef, scale
+                 ) -> torch.Tensor:
+    """One client's epilogue: scale * (d - coef * p) in f32, cast to d's
+    dtype; coef and scale one-element tensors (or floats)."""
+    c = torch.as_tensor(coef, dtype=torch.float32).reshape(())
+    s = torch.as_tensor(scale, dtype=torch.float32).reshape(())
+    return (s * (d.float() - c * p.float())).to(d.dtype)
+
+
+def project_and_scale_flat_ref(d: torch.Tensor, p: torch.Tensor,
+                               lam: float, eps: float = 1e-12
+                               ) -> torch.Tensor:
+    """FedDPC's whole per-client modification of one flat delta (N,),
+    with an explicit residual: scale·(d − coef·p), scale = lam +
+    ||d|| / ||resid||."""
+    df, pf = d.float(), p.float()
+    dp = torch.dot(df, pf)
+    pp = torch.dot(pf, pf)
+    coef = torch.where(pp > eps, dp / torch.clamp(pp, min=eps),
+                       torch.zeros_like(dp))
+    resid = df - coef * pf
+    scale = lam + torch.linalg.norm(df) / torch.clamp(
+        torch.linalg.norm(resid), min=eps)
+    return (scale * resid).to(d.dtype)
 
 
 def batched_epilogue_ref(d: torch.Tensor, p: torch.Tensor, w: torch.Tensor,

@@ -6,8 +6,8 @@ experiment on synthetic heterogeneous data), on the card by default:
       --rounds 50 --alpha 0.2 --clients 100 --participation 0.1 \\
       --eta-l 0.01 --eta-g 0.01
 
-Counterpart of repro/launch/train.py with its main-path, buffered-async
-and codec flags; vision data streams from the synthetic Dirichlet-
+Counterpart of repro/launch/train.py with its main-path, buffered-async,
+codec and chaos flags; vision data streams from the synthetic Dirichlet-
 partitioned image task, and the participation model is uniform.
 ``--device cpu`` runs on the CPU; without it the script raises when CUDA
 is absent. Buffered-async rounds with an int8 uplink and error feedback:
@@ -15,6 +15,13 @@ is absent. Buffered-async rounds with an int8 uplink and error feedback:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --model lenet5 --async-buffer --runtime exponential \\
       --buffer-size 2 --async-concurrency 3 --codec int8 --codec-ef
+
+Guarded rounds under injected faults and a round deadline:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --model lenet5 --guard --round-deadline 2.0 --runtime exponential \\
+      --fault-plan '{"seed": 0, "injectors": [{"kind": "nan_delta",
+      "rate": 0.2}]}'
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ from repro_torch.core.api import (AlgoConfig, ExecConfig, FederatedTrainer,
                                   resolve_device)
 from repro_torch.codec import codec_names
 from repro_torch.core.baselines import default_hyper
+from repro_torch.core.faults import FaultPlan
 from repro_torch.core.runtime import make_runtime
 from repro_torch.core.samplers import UniformSampler
 from repro_torch.ingest.images import (StreamingImageSource,
@@ -115,6 +123,19 @@ def main(argv=None):
                     help="server-side error feedback for a lossy --codec: "
                          "clients ship delta + the running mean "
                          "quantization residual (needs a lossy codec)")
+    ap.add_argument("--guard", action="store_true",
+                    help="update guard: quarantine non-finite / exploded-"
+                         "norm client deltas, clip outliers against the "
+                         "rolling robust norm threshold")
+    ap.add_argument("--round-deadline", type=float, default=None,
+                    help="virtual-seconds round deadline: sync rounds "
+                         "drop and mask clients whose runtime draw misses "
+                         "it; async rounds fold the partial buffer (the "
+                         "--runtime model draws the latencies)")
+    ap.add_argument("--fault-plan", default=None,
+                    help="chaos harness: a JSON FaultPlan config (inline, "
+                         "or @/path/to/plan.json) — the seeded injector "
+                         "schedule of core/faults.py")
     ap.add_argument("--device", default="cuda",
                     help="torch device; the default needs a card")
     ap.add_argument("--out", default=None)
@@ -134,16 +155,25 @@ def main(argv=None):
                      staleness_alpha=args.staleness_alpha,
                      async_concurrency=args.async_concurrency,
                      codec=args.codec,
-                     codec_ef=True if args.codec_ef else None)
+                     codec_ef=True if args.codec_ef else None,
+                     guard=args.guard, round_deadline=args.round_deadline)
     runtime = None
-    if args.async_buffer:
+    if args.async_buffer or args.round_deadline is not None:
         rt_kw = ({} if args.runtime == "deterministic"
                  else {"dropout": args.runtime_dropout})
         runtime = make_runtime(args.runtime, args.clients, **rt_kw)
+    fault_plan = None
+    if args.fault_plan:
+        raw = args.fault_plan
+        if raw.startswith("@"):
+            with open(raw[1:]) as fh:
+                raw = fh.read()
+        fault_plan = FaultPlan.from_config(json.loads(raw))
     trainer = FederatedTrainer(loss_fn, params, args.clients, source, cfg,
                                eval_fn, algo=algo,
                                sampler=UniformSampler(args.clients, cohort),
-                               runtime=runtime, device=device)
+                               runtime=runtime, fault_plan=fault_plan,
+                               device=device)
     hist = trainer.run(verbose=True)
     best, at = trainer.best_accuracy
     print(f"best eval {best} @ round {at}")

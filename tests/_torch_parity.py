@@ -56,14 +56,16 @@ def quickstart_init():
 
 
 @functools.lru_cache(maxsize=None)
-def run_reference(name, rounds, exec_kw=(), runtime=None):
+def run_reference(name, rounds, exec_kw=(), runtime=None, faults=None):
     """The reference's FederatedTrainer with blocking staging (so it draws
     exactly the waves it dispatches, as the port does). ``exec_kw`` is a
     tuple of ExecConfig (key, value) pairs; ``runtime`` is (class name in
-    repro.core.runtime, tuple of (key, value) pairs) or None. Returns
-    (history, schedule, flat params); cached, so callers must not mutate
-    them."""
+    repro.core.runtime, tuple of (key, value) pairs) or None; ``faults``
+    a tuple of (key, value) pairs for ``FaultPlan.seeded`` (its seed
+    included) or None. Returns (history, schedule, flat params); cached,
+    so callers must not mutate them."""
     from repro.core import runtime as ref_runtime
+    from repro.core.faults import FaultPlan
     from repro.core.api import AlgoConfig, ExecConfig, FederatedTrainer
     from repro.core.baselines import FedDPCHyper
     from repro.core.samplers import UniformSampler
@@ -83,17 +85,25 @@ def run_reference(name, rounds, exec_kw=(), runtime=None):
                             hyper=FedDPCHyper(lam=1.0)
                             if name == "feddpc" else None),
             sampler=UniformSampler(QS_CLIENTS, QS_COHORT),
-            runtime=rt) as tr:
+            runtime=rt, fault_plan=_plan(FaultPlan, faults)) as tr:
         hist = tr.run()
         flat = np.concatenate([np.asarray(x).ravel()
                                for x in jax.tree.leaves(tr.params)])
         return hist, [s.copy() for s in tr.schedule], flat
 
 
-def port_trainer(name, rounds, exec_kw=(), runtime=None):
+def _plan(cls, faults):
+    if faults is None:
+        return None
+    kw = dict(faults)
+    return cls.seeded(kw.pop("seed"), **kw)
+
+
+def port_trainer(name, rounds, exec_kw=(), runtime=None, faults=None):
     """The port's FederatedTrainer on the CPU, same data and init."""
     from repro_torch.configs import paper_lenet5
     from repro_torch.core import api
+    from repro_torch.core.faults import FaultPlan
     from repro_torch.core import runtime as port_runtime
     from repro_torch.core.baselines import FedDPCHyper
     from repro_torch.core.samplers import UniformSampler
@@ -111,11 +121,12 @@ def port_trainer(name, rounds, exec_kw=(), runtime=None):
                             hyper=FedDPCHyper(lam=1.0)
                             if name == "feddpc" else None),
         sampler=UniformSampler(QS_CLIENTS, QS_COHORT), runtime=rt,
-        device="cpu")
+        fault_plan=_plan(FaultPlan, faults), device="cpu")
 
 
 def assert_runs_match(ref_run, trainer, codec=False):
-    """Schedules, staleness and uplink bytes equal; losses within 1e-4;
+    """Schedules, staleness, uplink bytes and the chaos counters
+    (quarantined, clipped, deadline) equal; losses within 1e-4;
     parameters within 1e-4 (rtol and atol, as the port's client tests).
 
     With an int8 codec the two packages' local deltas (~1e-6 apart: other
@@ -136,6 +147,9 @@ def assert_runs_match(ref_run, trainer, codec=False):
         assert (got.staleness_mean, got.staleness_max) == \
             (want.staleness_mean, want.staleness_max)
         assert got.comm_bytes_up == want.comm_bytes_up
+        for key in ("quarantined", "clipped", "deadline_fired",
+                    "deadline_dropped"):
+            assert getattr(got, key) == getattr(want, key), (key, got, want)
         assert set(got.diagnostics) == set(want.diagnostics)
     flat = trainer.flat.numpy()
     off = np.abs(flat - ref_flat) > 1e-4 + 1e-4 * np.abs(ref_flat)

@@ -1,6 +1,6 @@
 """The port on the card: the CUDA kernels against their plain versions,
-and the server step and a trainer round on CUDA against the same on the
-CPU. Marked ``cuda``; each test skips without a card. This file imports
+and the server step and trainer rounds (plain, async int8, guarded under
+faults) on CUDA against the same on the CPU. Marked ``cuda``; each test skips without a card. This file imports
 no JAX, so it also runs where only the port is installed:
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -14,7 +14,9 @@ import torch
 from repro_torch.bridge import layout_of
 from repro_torch.configs import paper_lenet5, paper_resnet18
 from repro_torch.core import feddpc
+from repro_torch.core import projection as proj
 from repro_torch.core.api import AlgoConfig, ExecConfig, FederatedTrainer
+from repro_torch.core.faults import FaultPlan
 from repro_torch.core.runtime import ExponentialRuntime
 from repro_torch.ingest.images import (StreamingImageSource,
                                        build_federated_image_data)
@@ -65,7 +67,7 @@ def test_kernels_match_plain_versions(cuda, k, n, zero_prev):
     torch.testing.assert_close(got_dt, want_dt, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(got_w, want_w, rtol=1e-5, atol=1e-5)
     assert [fn.launches - b for fn, b in zip(ops.KERNELS, before)] == \
-        [1, 1, 0, 0, 0]
+        [1, 1, 0, 0, 0, 0, 0]
 
 
 def _offsets(numels):
@@ -137,7 +139,7 @@ def test_folds_match_plain_versions(cuda, k, numels, qdtype):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5,
                                        msg=key)
     assert [fn.launches - b for fn, b in zip(ops.KERNELS, before)] == \
-        [0, 0, 1, 1, 1]
+        [0, 0, 1, 1, 1, 0, 0]
 
 
 def test_dequant_folds_reject_bad_offsets_on_the_card(cuda):
@@ -197,8 +199,8 @@ def test_trainer_round_on_card_matches_cpu(cuda):
         before = [fn.launches for fn in ops.KERNELS]
         losses[dev] = [r.train_loss for r in tr.run()]
         added = [fn.launches - b for fn, b in zip(ops.KERNELS, before)]
-        assert added == ([2, 2, 0, 0, 0] if dev == "cuda"
-                         else [0] * 5)
+        assert added == ([2, 2, 0, 0, 0, 0, 0] if dev == "cuda"
+                         else [0] * 7)
     # TF32 off: card and CPU differ by conv algorithms and sum orders
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=1e-3)
 
@@ -225,9 +227,130 @@ def test_async_int8_trainer_on_card_matches_cpu(cuda):
         before = [fn.launches for fn in ops.KERNELS]
         runs[dev] = tr.run()
         added = [fn.launches - b for fn, b in zip(ops.KERNELS, before)]
-        assert added == ([3, 0, 0, 0, 3] if dev == "cuda" else [0] * 5)
+        assert added == ([3, 0, 0, 0, 3, 0, 0] if dev == "cuda"
+                         else [0] * 7)
     assert [r.staleness_max for r in runs["cuda"]] == \
         [r.staleness_max for r in runs["cpu"]]
+    # TF32 off: card and CPU differ by conv algorithms and sum orders
+    np.testing.assert_allclose([r.train_loss for r in runs["cuda"]],
+                               [r.train_loss for r in runs["cpu"]],
+                               atol=1e-3)
+
+
+def _guard_rows(k, n, seed):
+    """(k, n) rows on the CPU: clean, scattered NaN/+-Inf, all NaN, x1e12
+    in turn; and p."""
+    gen = torch.Generator().manual_seed(seed)
+    d = torch.randn((k, n), generator=gen)
+    for j in range(k):
+        if j % 4 == 1:
+            at = torch.randperm(n, generator=gen)[:5]
+            d[j, at] = torch.tensor([float("nan"), float("inf"),
+                                     float("-inf"), float("nan"),
+                                     float("inf")])[:len(at)]
+        elif j % 4 == 2:
+            d[j] = float("nan")
+        elif j % 4 == 3:
+            d[j] *= 1e12
+    return d, torch.randn(n, generator=gen)
+
+
+@pytest.mark.parametrize("k,n", [(1, 37), (10, 1_000_003), (33, 4099),
+                                 (10, 11_220_132)])
+@pytest.mark.parametrize("zero_prev", [False, True])
+def test_guard_dots_match_plain_version(cuda, k, n, zero_prev):
+    """With and without p; the non-finite count exactly."""
+    d, p = _guard_rows(k, n, k)
+    if zero_prev:
+        p.zero_()
+    d, p = d.to(cuda), p.to(cuda)
+    before = [fn.launches for fn in ops.KERNELS]
+    for pv in (p, None):
+        got = ops.feddpc_guard_dots(d, pv)
+        want = ref.guard_dots_ref(d, pv)
+        torch.cuda.synchronize()
+        assert torch.equal(got[:, 3], want[:, 3])
+        assert torch.isfinite(got).all()
+        scale = torch.stack([torch.sqrt(want[:, 1] * want[:, 2]),
+                             want[:, 1], want[:, 2]], -1).clamp(min=1.0)
+        assert float(((got[:, :3] - want[:, :3]).abs() / scale).max()) \
+            <= 1e-5
+        if pv is None:
+            assert bool((got[:, [0, 2]] == 0).all())
+    assert [fn.launches - b for fn, b in zip(ops.KERNELS, before)] == \
+        [0, 0, 0, 0, 0, 2, 0]
+
+
+@pytest.mark.parametrize("n", [37, 1_000_003, 11_220_132])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("zero_prev", [False, True])
+def test_fused_epilogue_matches_plain_version(cuda, n, dtype, zero_prev):
+    d, p, _, coefs, scales = [x.to(cuda) for x in _case(1, n, zero_prev)]
+    d = d[0].to(dtype)
+    before = [fn.launches for fn in ops.KERNELS]
+    got = ops.feddpc_fused_epilogue(d, p, coefs, scales)
+    want = ref.epilogue_ref(d, p, coefs, scales)
+    scaled, _ = proj.project_and_scale(d, p, 0.8, use_kernel=True)
+    coef, scale, _ = proj.projection_scalars(d, p, 0.8)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and scaled.dtype == dtype
+    # the same three roundings in f32 (the kernel's _rn intrinsics); the
+    # cast to bf16 rounds identical f32 values
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(scaled, ref.epilogue_ref(d, p, coef, scale),
+                               rtol=1e-6, atol=1e-6)
+    assert [fn.launches - b for fn, b in zip(ops.KERNELS, before)] == \
+        [0, 0, 0, 0, 0, 0, 2]
+
+
+def test_guard_and_epilogue_reject_bad_inputs_on_the_card(cuda):
+    d, p, _, coefs, scales = [x.to(cuda) for x in _case(3, 100, False)]
+    with pytest.raises(ValueError, match="p is on cpu"):
+        ops.feddpc_guard_dots(d, p.cpu())
+    with pytest.raises(TypeError, match="float32"):
+        ops.feddpc_guard_dots(d.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.feddpc_guard_dots(d.t().contiguous().t())
+    with pytest.raises(ValueError, match="coef is on cpu"):
+        ops.feddpc_fused_epilogue(d[0], p, coefs[0].cpu(), scales[0])
+    with pytest.raises(ValueError, match="p must be"):
+        ops.feddpc_fused_epilogue(d[0], p[:-1], coefs[0], scales[0])
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.feddpc_fused_epilogue(d[:, 0], p[:3], coefs[0], scales[0])
+
+
+def test_guarded_faulted_trainer_on_card_matches_cpu(cuda):
+    """Sync FedDPC with the guard, NaN and exploded deltas and a round
+    deadline: the guard's reduction runs through feddpc_guard_dots once
+    per round on the card, the same rows quarantine and drop on both
+    devices, and the losses agree."""
+    cfg = paper_lenet5.CONFIG
+    data = build_federated_image_data(num_classes=10, num_clients=8,
+                                      alpha=0.5, samples_per_class=16,
+                                      test_per_class=2, seed=0)
+    params = init_vision(cfg, torch.Generator().manual_seed(0))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        tr = FederatedTrainer(
+            functools.partial(vision_loss_fn, cfg), params, 8,
+            StreamingImageSource(data, 16),
+            ExecConfig(rounds=3, clients_per_round=4, guard=True,
+                       guard_min_history=2, round_deadline=1.5),
+            algo=AlgoConfig(eta_l=0.02, eta_g=0.02),
+            runtime=ExponentialRuntime(mean=1.0),
+            fault_plan=FaultPlan.seeded(0, nan_rate=0.3, explode_rate=0.3,
+                                        explode_rounds=(1, 2)),
+            device=dev)
+        before = [fn.launches for fn in ops.KERNELS]
+        runs[dev] = tr.run()
+        added = [fn.launches - b for fn, b in zip(ops.KERNELS, before)]
+        assert added == ([3, 3, 0, 0, 0, 3, 0] if dev == "cuda"
+                         else [0] * 7)
+    for key in ("quarantined", "clipped", "deadline_dropped",
+                "comm_bytes_up"):
+        assert [getattr(r, key) for r in runs["cuda"]] == \
+            [getattr(r, key) for r in runs["cpu"]], key
+    assert sum(r.quarantined for r in runs["cpu"]) > 0
     # TF32 off: card and CPU differ by conv algorithms and sum orders
     np.testing.assert_allclose([r.train_loss for r in runs["cuda"]],
                                [r.train_loss for r in runs["cpu"]],

@@ -229,3 +229,132 @@ def test_fold_wrappers_reject_what_the_kernels_do_not_take():
         with pytest.raises(ValueError, match=match):
             ops.feddpc_dequant_batched_epilogue(q, qs, qz, offsets, p, w, c,
                                                 s, 0.1)
+
+
+# ---- the update guard's reduction pass and the one-client epilogue ----
+
+def _guard_case(k, n, seed):
+    """d (k, n) with, per row: clean, scattered NaN/+-Inf, all NaN, x1e12."""
+    rng = np.random.default_rng(seed)
+    d = rng.standard_normal((k, n), dtype=np.float32)
+    p = rng.standard_normal(n, dtype=np.float32)
+    for j in range(k):
+        kind = j % 4
+        if kind == 1:
+            at = rng.choice(n, size=min(n, 5), replace=False)
+            d[j, at] = np.asarray([np.nan, np.inf, -np.inf, np.nan,
+                                   np.inf][:len(at)], np.float32)
+        elif kind == 2:
+            d[j] = np.nan
+        elif kind == 3:
+            d[j] *= np.float32(1e12)
+    return d, p
+
+
+@pytest.mark.parametrize("k,n", [(1, 37), (4, 1000), (5, 70001)])
+def test_guard_dots_match_pallas_guard_dots(k, n):
+    """[<d~,p>, <d~,d~>, <p,p>, nonfinite(d)] against the reference's
+    Pallas ``guard_dots`` (interpret mode) and its ``guard_dots_ref``, row
+    by row; the count exactly. Without p, columns 1 and 3 are the same
+    and columns 0 and 2 are 0."""
+    d, p = _guard_case(k, n, seed=k)
+    got = ops.feddpc_guard_dots(*_t(d, p)).numpy()
+    got_nop = ops.feddpc_guard_dots(torch.from_numpy(d)).numpy()
+    pallas = np.stack([np.asarray(ref_ops.guard_dots_flat(
+        jnp.asarray(d[j]), jnp.asarray(p), interpret=True))
+        for j in range(k)])
+    oracle = np.stack([np.asarray(ref_ref.guard_dots_ref(
+        jnp.asarray(d[j]), jnp.asarray(p))) for j in range(k)])
+    assert got.shape == got_nop.shape == (k, 4)
+    for want in (pallas, oracle):
+        assert np.isfinite(want[:, :3]).all()
+        _assert_dots_close(got[:, :3], want[:, :3], want[:, 1], want[:, 2])
+        np.testing.assert_array_equal(got[:, 3], want[:, 3])
+        np.testing.assert_array_equal(got_nop[:, 3], want[:, 3])
+        scale = np.clip(want[:, 1], 1.0, None)
+        assert np.max(np.abs(got_nop[:, 1] - want[:, 1]) / scale) <= 1e-5
+    assert (got_nop[:, [0, 2]] == 0).all()
+    expect = [{0: 0, 1: min(n, 5), 2: n, 3: 0}[j % 4] for j in range(k)]
+    assert got[:, 3].tolist() == expect
+
+
+@pytest.mark.parametrize("n", [37, 70001])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("zero_prev", [False, True])
+def test_epilogue_matches_pallas_fused_epilogue(n, dtype, zero_prev):
+    """out = scale * (d - coef * p) in d's dtype: the plain version
+    against the reference's Pallas ``fused_epilogue`` (interpret mode),
+    given the same coef and scale; then the two-pass
+    ``project_and_scale_flat`` against the reference's."""
+    d, p, _, coefs, scales = _case(1, n, zero_prev, seed=n)
+    d_t = torch.from_numpy(d[0]).to(dtype)
+    d_j = jnp.asarray(d[0]).astype(jnp.bfloat16 if dtype == torch.bfloat16
+                                   else jnp.float32)
+    # bf16: both round the same f32 value, which may differ in its last
+    # f32 bits (sum orders): at most one bf16 step, 2^-7 relative
+    tol = dict(rtol=1e-6, atol=1e-6) if dtype == torch.float32 else \
+        dict(rtol=2 ** -7, atol=1e-6)
+    got = ops.feddpc_fused_epilogue(d_t, torch.from_numpy(p),
+                                    torch.from_numpy(coefs),
+                                    torch.from_numpy(scales))
+    want = ref_ops.residual_scale_tree(
+        {"x": d_j}, {"x": jnp.asarray(p)}, jnp.float32(coefs[0]),
+        jnp.float32(scales[0]), interpret=True)["x"]
+    assert got.dtype == dtype
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)), **tol)
+    got = ops.project_and_scale_flat(d_t, torch.from_numpy(p), 0.7)
+    want = ref_ops.project_and_scale_flat(d_j, jnp.asarray(p), 0.7,
+                                          interpret=True)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)), **tol)
+    np.testing.assert_allclose(
+        ref.project_and_scale_flat_ref(d_t, torch.from_numpy(p),
+                                       0.7).float().numpy(),
+        np.asarray(ref_ref.project_and_scale_flat_ref(
+            d_j, jnp.asarray(p), 0.7).astype(jnp.float32)), **tol)
+
+
+def test_project_and_scale_matches_reference_with_the_kernel():
+    """projection.project_and_scale(use_kernel=True) on the flat view of a
+    multi-leaf tree against the reference's on the tree, whose epilogue
+    is the Pallas ``fused_epilogue`` per leaf (interpret mode)."""
+    from repro.core import projection as ref_proj
+    from repro_torch.core import projection as proj
+    (deltas, prev, _, _, _, _, _), port, _ = _tree_case(1, "int8", seed=4)
+    tree = {n: jnp.asarray(v[0]) for n, v in deltas.items()}
+    want, want_diag = ref_proj.project_and_scale(
+        tree, {n: jnp.asarray(v) for n, v in prev.items()}, 0.9,
+        use_kernel=True)
+    got, diag = proj.project_and_scale(port["d"][0], port["p"], 0.9,
+                                       use_kernel=True)
+    want_flat = np.concatenate([np.asarray(want[n]).reshape(-1)
+                                for n in sorted(TREE)])
+    np.testing.assert_allclose(got.numpy(), want_flat, rtol=1e-6, atol=1e-6)
+    assert set(diag) == set(want_diag)
+    for key, value in want_diag.items():
+        np.testing.assert_allclose(float(diag[key]), float(value),
+                                   rtol=1e-5, atol=1e-6, err_msg=key)
+
+
+def test_guard_and_epilogue_wrappers_check_their_inputs():
+    d, p, _, coefs, scales = _t(*_case(3, 100, False))
+    before = [fn.launches for fn in ops.KERNELS]
+    torch.testing.assert_close(ops.feddpc_guard_dots(d, p),
+                               ref.guard_dots_ref(d, p), rtol=0, atol=0)
+    torch.testing.assert_close(
+        ops.feddpc_fused_epilogue(d[0], p, coefs[0], scales[:1]),
+        ref.epilogue_ref(d[0], p, coefs[0], scales[0]), rtol=0, atol=0)
+    assert [fn.launches for fn in ops.KERNELS] == before
+    with pytest.raises(TypeError, match="float32"):
+        ops.feddpc_guard_dots(d.bfloat16())
+    with pytest.raises(ValueError, match="p must be"):
+        ops.feddpc_guard_dots(d, p[:-1])
+    with pytest.raises(ValueError, match=r"\(N,\)"):
+        ops.feddpc_fused_epilogue(d, p, coefs[0], scales[0])
+    with pytest.raises(TypeError, match="float16"):
+        ops.feddpc_fused_epilogue(d[0].half(), p, coefs[0], scales[0])
+    with pytest.raises(ValueError, match="coef must be"):
+        ops.feddpc_fused_epilogue(d[0], p, coefs, scales[0])
+    with pytest.raises(TypeError, match="scale must be float32"):
+        ops.feddpc_fused_epilogue(d[0], p, coefs[0], scales[0].double())

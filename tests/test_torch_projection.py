@@ -142,3 +142,23 @@ def test_registry():
         baselines.make_algorithm("fedvarp")
     with pytest.raises(TypeError, match="FedDPCHyper"):
         baselines.make_algorithm("feddpc", baselines.NoHyper())
+
+
+def test_tree_nonfinite_count_matches_reference():
+    """Per client row, the count of NaN/Inf entries over the flat vector
+    equals the reference's over the tree, and the guard kernel's column."""
+    params, deltas, _ = _trees(False, seed=4)
+    layout = bridge.layout_of(params)
+    stack = _stack(layout, deltas)
+    stack[1, 3] = float("nan")
+    stack[2, :40] = float("inf")
+    stack[4] = float("-inf")
+    got = projection.tree_nonfinite_count(stack)
+    want = np.asarray([ref_proj.tree_nonfinite_count(jax.tree.map(
+        lambda x: jnp.asarray(x.numpy()), layout.unflatten(stack[j])))
+        for j in range(K)])
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got.tolist() == [0, 1, 40, 0, stack.shape[1]]
+    from repro_torch.kernels.feddpc_project import ops
+    np.testing.assert_array_equal(ops.feddpc_guard_dots(stack)[:, 3].numpy(),
+                                  want)

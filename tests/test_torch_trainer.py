@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import port_trainer, run_reference
+from _torch_parity import assert_runs_match, port_trainer, run_reference
 from repro.core.samplers import UniformSampler as RefUniformSampler
 from repro.data import dirichlet as ref_dirichlet
 from repro.data import synthetic as ref_synthetic
@@ -41,6 +41,58 @@ def test_trainer_matches_reference_quickstart(name, vectorize):
         for key, value in want.diagnostics.items():
             np.testing.assert_allclose(got.diagnostics[key], value,
                                        rtol=1e-3, atol=1e-4, err_msg=key)
+
+
+EXP = ("ExponentialRuntime", (("mean", 1.0),))
+# NaN rows in rounds 0 and 2, exploded rows in round 1 (after the guard's
+# warm-up: round 0 accepts 8 norms, min_history)
+FAULTS = (("seed", 0), ("nan_rate", 0.15), ("explode_rate", 0.15),
+          ("explode_rounds", (1, 2)))
+# (algorithm, ExecConfig pairs, runtime, fault plan, int8 codec?, the
+# RoundRecord counters the run must move)
+CHAOS = {
+    "sync_guard_faults": ("feddpc", (("guard", True),), None, FAULTS, False,
+                          ("quarantined",)),
+    "sync_deadline_hangs": ("feddpc", (("round_deadline", 1.5),), EXP,
+                            (("seed", 1), ("hang_rate", 0.2)), False,
+                            ("deadline_dropped",)),
+    "serial_guard_clip": ("feddpc", (("guard", True), ("vectorize", False),
+                                     ("guard_clip_mult", 1.05)), None,
+                          FAULTS, False, ("quarantined", "clipped")),
+    # (see the async case below for the short warm-up)
+    "sync_int8_ef_guard_deadline": (
+        "feddpc", (("guard", True), ("guard_min_history", 4),
+                   ("codec", "int8"), ("codec_ef", True),
+                   ("round_deadline", 1.5)), EXP, FAULTS, True,
+        ("quarantined", "deadline_dropped")),
+    # short warm-ups where the deadline (and B = 4) leave round 0 fewer
+    # than 8 accepted norms: an explosion folded while the threshold is
+    # still +inf goes through, by design, in both packages
+    "async_int8_guard_faults_deadline": (
+        "feddpc", (("guard", True), ("guard_min_history", 3),
+                   ("async_buffer", True), ("buffer_size", 4),
+                   ("async_concurrency", 3), ("round_deadline", 0.3),
+                   ("codec", "int8"), ("codec_ef", True)), EXP,
+        FAULTS + (("hang_rate", 0.1),), True,
+        ("quarantined", "deadline_dropped")),
+    "fedavg_guard": ("fedavg", (("guard", True),), None, FAULTS, False,
+                     ("quarantined",)),
+}
+
+
+@pytest.mark.parametrize("case", CHAOS)
+def test_chaos_trainer_matches_reference(case):
+    """Fault plan, update guard and round deadline: the same schedules,
+    losses within 1e-4, quarantined / clipped / deadline counters and
+    uplink bytes equal, parameters as in assert_runs_match."""
+    name, exec_kw, rt, plan, codec, moved = CHAOS[case]
+    ref_run = run_reference(name, ROUNDS, exec_kw, rt, plan)
+    tr = port_trainer(name, ROUNDS, exec_kw, rt, plan)
+    tr.run()
+    assert_runs_match(ref_run, tr, codec=codec)
+    for key in moved:
+        assert sum(getattr(r, key) for r in tr.history) > 0, key
+    assert np.isfinite(tr.flat.numpy()).all()
 
 
 def test_copied_host_modules_match_originals():
@@ -116,6 +168,31 @@ def test_launch_train_async_codec_cpu_smoke(tmp_path):
     per_client = 61_984 + 8 * 8
     assert sum(r["comm_bytes_up"] for r in hist) % per_client == 0
     assert hist[0]["comm_bytes_up"] >= 3 * per_client
+
+
+def test_launch_train_chaos_cpu_smoke(tmp_path):
+    """--guard, --round-deadline and --fault-plan (from a file) reach the
+    trainer, and the history JSON carries the chaos counters."""
+    plan = tmp_path / "plan.json"
+    # every delta of round 0 is NaN, every client of round 2 hangs
+    plan.write_text(json.dumps({"seed": 0, "injectors": [
+        {"kind": "nan_delta", "rounds": [0], "clients": list(range(6))},
+        {"kind": "client_hang", "rounds": [2], "clients": list(range(6))}]}))
+    out = tmp_path / "hist.json"
+    rc = train.main(["--model", "lenet5", "--rounds", "3", "--clients", "6",
+                     "--participation", "0.5", "--samples-per-class", "20",
+                     "--batch-size", "16", "--eval-every", "1", "--guard",
+                     "--round-deadline", "2.0", "--runtime", "exponential",
+                     "--fault-plan", f"@{plan}", "--device", "cpu",
+                     "--out", str(out)])
+    assert rc == 0
+    hist = json.loads(out.read_text())
+    assert [r["round"] for r in hist] == [0, 1, 2]
+    assert all(np.isfinite(r["train_loss"]) for r in hist)
+    assert hist[0]["quarantined"] == 3 - hist[0]["deadline_dropped"] > 0
+    assert hist[2]["deadline_dropped"] == 3 and hist[2]["train_loss"] == 0.0
+    assert all(r["deadline_fired"] == int(r["deadline_dropped"] > 0)
+               for r in hist)
 
 
 def test_no_device_means_the_card_and_raises_without_one(monkeypatch):
