@@ -5,8 +5,9 @@
 
 Phases, each printing JSON lines; any failure raises and exits non-zero:
 
-  1. build    nvcc-builds the FedDPC kernels from the checkout's sources;
-              prints the card's name and power limit (nvidia-smi).
+  1. build    nvcc-builds the FedDPC and flash-attention libraries from
+              the checkout's sources, both at once; prints the card's name
+              and power limit (nvidia-smi).
   2. kernels  holds every kernel against its plain PyTorch version on the
               card: the reduction pass and the batched epilogue at the
               main path's shape (K=10 clients x N=11,220,132 ResNet18-GN
@@ -53,6 +54,27 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               rounds with guard, faults and deadline; the per-round losses
               (and the chaos counters) must agree.
 
+  6. attention  flash_attention against its plain version on the card,
+              f32 and bf16: StarCoder2-3B's prefill (B = 8, Sq = 1024,
+              Sk = 1056 with the last 32 slots empty, H = 24, KV = 2,
+              D = 128) and decode (Sq = 1) shapes, a ragged shape, a
+              ring-cache decode with a window, the soft cap and a batch
+              row whose keys are all empty (exactly 0). Times the kernel,
+              the plain version and torch's scaled_dot_product_attention
+              (the library yardstick; never on the path) at the prefill
+              and decode shapes, warm and with the L2 flushed, beside the
+              bound.
+  7. serve    the LLM serving path: serve_lm on StarCoder2-3B at full
+              width and depth (30 layers, d_model 3072, random weights
+              from a seed), B = 8, prompts of 1024, 32 generated tokens,
+              in f32 and in bf16; the kernel must launch exactly
+              num_layers x gen times in each run. Then, on the same params
+              and prompts, the kernel path against the plain path
+              (attn_impl="reference"): the prefill's last logits and 8
+              teacher-forced decode steps.
+  8. serve parity  StarCoder2 SMOKE on the card and on the CPU from the
+              same params: prefill plus 4 teacher-forced decode steps.
+
 The last lines are the kernels' JSON summary, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
 prints no result. It imports torch and the port, nothing of JAX.
@@ -68,6 +90,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -76,8 +99,10 @@ from torch.autograd import DeviceType
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
-from repro_torch.bridge import layout_of  # noqa: E402
+from repro_torch.bridge import (layout_of, tree_leaves,  # noqa: E402
+                                tree_map)
 from repro_torch.configs import paper_lenet5, paper_resnet18  # noqa: E402
+from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core import projection as proj  # noqa: E402
 from repro_torch.core.api import (AlgoConfig, ExecConfig,  # noqa: E402
                                   FederatedTrainer)
@@ -87,7 +112,12 @@ from repro_torch.core.runtime import ExponentialRuntime  # noqa: E402
 from repro_torch.core.samplers import UniformSampler  # noqa: E402
 from repro_torch.ingest.images import (StreamingImageSource,  # noqa: E402
                                        build_federated_image_data)
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.feddpc_project import ops, ref  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
+from repro_torch.launch.serve import serve_lm  # noqa: E402
+from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.models.vision import (init_vision,  # noqa: E402
                                        vision_accuracy, vision_loss_fn)
 
@@ -132,6 +162,35 @@ LIBRARY_NONE = "no single PyTorch call computes this function"
 GUARD_KS = (1, 10, 33)
 GUARD_NS = (N_MAIN, 1_000_003)
 
+# ---- the LLM serving path ----
+FA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+FA_REPLACES = "src/repro/kernels/flash_attention/kernel.py:82"
+# dense bf16 tensor-core peak (NVIDIA data sheet, H100 SXM)
+BF16_FLOP_PER_S = 989e12
+# kernel vs plain version: the reference's kernel tolerances
+# (tests/test_kernels.py) — f32 sums in other orders; bf16 outputs
+# rounded from f32 values that differ in their last bits
+FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 4e-2}
+SERVE_ARCH = "starcoder2-3b"
+SERVE_B, SERVE_PROMPT, SERVE_GEN = 8, 1024, 32
+SERVE_STEPS = 8               # teacher-forced steps, kernel vs plain path
+SMOKE_STEPS = 4               # ... and card vs CPU on the SMOKE config
+SERVE_F32_RTOL = 1e-3         # kernel vs plain logits, relative to max |logit|
+SERVE_BF16_TOP1 = 0.9         # kernel vs plain top-1 agreement in bf16
+SMOKE_ATOL = 1e-4             # card vs CPU SMOKE logits, f32
+# (label, B, Sq, Sk, H, KV, D, window, soft_cap, empty trailing slots,
+#  position of the first query, a batch row with every slot empty)
+FA_CASES = (
+    ("prefill", 8, 1024, 1056, 24, 2, 128, 0, 0.0, 32, 0, False),
+    ("decode", 8, 1, 1056, 24, 2, 128, 0, 0.0, 16, 1039, False),
+    ("ragged", 2, 100, 300, 8, 2, 64, 0, 0.0, 0, 200, False),
+    ("ring_decode_window", 4, 1, 1056, 24, 2, 128, 128, 0.0, 32, 2999,
+     False),
+    ("soft_cap", 2, 256, 256, 24, 2, 128, 0, 30.0, 0, 0, False),
+    ("all_empty_row", 3, 16, 200, 8, 2, 128, 0, 0.0, 0, 184, True),
+)
+FA_TIMED = ("prefill", "decode")
+
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
@@ -163,23 +222,46 @@ def cuda_ms(fn, reps: int = 20, calls: int = 10):
     return tuple(out)
 
 
-def bound_ms(nbytes: float, flops: float):
+def cuda_ms_cold(fn, reps: int = 20):
+    """Median CUDA-event time of one call that finds the 50 MB L2 cold: a
+    256 MB memset is queued just before each window, so the host's launch
+    path also hides behind it."""
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound_ms(nbytes: float, flops: float, flop_per_s: float = F32_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / F32_FLOP_PER_S
+    t_ops = flops / flop_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
 def phase_build() -> str:
+    """Both libraries at once: one nvcc per source, started together."""
     tic = time.perf_counter()
-    path = ops.build()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        futures = [pool.submit(mod.build) for mod in (ops, fa_ops)]
+        path, fa_path = [f.result() for f in futures]
     seconds = time.perf_counter() - tic
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    emit({"phase": "build", "library": path.name,
-          "nvcc_seconds": ops.build_seconds, "seconds": seconds,
+    emit({"phase": "build", "libraries": [path.name, fa_path.name],
+          "nvcc_seconds": dict(_build.build_seconds), "seconds": seconds,
           "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda})
     return smi
@@ -620,6 +702,23 @@ def _annotate_codec(trainer):
         setattr(codec, meth, wrapped)
 
 
+def _kernel_time(events, category):
+    """Device kernels of a profile: (spans, busy µs — the union of their
+    intervals —, ms by kernel name, ms by ``category(name)``)."""
+    spans = sorted((e.time_range.start, e.time_range.end, e.key)
+                   for e in events if e.device_type == DeviceType.CUDA
+                   and not e.key.startswith("codec."))
+    busy_us, end = 0.0, float("-inf")
+    by_name, by_cat = {}, {}
+    for lo, hi, name in spans:
+        busy_us += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+        by_name[name] = by_name.get(name, 0.0) + (hi - lo) / 1e3
+        cat = category(name)
+        by_cat[cat] = by_cat.get(cat, 0.0) + (hi - lo) / 1e3
+    return spans, busy_us, by_name, by_cat
+
+
 def profile_round(trainer, t):
     """Run round t (and its eval) under torch.profiler: kernel time by
     name and by category, and the card's busy share of the window — the
@@ -634,17 +733,7 @@ def profile_round(trainer, t):
         torch.cuda.synchronize()
         window_s = time.perf_counter() - tic
     events = prof.events()
-    spans = sorted((e.time_range.start, e.time_range.end, e.key)
-                   for e in events if e.device_type == DeviceType.CUDA
-                   and not e.key.startswith("codec."))
-    busy_us, end = 0.0, float("-inf")
-    by_name, by_cat = {}, {}
-    for lo, hi, name in spans:
-        busy_us += max(0.0, hi - max(lo, end))
-        end = max(end, hi)
-        by_name[name] = by_name.get(name, 0.0) + (hi - lo) / 1e3
-        cat = _category(name)
-        by_cat[cat] = by_cat.get(cat, 0.0) + (hi - lo) / 1e3
+    spans, busy_us, by_name, by_cat = _kernel_time(events, _category)
     # codec kernels: those launched by CPU ops inside a codec range
     ranges = [(e.time_range.start, e.time_range.end) for e in events
               if e.device_type == DeviceType.CPU
@@ -871,6 +960,284 @@ def phase_parity():
                                  f"{max(diffs)} > {PARITY_ATOL}")
 
 
+def _attention_case(gen, case, dtype):
+    """The inputs of one FA_CASES entry on the card: q, k, v of dtype,
+    int32 positions (queries at consecutive positions from q0; the cache
+    slots rolled as a ring buffer when the first query is past Sk)."""
+    (_, b, sq, sk, h, kv, d, window, soft_cap, empty, q0,
+     empty_row) = case
+    q, k, v = [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+               for shape in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d))]
+    if soft_cap:
+        q = q * 6                     # scores well past the cap
+    q_pos = torch.arange(q0, q0 + sq, dtype=torch.int32,
+                         device="cuda")[None].repeat(b, 1)
+    last = q0 + sq - 1                # the cache holds positions <= last
+    k_pos = torch.arange(last - sk + 1 + empty, last + 1 + empty,
+                         dtype=torch.int32, device="cuda")
+    k_pos = torch.where(k_pos > last, -1, k_pos)   # empty trailing slots
+    if q0 + sq > sk:                  # a ring buffer that has wrapped
+        k_pos = torch.roll(k_pos, int(q0 % sk))
+    k_pos = k_pos[None].repeat(b, 1)
+    if empty_row:
+        k_pos[1] = -1
+    return q, k, v, q_pos, k_pos
+
+
+def _visible(q_pos, k_pos, window):
+    ok = (k_pos[:, None, :] <= q_pos[:, :, None]) & (k_pos[:, None, :] >= 0)
+    if window:
+        ok &= (q_pos[:, :, None] - k_pos[:, None, :]) < window
+    return ok                          # (B, Sq, Sk)
+
+
+def _sdpa_library(q, k, v, ok):
+    """torch's scaled_dot_product_attention on the same function, in its
+    (B, H, S, D) layout with a boolean mask: the yardstick, never on the
+    port's path."""
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    mask = ok[:, None]
+
+    def call():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    return call
+
+
+def phase_attention():
+    """flash_attention against its plain version at every FA_CASES shape
+    in f32 and bf16, then timed at the serving path's prefill and decode
+    shapes; returns the kernel's summary row."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    timings = []
+    for case, dtype in itertools.product(FA_CASES, (torch.float32,
+                                                    torch.bfloat16)):
+        label, b, sq, sk, h, kv, d, window, soft_cap = case[:9]
+        q, k, v, q_pos, k_pos = _attention_case(gen, case, dtype)
+        kw = {"window": window, "soft_cap": soft_cap}
+        got = fa_ops.flash_attention(q, k, v, q_pos, k_pos, **kw)
+        want = fa_ref.attention_ref(q, k, v, q_pos, k_pos, **kw)
+        torch.cuda.synchronize()
+        e = float((got.float() - want.float()).abs().max())
+        tol = FA_TOL[dtype]
+        if got.dtype != dtype or not torch.allclose(
+                got.float(), want.float(), rtol=tol, atol=tol):
+            raise AssertionError(f"flash_attention {label} {dtype}: max abs "
+                                 f"err {e}")
+        ok = _visible(q_pos, k_pos, window)
+        dark = ~ok.any(dim=-1)                       # rows with no key
+        if bool((got.float()[dark] != 0).any()):
+            raise AssertionError(f"flash_attention {label}: a row with no "
+                                 "visible key is not exactly 0")
+        err[dtype] = max(err[dtype], e)
+        line = {"phase": "attention", "case": label, "B": b, "Sq": sq,
+                "Sk": sk, "H": h, "KV": kv, "D": d, "window": window,
+                "soft_cap": soft_cap, "dtype": str(dtype)[6:],
+                "rows_without_keys": int(dark.sum()), "max_abs_err": e}
+        if label in FA_TIMED:
+            pairs = int(ok.sum())
+            item = q.element_size()
+            nbytes = (item * (2 * q.numel() + k.numel() + v.numel())
+                      + 4 * (q_pos.numel() + k_pos.numel()))
+            flops = 4 * d * h * pairs
+            peak = (F32_FLOP_PER_S if dtype == torch.float32
+                    else BF16_FLOP_PER_S)
+            lib = _sdpa_library(q, k, v, ok)
+            lib_err = float((lib().transpose(1, 2).float()
+                             - want.float()).abs().max())
+            kern = functools.partial(fa_ops.flash_attention, q, k, v, q_pos,
+                                     k_pos, **kw)
+            ms, ms_one = cuda_ms(kern)
+            plain_ms, _ = cuda_ms(functools.partial(
+                fa_ref.attention_ref, q, k, v, q_pos, k_pos, **kw))
+            b_ms, b_by = bound_ms(nbytes, flops, peak)
+            line.update({
+                "ms": ms, "ms_one_call": ms_one,
+                "ms_cold": cuda_ms_cold(kern), "plain_ms": plain_ms,
+                "library_ms": cuda_ms(lib)[0], "library_max_abs_err": lib_err,
+                "bound_ms": b_ms, "bound_by": b_by,
+                "peak_flop_per_s": peak, "bytes": nbytes, "flops": flops,
+                "visible_pairs": pairs})
+            timings.append(line)
+        emit(line)
+        del q, k, v, got, want
+    head = timings[0]                  # prefill, f32: the headline
+    return {"name": "flash_attention", "route": "cuda", "source": FA_SOURCE,
+            "replaces": FA_REPLACES, "max_abs_err": err[torch.float32],
+            "max_abs_err_bf16": err[torch.bfloat16], "ms": head["ms"],
+            "ms_one_call": head["ms_one_call"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "library": "torch.nn.functional.scaled_dot_product_attention "
+                       "(bool mask, enable_gqa)",
+            "timings": [{k: t[k] for k in (
+                "case", "dtype", "ms", "ms_one_call", "ms_cold", "plain_ms",
+                "library_ms", "bound_ms", "bound_by")} for t in timings]}
+
+
+def _teacher_forced(cfg, params, prompts, forced, attn_impl):
+    """Prefill ``prompts``, then one decode step per column of ``forced``
+    (the same tokens whatever the model predicts): the last-position
+    logits of each, stacked (1 + steps, B, V) in f32."""
+    b, s = prompts.shape
+    steps = forced.shape[1]
+    dtype = params["embed"].dtype
+    states = tf.init_states(cfg, b, s + steps, dtype, prompts.device)
+    with torch.inference_mode():
+        logits, states, _ = tf.lm_forward(cfg, params, prompts,
+                                          states=states, attn_impl=attn_impl,
+                                          logits_slice_last=True)
+        out = [logits[:, -1].float()]
+        for i in range(steps):
+            pos = torch.full((b, 1), s + i, dtype=torch.int32,
+                             device=prompts.device)
+            logits, states, _ = tf.lm_forward(
+                cfg, params, forced[:, i:i + 1], positions=pos,
+                states=states, attn_impl=attn_impl, logits_slice_last=True)
+            out.append(logits[:, -1].float())
+    return torch.stack(out)
+
+
+def _serve_category(kernel: str) -> str:
+    if "fa_fwd_kernel" in kernel:
+        return "flash_attention kernel"
+    if any(tag in kernel.lower() for tag in ("gemm", "gemv", "cutlass",
+                                             "xmma", "cublas", "nvjet")):
+        return "matmuls (cuBLAS)"
+    if "at::native" in kernel:
+        return "PyTorch elementwise, norms, copies"
+    return "other"
+
+
+def profile_serve(cfg, params, prompts):
+    """One prefill and one decode step under torch.profiler (after
+    serve_lm has warmed both): per step the window's wall time, the
+    card's busy time (the union of kernel intervals) and idle share,
+    kernel time by category and the launches per step. Then one more
+    decode step in which any call that waits for the card raises."""
+    b, s = prompts.shape
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    states = tf.init_states(cfg, b, s + 2, params["embed"].dtype, "cuda")
+    tok = prompts
+    pos = None
+    for step in ("prefill", "decode"):
+        torch.cuda.synchronize()
+        with torch.inference_mode(), torch.profiler.profile(
+                activities=acts) as prof:
+            tic = time.perf_counter()
+            logits, states, _ = tf.lm_forward(cfg, params, tok, positions=pos,
+                                              states=states,
+                                              logits_slice_last=True)
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            torch.cuda.synchronize()
+            window_s = time.perf_counter() - tic
+        spans, busy_us, by_name, by_cat = _kernel_time(prof.events(),
+                                                       _serve_category)
+        top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:6]
+        emit({"phase": "serve_profile",
+              "dtype": str(params["embed"].dtype)[6:], "step": step,
+              "window_ms": 1e3 * window_s,
+              "kernels": len(spans), "device_busy_ms": busy_us / 1e3,
+              "device_idle_share": 1.0 - busy_us / 1e6 / window_s,
+              "by_category_ms": by_cat,
+              "top_ms": [[name[:70], ms] for name, ms in top]})
+        pos = torch.full((b, 1), s, dtype=torch.int32, device="cuda")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            tf.lm_forward(cfg, params, tok, positions=pos + 1, states=states,
+                          logits_slice_last=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def phase_serve():
+    """serve_lm on StarCoder2-3B at full width and depth, f32 then bf16,
+    with the kernel's count set to 0 just before each run and read just
+    after; then the kernel path against the plain path on the same params
+    and prompts. Returns the f32 run's launch count."""
+    cfg = get_config(SERVE_ARCH)
+    counts = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = tf.init_lm(cfg, gen, dtype)
+        prompts = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT),
+                                generator=gen, device="cuda")
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        fa_ops.reset_launches()            # this path starts here
+        tokens, stats = serve_lm(cfg, SERVE_B, SERVE_PROMPT, SERVE_GEN,
+                                 device="cuda", dtype=dtype, params=params,
+                                 prompts=prompts)
+        launches = fa_ops.flash_attention.launches
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = cfg.num_layers * SERVE_GEN
+        if launches != want:
+            raise AssertionError(f"serve {dtype}: flash_attention launched "
+                                 f"{launches} times, expected {want}")
+        if tuple(tokens.shape) != (SERVE_B, SERVE_GEN) or not bool(
+                ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+            raise AssertionError(f"serve {dtype}: tokens {tokens.shape} out "
+                                 "of range")
+        counts[dtype] = launches
+        profile_serve(cfg, params, prompts)
+        forced = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_STEPS),
+                               generator=gen, device="cuda")
+        kern = _teacher_forced(cfg, params, prompts, forced, "auto")
+        plain = _teacher_forced(cfg, params, prompts, forced, "reference")
+        if not bool(torch.isfinite(kern).all() & torch.isfinite(plain).all()):
+            raise AssertionError(f"serve {dtype}: non-finite logits")
+        diff = float((kern - plain).abs().max())
+        scale = max(1.0, float(plain.abs().max()))
+        top1 = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
+        line = {"phase": "serve", "arch": cfg.name, "dtype": str(dtype)[6:],
+                "layers": cfg.num_layers, "d_model": cfg.d_model,
+                "params": n_params, "batch": SERVE_B,
+                "prompt_len": SERVE_PROMPT, "gen": SERVE_GEN, **stats,
+                "decode_step_ms": 1e3 * stats["decode_s"] / (SERVE_GEN - 1),
+                "flash_attention_launches": launches,
+                "peak_memory_gib": peak_gib, "tokens_in_range": True,
+                "sample": tokens[0, :8].tolist(),
+                "parity_steps": 1 + SERVE_STEPS,
+                "kernel_vs_plain_max_abs_logit_diff": diff,
+                "max_abs_logit": float(plain.abs().max()),
+                "kernel_vs_plain_top1_agreement": top1,
+                "logits_finite": True}
+        emit(line)
+        if dtype == torch.float32 and not diff <= SERVE_F32_RTOL * scale:
+            raise AssertionError(f"serve f32: kernel vs plain logits differ "
+                                 f"by {diff} > {SERVE_F32_RTOL} x {scale}")
+        if dtype == torch.bfloat16 and not top1 >= SERVE_BF16_TOP1:
+            raise AssertionError(f"serve bf16: kernel vs plain top-1 "
+                                 f"agreement {top1} < {SERVE_BF16_TOP1}")
+        del params, kern, plain
+    return counts[torch.float32]
+
+
+def phase_serve_parity():
+    """StarCoder2 SMOKE from the same params and tokens on the card and
+    on the CPU: prefill plus SMOKE_STEPS teacher-forced decode steps."""
+    cfg = get_config(SERVE_ARCH, smoke=True)
+    gen = torch.Generator().manual_seed(0)
+    params = tf.init_lm(cfg, gen, torch.float32)
+    prompts = torch.randint(0, cfg.vocab_size, (4, 64), generator=gen)
+    forced = torch.randint(0, cfg.vocab_size, (4, SMOKE_STEPS),
+                           generator=gen)
+    card = _teacher_forced(cfg, tree_map(lambda t: t.cuda(), params),
+                           prompts.cuda(), forced.cuda(), "auto").cpu()
+    cpu = _teacher_forced(cfg, params, prompts, forced, "auto")
+    diff = float((card - cpu).abs().max())
+    emit({"phase": "serve_parity", "arch": cfg.name, "steps": 1 + SMOKE_STEPS,
+          "card_vs_cpu_max_abs_logit_diff": diff,
+          "max_abs_logit": float(cpu.abs().max())})
+    if not diff <= SMOKE_ATOL:
+        raise AssertionError(f"SMOKE card vs CPU logits differ by {diff} > "
+                             f"{SMOKE_ATOL}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs a card",
@@ -889,6 +1256,10 @@ def main() -> int:
             raise AssertionError(f"{row['name']} never launched on the "
                                  "main path")
     phase_parity()
+    fa_row = phase_attention()
+    fa_row["launches"] = phase_serve()
+    rows.append(fa_row)
+    phase_serve_parity()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: row[k] for k in keys} for row in rows]})

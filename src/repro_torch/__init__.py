@@ -8,7 +8,9 @@ modules it needs are its own copies.
 Parameters live in ONE flat f32 buffer per model (``bridge.FlatLayout``),
 laid out leaf by leaf in JAX's leaf order, so the server step is a pass
 over a (K, N) stack of client deltas — carried on the card by the
-hand-written kernels of ``kernels/feddpc_project``.
+hand-written kernels of ``kernels/feddpc_project``. The serving path
+(``launch/serve.py``) runs the dense GQA decoders, every attention call
+on the card through ``kernels/flash_attention``.
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); they raise when CUDA is absent instead of falling

@@ -13,6 +13,11 @@ and hands the model per-leaf views of it (``FlatLayout.unflatten``):
 
 A client cohort is then a (K, N) stack whose rows are flat vectors, and
 the server step is a pass over that stack.
+
+The decoders keep their parameters as a tree of tensors instead, one
+dict per layer: ``lm_params_from_reference`` and
+``lm_states_from_reference`` split the reference's stacked layer groups
+into that list.
 """
 from __future__ import annotations
 
@@ -21,6 +26,8 @@ from typing import Any, Callable, Iterator, List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.models.transformer import stack_plan
 
 Tree = Any
 Path = Tuple[Any, ...]
@@ -159,6 +166,46 @@ def load_params(params: Tree, device=None
     return layout.flatten(params, device=device), layout
 
 
+def _unstack_layers(prefix: Tree, stack: Tree, cfg) -> List[Tree]:
+    """The reference's (prefix layers, stacked groups) -> one tree per
+    layer in execution order: prefix, then group by group, each group's
+    ``period`` layers in order (``stack[j]`` has a leading groups axis)."""
+    n_prefix, period, groups = stack_plan(cfg)
+    if len(prefix) != n_prefix or len(stack) != (period if groups else 0):
+        raise ValueError(f"{cfg.name}: {len(prefix)} prefix layers and "
+                         f"{len(stack)} stacked, expected {n_prefix} and "
+                         f"{period if groups else 0}")
+    layers = list(prefix)
+    for gi in range(groups):
+        layers += [tree_map(lambda x: np.asarray(x)[gi], stack[j])
+                   for j in range(period)]
+    return layers
+
+
+def lm_params_from_reference(np_params: Tree, cfg) -> Tree:
+    """The reference's ``init_lm`` tree (numpy leaves) -> the port's
+    decoder params (transformer module docstring) as CPU tensors: the
+    same leaves, layer by layer."""
+    out = {k: to_torch(np_params[k]) for k in ("embed", "final_norm",
+                                               "lm_head") if k in np_params}
+    out["layers"] = [to_torch(layer) for layer in _unstack_layers(
+        np_params["prefix_layers"], np_params["stack"], cfg)]
+    return out
+
+
+def lm_states_from_reference(np_states: Tree, cfg) -> List:
+    """The reference's ``init_states`` tree (or a prefill's / decode's
+    new states, as numpy) -> the port's list of per-layer caches (CPU
+    tensors), with ``idx`` as a Python int."""
+    out = []
+    for c in _unstack_layers(np_states["prefix"], np_states["stack"], cfg):
+        cache = to_torch({k: c[k] for k in ("k", "v", "pos")})
+        cache["idx"] = int(np.asarray(c["idx"]))
+        out.append(cache)
+    return out
+
+
 __all__: Sequence[str] = (
-    "FlatLayout", "layout_of", "load_params", "to_numpy",
-    "to_torch", "tree_leaves", "tree_leaves_with_path", "tree_map")
+    "FlatLayout", "layout_of", "lm_params_from_reference",
+    "lm_states_from_reference", "load_params", "to_numpy", "to_torch",
+    "tree_leaves", "tree_leaves_with_path", "tree_map")

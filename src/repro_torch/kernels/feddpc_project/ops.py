@@ -22,32 +22,23 @@ Each wrapper checks device, dtype, shape and contiguity, then
   * for CPU tensors calls the plain version in ``ref.py``.
 
 The kernels are compiled at first use with ``nvcc`` into a shared library
-with a plain C interface, loaded with ``ctypes``. The library lives in
-``build/repro_torch_kernels/`` at the repository root and is named by a
-hash of the source and the flags, so an edit rebuilds it.
+with a plain C interface, loaded with ``ctypes`` (``kernels/_build.py``).
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
 
 import torch
 
 from repro_torch.core import projection as proj
+from repro_torch.kernels import _build
 from repro_torch.kernels.feddpc_project import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "feddpc_project.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+LIBRARY = "feddpc_project"
 
 _lib = None           # the loaded library, once per process
-build_seconds = None  # wall time of this process's nvcc build (None: cached)
 MAX_LEAVES = 6143     # the dequant folds keep L+1 offsets in 48 KB of smem
 QTYPES = {torch.int8: 0, torch.bfloat16: 1}   # payload dtype -> kernel code
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # epilogue d dtype -> code
@@ -57,43 +48,9 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # epilogue d dtype -> code
 _device_offsets_cache = {}
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    cand = Path(home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
-                           "/usr/local/cuda/bin and PATH): the FedDPC "
-                           "kernels are built from source at first use")
-    return found
-
-
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"libfeddpc_project_{digest[:16]}.so"
-
-
 def build() -> Path:
-    """Compile the kernels unless this source's library exists. Raises
-    with nvcc's output when the build fails."""
-    global build_seconds
-    path = library_path()
-    if path.exists():
-        return path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    tic = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(SOURCE)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
-                           f"{SOURCE}:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, path)           # atomic: concurrent builders agree
-    build_seconds = time.perf_counter() - tic
-    return path
+    """Compile the kernels unless this source's library exists."""
+    return _build.build(SOURCE, LIBRARY)
 
 
 def _load():

@@ -1,0 +1,129 @@
+"""Wrapper for the flash-attention kernel (csrc/flash_attention.cu), with
+the contract of repro/kernels/flash_attention/ops.py: q (B, Sq, H, D),
+k/v (B, Sk, KV, D), positions (B, Sq) / (B, Sk) int (-1 = an empty cache
+slot), ``window`` (0 = full) and ``soft_cap`` (0 = none).
+
+``flash_attention`` checks shapes, dtypes and devices, then
+
+  * for CUDA tensors launches the kernel on the current stream (or
+    raises — there is no fallback) and adds one to its ``launches``
+    count, only there;
+  * for CPU tensors calls the plain version, ``ref.attention_ref``.
+
+There is no padding path: the kernel masks ragged tails itself. It is
+compiled at first use with ``nvcc`` into a shared library with a plain C
+interface, loaded with ``ctypes`` (``kernels/_build.py``).
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import ref
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+LIBRARY = "flash_attention"
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # q/k/v dtype -> code
+MAX_HEAD_DIM = 256
+
+_lib = None           # the loaded library, once per process
+
+
+def build() -> Path:
+    """Compile the kernel unless this source's library exists."""
+    return _build.build(SOURCE, LIBRARY)
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.flash_attention_fwd.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32,
+                                            i32, i32, i32, i32, i32, i32,
+                                            ctypes.c_float, vp]
+        lib.flash_attention_fwd.restype = i32
+        lib.flash_attention_error_string.argtypes = [i32]
+        lib.flash_attention_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _check(q, k, v, q_pos, k_pos):
+    name = "flash_attention"
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"{name}: q must be (B, Sq, H, D) and k, v "
+                         f"(B, Sk, KV, D), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, sq, h, d = q.shape
+    _, sk, kv, dk = k.shape
+    if k.shape[0] != b or dk != d or kv < 1 or h % kv:
+        raise ValueError(f"{name}: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} do not agree (same B and D, "
+                         "H a multiple of KV)")
+    if min(b, sq, sk, d) < 1:
+        raise ValueError(f"{name}: empty input {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}")
+    if tuple(q_pos.shape) != (b, sq) or tuple(k_pos.shape) != (b, sk):
+        raise ValueError(f"{name}: positions must be ({b}, {sq}) and "
+                         f"({b}, {sk}), got {tuple(q_pos.shape)}, "
+                         f"{tuple(k_pos.shape)}")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name}: q, k, v must share one of {list(DTYPES)},"
+                        f" got {q.dtype}, {k.dtype}, {v.dtype}")
+    for pos in (q_pos, k_pos):
+        if pos.dtype.is_floating_point or pos.dtype == torch.bool:
+            raise TypeError(f"{name}: positions must be integers, got "
+                            f"{pos.dtype}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: tensors on {q.device} are not supported")
+    for t in (k, v, q_pos, k_pos):
+        if t.device != q.device:
+            raise ValueError(f"{name}: inputs on {t.device} and {q.device}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_pos: torch.Tensor, k_pos: torch.Tensor, *,
+                    window: int = 0, soft_cap: float = 0.0) -> torch.Tensor:
+    """(B, Sq, H, D) attention output in q's dtype (f32 or bf16); query
+    head h reads KV head h // (H / KV)."""
+    _check(q, k, v, q_pos, k_pos)
+    if q.device.type == "cpu":
+        return ref.attention_ref(q, k, v, q_pos, k_pos, window=window,
+                                 soft_cap=soft_cap)
+    b, sq, h, d = q.shape
+    _, sk, kv, _ = k.shape
+    if d % 4 or d > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: the kernel takes D a multiple "
+                         f"of 4 up to {MAX_HEAD_DIM}, got {d}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q_pos = q_pos.to(torch.int32).contiguous()
+    k_pos = k_pos.to(torch.int32).contiguous()
+    for t in (q, k, v):
+        if t.data_ptr() % 16:
+            raise ValueError("flash_attention: q, k and v must start on a "
+                             "16-byte boundary")
+    out = torch.empty_like(q)
+    lib = _load()
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+            k_pos.data_ptr(), out.data_ptr(), DTYPES[q.dtype], b, sq, sk, h,
+            kv, d, int(window or 0), float(soft_cap or 0.0),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        msg = lib.flash_attention_error_string(err).decode()
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {err} "
+                           f"({msg})")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+
+def reset_launches():
+    flash_attention.launches = 0

@@ -1,6 +1,8 @@
 """The port on the card: the CUDA kernels against their plain versions,
-and the server step and trainer rounds (plain, async int8, guarded under
-faults) on CUDA against the same on the CPU. Marked ``cuda``; each test skips without a card. This file imports
+the server step and trainer rounds (plain, async int8, guarded under
+faults) on CUDA against the same on the CPU, and the dense decoder's
+serving path (every attention call through the flash-attention kernel)
+against the same on the CPU. Marked ``cuda``; each test skips without a card. This file imports
 no JAX, so it also runs where only the port is installed:
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -11,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.bridge import layout_of
+from repro_torch.bridge import layout_of, tree_map
 from repro_torch.configs import paper_lenet5, paper_resnet18
 from repro_torch.core import feddpc
 from repro_torch.core import projection as proj
@@ -20,7 +22,12 @@ from repro_torch.core.faults import FaultPlan
 from repro_torch.core.runtime import ExponentialRuntime
 from repro_torch.ingest.images import (StreamingImageSource,
                                        build_federated_image_data)
+from repro_torch.configs.base import get_config
 from repro_torch.kernels.feddpc_project import ops, ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.launch import serve
+from repro_torch.models import transformer as tf
 from repro_torch.models.vision import init_vision, vision_loss_fn
 
 pytestmark = pytest.mark.cuda
@@ -355,3 +362,124 @@ def test_guarded_faulted_trainer_on_card_matches_cpu(cuda):
     np.testing.assert_allclose([r.train_loss for r in runs["cuda"]],
                                [r.train_loss for r in runs["cpu"]],
                                atol=1e-3)
+
+
+# ---- flash attention and the serving path ----
+
+# (b, sq, sk, h, kv, d, window, soft_cap, empty trailing slots): prefill
+# and decode at StarCoder2's heads (G = 12), ragged tails, a ring-cache
+# decode with a window, the soft cap, D = 32 and D = 256
+FA_CASES = [(2, 100, 132, 24, 2, 128, 0, 0.0, 32),
+            (8, 1, 1056, 24, 2, 128, 0, 0.0, 32),
+            (1, 100, 300, 8, 2, 64, 0, 0.0, 0),
+            (2, 1, 300, 16, 2, 128, 128, 0.0, 7),
+            (1, 77, 77, 4, 2, 64, 0, 30.0, 0),
+            (2, 33, 40, 4, 4, 32, 16, 0.0, 3),
+            (1, 20, 50, 2, 1, 256, 0, 0.0, 5)]
+
+
+@pytest.mark.parametrize("case", FA_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain_version(cuda, case, dtype):
+    b, sq, sk, h, kv, d, window, soft_cap, empty = case
+    rng = np.random.default_rng(0)
+    q, k, v = [torch.from_numpy(rng.standard_normal(s, dtype=np.float32)
+                                ).to(cuda, dtype)
+               for s in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d))]
+    if soft_cap:
+        q = q * 6
+    q_pos = torch.arange(sk - sq, sk, dtype=torch.int32,
+                         device=cuda)[None].expand(b, sq).contiguous()
+    k_pos = torch.arange(sk, dtype=torch.int32, device=cuda)[None].repeat(
+        b, 1)
+    if empty:
+        k_pos[:, sk - empty:] = -1
+    if b > 1:
+        k_pos[-1] = -1                       # a batch row with no key
+    before = fa_ops.flash_attention.launches
+    got = fa_ops.flash_attention(q, k, v, q_pos, k_pos, window=window,
+                                 soft_cap=soft_cap)
+    want = fa_ref.attention_ref(q, k, v, q_pos, k_pos, window=window,
+                                soft_cap=soft_cap)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    # the reference's kernel tolerances (tests/test_kernels.py)
+    tol = 2e-5 if dtype == torch.float32 else 4e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if b > 1:
+        assert bool((got[-1] == 0).all())
+
+
+def test_flash_attention_rejects_bad_inputs_on_the_card(cuda):
+    q = torch.zeros(1, 4, 4, 30, device=cuda)       # D not a multiple of 4
+    k = torch.zeros(1, 6, 2, 30, device=cuda)
+    qp = torch.zeros(1, 4, dtype=torch.int32, device=cuda)
+    kp = torch.zeros(1, 6, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(q, k, k, qp, kp)
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(q[..., :28], k[..., :28], k[..., :28], qp,
+                               kp.cpu())
+
+
+def _teacher_forced(cfg, params, prompts, steps, device, dtype):
+    """Prefill, then ``steps`` decode steps fed the tokens 0, 1, ...:
+    the logits of each, stacked (1 + steps, B, V) on the CPU."""
+    b, s = prompts.shape
+    states = tf.init_states(cfg, b, s + steps, dtype, device)
+    params = tree_map(lambda t: t.to(device), params)
+    logits, states, _ = tf.lm_forward(cfg, params, prompts.to(device),
+                                      states=states, logits_slice_last=True)
+    out = [logits[:, -1]]
+    for i in range(steps):
+        tok = torch.full((b, 1), i, dtype=torch.int64, device=device)
+        pos = torch.full((b, 1), s + i, dtype=torch.int32, device=device)
+        logits, states, _ = tf.lm_forward(cfg, params, tok, positions=pos,
+                                          states=states,
+                                          logits_slice_last=True)
+        out.append(logits[:, -1])
+    return torch.stack(out).float().cpu()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_serve_on_card_matches_cpu(cuda, dtype):
+    """StarCoder2 SMOKE from the same params and prompts on the card and
+    on the CPU: prefill and 4 teacher-forced decode steps agree, and the
+    card launches the kernel once per layer and step."""
+    cfg = get_config("starcoder2-3b", smoke=True)
+    params = tf.init_lm(cfg, torch.Generator().manual_seed(0), dtype)
+    prompts = torch.randint(0, cfg.vocab_size, (3, 20),
+                            generator=torch.Generator().manual_seed(1))
+    before = fa_ops.flash_attention.launches
+    got = _teacher_forced(cfg, params, prompts, 4, cuda, dtype)
+    assert fa_ops.flash_attention.launches - before == cfg.num_layers * 5
+    want = _teacher_forced(cfg, params, prompts, 4, "cpu", dtype)
+    # f32: matmul and attention sums in other orders; bf16: other
+    # rounding points of bf16 activations through two layers
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    before = fa_ops.flash_attention.launches
+    tokens, stats = serve.serve_lm(cfg, 3, 20, 6, device="cuda", dtype=dtype)
+    assert fa_ops.flash_attention.launches - before == cfg.num_layers * 6
+    assert tokens.shape == (3, 6) and stats["tok_per_s"] > 0
+
+
+def test_decode_step_never_waits_for_the_card(cuda):
+    """A decode step queues its work and returns: no call on the path
+    synchronizes with the card."""
+    cfg = get_config("starcoder2-3b", smoke=True)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = tf.init_lm(cfg, gen, torch.float32)
+    states = tf.init_states(cfg, 2, 9, torch.float32, cuda)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 8), generator=gen,
+                            device=cuda)
+    _, states, _ = tf.lm_forward(cfg, params, prompts, states=states)
+    tok = torch.zeros((2, 1), dtype=torch.int64, device=cuda)
+    pos = torch.full((2, 1), 8, dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tf.lm_forward(cfg, params, tok, positions=pos, states=states)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")

@@ -23,7 +23,10 @@ bad = sorted(m for m in sys.modules
              or m.startswith("jax"))
 print(len(names), "modules")
 assert not bad, bad
-assert "repro_torch.kernels.feddpc_project.ops" in names, names
+for must in ("repro_torch.kernels.feddpc_project.ops",
+             "repro_torch.kernels.flash_attention.ops",
+             "repro_torch.launch.serve"):
+    assert must in names, (must, names)
 print("chip_smoke.main() ->", chip_smoke.main())   # CUDA is hidden
 """
 

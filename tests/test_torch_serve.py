@@ -1,0 +1,177 @@
+"""repro_torch's dense decoders and serving driver against the reference:
+the four dense SMOKE configs from the reference's ``init_lm`` params,
+carried across by the bridge — full-sequence logits, then prefill plus
+teacher-forced decode steps (logits and caches) — and the serve entry
+points on the CPU."""
+import dataclasses
+import functools
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import get_config as ref_get_config
+from repro.models import transformer as ref_tf
+from repro_torch import bridge
+from repro_torch.configs.base import ArchConfig, get_config
+from repro_torch.launch import serve
+from repro_torch.models import transformer as tf
+
+ROOT = Path(__file__).resolve().parents[1]
+DENSE = ("starcoder2-3b", "phi4-mini-3.8b", "minitron-8b", "command-r-35b")
+# f32 matmuls in other orders through two layers: a few 1e-6 of the logits
+ATOL = RTOL = 1e-4
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_params(arch):
+    cfg = ref_get_config(arch, smoke=True)
+    params = jax.jit(lambda k: ref_tf.init_lm(cfg, k, jnp.float32))(
+        jax.random.PRNGKey(0))
+    return jax.tree.map(np.asarray, params)
+
+
+def _numpy(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _assert_states_match(got, want_np, cfg):
+    want = bridge.lm_states_from_reference(want_np, cfg)
+    assert len(got) == len(want) == cfg.num_layers
+    for g, w in zip(got, want):
+        assert g["idx"] == w["idx"]
+        assert torch.equal(g["pos"], w["pos"])
+        for key in ("k", "v"):
+            np.testing.assert_allclose(g[key].numpy(), w[key].numpy(),
+                                       rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_lm_forward_prefill_and_decode_match_reference(arch):
+    rcfg, cfg = ref_get_config(arch, smoke=True), get_config(arch, smoke=True)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(rcfg)   # copied
+    np_params = _ref_params(arch)
+    params = bridge.lm_params_from_reference(np_params, cfg)
+    rng = np.random.default_rng(0)
+    b, s, extra = 2, 12, 3
+    tokens = rng.integers(0, cfg.vocab_size, (b, s), dtype=np.int32)
+
+    want, _, _ = ref_tf.lm_forward(rcfg, np_params, tokens)
+    got, none, aux = tf.lm_forward(cfg, params, torch.from_numpy(tokens))
+    assert none is None and float(aux) == 0.0
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+    # prefill into a cache of s + extra slots, then teacher-forced decode
+    rstates = ref_tf.init_states(rcfg, b, s + extra, jnp.float32)
+    states = tf.init_states(cfg, b, s + extra, torch.float32)
+    _assert_states_match(states, _numpy(rstates), cfg)
+    want, rstates, _ = ref_tf.lm_forward(rcfg, np_params, tokens,
+                                         states=rstates,
+                                         logits_slice_last=True)
+    got, states, _ = tf.lm_forward(cfg, params, torch.from_numpy(tokens),
+                                   states=states, logits_slice_last=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+    _assert_states_match(states, _numpy(rstates), cfg)
+    for i in range(extra):
+        tok = rng.integers(0, cfg.vocab_size, (b, 1), dtype=np.int32)
+        pos = np.full((b, 1), s + i, np.int32)
+        want, rstates, _ = ref_tf.lm_forward(rcfg, np_params, tok,
+                                             positions=pos, states=rstates,
+                                             logits_slice_last=True)
+        got, states, _ = tf.lm_forward(cfg, params, torch.from_numpy(tok),
+                                       positions=torch.from_numpy(pos),
+                                       states=states, logits_slice_last=True)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                                   atol=ATOL)
+        _assert_states_match(states, _numpy(rstates), cfg)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_init_lm_has_the_reference_tree(arch):
+    """The port's own init: the bridged reference tree's leaves, shapes
+    and dtypes, and the reference's distributions."""
+    cfg = get_config(arch, smoke=True)
+    want = bridge.lm_params_from_reference(_ref_params(arch), cfg)
+    got = tf.init_lm(cfg, torch.Generator().manual_seed(0), torch.float32)
+    g_leaves = bridge.tree_leaves_with_path(got)
+    w_leaves = bridge.tree_leaves_with_path(want)
+    for (gp, g), (wp, w) in zip(g_leaves, w_leaves, strict=True):
+        assert gp == wp and g.shape == w.shape and g.dtype == w.dtype
+    assert abs(float(got["embed"].std()) - 0.02) < 0.002
+    wq = got["layers"][0]["mixer"]["wq"]["w"]
+    assert abs(float(wq.std()) * cfg.d_model ** 0.5 - 1.0) < 0.05
+    bf16 = tf.init_lm(cfg, torch.Generator().manual_seed(0), torch.bfloat16)
+    assert all(t.dtype == torch.bfloat16 for t in bridge.tree_leaves(bf16))
+
+
+def test_serve_lm_on_cpu():
+    cfg = get_config("starcoder2-3b", smoke=True)
+    tokens, stats = serve.serve_lm(cfg, 3, 10, 5, seed=1, device="cpu")
+    assert tokens.shape == (3, 5) and tokens.dtype == torch.int64
+    assert bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all())
+    assert set(stats) == {"prefill_s", "decode_s", "tok_per_s"}
+    # the seed draws params, then prompts; given both, the same run
+    gen = torch.Generator().manual_seed(1)
+    params = tf.init_lm(cfg, gen, torch.float32)
+    prompts = torch.randint(0, cfg.vocab_size, (3, 10), generator=gen)
+    again, _ = serve.serve_lm(cfg, 3, 10, 5, seed=7, device="cpu",
+                              params=params, prompts=prompts)
+    assert torch.equal(tokens, again)
+    # greedy tokens equal a plain loop of lm_forward on the same params
+    seq = prompts
+    for _ in range(5):
+        logits, _, _ = tf.lm_forward(cfg, params, seq)
+        seq = torch.cat([seq, logits[:, -1].argmax(-1)[:, None]], dim=1)
+    assert torch.equal(seq[:, 10:], tokens)
+    bf16, _ = serve.serve_lm(cfg, 2, 6, 3, device="cpu",
+                             dtype=torch.bfloat16)
+    assert bf16.shape == (2, 3)
+
+
+def test_serve_lm_refuses_a_missing_card_and_bad_prompts():
+    cfg = get_config("starcoder2-3b", smoke=True)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            serve.serve_lm(cfg, 1, 4, 2)
+    with pytest.raises(ValueError, match="prompts"):
+        serve.serve_lm(cfg, 2, 4, 2, device="cpu",
+                       prompts=torch.zeros(2, 5, dtype=torch.int64))
+
+
+def test_serve_cli_on_cpu():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--arch", "starcoder2-3b", "--batch", "2", "--gen", "4"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300, env=env)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "generated (2, 4) tokens on cpu" in proc.stdout
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "falcon-mamba-7b",
+                                  "whisper-base"])
+def test_unported_archs_raise(arch):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+        get_config(arch)
+    with pytest.raises(KeyError):
+        get_config("no-such-arch")
+
+
+def test_non_dense_layers_raise():
+    moe = ArchConfig(name="tiny-moe", arch_type="moe", moe=True,
+                     num_experts=4, top_k=2, moe_d_ff=64)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+        tf.init_lm(moe, torch.Generator())
+    dense = get_config("starcoder2-3b", smoke=True)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+        tf.lm_forward(dense, {}, torch.zeros(1, 2, dtype=torch.int64),
+                      embeds=torch.zeros(1, 1, dense.d_model))
