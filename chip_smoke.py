@@ -5,9 +5,10 @@
 
 Phases, each printing JSON lines; any failure raises and exits non-zero:
 
-  1. build    nvcc-builds the FedDPC and flash-attention libraries from
-              the checkout's sources, both at once; prints the card's name
-              and power limit (nvidia-smi).
+  1. build    nvcc-builds the FedDPC, flash-attention and ssm_scan
+              libraries from the checkout's sources, all three at once;
+              prints the card's name, power limit and top SM clock
+              (nvidia-smi).
   2. kernels  holds every kernel against its plain PyTorch version on the
               card: the reduction pass and the batched epilogue at the
               main path's shape (K=10 clients x N=11,220,132 ResNet18-GN
@@ -74,6 +75,23 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               teacher-forced decode steps.
   8. serve parity  StarCoder2 SMOKE on the card and on the CPU from the
               same params: prefill plus 4 teacher-forced decode steps.
+  9. ssm kernels  ssm_scan against its plain version on the card, f32
+              and bf16 u: Falcon-Mamba-7B's prefill (B = 8, S = 1024,
+              D_in = 8192, N = 16), decode (S = 1 from a carried state)
+              and continuation (S = 100 from a carried state) shapes and
+              the reference's ragged sweep shapes. Times the kernel (warm
+              and with the L2 flushed) and the plain version at the
+              prefill and decode shapes, beside the bound — which counts
+              the exponentials on the SFU at the card's top SM clock.
+ 10. serve ssm  serve_lm on Falcon-Mamba-7B at full width and depth (64
+              layers, d_model 4096, random weights from a seed), B = 8,
+              prompts of 1024, 32 generated tokens, in f32 and in bf16;
+              ssm_scan must launch exactly num_layers x gen times in each
+              run and flash_attention never. A profiled prefill and decode
+              step; then the kernel path against the plain path
+              (ssm_impl="reference") on the same params and prompts.
+ 11. serve ssm parity  Falcon-Mamba SMOKE on the card and on the CPU from
+              the same params: prefill plus 4 teacher-forced decode steps.
 
 The last lines are the kernels' JSON summary, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
@@ -116,6 +134,8 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.feddpc_project import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
+from repro_torch.kernels.ssm_scan import ops as ss_ops  # noqa: E402
+from repro_torch.kernels.ssm_scan import ref as ss_ref  # noqa: E402
 from repro_torch.launch.serve import serve_lm  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.models.vision import (init_vision,  # noqa: E402
@@ -156,7 +176,8 @@ REPLACES = {"feddpc_dots": f"{_TPU}:44",
 # boundaries inside every column tile
 FOLD_KS = (1, 10, 33)
 SYNTH_NUMELS = (5, 31, 1, 17) * 4 + (2048, 7, 997_732)
-# no single PyTorch call computes any of the seven functions
+# no single PyTorch call computes any of these functions (the FedDPC seven
+# and the selective scan)
 LIBRARY_NONE = "no single PyTorch call computes this function"
 # the guard's reduction pass: K rows of N, ResNet18-GN's N and a ragged one
 GUARD_KS = (1, 10, 33)
@@ -190,6 +211,29 @@ FA_CASES = (
     ("all_empty_row", 3, 16, 200, 8, 2, 128, 0, 0.0, 0, 184, True),
 )
 FA_TIMED = ("prefill", "decode")
+
+# ---- the pure-SSM serving path ----
+SS_SOURCE = "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu"
+SS_REPLACES = "src/repro/kernels/ssm_scan/kernel.py:65"
+# kernel vs plain version: the reference's kernel tolerances
+# (tests/test_kernels.py); the kernel rounds step for step as the plain
+# version does, so each line also says whether they are bitwise equal
+SS_TOL = {torch.float32: 2e-4, torch.bfloat16: 4e-2}
+SS_H_TOL = 2e-4
+SSM_ARCH = "falcon-mamba-7b"
+# (label, B, S, D_in, N, a carried-in state h0)
+SS_CASES = (
+    ("prefill", 8, 1024, 8192, 16, False),
+    ("decode", 8, 1, 8192, 16, True),
+    ("continuation", 8, 100, 8192, 16, True),
+    ("ragged", 2, 100, 96, 8, False),
+    ("ragged_short", 1, 17, 64, 4, False),
+)
+SS_TIMED = ("prefill", "decode")
+# the SFU's exponentials (MUFU.EX2): 16 per clock per SM on the H100's 132
+# SMs (NVIDIA's arithmetic instruction throughput table, compute 9.0)
+SFU_PER_CLOCK_PER_SM = 16
+NUM_SMS = 132
 
 
 def emit(obj):
@@ -242,29 +286,44 @@ def cuda_ms_cold(fn, reps: int = 20):
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: float, flop_per_s: float = F32_FLOP_PER_S):
+def bound_ms(nbytes: float, flops: float, flop_per_s: float = F32_FLOP_PER_S,
+             sfu_ops: float = 0, sfu_per_s: float = math.inf):
+    """(ms, "bytes" | "operations"): the larger of the bytes over HBM and
+    the operations — FLOPs at ``flop_per_s``, and special-function
+    operations (exponentials) at ``sfu_per_s`` — over their peak."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / flop_per_s
+    t_ops = max(flops / flop_per_s, sfu_ops / sfu_per_s)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
-def phase_build() -> str:
-    """Both libraries at once: one nvcc per source, started together."""
-    tic = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        futures = [pool.submit(mod.build) for mod in (ops, fa_ops)]
-        path, fa_path = [f.result() for f in futures]
-    seconds = time.perf_counter() - tic
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
+def _smi(query: str, fmt: str = "csv,noheader") -> str:
+    """nvidia-smi's answer to ``--query-gpu=query`` for the first card."""
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", f"--format={fmt}"],
+        capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    emit({"phase": "build", "libraries": [path.name, fa_path.name],
+
+
+def phase_build() -> str:
+    """All three libraries at once: one nvcc per source, started
+    together."""
+    tic = time.perf_counter()
+    mods = (ops, fa_ops, ss_ops)
+    with ThreadPoolExecutor(max_workers=len(mods)) as pool:
+        futures = [pool.submit(mod.build) for mod in mods]
+        paths = [f.result() for f in futures]
+    seconds = time.perf_counter() - tic
+    smi = _smi("name,power.limit")
+    emit({"phase": "build", "libraries": [p.name for p in paths],
           "nvcc_seconds": dict(_build.build_seconds), "seconds": seconds,
-          "nvidia_smi": smi, "torch": torch.__version__,
-          "cuda": torch.version.cuda})
+          "nvidia_smi": smi, "max_sm_clock_mhz": _max_sm_clock_mhz(),
+          "torch": torch.__version__, "cuda": torch.version.cuda})
     return smi
+
+
+def _max_sm_clock_mhz() -> float:
+    return float(_smi("clocks.max.sm", "csv,noheader,nounits"))
 
 
 def _inputs(gen, k, n, zero_prev):
@@ -1076,17 +1135,120 @@ def phase_attention():
                 "library_ms", "bound_ms", "bound_by")} for t in timings]}
 
 
-def _teacher_forced(cfg, params, prompts, forced, attn_impl):
+def _ssm_case(gen, case, dtype):
+    """The inputs of one SS_CASES entry on the card, drawn as the
+    reference's sweep draws them: u (in dtype), dt = softplus(N) / 10,
+    b, c ~ N, a = -exp(0.3 N), d_skip = 1, h0 ~ N when carried in."""
+    _, b, s, d_in, n, with_h0 = case
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    u = randn(b, s, d_in).to(dtype)
+    dt = torch.nn.functional.softplus(randn(b, s, d_in)) * 0.1
+    bm, cm = randn(b, s, n), randn(b, s, n)
+    a = -torch.exp(randn(d_in, n) * 0.3)
+    dsk = torch.ones(d_in, device="cuda")
+    return u, dt, bm, cm, a, dsk, (randn(b, d_in, n) if with_h0 else None)
+
+
+def _ssm_work(u, dt, b, c, a, dsk, h0):
+    """(bytes, f32 FLOPs, exponentials) of one scan: each input read once,
+    y and h_final written once; per (batch, step, channel, state) dt*a,
+    h*decay + du*b and acc + h*c (6 FLOPs) and one exp, per (batch, step,
+    channel) du, d*u and the sum (3)."""
+    bsz, s, d_in = u.shape
+    n = b.shape[-1]
+    f32_elems = (dt.numel() + b.numel() + c.numel() + a.numel() + dsk.numel()
+                 + bsz * d_in * n + (0 if h0 is None else h0.numel()))
+    nbytes = 2 * u.element_size() * u.numel() + 4 * f32_elems
+    elems = bsz * s * d_in
+    return nbytes, 6 * elems * n + 3 * elems, elems * n
+
+
+def phase_ssm_kernels():
+    """ssm_scan against its plain version at every SS_CASES shape in f32
+    and bf16, then timed at the serving path's prefill and decode shapes
+    beside the bound; returns the kernel's summary row."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    clock_mhz = _max_sm_clock_mhz()
+    err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    err_h = 0.0
+    timings = []
+    for case, dtype in itertools.product(SS_CASES, (torch.float32,
+                                                    torch.bfloat16)):
+        label, b, s, d_in, n, with_h0 = case
+        args = _ssm_case(gen, case, dtype)
+        y, h = ss_ops.ssm_scan(*args)
+        want_y, want_h = ss_ref.ssm_scan_ref(*args)
+        torch.cuda.synchronize()
+        e = float((y.float() - want_y.float()).abs().max())
+        e_h = float((h - want_h).abs().max())
+        tol = SS_TOL[dtype]
+        if y.dtype != dtype or not torch.allclose(
+                y.float(), want_y.float(), rtol=tol, atol=tol):
+            raise AssertionError(f"ssm_scan {label} {dtype}: y max abs err "
+                                 f"{e}")
+        if not torch.allclose(h, want_h, rtol=SS_H_TOL, atol=SS_H_TOL):
+            raise AssertionError(f"ssm_scan {label} {dtype}: h max abs err "
+                                 f"{e_h}")
+        err[dtype] = max(err[dtype], e)
+        err_h = max(err_h, e_h)
+        line = {"phase": "ssm_kernels", "case": label, "B": b, "S": s,
+                "D_in": d_in, "N": n, "h0": with_h0,
+                "dtype": str(dtype)[6:], "max_abs_err": e,
+                "h_max_abs_err": e_h,
+                # the kernel rounds as the plain version does (csrc note)
+                "bitwise_equal": bool(torch.equal(y, want_y)
+                                      and torch.equal(h, want_h))}
+        if label in SS_TIMED:
+            nbytes, flops, exps = _ssm_work(*args)
+            sfu_per_s = SFU_PER_CLOCK_PER_SM * NUM_SMS * 1e6 * clock_mhz
+            b_ms, b_by = bound_ms(nbytes, flops, sfu_ops=exps,
+                                  sfu_per_s=sfu_per_s)
+            term = ("bytes" if b_by == "bytes" else "exponentials (SFU)"
+                    if exps / sfu_per_s >= flops / F32_FLOP_PER_S
+                    else "f32 FLOPs")
+            kern = functools.partial(ss_ops.ssm_scan, *args)
+            plain = functools.partial(ss_ref.ssm_scan_ref, *args)
+            ms, ms_one = cuda_ms(kern)
+            # the plain version launches ~8 kernels a step: few windows
+            plain_ms, _ = cuda_ms(plain, reps=3, calls=1) if s > 1 \
+                else cuda_ms(plain)
+            line.update({
+                "ms": ms, "ms_one_call": ms_one,
+                "ms_cold": cuda_ms_cold(kern), "plain_ms": plain_ms,
+                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+                "bound_term": term, "bytes": nbytes, "flops": flops,
+                "exponentials": exps, "max_sm_clock_mhz": clock_mhz})
+            timings.append(line)
+        emit(line)
+        del args, y, h, want_y, want_h
+    head = timings[0]                  # prefill, f32: the headline
+    return {"name": "ssm_scan", "route": "cuda", "source": SS_SOURCE,
+            "replaces": SS_REPLACES, "max_abs_err": err[torch.float32],
+            "max_abs_err_bf16": err[torch.bfloat16], "h_max_abs_err": err_h,
+            "ms": head["ms"], "ms_one_call": head["ms_one_call"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": None,
+            "library": LIBRARY_NONE,
+            "timings": [{k: t[k] for k in (
+                "case", "dtype", "ms", "ms_one_call", "ms_cold", "plain_ms",
+                "bound_ms", "bound_by", "bound_term")} for t in timings]}
+
+
+def _teacher_forced(cfg, params, prompts, forced, impl):
     """Prefill ``prompts``, then one decode step per column of ``forced``
     (the same tokens whatever the model predicts): the last-position
-    logits of each, stacked (1 + steps, B, V) in f32."""
+    logits of each, stacked (1 + steps, B, V) in f32. ``impl`` ("auto"
+    or "reference") is both the attention's and the SSM mixer's."""
     b, s = prompts.shape
     steps = forced.shape[1]
     dtype = params["embed"].dtype
     states = tf.init_states(cfg, b, s + steps, dtype, prompts.device)
     with torch.inference_mode():
         logits, states, _ = tf.lm_forward(cfg, params, prompts,
-                                          states=states, attn_impl=attn_impl,
+                                          states=states, attn_impl=impl,
+                                          ssm_impl=impl,
                                           logits_slice_last=True)
         out = [logits[:, -1].float()]
         for i in range(steps):
@@ -1094,7 +1256,8 @@ def _teacher_forced(cfg, params, prompts, forced, attn_impl):
                              device=prompts.device)
             logits, states, _ = tf.lm_forward(
                 cfg, params, forced[:, i:i + 1], positions=pos,
-                states=states, attn_impl=attn_impl, logits_slice_last=True)
+                states=states, attn_impl=impl, ssm_impl=impl,
+                logits_slice_last=True)
             out.append(logits[:, -1].float())
     return torch.stack(out)
 
@@ -1102,6 +1265,8 @@ def _teacher_forced(cfg, params, prompts, forced, attn_impl):
 def _serve_category(kernel: str) -> str:
     if "fa_fwd_kernel" in kernel:
         return "flash_attention kernel"
+    if "ssm_scan_kernel" in kernel:
+        return "ssm_scan kernel"
     if any(tag in kernel.lower() for tag in ("gemm", "gemv", "cutlass",
                                              "xmma", "cublas", "nvjet")):
         return "matmuls (cuBLAS)"
@@ -1153,12 +1318,23 @@ def profile_serve(cfg, params, prompts):
         torch.cuda.set_sync_debug_mode("default")
 
 
-def phase_serve():
-    """serve_lm on StarCoder2-3B at full width and depth, f32 then bf16,
-    with the kernel's count set to 0 just before each run and read just
-    after; then the kernel path against the plain path on the same params
-    and prompts. Returns the f32 run's launch count."""
-    cfg = get_config(SERVE_ARCH)
+# the serving paths' kernels: name -> the module of its wrapper
+SERVE_KERNELS = {"flash_attention": fa_ops, "ssm_scan": ss_ops}
+
+
+def _serve_launches() -> dict:
+    return {name: getattr(mod, name).launches
+            for name, mod in SERVE_KERNELS.items()}
+
+
+def phase_serve(arch: str, kernel: str) -> int:
+    """serve_lm on ``arch`` at full width and depth, f32 then bf16, with
+    the serving kernels' counts set to 0 just before each run and read
+    just after: ``kernel`` must launch num_layers x gen times, the others
+    never. Then a profiled prefill and decode step, and the kernel path
+    against the plain path on the same params and prompts (each timed).
+    Returns the f32 run's launch count of ``kernel``."""
+    cfg = get_config(arch)
     counts = {}
     for dtype in (torch.float32, torch.bfloat16):
         torch.cuda.empty_cache()
@@ -1168,26 +1344,36 @@ def phase_serve():
         prompts = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT),
                                 generator=gen, device="cuda")
         n_params = sum(t.numel() for t in tree_leaves(params))
-        fa_ops.reset_launches()            # this path starts here
+        for mod in SERVE_KERNELS.values():
+            mod.reset_launches()           # this path starts here
         tokens, stats = serve_lm(cfg, SERVE_B, SERVE_PROMPT, SERVE_GEN,
                                  device="cuda", dtype=dtype, params=params,
                                  prompts=prompts)
-        launches = fa_ops.flash_attention.launches
+        launches = _serve_launches()
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-        want = cfg.num_layers * SERVE_GEN
+        want = {name: cfg.num_layers * SERVE_GEN if name == kernel else 0
+                for name in SERVE_KERNELS}
         if launches != want:
-            raise AssertionError(f"serve {dtype}: flash_attention launched "
-                                 f"{launches} times, expected {want}")
+            raise AssertionError(f"serve {arch} {dtype}: launches "
+                                 f"{launches}, expected {want}")
         if tuple(tokens.shape) != (SERVE_B, SERVE_GEN) or not bool(
                 ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
             raise AssertionError(f"serve {dtype}: tokens {tokens.shape} out "
                                  "of range")
-        counts[dtype] = launches
+        counts[dtype] = launches[kernel]
         profile_serve(cfg, params, prompts)
         forced = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_STEPS),
                                generator=gen, device="cuda")
-        kern = _teacher_forced(cfg, params, prompts, forced, "auto")
-        plain = _teacher_forced(cfg, params, prompts, forced, "reference")
+        path_s = {}
+        for impl in ("auto", "reference"):
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            logits = _teacher_forced(cfg, params, prompts, forced, impl)
+            torch.cuda.synchronize()
+            path_s[impl] = time.perf_counter() - tic
+            if impl == "auto":
+                kern = logits
+        plain = logits
         if not bool(torch.isfinite(kern).all() & torch.isfinite(plain).all()):
             raise AssertionError(f"serve {dtype}: non-finite logits")
         diff = float((kern - plain).abs().max())
@@ -1198,10 +1384,12 @@ def phase_serve():
                 "params": n_params, "batch": SERVE_B,
                 "prompt_len": SERVE_PROMPT, "gen": SERVE_GEN, **stats,
                 "decode_step_ms": 1e3 * stats["decode_s"] / (SERVE_GEN - 1),
-                "flash_attention_launches": launches,
+                **{f"{name}_launches": n for name, n in launches.items()},
                 "peak_memory_gib": peak_gib, "tokens_in_range": True,
                 "sample": tokens[0, :8].tolist(),
                 "parity_steps": 1 + SERVE_STEPS,
+                "kernel_path_s": path_s["auto"],
+                "plain_path_s": path_s["reference"],
                 "kernel_vs_plain_max_abs_logit_diff": diff,
                 "max_abs_logit": float(plain.abs().max()),
                 "kernel_vs_plain_top1_agreement": top1,
@@ -1213,14 +1401,16 @@ def phase_serve():
         if dtype == torch.bfloat16 and not top1 >= SERVE_BF16_TOP1:
             raise AssertionError(f"serve bf16: kernel vs plain top-1 "
                                  f"agreement {top1} < {SERVE_BF16_TOP1}")
-        del params, kern, plain
+        del params, kern, plain, logits
+    torch.cuda.empty_cache()
     return counts[torch.float32]
 
 
-def phase_serve_parity():
-    """StarCoder2 SMOKE from the same params and tokens on the card and
-    on the CPU: prefill plus SMOKE_STEPS teacher-forced decode steps."""
-    cfg = get_config(SERVE_ARCH, smoke=True)
+def phase_serve_parity(arch: str):
+    """``arch``'s SMOKE config from the same params and tokens on the card
+    and on the CPU: prefill plus SMOKE_STEPS teacher-forced decode
+    steps."""
+    cfg = get_config(arch, smoke=True)
     gen = torch.Generator().manual_seed(0)
     params = tf.init_lm(cfg, gen, torch.float32)
     prompts = torch.randint(0, cfg.vocab_size, (4, 64), generator=gen)
@@ -1234,8 +1424,8 @@ def phase_serve_parity():
           "card_vs_cpu_max_abs_logit_diff": diff,
           "max_abs_logit": float(cpu.abs().max())})
     if not diff <= SMOKE_ATOL:
-        raise AssertionError(f"SMOKE card vs CPU logits differ by {diff} > "
-                             f"{SMOKE_ATOL}")
+        raise AssertionError(f"{arch} SMOKE card vs CPU logits differ by "
+                             f"{diff} > {SMOKE_ATOL}")
 
 
 def main() -> int:
@@ -1257,9 +1447,13 @@ def main() -> int:
                                  "main path")
     phase_parity()
     fa_row = phase_attention()
-    fa_row["launches"] = phase_serve()
+    fa_row["launches"] = phase_serve(SERVE_ARCH, "flash_attention")
     rows.append(fa_row)
-    phase_serve_parity()
+    phase_serve_parity(SERVE_ARCH)
+    ss_row = phase_ssm_kernels()
+    ss_row["launches"] = phase_serve(SSM_ARCH, "ssm_scan")
+    rows.append(ss_row)
+    phase_serve_parity(SSM_ARCH)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: row[k] for k in keys} for row in rows]})

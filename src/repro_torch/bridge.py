@@ -70,7 +70,11 @@ def _as_tensor(x) -> torch.Tensor:
     a = np.asarray(x)
     # torch wants writable memory; a read-only array (a JAX export) is
     # copied once here — every caller copies the tensor anyway
-    return torch.from_numpy(a if a.flags.writeable else a.copy())
+    a = a if a.flags.writeable else a.copy()
+    if a.dtype.name == "bfloat16":      # ml_dtypes' bf16 (a bf16 model):
+        # torch.from_numpy refuses it; same bits through uint16
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def to_torch(tree: Tree) -> Tree:
@@ -185,7 +189,8 @@ def _unstack_layers(prefix: Tree, stack: Tree, cfg) -> List[Tree]:
 def lm_params_from_reference(np_params: Tree, cfg) -> Tree:
     """The reference's ``init_lm`` tree (numpy leaves) -> the port's
     decoder params (transformer module docstring) as CPU tensors: the
-    same leaves, layer by layer."""
+    same leaves in the same dtypes (an SSM mixer's ``a_log`` and
+    ``d_skip`` stay f32 in a bf16 model), layer by layer."""
     out = {k: to_torch(np_params[k]) for k in ("embed", "final_norm",
                                                "lm_head") if k in np_params}
     out["layers"] = [to_torch(layer) for layer in _unstack_layers(
@@ -195,10 +200,14 @@ def lm_params_from_reference(np_params: Tree, cfg) -> Tree:
 
 def lm_states_from_reference(np_states: Tree, cfg) -> List:
     """The reference's ``init_states`` tree (or a prefill's / decode's
-    new states, as numpy) -> the port's list of per-layer caches (CPU
-    tensors), with ``idx`` as a Python int."""
+    new states, as numpy) -> the port's list of per-layer states (CPU
+    tensors): an attention cache with ``idx`` as a Python int, or an SSM
+    state {"conv", "h"} (which has no ``idx``)."""
     out = []
     for c in _unstack_layers(np_states["prefix"], np_states["stack"], cfg):
+        if "h" in c:                               # an SSM layer
+            out.append(to_torch({k: c[k] for k in ("conv", "h")}))
+            continue
         cache = to_torch({k: c[k] for k in ("k", "v", "pos")})
         cache["idx"] = int(np.asarray(c["idx"]))
         out.append(cache)

@@ -176,6 +176,7 @@ _MOD = {
     "minitron-8b": "minitron_8b",
     "phi4-mini-3.8b": "phi4_mini_3_8b",
     "command-r-35b": "command_r_35b",
+    "falcon-mamba-7b": "falcon_mamba_7b",
     # paper-native models (vision CNNs for the faithful reproduction)
     "lenet5": "paper_lenet5",
     "resnet18-gn": "paper_resnet18",
@@ -190,9 +191,10 @@ def get_config(arch_id: str, smoke: bool = False):
             raise NotImplementedError(
                 f"{arch_id} is not ported to repro_torch yet: the port "
                 "carries the dense GQA decoders (starcoder2-3b, "
-                "phi4-mini-3.8b, minitron-8b, command-r-35b); MLA, MoE, "
-                "SSM, hybrid, encoder-decoder and VLM archs are ROADMAP "
-                "Queue 1 item 14")
+                "phi4-mini-3.8b, minitron-8b, command-r-35b) and the "
+                "pure-SSM falcon-mamba-7b; MLA, MoE, hybrid, "
+                "encoder-decoder and VLM archs are ROADMAP Queue 1 item "
+                "14")
         raise KeyError(f"unknown arch id {arch_id!r}")
     mod = importlib.import_module(f"repro_torch.configs.{_MOD[arch_id]}")
     return mod.SMOKE if smoke else mod.CONFIG

@@ -1,16 +1,19 @@
 """Batched serving driver (counterpart of repro/launch/serve.py): prefill a
 batch of prompts, then decode greedily token by token against the
-per-layer KV caches — on the card by default, every attention call
-through the flash-attention kernel:
+per-layer KV caches or SSM states — on the card by default, every
+attention call through the flash-attention kernel and every selective
+scan through the ssm_scan kernel:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b \\
       --batch 4 --prompt-len 32 --gen 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b
 
 ``--size full`` runs the full-size config (random weights from
 ``--seed``), ``--dtype bfloat16`` the bf16 model, and ``--device cpu``
-the CPU (plain attention); without it the script raises when CUDA is
-absent. The port carries the dense GQA decoders; encoder-decoder and
-VLM serving come with later slices.
+the CPU (plain attention and scan); without it the script raises when
+CUDA is absent. The port carries the dense GQA decoders and the pure-SSM
+Falcon-Mamba; encoder-decoder, VLM, MoE, MLA and hybrid serving come
+with later slices.
 """
 from __future__ import annotations
 
@@ -32,18 +35,21 @@ def _sync(device: torch.device):
 
 
 def serve_lm(cfg, batch, prompt_len, gen, seed=0, *, device="cuda",
-             dtype=torch.float32, attn_impl="auto", prompts=None,
-             params=None):
+             dtype=torch.float32, attn_impl="auto", ssm_impl="auto",
+             prompts=None, params=None):
     """Greedy generation of ``gen`` tokens for ``batch`` prompts of
     ``prompt_len`` tokens: one prefill (logits of the last position),
     then ``gen - 1`` decode steps at positions prompt_len + i, in caches
-    of capacity prompt_len + gen. ``params`` (from ``tf.init_lm``, on
-    ``device``) and ``prompts`` (B, prompt_len) are drawn from ``seed``
-    when not given. Returns (tokens (B, gen) int64, stats)."""
+    of capacity prompt_len + gen (an SSM layer carries its fixed-size
+    state instead). ``params`` (from ``tf.init_lm``, on ``device``) and
+    ``prompts`` (B, prompt_len) are drawn from ``seed`` when not given.
+    ``attn_impl`` and ``ssm_impl`` go to ``tf.lm_forward``. Returns
+    (tokens (B, gen) int64, stats)."""
     if cfg.is_encoder_decoder or cfg.modality != "text":
         raise NotImplementedError(f"{cfg.name}: encoder-decoder and VLM "
                                   "serving are not ported to repro_torch "
-                                  "yet (ROADMAP Queue 1 item 14)")
+                                  "yet (ROADMAP Queue 1 item 14); it serves "
+                                  "dense GQA decoders and pure-SSM stacks")
     device = resolve_device(device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False   # the reference is f32
@@ -63,6 +69,7 @@ def serve_lm(cfg, batch, prompt_len, gen, seed=0, *, device="cuda",
         t0 = time.perf_counter()
         logits, states, _ = tf.lm_forward(cfg, params, prompts.to(device),
                                           states=states, attn_impl=attn_impl,
+                                          ssm_impl=ssm_impl,
                                           logits_slice_last=True)
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
         _sync(device)
@@ -75,6 +82,7 @@ def serve_lm(cfg, batch, prompt_len, gen, seed=0, *, device="cuda",
             logits, states, _ = tf.lm_forward(cfg, params, tok,
                                               positions=pos, states=states,
                                               attn_impl=attn_impl,
+                                              ssm_impl=ssm_impl,
                                               logits_slice_last=True)
             tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
             out.append(tok)

@@ -1,20 +1,23 @@
-"""Decoder-only transformer stack (counterpart of repro/models/transformer.py,
-its dense path: GQA attention and a dense MLP in every layer).
+"""Decoder-only transformer stack (counterpart of repro/models/transformer.py):
+its dense path (GQA attention and a dense MLP in every layer) and its
+pure-SSM path (a Mamba-1 mixer is the whole layer, as in Falcon-Mamba).
 
 The reference runs the periodic part of the stack with ``lax.scan`` over
-stacked groups (``stack_plan``: a dense arch is prefix 0, period 1,
-groups = num_layers). The port keeps one parameter dict and one cache per
-layer in a list, in the reference's execution order (prefix layers, then
-group by group), and loops over them in Python.
+stacked groups (``stack_plan``: a dense or pure-SSM arch is prefix 0,
+period 1, groups = num_layers). The port keeps one parameter dict and one
+cache or state per layer in a list, in the reference's execution order
+(prefix layers, then group by group), and loops over them in Python.
 
   params = {"embed": (V, D), "final_norm": {...}, "lm_head": {...} unless
             tied, "layers": [{"norm1", "mixer", "norm2", "mlp"}, ...]}
-  states = [per-layer cache from attention.init_cache, ...]
+            (an SSM layer is {"norm1", "mixer"})
+  states = [per-layer attention cache (attention.init_cache) or SSM state
+            {"conv", "h"} (ssm.init_ssm_state), ...]
 
-Modes: prefill (full sequence, writes the caches) and decode (S = 1
-against them); without states, a full-sequence forward. MoE, SSM, hybrid
-and VLM layers raise ``NotImplementedError``; training (``loss_fn``)
-comes with a later slice.
+Modes: prefill (full sequence, writes the caches and states) and decode
+(S = 1 against them); without states, a full-sequence forward. MoE,
+hybrid, MLA and VLM layers raise ``NotImplementedError``; training
+(``loss_fn``) comes with a later slice.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm, init_linear,
                                        init_mlp, init_norm, linear)
 
@@ -53,31 +57,44 @@ def stack_plan(cfg) -> Tuple[int, int, int]:
     return n, 0, 0          # fully heterogeneous: all layers in prefix
 
 
-def _check_dense(cfg):
-    if cfg.arch_type != "dense" or cfg.modality != "text":
+def _check_ported(cfg):
+    """Dense decoders and pure-SSM stacks pass; everything else raises
+    (MLA in the attention module)."""
+    if cfg.arch_type not in ("dense", "ssm") or cfg.modality != "text":
         raise NotImplementedError(
             f"{cfg.name}: arch_type={cfg.arch_type!r}, modality="
-            f"{cfg.modality!r} is {_TODO}; the port carries dense decoders")
+            f"{cfg.modality!r} is {_TODO}; the port carries dense decoders "
+            "and pure-SSM stacks")
+    want = "attn" if cfg.arch_type == "dense" else "ssm"
     for kind, is_moe in layer_specs(cfg):
-        if kind != "attn" or is_moe:
+        if kind != want or is_moe:
             raise NotImplementedError(
                 f"{cfg.name}: a {kind} layer{' with MoE' if is_moe else ''}"
-                f" is {_TODO}")
+                f" in a {cfg.arch_type} stack is {_TODO}")
 
 
 # ---------------- single layer ----------------
 
 def _init_layer(gen, cfg, dtype):
     dev = gen.device
-    return {"norm1": init_norm(cfg.norm, cfg.d_model, dtype, dev),
-            "mixer": attn_mod.init_attention(gen, cfg, dtype),
-            "norm2": init_norm(cfg.norm, cfg.d_model, dtype, dev),
-            "mlp": init_mlp(gen, cfg.mlp, cfg.d_model, cfg.d_ff, dtype,
-                            cfg.mlp_bias)}
+    p = {"norm1": init_norm(cfg.norm, cfg.d_model, dtype, dev)}
+    if cfg.arch_type == "ssm":          # the mamba block IS the layer
+        p["mixer"] = ssm_mod.init_mamba(gen, cfg, dtype)
+        return p
+    p["mixer"] = attn_mod.init_attention(gen, cfg, dtype)
+    p["norm2"] = init_norm(cfg.norm, cfg.d_model, dtype, dev)
+    p["mlp"] = init_mlp(gen, cfg.mlp, cfg.d_model, cfg.d_ff, dtype,
+                        cfg.mlp_bias)
+    return p
 
 
-def _layer_forward(cfg, p, x, positions, state, *, window, attn_impl):
+def _layer_forward(cfg, p, x, positions, state, *, window, attn_impl,
+                   ssm_impl):
     h = apply_norm(cfg.norm, p["norm1"], x)
+    if cfg.arch_type == "ssm":
+        mixed, new_state = ssm_mod.mamba_forward(cfg, p["mixer"], h,
+                                                 state=state, impl=ssm_impl)
+        return x + mixed, new_state
     mixed, new_state = attn_mod.attention_forward(
         cfg, p["mixer"], h, positions, window=window, cache=state,
         impl=attn_impl)
@@ -92,7 +109,7 @@ def init_lm(cfg, gen: torch.Generator, dtype=None):
     """Parameters drawn from ``gen`` (on its device) with the reference's
     distributions: embed N(0, 0.02^2), linear N(0, 1/fan_in), zero
     biases, unit norm scales."""
-    _check_dense(cfg)
+    _check_ported(cfg)
     dtype = dtype or getattr(torch, cfg.dtype)
     params = {
         "embed": (torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
@@ -108,9 +125,14 @@ def init_lm(cfg, gen: torch.Generator, dtype=None):
 
 
 def init_states(cfg, batch, capacity, dtype=None, device=None) -> List:
-    """One empty cache of ``capacity`` slots per layer."""
-    _check_dense(cfg)
+    """One empty cache of ``capacity`` slots per attention layer; one
+    zero SSM state ({"conv": (B, cw - 1, d_in) in dtype, "h": (B, d_in,
+    N) f32}) per SSM layer, whatever the capacity."""
+    _check_ported(cfg)
     dtype = dtype or getattr(torch, cfg.dtype)
+    if cfg.arch_type == "ssm":
+        return [ssm_mod.init_ssm_state(cfg, batch, dtype, device)
+                for _ in range(cfg.num_layers)]
     return [attn_mod.init_cache(cfg, batch, capacity, dtype, device)
             for _ in range(cfg.num_layers)]
 
@@ -123,13 +145,16 @@ def _embed_inputs(cfg, params, tokens, embeds):
 
 def lm_forward(cfg, params, tokens, positions=None, *, embeds=None,
                states: Optional[List] = None, window: int = 0,
-               attn_impl: str = "auto", logits_slice_last: bool = False):
+               attn_impl: str = "auto", ssm_impl: str = "auto",
+               logits_slice_last: bool = False):
     """Returns (logits, new_states, aux_loss); aux_loss is 0 (no MoE).
 
     tokens (B, S) int. states from init_states: prefill fills them,
-    decode (S = 1) steps them — the caches are written in place and
-    returned in a new list."""
-    _check_dense(cfg)
+    decode (S = 1) steps them — the attention caches are written in place,
+    the SSM states replaced, and all returned in a new list. ``attn_impl``
+    goes to every attention call, ``ssm_impl`` ("auto" | "reference") to
+    every SSM mixer."""
+    _check_ported(cfg)
     x = _embed_inputs(cfg, params, tokens, embeds)
     b, s, _ = x.shape
     if positions is None:
@@ -139,7 +164,8 @@ def lm_forward(cfg, params, tokens, positions=None, *, embeds=None,
     for i, p in enumerate(params["layers"]):
         x, nst = _layer_forward(cfg, p, x, positions,
                                 None if states is None else states[i],
-                                window=window, attn_impl=attn_impl)
+                                window=window, attn_impl=attn_impl,
+                                ssm_impl=ssm_impl)
         if states is not None:
             new_states.append(nst)
     x = apply_norm(cfg.norm, params["final_norm"], x)

@@ -1,8 +1,9 @@
 """The port on the card: the CUDA kernels against their plain versions,
 the server step and trainer rounds (plain, async int8, guarded under
-faults) on CUDA against the same on the CPU, and the dense decoder's
-serving path (every attention call through the flash-attention kernel)
-against the same on the CPU. Marked ``cuda``; each test skips without a card. This file imports
+faults) on CUDA against the same on the CPU, and the serving paths of
+the dense decoder (every attention call through the flash-attention
+kernel) and of the pure-SSM stack (every scan through the ssm_scan
+kernel) against the same on the CPU. Marked ``cuda``; each test skips without a card. This file imports
 no JAX, so it also runs where only the port is installed:
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -26,6 +27,8 @@ from repro_torch.configs.base import get_config
 from repro_torch.kernels.feddpc_project import ops, ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.ssm_scan import ops as ss_ops
+from repro_torch.kernels.ssm_scan import ref as ss_ref
 from repro_torch.launch import serve
 from repro_torch.models import transformer as tf
 from repro_torch.models.vision import init_vision, vision_loss_fn
@@ -483,3 +486,113 @@ def test_decode_step_never_waits_for_the_card(cuda):
         tf.lm_forward(cfg, params, tok, positions=pos, states=states)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+# ---- the selective scan and the pure-SSM serving path ----
+
+# (B, S, D_in, N, with h0): the smoke's prefill, continuation and decode
+# shapes at a narrower width, the reference's ragged sweep shapes, and N
+# at the kernel's limit
+SSM_CASES = [(2, 300, 1024, 16, False), (2, 100, 1024, 16, True),
+             (8, 1, 8192, 16, True), (2, 100, 96, 8, False),
+             (1, 17, 64, 4, False), (1, 70, 200, 32, True)]
+
+
+def _ssm_inputs(b, s, d_in, n, with_h0, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def f32(*shape):
+        return torch.from_numpy(rng.standard_normal(shape,
+                                                    dtype=np.float32))
+    u = f32(b, s, d_in).to(dtype)
+    dt = torch.nn.functional.softplus(f32(b, s, d_in)) * 0.1
+    bm, cm = f32(b, s, n), f32(b, s, n)
+    a = -torch.exp(f32(d_in, n) * 0.3)
+    dsk = f32(d_in)
+    h0 = f32(b, d_in, n) if with_h0 else None
+    return [None if t is None else t.to(device)
+            for t in (u, dt, bm, cm, a, dsk, h0)]
+
+
+@pytest.mark.parametrize("case", SSM_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_scan_matches_plain_version(cuda, case, dtype):
+    args = _ssm_inputs(*case, dtype, cuda)
+    before = ss_ops.ssm_scan.launches
+    y, h = ss_ops.ssm_scan(*args)
+    want_y, want_h = ss_ref.ssm_scan_ref(*args)
+    torch.cuda.synchronize()
+    assert ss_ops.ssm_scan.launches == before + 1
+    assert y.dtype == dtype and y.shape == args[0].shape
+    # the reference's kernel tolerances (tests/test_kernels.py)
+    tol = 2e-4 if dtype == torch.float32 else 4e-2
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(h, want_h, rtol=2e-4, atol=2e-4)
+    # and closer still: the kernel rounds step for step as the plain
+    # version does (no FMA contraction, the same tree over the states)
+    assert torch.equal(y, want_y) and torch.equal(h, want_h)
+
+
+def test_ssm_scan_takes_strided_b_and_c_on_the_card(cuda):
+    """b and c as the model hands them: slices of one projection."""
+    u, dt, _, _, a, dsk, h0 = _ssm_inputs(2, 40, 256, 16, True,
+                                          torch.float32, cuda)
+    proj = torch.randn(2, 40, 8 + 32, device=cuda)
+    bm, cm = proj[..., 8:24], proj[..., 24:]
+    y, h = ss_ops.ssm_scan(u, dt, bm, cm, a, dsk, h0)
+    want_y, want_h = ss_ref.ssm_scan_ref(u, dt, bm, cm, a, dsk, h0)
+    torch.testing.assert_close(y, want_y, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(h, want_h, rtol=2e-4, atol=2e-4)
+
+
+def test_ssm_scan_rejects_bad_inputs_on_the_card(cuda):
+    u, dt, bm, cm, a, dsk, h0 = _ssm_inputs(1, 4, 64, 33, True,
+                                            torch.float32, cuda)
+    with pytest.raises(ValueError, match="N up to 32"):
+        ss_ops.ssm_scan(u, dt, bm, cm, a, dsk, h0)
+    with pytest.raises(ValueError, match="on cpu"):
+        ss_ops.ssm_scan(u, dt, bm, cm, a.cpu(), dsk)
+    with pytest.raises(TypeError, match="b must be float32"):
+        ss_ops.ssm_scan(u, dt, bm.to(torch.bfloat16), cm, a, dsk)
+
+
+def _ssm_teacher_forced(cfg, params, prompts, steps, device):
+    """Prefill, then ``steps`` decode steps fed the tokens 0, 1, ...:
+    the logits of each, stacked (1 + steps, B, V) on the CPU."""
+    b, s = prompts.shape
+    states = tf.init_states(cfg, b, s + steps, params["embed"].dtype, device)
+    params = tree_map(lambda t: t.to(device), params)
+    logits, states, _ = tf.lm_forward(cfg, params, prompts.to(device),
+                                      states=states, logits_slice_last=True)
+    out = [logits[:, -1]]
+    for i in range(steps):
+        tok = torch.full((b, 1), i, dtype=torch.int64, device=device)
+        logits, states, _ = tf.lm_forward(cfg, params, tok, states=states,
+                                          logits_slice_last=True)
+        out.append(logits[:, -1])
+    return torch.stack(out).float().cpu()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_serve_ssm_on_card_matches_cpu(cuda, dtype):
+    """Falcon-Mamba SMOKE from the same params and prompts on the card and
+    on the CPU: prefill and 4 teacher-forced decode steps agree, and the
+    card launches the scan kernel once per layer and forward."""
+    cfg = get_config("falcon-mamba-7b", smoke=True)
+    params = tf.init_lm(cfg, torch.Generator().manual_seed(0), dtype)
+    prompts = torch.randint(0, cfg.vocab_size, (3, 20),
+                            generator=torch.Generator().manual_seed(1))
+    before = (ss_ops.ssm_scan.launches, fa_ops.flash_attention.launches)
+    got = _ssm_teacher_forced(cfg, params, prompts, 4, cuda)
+    assert (ss_ops.ssm_scan.launches - before[0],
+            fa_ops.flash_attention.launches - before[1]) == \
+        (cfg.num_layers * 5, 0)
+    want = _ssm_teacher_forced(cfg, params, prompts, 4, "cpu")
+    # f32: matmul and scan sums in other orders; bf16: other rounding
+    # points of bf16 activations through two layers
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    before = ss_ops.ssm_scan.launches
+    tokens, stats = serve.serve_lm(cfg, 3, 20, 6, device="cuda", dtype=dtype)
+    assert ss_ops.ssm_scan.launches - before == cfg.num_layers * 6
+    assert tokens.shape == (3, 6) and stats["tok_per_s"] > 0

@@ -25,6 +25,8 @@ print(len(names), "modules")
 assert not bad, bad
 for must in ("repro_torch.kernels.feddpc_project.ops",
              "repro_torch.kernels.flash_attention.ops",
+             "repro_torch.kernels.ssm_scan.ops",
+             "repro_torch.models.ssm",
              "repro_torch.launch.serve"):
     assert must in names, (must, names)
 print("chip_smoke.main() ->", chip_smoke.main())   # CUDA is hidden

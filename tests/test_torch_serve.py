@@ -1,8 +1,9 @@
-"""repro_torch's dense decoders and serving driver against the reference:
-the four dense SMOKE configs from the reference's ``init_lm`` params,
-carried across by the bridge — full-sequence logits, then prefill plus
-teacher-forced decode steps (logits and caches) — and the serve entry
-points on the CPU."""
+"""repro_torch's decoders and serving against the reference: the four
+dense SMOKE configs and the pure-SSM Falcon-Mamba SMOKE config from the
+reference's ``init_lm`` params, carried across by the bridge —
+full-sequence logits, then prefill plus teacher-forced decode steps
+(logits and caches or SSM states) — and the serve entry points on the
+CPU."""
 import dataclasses
 import functools
 import os
@@ -25,6 +26,7 @@ from repro_torch.models import transformer as tf
 
 ROOT = Path(__file__).resolve().parents[1]
 DENSE = ("starcoder2-3b", "phi4-mini-3.8b", "minitron-8b", "command-r-35b")
+SSM = "falcon-mamba-7b"
 # f32 matmuls in other orders through two layers: a few 1e-6 of the logits
 ATOL = RTOL = 1e-4
 
@@ -157,7 +159,7 @@ def test_serve_cli_on_cpu():
     assert "generated (2, 4) tokens on cpu" in proc.stdout
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "falcon-mamba-7b",
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "jamba-1.5-large-398b",
                                   "whisper-base"])
 def test_unported_archs_raise(arch):
     with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
@@ -175,3 +177,132 @@ def test_non_dense_layers_raise():
     with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
         tf.lm_forward(dense, {}, torch.zeros(1, 2, dtype=torch.int64),
                       embeds=torch.zeros(1, 1, dense.d_model))
+    # a hybrid stack (Jamba: SSM layers, attention every 8th, MoE) still
+    # raises, in init, states, forward and serving
+    hybrid = ArchConfig(**dataclasses.asdict(
+        ref_get_config("jamba-1.5-large-398b", smoke=True)))
+    assert hybrid.arch_type == "hybrid"
+    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+        tf.init_lm(hybrid, torch.Generator())
+    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+        tf.init_states(hybrid, 1, 4, torch.float32)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+        serve.serve_lm(hybrid, 1, 4, 2, device="cpu")
+    # nor does an SSM stack with MoE layers pass
+    ssm_moe = get_config(SSM, smoke=True).with_(moe=True, num_experts=4,
+                                                top_k=2, moe_d_ff=64)
+    with pytest.raises(NotImplementedError, match="with MoE"):
+        tf.init_lm(ssm_moe, torch.Generator())
+
+
+# ---- the pure-SSM stack (Falcon-Mamba SMOKE) ----
+
+def _assert_ssm_states_match(got, want_np, cfg):
+    want = bridge.lm_states_from_reference(want_np, cfg)
+    assert len(got) == len(want) == cfg.num_layers
+    for g, w in zip(got, want):
+        assert set(g) == {"conv", "h"} and g["h"].dtype == torch.float32
+        for key in ("conv", "h"):
+            np.testing.assert_allclose(g[key].numpy(), w[key].numpy(),
+                                       rtol=RTOL, atol=ATOL)
+
+
+def test_ssm_lm_forward_prefill_and_decode_match_reference():
+    """Full-sequence logits; prefill into zero states, then 4
+    teacher-forced decode steps: logits and {conv, h} states."""
+    rcfg, cfg = ref_get_config(SSM, smoke=True), get_config(SSM, smoke=True)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(rcfg)   # copied
+    np_params = _ref_params(SSM)
+    params = bridge.lm_params_from_reference(np_params, cfg)
+    assert set(params["layers"][0]) == {"norm1", "mixer"}
+    rng = np.random.default_rng(0)
+    b, s, steps = 2, 12, 4
+    tokens = rng.integers(0, cfg.vocab_size, (b, s), dtype=np.int32)
+
+    want, _, _ = ref_tf.lm_forward(rcfg, np_params, tokens)
+    got, none, aux = tf.lm_forward(cfg, params, torch.from_numpy(tokens))
+    assert none is None and float(aux) == 0.0
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+    rstates = ref_tf.init_states(rcfg, b, s + steps, jnp.float32)
+    states = tf.init_states(cfg, b, s + steps, torch.float32)
+    _assert_ssm_states_match(states, _numpy(rstates), cfg)
+    want, rstates, _ = ref_tf.lm_forward(rcfg, np_params, tokens,
+                                         states=rstates,
+                                         logits_slice_last=True)
+    got, states, _ = tf.lm_forward(cfg, params, torch.from_numpy(tokens),
+                                   states=states, logits_slice_last=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+    _assert_ssm_states_match(states, _numpy(rstates), cfg)
+    for i in range(steps):
+        tok = rng.integers(0, cfg.vocab_size, (b, 1), dtype=np.int32)
+        pos = np.full((b, 1), s + i, np.int32)
+        want, rstates, _ = ref_tf.lm_forward(rcfg, np_params, tok,
+                                             positions=pos, states=rstates,
+                                             logits_slice_last=True)
+        got, states, _ = tf.lm_forward(cfg, params, torch.from_numpy(tok),
+                                       positions=torch.from_numpy(pos),
+                                       states=states, logits_slice_last=True)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                                   atol=ATOL)
+        _assert_ssm_states_match(states, _numpy(rstates), cfg)
+
+
+def test_init_lm_ssm_has_the_reference_tree():
+    """The port's own init of the pure-SSM stack: the bridged reference
+    tree's leaves, shapes and dtypes (a_log and d_skip f32 in a bf16
+    model too)."""
+    cfg = get_config(SSM, smoke=True)
+    want = bridge.lm_params_from_reference(_ref_params(SSM), cfg)
+    for dtype in (torch.float32, torch.bfloat16):
+        got = tf.init_lm(cfg, torch.Generator().manual_seed(0), dtype)
+        g_leaves = bridge.tree_leaves_with_path(got)
+        w_leaves = bridge.tree_leaves_with_path(want)
+        for (gp, g), (wp, w) in zip(g_leaves, w_leaves, strict=True):
+            f32 = gp[-1] in ("a_log", "d_skip")
+            assert gp == wp and g.shape == w.shape, gp
+            assert g.dtype == (torch.float32 if f32 else dtype), gp
+    assert abs(float(got["embed"].float().std()) - 0.02) < 0.002
+    states = tf.init_states(cfg, 3, 99, torch.bfloat16)
+    assert [tuple(st["conv"].shape) for st in states] == \
+        [(3, cfg.ssm_conv - 1, cfg.ssm_d_inner)] * cfg.num_layers
+    assert all(st["conv"].dtype == torch.bfloat16
+               and st["h"].dtype == torch.float32 for st in states)
+
+
+def test_serve_ssm_lm_on_cpu():
+    cfg = get_config(SSM, smoke=True)
+    tokens, stats = serve.serve_lm(cfg, 3, 10, 5, seed=1, device="cpu")
+    assert tokens.shape == (3, 5) and tokens.dtype == torch.int64
+    assert bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all())
+    assert set(stats) == {"prefill_s", "decode_s", "tok_per_s"}
+    gen = torch.Generator().manual_seed(1)
+    params = tf.init_lm(cfg, gen, torch.float32)
+    prompts = torch.randint(0, cfg.vocab_size, (3, 10), generator=gen)
+    # on CPU tensors "auto" is the plain scan: the same tokens as asking
+    # for it, and as a plain loop of full-sequence forwards
+    again, _ = serve.serve_lm(cfg, 3, 10, 5, device="cpu", params=params,
+                              prompts=prompts, ssm_impl="reference")
+    assert torch.equal(tokens, again)
+    seq = prompts
+    for _ in range(5):
+        logits, _, _ = tf.lm_forward(cfg, params, seq)
+        seq = torch.cat([seq, logits[:, -1].argmax(-1)[:, None]], dim=1)
+    assert torch.equal(seq[:, 10:], tokens)
+    bf16, _ = serve.serve_lm(cfg, 2, 6, 3, device="cpu",
+                             dtype=torch.bfloat16)
+    assert bf16.shape == (2, 3)
+
+
+def test_serve_cli_ssm_on_cpu():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--arch", SSM, "--batch", "2", "--gen", "4", "--dtype",
+         "bfloat16"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300, env=env)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "generated (2, 4) tokens on cpu" in proc.stdout
