@@ -8,7 +8,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
   1. build    nvcc-builds the FedDPC, flash-attention and ssm_scan
               libraries from the checkout's sources, all three at once;
               prints the card's name, power limit and top SM clock
-              (nvidia-smi).
+              (nvidia-smi), ptxas's registers and spills of each
+              flash-attention kernel and the count of tensor-core (HMMA)
+              instructions in the flash library's SASS (cuobjdump), which
+              must not be 0.
   2. kernels  holds every kernel against its plain PyTorch version on the
               card: the reduction pass and the batched epilogue at the
               main path's shape (K=10 clients x N=11,220,132 ResNet18-GN
@@ -58,21 +61,28 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
   6. attention  flash_attention against its plain version on the card,
               f32 and bf16: StarCoder2-3B's prefill (B = 8, Sq = 1024,
               Sk = 1056 with the last 32 slots empty, H = 24, KV = 2,
-              D = 128) and decode (Sq = 1) shapes, a ragged shape, a
-              ring-cache decode with a window, the soft cap and a batch
-              row whose keys are all empty (exactly 0). Times the kernel,
-              the plain version and torch's scaled_dot_product_attention
-              (the library yardstick; never on the path) at the prefill
-              and decode shapes, warm and with the L2 flushed, beside the
-              bound.
+              D = 128) and decode (Sq = 1) shapes, a decode against a
+              long cache (Sk = 8192), a ragged shape, a ring-cache decode
+              with a window, the soft cap and a batch row whose keys are
+              all empty (exactly 0). Each line names the kernel's route
+              (ops.plan: fma, mma_bf16, split_decode, split_decode_mma).
+              Times the kernel, the plain version and torch's
+              scaled_dot_product_attention (the library yardstick; never
+              on the path) at the prefill and decode shapes, warm and with
+              the L2 flushed (without and with a spin on the card after
+              the flush), beside the bound (and its share of it). A bf16
+              line also holds each output row within BF16_STEPS_TOL bf16
+              steps at the row's own scale (ref.bf16_steps), beside
+              FA_TOL.
   7. serve    the LLM serving path: serve_lm on StarCoder2-3B at full
               width and depth (30 layers, d_model 3072, random weights
               from a seed), B = 8, prompts of 1024, 32 generated tokens,
               in f32 and in bf16; the kernel must launch exactly
-              num_layers x gen times in each run. Then, on the same params
-              and prompts, the kernel path against the plain path
-              (attn_impl="reference"): the prefill's last logits and 8
-              teacher-forced decode steps.
+              num_layers x gen times in each run, and a profiled prefill
+              and decode step must each hold exactly one flash_attention
+              kernel a layer. Then, on the same params and prompts, the
+              kernel path against the plain path (attn_impl="reference"):
+              the prefill's last logits and 8 teacher-forced decode steps.
   8. serve parity  StarCoder2 SMOKE on the card and on the CPU from the
               same params: prefill plus 4 teacher-forced decode steps.
   9. ssm kernels  ssm_scan against its plain version on the card, f32
@@ -192,6 +202,10 @@ BF16_FLOP_PER_S = 989e12
 # (tests/test_kernels.py) — f32 sums in other orders; bf16 outputs
 # rounded from f32 values that differ in their last bits
 FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 4e-2}
+# ... and in bf16 also per output row: max |got - want| in bf16 steps at
+# the row's max |want| (f32 values that differ in their last bits round
+# at most one step apart); FA_TOL alone is as large as a decode's outputs
+BF16_STEPS_TOL = 2
 SERVE_ARCH = "starcoder2-3b"
 SERVE_B, SERVE_PROMPT, SERVE_GEN = 8, 1024, 32
 SERVE_STEPS = 8               # teacher-forced steps, kernel vs plain path
@@ -204,13 +218,17 @@ SMOKE_ATOL = 1e-4             # card vs CPU SMOKE logits, f32
 FA_CASES = (
     ("prefill", 8, 1024, 1056, 24, 2, 128, 0, 0.0, 32, 0, False),
     ("decode", 8, 1, 1056, 24, 2, 128, 0, 0.0, 16, 1039, False),
+    ("decode_long", 8, 1, 8192, 24, 2, 128, 0, 0.0, 16, 8175, False),
     ("ragged", 2, 100, 300, 8, 2, 64, 0, 0.0, 0, 200, False),
     ("ring_decode_window", 4, 1, 1056, 24, 2, 128, 128, 0.0, 32, 2999,
      False),
     ("soft_cap", 2, 256, 256, 24, 2, 128, 0, 30.0, 0, 0, False),
     ("all_empty_row", 3, 16, 200, 8, 2, 128, 0, 0.0, 0, 184, True),
 )
-FA_TIMED = ("prefill", "decode")
+FA_TIMED = ("prefill", "decode", "decode_long")
+# the flash-attention kernels' names (a profile's key contains one)
+FA_KERNEL_NAMES = ("fa_fwd_kernel", "fa_mma_kernel", "fa_split_kernel",
+                   "fa_split_mma_kernel")
 
 # ---- the pure-SSM serving path ----
 SS_SOURCE = "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu"
@@ -266,16 +284,20 @@ def cuda_ms(fn, reps: int = 20, calls: int = 10):
     return tuple(out)
 
 
-def cuda_ms_cold(fn, reps: int = 20):
+def cuda_ms_cold(fn, reps: int = 20, spin: bool = False):
     """Median CUDA-event time of one call that finds the 50 MB L2 cold: a
     256 MB memset is queued just before each window, so the host's launch
-    path also hides behind it."""
+    path also hides behind it. With ``spin``, a 0.1 ms spin on the card
+    follows the memset, so that the launch path hides on a slow host too
+    (``ms_cold_spin``; ``ms_cold`` is without)."""
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         flush.zero_()
+        if spin:
+            torch.cuda._sleep(200_000)         # ~0.1 ms at ~2 GHz
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -319,7 +341,40 @@ def phase_build() -> str:
           "nvcc_seconds": dict(_build.build_seconds), "seconds": seconds,
           "nvidia_smi": smi, "max_sm_clock_mhz": _max_sm_clock_mhz(),
           "torch": torch.__version__, "cuda": torch.version.cuda})
+    fa_lib = paths[mods.index(fa_ops)]
+    sass = subprocess.run([_build.tool("cuobjdump"), "-sass", str(fa_lib)],
+                          capture_output=True, text=True,
+                          check=True).stdout
+    hmma = sum("HMMA" in line for line in sass.splitlines())
+    emit({"phase": "build_flash_attention",
+          "kernels": _ptxas_report(fa_lib.with_suffix(".log").read_text()),
+          "hmma_instructions": hmma})
+    if hmma == 0:
+        raise AssertionError("the flash-attention library holds no tensor-"
+                             "core (HMMA) instruction")
     return smi
+
+
+def _ptxas_report(log: str) -> dict:
+    """kernel<template arguments> -> registers and spill bytes, from nvcc
+    -Xptxas -v's output."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            base = next(n for n in FA_KERNEL_NAMES[::-1] if n in mangled)
+            args = mangled.split(base, 1)[1].split("EEEv")[0]
+            name = f"{base}<{args}>"
+            out[name] = {}
+        elif name and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            out[name]["spill_store_bytes"] = nums[1]
+            out[name]["spill_load_bytes"] = nums[2]
+        elif name and "Used" in line and "registers" in line:
+            words = line.split()
+            out[name]["registers"] = int(words[words.index("Used") + 1])
+    return out
 
 
 def _max_sm_clock_mhz() -> float:
@@ -1066,10 +1121,12 @@ def _sdpa_library(q, k, v, ok):
 def phase_attention():
     """flash_attention against its plain version at every FA_CASES shape
     in f32 and bf16, then timed at the serving path's prefill and decode
-    shapes; returns the kernel's summary row."""
+    shapes; returns the kernel's summary row. A case that fails a check
+    is printed untimed, and the phase raises after the last case."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     err = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    timings = []
+    steps = 0.0
+    timings, failures = [], []
     for case, dtype in itertools.product(FA_CASES, (torch.float32,
                                                     torch.bfloat16)):
         label, b, sq, sk, h, kv, d, window, soft_cap = case[:9]
@@ -1080,21 +1137,32 @@ def phase_attention():
         torch.cuda.synchronize()
         e = float((got.float() - want.float()).abs().max())
         tol = FA_TOL[dtype]
-        if got.dtype != dtype or not torch.allclose(
-                got.float(), want.float(), rtol=tol, atol=tol):
-            raise AssertionError(f"flash_attention {label} {dtype}: max abs "
-                                 f"err {e}")
         ok = _visible(q_pos, k_pos, window)
         dark = ~ok.any(dim=-1)                       # rows with no key
-        if bool((got.float()[dark] != 0).any()):
-            raise AssertionError(f"flash_attention {label}: a row with no "
-                                 "visible key is not exactly 0")
-        err[dtype] = max(err[dtype], e)
+        route = fa_ops.plan(q.shape, k.shape, dtype,
+                            torch.cuda.get_device_properties(0)
+                            .multi_processor_count)
         line = {"phase": "attention", "case": label, "B": b, "Sq": sq,
                 "Sk": sk, "H": h, "KV": kv, "D": d, "window": window,
                 "soft_cap": soft_cap, "dtype": str(dtype)[6:],
-                "rows_without_keys": int(dark.sum()), "max_abs_err": e}
-        if label in FA_TIMED:
+                "route": route[0], "chunk": route[1], "splits": route[2],
+                "rows_without_keys": int(dark.sum()), "max_abs_err": e,
+                "within_fa_tol": got.dtype == dtype and torch.allclose(
+                    got.float(), want.float(), rtol=tol, atol=tol),
+                "dark_rows_zero": not bool((got.float()[dark] != 0).any())}
+        if dtype == torch.bfloat16:
+            line["bf16_steps"] = fa_ref.bf16_steps(got, want)
+        failed = [name for name, bad in (
+            ("FA_TOL", not line["within_fa_tol"]),
+            ("BF16_STEPS_TOL", line.get("bf16_steps", 0) > BF16_STEPS_TOL),
+            ("a row with no visible key is not exactly 0",
+             not line["dark_rows_zero"])) if bad]
+        if failed:
+            line["failed"] = failed
+            failures.append(f"{label} {dtype}: {', '.join(failed)}")
+        err[dtype] = max(err[dtype], e)
+        steps = max(steps, line.get("bf16_steps", 0.0))
+        if label in FA_TIMED and not failed:
             pairs = int(ok.sum())
             item = q.element_size()
             nbytes = (item * (2 * q.numel() + k.numel() + v.numel())
@@ -1113,26 +1181,34 @@ def phase_attention():
             b_ms, b_by = bound_ms(nbytes, flops, peak)
             line.update({
                 "ms": ms, "ms_one_call": ms_one,
-                "ms_cold": cuda_ms_cold(kern), "plain_ms": plain_ms,
+                "ms_cold": cuda_ms_cold(kern),
+                "ms_cold_spin": cuda_ms_cold(kern, spin=True),
+                "plain_ms": plain_ms,
                 "library_ms": cuda_ms(lib)[0], "library_max_abs_err": lib_err,
                 "bound_ms": b_ms, "bound_by": b_by,
+                "pct_of_bound": 100.0 * b_ms / ms,
                 "peak_flop_per_s": peak, "bytes": nbytes, "flops": flops,
                 "visible_pairs": pairs})
             timings.append(line)
         emit(line)
         del q, k, v, got, want
+    if failures:
+        raise AssertionError("flash_attention vs its plain version: "
+                             + "; ".join(failures))
     head = timings[0]                  # prefill, f32: the headline
     return {"name": "flash_attention", "route": "cuda", "source": FA_SOURCE,
             "replaces": FA_REPLACES, "max_abs_err": err[torch.float32],
-            "max_abs_err_bf16": err[torch.bfloat16], "ms": head["ms"],
+            "max_abs_err_bf16": err[torch.bfloat16],
+            "max_bf16_steps": steps, "ms": head["ms"],
             "ms_one_call": head["ms_one_call"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "library": "torch.nn.functional.scaled_dot_product_attention "
                        "(bool mask, enable_gqa)",
             "timings": [{k: t[k] for k in (
-                "case", "dtype", "ms", "ms_one_call", "ms_cold", "plain_ms",
-                "library_ms", "bound_ms", "bound_by")} for t in timings]}
+                "case", "dtype", "route", "ms", "ms_one_call", "ms_cold",
+                "ms_cold_spin", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "pct_of_bound")} for t in timings]}
 
 
 def _ssm_case(gen, case, dtype):
@@ -1216,7 +1292,9 @@ def phase_ssm_kernels():
                 else cuda_ms(plain)
             line.update({
                 "ms": ms, "ms_one_call": ms_one,
-                "ms_cold": cuda_ms_cold(kern), "plain_ms": plain_ms,
+                "ms_cold": cuda_ms_cold(kern),
+                "ms_cold_spin": cuda_ms_cold(kern, spin=True),
+                "plain_ms": plain_ms,
                 "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
                 "bound_term": term, "bytes": nbytes, "flops": flops,
                 "exponentials": exps, "max_sm_clock_mhz": clock_mhz})
@@ -1232,8 +1310,9 @@ def phase_ssm_kernels():
             "bound_by": head["bound_by"], "library_ms": None,
             "library": LIBRARY_NONE,
             "timings": [{k: t[k] for k in (
-                "case", "dtype", "ms", "ms_one_call", "ms_cold", "plain_ms",
-                "bound_ms", "bound_by", "bound_term")} for t in timings]}
+                "case", "dtype", "ms", "ms_one_call", "ms_cold",
+                "ms_cold_spin", "plain_ms", "bound_ms", "bound_by",
+                "bound_term")} for t in timings]}
 
 
 def _teacher_forced(cfg, params, prompts, forced, impl):
@@ -1263,7 +1342,7 @@ def _teacher_forced(cfg, params, prompts, forced, impl):
 
 
 def _serve_category(kernel: str) -> str:
-    if "fa_fwd_kernel" in kernel:
+    if any(name in kernel for name in FA_KERNEL_NAMES):
         return "flash_attention kernel"
     if "ssm_scan_kernel" in kernel:
         return "ssm_scan kernel"
@@ -1275,12 +1354,14 @@ def _serve_category(kernel: str) -> str:
     return "other"
 
 
-def profile_serve(cfg, params, prompts):
+def profile_serve(cfg, params, prompts, kernel: str):
     """One prefill and one decode step under torch.profiler (after
     serve_lm has warmed both): per step the window's wall time, the
     card's busy time (the union of kernel intervals) and idle share,
-    kernel time by category and the launches per step. Then one more
-    decode step in which any call that waits for the card raises."""
+    kernel time by category and the launches per step; each step must
+    hold exactly one flash-attention kernel a layer when ``kernel`` is
+    flash_attention, and none otherwise. Then one more decode step in
+    which any call that waits for the card raises."""
     b, s = prompts.shape
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -1300,11 +1381,18 @@ def profile_serve(cfg, params, prompts):
             window_s = time.perf_counter() - tic
         spans, busy_us, by_name, by_cat = _kernel_time(prof.events(),
                                                        _serve_category)
+        flash = sum(1 for *_, name in spans
+                    if _serve_category(name) == "flash_attention kernel")
+        want = cfg.num_layers if kernel == "flash_attention" else 0
+        if flash != want:
+            raise AssertionError(f"serve profile {step}: {flash} flash-"
+                                 f"attention kernels, expected {want}")
         top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:6]
         emit({"phase": "serve_profile",
               "dtype": str(params["embed"].dtype)[6:], "step": step,
               "window_ms": 1e3 * window_s,
-              "kernels": len(spans), "device_busy_ms": busy_us / 1e3,
+              "kernels": len(spans), "flash_attention_kernels": flash,
+              "device_busy_ms": busy_us / 1e3,
               "device_idle_share": 1.0 - busy_us / 1e6 / window_s,
               "by_category_ms": by_cat,
               "top_ms": [[name[:70], ms] for name, ms in top]})
@@ -1361,7 +1449,7 @@ def phase_serve(arch: str, kernel: str) -> int:
             raise AssertionError(f"serve {dtype}: tokens {tokens.shape} out "
                                  "of range")
         counts[dtype] = launches[kernel]
-        profile_serve(cfg, params, prompts)
+        profile_serve(cfg, params, prompts, kernel)
         forced = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_STEPS),
                                generator=gen, device="cuda")
         path_s = {}

@@ -10,6 +10,20 @@ slot), ``window`` (0 = full) and ``soft_cap`` (0 = none).
     count, only there;
   * for CPU tensors calls the plain version, ``ref.attention_ref``.
 
+``plan`` picks the kernel's body (its route) from the shapes. A call with
+at most 16 rows a (batch, KV head) — a row is a (query, group head) pair,
+so decode — splits the keys into chunks over the grid and merges the
+chunks' partials in the same launch (its plain counterpart is
+``ref.attention_split_ref``): on tensor cores for bf16 with D in
+TENSOR_CORE_DIMS (``split_decode_mma``), else on CUDA cores
+(``split_decode``). A longer call takes the tensor cores for bf16 with D
+in TENSOR_CORE_DIMS (``mma_bf16``), else CUDA cores (``fma``). The
+tensor-core bodies are compiled for each of those exact head dims. The
+split routes need f32 scratch for the chunks' partials and one arrival
+counter per (batch, KV head): both are kept here per device and stream
+(calls on one stream run one after another, and the kernel leaves the
+counters at 0), so a decode call allocates nothing but its output.
+
 There is no padding path: the kernel masks ragged tails itself. It is
 compiled at first use with ``nvcc`` into a shared library with a plain C
 interface, loaded with ``ctypes`` (``kernels/_build.py``).
@@ -17,6 +31,8 @@ interface, loaded with ``ctypes`` (``kernels/_build.py``).
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 from pathlib import Path
 
 import torch
@@ -28,8 +44,14 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 LIBRARY = "flash_attention"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # q/k/v dtype -> code
 MAX_HEAD_DIM = 256
+TENSOR_CORE_DIMS = (32, 64, 128, 256)   # bf16 head dims with mma bodies
+# the kernel's bodies, by route code
+ROUTES = ("fma", "mma_bf16", "split_decode", "split_decode_mma")
+SPLIT_ROWS = 16       # rows a (batch, KV head) up to which decode splits
+MAX_SPLITS = 256      # chunks a (batch, KV head): the merge's weights
 
 _lib = None           # the loaded library, once per process
+_scratch = {}         # (device index, stream) -> (f32 partials, counters)
 
 
 def build() -> Path:
@@ -44,7 +66,8 @@ def _load():
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         lib.flash_attention_fwd.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32,
                                             i32, i32, i32, i32, i32, i32,
-                                            ctypes.c_float, vp]
+                                            ctypes.c_float, i32, i32, i32,
+                                            vp, vp, vp]
         lib.flash_attention_fwd.restype = i32
         lib.flash_attention_error_string.argtypes = [i32]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -85,6 +108,49 @@ def _check(q, k, v, q_pos, k_pos):
             raise ValueError(f"{name}: inputs on {t.device} and {q.device}")
 
 
+def plan(q_shape, k_shape, dtype, num_sms: int):
+    """(route, chunk, splits) for q of ``q_shape`` and k of ``k_shape`` in
+    ``dtype`` on a card of ``num_sms`` SMs. A split decode when a (batch,
+    KV head) has at most SPLIT_ROWS rows: its chunk 64 keys — 128 in bf16
+    when that still gives 4 blocks an SM — and longer only past MAX_SPLITS
+    chunks. Tensor cores for bf16 with D in TENSOR_CORE_DIMS. Chunk and
+    splits are 0 for the other routes."""
+    b, sq, h, d = q_shape
+    sk, kv = k_shape[1], k_shape[2]
+    tensor_cores = dtype == torch.bfloat16 and d in TENSOR_CORE_DIMS
+    if sq * (h // kv) <= SPLIT_ROWS:
+        chunk = 64
+        if (dtype == torch.bfloat16
+                and math.ceil(sk / 128) * b * kv >= 4 * num_sms):
+            chunk = 128
+        chunk = max(chunk, 32 * math.ceil(sk / (32 * MAX_SPLITS)))
+        route = "split_decode_mma" if tensor_cores else "split_decode"
+        return route, chunk, math.ceil(sk / chunk)
+    return ("mma_bf16" if tensor_cores else "fma"), 0, 0
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_plan = functools.lru_cache(maxsize=1024)(plan)
+
+
+def _split_scratch(index: int, stream: int, n_part: int, n_count: int):
+    """f32 scratch of at least n_part and n_count int32 counters at 0 for
+    ``stream`` of device ``index``; grown, never shrunk."""
+    part, counters = _scratch.get((index, stream), (None, None))
+    if part is None or part.numel() < n_part:
+        part = torch.empty(n_part, dtype=torch.float32,
+                           device=torch.device("cuda", index))
+    if counters is None or counters.numel() < n_count:
+        counters = torch.zeros(max(n_count, 256), dtype=torch.int32,
+                               device=torch.device("cuda", index))
+    _scratch[(index, stream)] = (part, counters)
+    return part, counters
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_pos: torch.Tensor, k_pos: torch.Tensor, *,
                     window: int = 0, soft_cap: float = 0.0) -> torch.Tensor:
@@ -106,14 +172,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.data_ptr() % 16:
             raise ValueError("flash_attention: q, k and v must start on a "
                              "16-byte boundary")
+    index = q.device.index
+    route, chunk, splits = _plan(q.shape, k.shape, q.dtype, _num_sms(index))
     out = torch.empty_like(q)
     lib = _load()
-    with torch.cuda.device(q.device):
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    part = counters = None
+    if route.startswith("split_decode"):
+        part, counters = _split_scratch(
+            index, stream, b * kv * splits * SPLIT_ROWS * (d + 2), b * kv)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
             k_pos.data_ptr(), out.data_ptr(), DTYPES[q.dtype], b, sq, sk, h,
             kv, d, int(window or 0), float(soft_cap or 0.0),
-            torch.cuda.current_stream().cuda_stream)
+            ROUTES.index(route), chunk, splits,
+            None if part is None else part.data_ptr(),
+            None if counters is None else counters.data_ptr(), stream)
+    if index == torch.cuda.current_device():
+        err = lib.flash_attention_fwd(*args)
+    else:
+        with torch.cuda.device(q.device):
+            err = lib.flash_attention_fwd(*args)
     if err != 0:
         msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err} "

@@ -369,36 +369,59 @@ def test_guarded_faulted_trainer_on_card_matches_cpu(cuda):
 
 # ---- flash attention and the serving path ----
 
-# (b, sq, sk, h, kv, d, window, soft_cap, empty trailing slots): prefill
-# and decode at StarCoder2's heads (G = 12), ragged tails, a ring-cache
-# decode with a window, the soft cap, D = 32 and D = 256
+# (b, sq, sk, h, kv, d, window, soft_cap, empty trailing slots[, slots
+# rolled as a ring]): prefill and decode at StarCoder2's heads (G = 12),
+# ragged tails, a ring-cache decode with a window, the soft cap, D = 32
+# and D = 256; then decodes (the split route) at Sk 64, 1056 and 8192, a
+# ring decode whose window leaves most splits dark, and prefills at D 32,
+# 64, 128 and 256 with Sq not a multiple of 16 (bf16: the tensor cores)
 FA_CASES = [(2, 100, 132, 24, 2, 128, 0, 0.0, 32),
             (8, 1, 1056, 24, 2, 128, 0, 0.0, 32),
             (1, 100, 300, 8, 2, 64, 0, 0.0, 0),
             (2, 1, 300, 16, 2, 128, 128, 0.0, 7),
             (1, 77, 77, 4, 2, 64, 0, 30.0, 0),
             (2, 33, 40, 4, 4, 32, 16, 0.0, 3),
-            (1, 20, 50, 2, 1, 256, 0, 0.0, 5)]
+            (1, 20, 50, 2, 1, 256, 0, 0.0, 5),
+            (8, 1, 64, 24, 2, 128, 0, 0.0, 0),
+            (8, 1, 1056, 24, 2, 128, 0, 0.0, 0),
+            (8, 1, 8192, 24, 2, 128, 0, 0.0, 16),
+            (4, 1, 8192, 24, 2, 128, 128, 0.0, 0, 3001),
+            (2, 77, 90, 8, 2, 32, 0, 0.0, 3),
+            (2, 77, 90, 8, 2, 64, 0, 0.0, 3),
+            (2, 77, 90, 8, 2, 128, 0, 0.0, 3),
+            (2, 77, 90, 8, 2, 256, 0, 0.0, 3)]
+
+
+def _fa_inputs(case, dtype, device):
+    """q, k, v (numpy draws of seed 0, cast) and int32 positions: queries
+    at the last Sq positions, keys at 0 .. Sk - 1 with ``empty`` trailing
+    slots at -1 (then rolled as a ring), and a last batch row (when B > 1)
+    with every slot empty."""
+    b, sq, sk, h, kv, d, window, soft_cap, empty, *roll = case
+    rng = np.random.default_rng(0)
+    q, k, v = [torch.from_numpy(rng.standard_normal(s, dtype=np.float32)
+                                ).to(device, dtype)
+               for s in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d))]
+    if soft_cap:
+        q = q * 6
+    q_pos = torch.arange(sk - sq, sk, dtype=torch.int32,
+                         device=device)[None].expand(b, sq).contiguous()
+    k_pos = torch.arange(sk, dtype=torch.int32, device=device)[None].repeat(
+        b, 1)
+    if empty:
+        k_pos[:, sk - empty:] = -1
+    if roll:
+        k_pos = torch.roll(k_pos, roll[0], dims=1)
+    if b > 1:
+        k_pos[-1] = -1                       # a batch row with no key
+    return q, k, v, q_pos, k_pos
 
 
 @pytest.mark.parametrize("case", FA_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_matches_plain_version(cuda, case, dtype):
-    b, sq, sk, h, kv, d, window, soft_cap, empty = case
-    rng = np.random.default_rng(0)
-    q, k, v = [torch.from_numpy(rng.standard_normal(s, dtype=np.float32)
-                                ).to(cuda, dtype)
-               for s in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d))]
-    if soft_cap:
-        q = q * 6
-    q_pos = torch.arange(sk - sq, sk, dtype=torch.int32,
-                         device=cuda)[None].expand(b, sq).contiguous()
-    k_pos = torch.arange(sk, dtype=torch.int32, device=cuda)[None].repeat(
-        b, 1)
-    if empty:
-        k_pos[:, sk - empty:] = -1
-    if b > 1:
-        k_pos[-1] = -1                       # a batch row with no key
+    b, sq, sk, h, kv, d, window, soft_cap = case[:8]
+    q, k, v, q_pos, k_pos = _fa_inputs(case, dtype, cuda)
     before = fa_ops.flash_attention.launches
     got = fa_ops.flash_attention(q, k, v, q_pos, k_pos, window=window,
                                  soft_cap=soft_cap)
@@ -410,8 +433,82 @@ def test_flash_attention_matches_plain_version(cuda, case, dtype):
     # the reference's kernel tolerances (tests/test_kernels.py)
     tol = 2e-5 if dtype == torch.float32 else 4e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        # and every row within 2 bf16 steps at its own scale (4e-2 is as
+        # large as a decode's outputs)
+        assert fa_ref.bf16_steps(got, want) <= 2
     if b > 1:
         assert bool((got[-1] == 0).all())
+
+
+# the kernel's names in a profile, by route (ops.ROUTES)
+FA_KERNELS = {"fma": "fa_fwd_kernel", "mma_bf16": "fa_mma_kernel",
+              "split_decode": "fa_split_kernel",
+              "split_decode_mma": "fa_split_mma_kernel"}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_decode_is_bitwise_deterministic(cuda, dtype):
+    """The split decode merges its chunks in a fixed order: two calls at
+    StarCoder2's decode shape, and at a long cache, are bitwise equal."""
+    for case in ((8, 1, 1056, 24, 2, 128, 0, 0.0, 16),
+                 (8, 1, 8192, 24, 2, 128, 0, 0.0, 16)):
+        args = _fa_inputs(case, dtype, cuda)
+        assert fa_ops.plan(args[0].shape, args[1].shape, dtype,
+                           fa_ops._num_sms(cuda.index or 0))[0].startswith(
+            "split_decode")
+        first = fa_ops.flash_attention(*args)
+        second = fa_ops.flash_attention(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_each_call_is_one_launch_of_one_kernel(cuda, dtype):
+    """Prefill and decode: each call adds 1 to ``launches`` and the
+    profile holds exactly one flash kernel per call, the one of the
+    call's route."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for case in ((2, 100, 132, 24, 2, 128, 0, 0.0, 32),
+                 (8, 1, 1056, 24, 2, 128, 0, 0.0, 32)):
+        args = _fa_inputs(case, dtype, cuda)
+        route = fa_ops.plan(args[0].shape, args[1].shape, dtype,
+                            fa_ops._num_sms(cuda.index or 0))[0]
+        fa_ops.flash_attention(*args)                  # warm
+        torch.cuda.synchronize()
+        before = fa_ops.flash_attention.launches
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(3):
+                fa_ops.flash_attention(*args)
+            torch.cuda.synchronize()
+        assert fa_ops.flash_attention.launches == before + 3
+        names = [e.key for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and any(n in e.key for n in FA_KERNELS.values())]
+        assert len(names) == 3 and all(
+            FA_KERNELS[route] + "I" in n or FA_KERNELS[route] + "<" in n
+            for n in names), names
+
+
+def test_split_decode_never_waits_for_the_card(cuda):
+    """The split route's first call on a new stream (scratch and arrival
+    counters allocated there) queues its work without a sync."""
+    args = _fa_inputs((8, 1, 1056, 24, 2, 128, 0, 0.0, 16), torch.bfloat16,
+                      cuda)
+    stream = torch.cuda.Stream(cuda)
+    stream.wait_stream(torch.cuda.current_stream(cuda))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.cuda.stream(stream):
+            got = fa_ops.flash_attention(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    want = fa_ref.attention_ref(*args)
+    torch.testing.assert_close(got.float(), want.float(), rtol=4e-2,
+                               atol=4e-2)
+    assert fa_ref.bf16_steps(got, want) <= 2
 
 
 def test_flash_attention_rejects_bad_inputs_on_the_card(cuda):

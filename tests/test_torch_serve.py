@@ -306,3 +306,64 @@ def test_serve_cli_ssm_on_cpu():
         cwd=ROOT, capture_output=True, text=True, timeout=300, env=env)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "generated (2, 4) tokens on cpu" in proc.stdout
+
+
+# ---- bf16 models against the reference's bf16 models ----
+
+@functools.lru_cache(maxsize=None)
+def _ref_params_bf16(arch):
+    cfg = ref_get_config(arch, smoke=True)
+    params = jax.jit(lambda k: ref_tf.init_lm(cfg, k, jnp.bfloat16))(
+        jax.random.PRNGKey(0))
+    return jax.tree.map(np.asarray, params)
+
+
+def _bf16_step(x: float) -> float:
+    """The spacing of bf16 numbers at |x| (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(abs(x))) - 7)
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "phi4-mini-3.8b", SSM])
+def test_bf16_lm_forward_matches_reference_bf16(arch):
+    """The reference's bf16 init_lm carried across by the bridge: a prefill
+    of 2 x 12 tokens, then 4 teacher-forced decode steps, both packages in
+    bf16. The two round bf16 activations at other points (fused XLA ops
+    against eager PyTorch), so the logits are held within 4 bf16 steps at
+    max|logit|, and top-1 only on rows whose reference margin between its
+    top two logits exceeds that tolerance."""
+    rcfg, cfg = ref_get_config(arch, smoke=True), get_config(arch, smoke=True)
+    np_params = _ref_params_bf16(arch)
+    params = bridge.lm_params_from_reference(np_params, cfg)
+    assert params["embed"].dtype == torch.bfloat16
+    rng = np.random.default_rng(0)
+    b, s, steps = 2, 12, 4
+    tokens = rng.integers(0, cfg.vocab_size, (b, s), dtype=np.int32)
+    rstates = ref_tf.init_states(rcfg, b, s + steps, jnp.bfloat16)
+    states = tf.init_states(cfg, b, s + steps, torch.bfloat16)
+    wants, gots = [], []
+    want, rstates, _ = ref_tf.lm_forward(rcfg, np_params, tokens,
+                                         states=rstates,
+                                         logits_slice_last=True)
+    got, states, _ = tf.lm_forward(cfg, params, torch.from_numpy(tokens),
+                                   states=states, logits_slice_last=True)
+    wants.append(want[:, -1])
+    gots.append(got[:, -1])
+    for i in range(steps):
+        tok = rng.integers(0, cfg.vocab_size, (b, 1), dtype=np.int32)
+        pos = np.full((b, 1), s + i, np.int32)
+        want, rstates, _ = ref_tf.lm_forward(rcfg, np_params, tok,
+                                             positions=pos, states=rstates,
+                                             logits_slice_last=True)
+        got, states, _ = tf.lm_forward(cfg, params, torch.from_numpy(tok),
+                                       positions=torch.from_numpy(pos),
+                                       states=states, logits_slice_last=True)
+        wants.append(want[:, -1])
+        gots.append(got[:, -1])
+    want = np.stack([np.asarray(w, np.float32) for w in wants])
+    got = torch.stack(gots).float().numpy()
+    assert got.shape == want.shape and np.isfinite(got).all()
+    tol = 4 * _bf16_step(np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+    top2 = np.sort(want, axis=-1)[..., -2:]
+    decided = top2[..., 1] - top2[..., 0] > tol
+    assert np.array_equal(got.argmax(-1)[decided], want.argmax(-1)[decided])
