@@ -11,7 +11,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               (nvidia-smi), ptxas's registers and spills of each
               flash-attention kernel and the count of tensor-core (HMMA)
               instructions in the flash library's SASS (cuobjdump), which
-              must not be 0.
+              must not be 0; ptxas's registers and spills of each ssm_scan
+              kernel and the SASS instruction mix of its hot loop, with
+              the FP32-issue time it implies at the prefill shape.
   2. kernels  holds every kernel against its plain PyTorch version on the
               card: the reduction pass and the batched epilogue at the
               main path's shape (K=10 clients x N=11,220,132 ResNet18-GN
@@ -89,17 +91,28 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               and bf16 u: Falcon-Mamba-7B's prefill (B = 8, S = 1024,
               D_in = 8192, N = 16), decode (S = 1 from a carried state)
               and continuation (S = 100 from a carried state) shapes and
-              the reference's ragged sweep shapes. Times the kernel (warm
+              the reference's ragged sweep shapes; the prefill, decode and
+              ragged shapes also in the fused form the mixer calls (dt's
+              bias and softplus and the gate by z inside the launch; z,
+              and in f32 b and c, strided slices of one projection, as the
+              mixer hands them over). Each line says whether y and h are
+              bitwise equal to the plain version's. Times the kernel (warm
               and with the L2 flushed) and the plain version at the
-              prefill and decode shapes, beside the bound — which counts
-              the exponentials on the SFU at the card's top SM clock.
+              prefill and decode shapes, unfused and fused, beside the
+              bound — which counts the exponentials (and the fused form's
+              logarithms) on the SFU at the card's top SM clock. The
+              kernels line's headline is the fused f32 prefill.
  10. serve ssm  serve_lm on Falcon-Mamba-7B at full width and depth (64
               layers, d_model 4096, random weights from a seed), B = 8,
               prompts of 1024, 32 generated tokens, in f32 and in bf16;
               ssm_scan must launch exactly num_layers x gen times in each
               run and flash_attention never. A profiled prefill and decode
-              step; then the kernel path against the plain path
-              (ssm_impl="reference") on the same params and prompts.
+              step, each with no eager softplus (log1p) op and one silu
+              op a layer (the conv's; the gate's is in the scan), counted
+              as torch ops, and no more such kernels than ops,
+              and the decode step's launches on a line of their own; then
+              the kernel path against the plain path (ssm_impl=
+              "reference") on the same params and prompts.
  11. serve ssm parity  Falcon-Mamba SMOKE on the card and on the CPU from
               the same params: prefill plus 4 teacher-forced decode steps.
 
@@ -109,16 +122,19 @@ prints no result. It imports torch and the port, nothing of JAX.
 """
 from __future__ import annotations
 
+import collections
 import functools
 import itertools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -248,6 +264,10 @@ SS_CASES = (
     ("ragged_short", 1, 17, 64, 4, False),
 )
 SS_TIMED = ("prefill", "decode")
+# ... also run in the fused form (dt_bias, dt_softplus, z)
+SS_FUSED = ("prefill", "decode", "ragged")
+# the ssm_scan kernels' names (a profile's key or a SASS function holds one)
+SS_KERNEL_NAMES = ("ssm_scan_kernel", "ssm_step_kernel")
 # the SFU's exponentials (MUFU.EX2): 16 per clock per SM on the H100's 132
 # SMs (NVIDIA's arithmetic instruction throughput table, compute 9.0)
 SFU_PER_CLOCK_PER_SM = 16
@@ -352,17 +372,23 @@ def phase_build() -> str:
     if hmma == 0:
         raise AssertionError("the flash-attention library holds no tensor-"
                              "core (HMMA) instruction")
+    ss_lib = paths[mods.index(ss_ops)]
+    emit({"phase": "build_ssm_scan",
+          "kernels": ssm_sass_report(ss_lib, _max_sm_clock_mhz())})
     return smi
 
 
-def _ptxas_report(log: str) -> dict:
+def _ptxas_report(log: str, names=FA_KERNEL_NAMES) -> dict:
     """kernel<template arguments> -> registers and spill bytes, from nvcc
-    -Xptxas -v's output."""
+    -Xptxas -v's output, for the kernels named in ``names``."""
     out, name = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
-            base = next(n for n in FA_KERNEL_NAMES[::-1] if n in mangled)
+            base = next((n for n in names[::-1] if n in mangled), None)
+            if base is None:
+                name = None
+                continue
             args = mangled.split(base, 1)[1].split("EEEv")[0]
             name = f"{base}<{args}>"
             out[name] = {}
@@ -374,6 +400,117 @@ def _ptxas_report(log: str) -> dict:
         elif name and "Used" in line and "registers" in line:
             words = line.split()
             out[name]["registers"] = int(words[words.index("Used") + 1])
+    return out
+
+
+_SASS_ADDR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?);")
+_SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+_SASS_BRA = re.compile(r"BRA\s+(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))")
+FP32_PIPE = ("FFMA", "FMUL", "FADD", "FMNMX")
+
+
+def _sass_functions(sass: str, names) -> dict:
+    """kernel<template arguments> -> {"ins": [(address, text)], "labels":
+    {label: address}} for the SASS functions named in ``names``."""
+    out, fn, pending = {}, None, []
+    for line in sass.splitlines():
+        if "Function :" in line:
+            mangled = line.split("Function :")[1].strip()
+            base = next((n for n in names if n in mangled), None)
+            fn = None
+            if base is not None:
+                args = mangled.split(base, 1)[1].split("EEEv")[0]
+                fn = out.setdefault(f"{base}<{args}>",
+                                    {"ins": [], "labels": {}})
+            pending = []
+            continue
+        if fn is None:
+            continue
+        lab = _SASS_LABEL.match(line)
+        if lab:
+            pending.append(lab.group(1))
+            continue
+        m = _SASS_ADDR.search(line)
+        if m:
+            addr = int(m.group(1), 16)
+            fn["labels"].update({lab: addr for lab in pending})
+            pending = []
+            fn["ins"].append((addr, m.group(2).strip()))
+    return out
+
+
+def _opcode(text: str) -> str:
+    words = [w for w in text.split() if not w.startswith("@")]
+    return words[0] if words else ""
+
+
+def _sass_mix(ins) -> dict:
+    """Instruction counts by opcode (MUFU by its function), the FP32 pipe's
+    (FFMA, FMUL, FADD, FMNMX) and all."""
+    counts = collections.Counter()
+    for _, text in ins:
+        op = _opcode(text)
+        base = op.split(".")[0]
+        counts[op if base == "MUFU" else base] += 1
+    counts["fp32_pipe"] = sum(counts[k] for k in FP32_PIPE)
+    counts["total"] = len(ins)
+    return dict(counts)
+
+
+def _hot_loop(fn) -> list:
+    """The backward-branch range of ``fn`` that holds the state
+    exponentials: of the loops whose only MUFU is EX2 (the softplus's log
+    and the gate's reciprocal live in other loops), the one with the most
+    of them, the shortest on a tie; [] when there is none."""
+    best, key = [], None
+    for addr, text in fn["ins"]:
+        m = _SASS_BRA.search(text)
+        if not m:
+            continue
+        tgt = (fn["labels"].get(m.group(1)) if m.group(1)
+               else int(m.group(2), 16))
+        if tgt is None or tgt > addr:
+            continue
+        body = [(a, t) for a, t in fn["ins"] if tgt <= a <= addr]
+        ops = [_opcode(t) for _, t in body]
+        mufu = {op for op in ops if op.startswith("MUFU")}
+        if mufu != {"MUFU.EX2"}:
+            continue
+        k = (ops.count("MUFU.EX2"), -len(body))
+        if key is None or k > key:
+            best, key = body, k
+    return best
+
+
+def ssm_sass_report(lib, clock_mhz: float) -> dict:
+    """Per ssm_scan kernel instance: ptxas's registers and spills, its
+    SASS instruction mix (whole and hot loop) and, per state step (one
+    exponential in the hot loop), the FP32-pipe and all instructions and
+    the time they take at the prefill shape (B 8 x S 1024 x D_in 8192 x N
+    16 state steps) over 132 SMs x 128 FP32 lanes, and x 4 warp issues, a
+    clock at ``clock_mhz``."""
+    lib = str(lib)
+    log = Path(os.path.splitext(lib)[0] + ".log").read_text()
+    ptxas = _ptxas_report(log, SS_KERNEL_NAMES)
+    sass = subprocess.run([_build.tool("cuobjdump"), "-sass", lib],
+                          capture_output=True, text=True, check=True).stdout
+    steps = 8 * 1024 * 8192 * 16
+    per_clock = NUM_SMS * 128 * clock_mhz * 1e6
+    out = {}
+    for name, fn in _sass_functions(sass, SS_KERNEL_NAMES).items():
+        loop = _sass_mix(_hot_loop(fn))
+        row = {**ptxas.get(name, {}), "function": _sass_mix(fn["ins"]),
+               "hot_loop": loop}
+        ex2 = loop.get("MUFU.EX2", 0)
+        if ex2:
+            row.update({
+                "fp32_per_state_step": loop["fp32_pipe"] / ex2,
+                "instructions_per_state_step": loop["total"] / ex2,
+                "fp32_issue_ms_at_prefill":
+                    1e3 * steps * loop["fp32_pipe"] / ex2 / per_clock,
+                "issue_ms_at_prefill":
+                    1e3 * steps * loop["total"] / ex2 / per_clock})
+        out[name] = row
     return out
 
 
@@ -1227,81 +1364,122 @@ def _ssm_case(gen, case, dtype):
     return u, dt, bm, cm, a, dsk, (randn(b, d_in, n) if with_h0 else None)
 
 
-def _ssm_work(u, dt, b, c, a, dsk, h0):
-    """(bytes, f32 FLOPs, exponentials) of one scan: each input read once,
-    y and h_final written once; per (batch, step, channel, state) dt*a,
-    h*decay + du*b and acc + h*c (6 FLOPs) and one exp, per (batch, step,
-    channel) du, d*u and the sum (3)."""
+def _ssm_fused(gen, args, dtype):
+    """One SS_CASES entry's args (whose dt then stands for x_proj's raw dt)
+    and the fused form's extra inputs, laid out as mamba_forward hands
+    them over: z (in u's dtype) the second half of one (B, S, 2 D_in)
+    in_proj output, and in f32 b and c slices of one (B, S, R + 2 N)
+    x_proj output (R the model's dt rank; a bf16 model's .float() copies
+    them); dt's bias near dt_proj's -4.6 (softplus^-1(0.01))."""
+    u, dt, bm, cm, a, dsk, h0 = args
+    bsz, s, d_in = u.shape
+    n = bm.shape[-1]
+    bias = torch.randn(d_in, generator=gen, device="cuda") * 0.5 - 4.6
+    xz = torch.randn((bsz, s, 2 * d_in), generator=gen, device="cuda")
+    z = (xz * 2).to(dtype)[..., d_in:]
+    if dtype == torch.float32:
+        rank = get_config(SSM_ARCH).resolved_dt_rank
+        proj = torch.randn((bsz, s, rank + 2 * n), generator=gen,
+                           device="cuda")
+        proj[..., rank:rank + n], proj[..., rank + n:] = bm, cm
+        bm, cm = proj[..., rank:rank + n], proj[..., rank + n:]
+    return ((u, dt, bm, cm, a, dsk, h0),
+            {"dt_bias": bias, "dt_softplus": True, "z": z})
+
+
+def _ssm_work(u, dt, b, c, a, dsk, h0, dt_bias=None, dt_softplus=False,
+              z=None):
+    """(bytes, f32 FLOPs, SFU operations) of one scan: each input read
+    once, y and h_final written once; per (batch, step, channel, state)
+    dt*a, h*decay + du*b and acc + h*c (6 FLOPs) and one exp, per (batch,
+    step, channel) du, d*u and the sum (3). The fused form also reads
+    dt_bias and z, and per (batch, step, channel) adds the bias, max and
+    add of the softplus (3 FLOPs, an exp and a log) and the gate's add,
+    division and product (3 FLOPs, an exp)."""
     bsz, s, d_in = u.shape
     n = b.shape[-1]
     f32_elems = (dt.numel() + b.numel() + c.numel() + a.numel() + dsk.numel()
-                 + bsz * d_in * n + (0 if h0 is None else h0.numel()))
-    nbytes = 2 * u.element_size() * u.numel() + 4 * f32_elems
+                 + bsz * d_in * n + (0 if h0 is None else h0.numel())
+                 + (0 if dt_bias is None else dt_bias.numel()))
+    nbytes = (2 * u.element_size() * u.numel() + 4 * f32_elems
+              + (0 if z is None else z.element_size() * z.numel()))
     elems = bsz * s * d_in
-    return nbytes, 6 * elems * n + 3 * elems, elems * n
+    flops, sfu = 6 * elems * n + 3 * elems, elems * n
+    if dt_bias is not None or dt_softplus:
+        flops, sfu = flops + 3 * elems, sfu + 2 * elems
+    if z is not None:
+        flops, sfu = flops + 3 * elems, sfu + elems
+    return nbytes, flops, sfu
 
 
 def phase_ssm_kernels():
     """ssm_scan against its plain version at every SS_CASES shape in f32
-    and bf16, then timed at the serving path's prefill and decode shapes
-    beside the bound; returns the kernel's summary row."""
+    and bf16 (and the SS_FUSED shapes in the fused form), then timed at
+    the serving path's prefill and decode shapes beside the bound; returns
+    the kernel's summary row."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     clock_mhz = _max_sm_clock_mhz()
+    sfu_per_s = SFU_PER_CLOCK_PER_SM * NUM_SMS * 1e6 * clock_mhz
     err = {torch.float32: 0.0, torch.bfloat16: 0.0}
     err_h = 0.0
     timings = []
     for case, dtype in itertools.product(SS_CASES, (torch.float32,
                                                     torch.bfloat16)):
         label, b, s, d_in, n, with_h0 = case
-        args = _ssm_case(gen, case, dtype)
-        y, h = ss_ops.ssm_scan(*args)
-        want_y, want_h = ss_ref.ssm_scan_ref(*args)
-        torch.cuda.synchronize()
-        e = float((y.float() - want_y.float()).abs().max())
-        e_h = float((h - want_h).abs().max())
-        tol = SS_TOL[dtype]
-        if y.dtype != dtype or not torch.allclose(
-                y.float(), want_y.float(), rtol=tol, atol=tol):
-            raise AssertionError(f"ssm_scan {label} {dtype}: y max abs err "
-                                 f"{e}")
-        if not torch.allclose(h, want_h, rtol=SS_H_TOL, atol=SS_H_TOL):
-            raise AssertionError(f"ssm_scan {label} {dtype}: h max abs err "
-                                 f"{e_h}")
-        err[dtype] = max(err[dtype], e)
-        err_h = max(err_h, e_h)
-        line = {"phase": "ssm_kernels", "case": label, "B": b, "S": s,
-                "D_in": d_in, "N": n, "h0": with_h0,
-                "dtype": str(dtype)[6:], "max_abs_err": e,
-                "h_max_abs_err": e_h,
-                # the kernel rounds as the plain version does (csrc note)
-                "bitwise_equal": bool(torch.equal(y, want_y)
-                                      and torch.equal(h, want_h))}
-        if label in SS_TIMED:
-            nbytes, flops, exps = _ssm_work(*args)
-            sfu_per_s = SFU_PER_CLOCK_PER_SM * NUM_SMS * 1e6 * clock_mhz
-            b_ms, b_by = bound_ms(nbytes, flops, sfu_ops=exps,
-                                  sfu_per_s=sfu_per_s)
-            term = ("bytes" if b_by == "bytes" else "exponentials (SFU)"
-                    if exps / sfu_per_s >= flops / F32_FLOP_PER_S
-                    else "f32 FLOPs")
-            kern = functools.partial(ss_ops.ssm_scan, *args)
-            plain = functools.partial(ss_ref.ssm_scan_ref, *args)
-            ms, ms_one = cuda_ms(kern)
-            # the plain version launches ~8 kernels a step: few windows
-            plain_ms, _ = cuda_ms(plain, reps=3, calls=1) if s > 1 \
-                else cuda_ms(plain)
-            line.update({
-                "ms": ms, "ms_one_call": ms_one,
-                "ms_cold": cuda_ms_cold(kern),
-                "ms_cold_spin": cuda_ms_cold(kern, spin=True),
-                "plain_ms": plain_ms,
-                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-                "bound_term": term, "bytes": nbytes, "flops": flops,
-                "exponentials": exps, "max_sm_clock_mhz": clock_mhz})
-            timings.append(line)
-        emit(line)
-        del args, y, h, want_y, want_h
-    head = timings[0]                  # prefill, f32: the headline
+        case_args = _ssm_case(gen, case, dtype)
+        for fused in (False, True) if label in SS_FUSED else (False,):
+            args, kw = (_ssm_fused(gen, case_args, dtype) if fused
+                        else (case_args, {}))
+            name = f"ssm_scan {label} {dtype}{' fused' if fused else ''}"
+            y, h = ss_ops.ssm_scan(*args, **kw)
+            want_y, want_h = ss_ref.ssm_scan_ref(*args, **kw)
+            torch.cuda.synchronize()
+            e = float((y.float() - want_y.float()).abs().max())
+            e_h = float((h - want_h).abs().max())
+            tol = SS_TOL[dtype]
+            if y.dtype != dtype or not torch.allclose(
+                    y.float(), want_y.float(), rtol=tol, atol=tol):
+                raise AssertionError(f"{name}: y max abs err {e}")
+            if not torch.allclose(h, want_h, rtol=SS_H_TOL, atol=SS_H_TOL):
+                raise AssertionError(f"{name}: h max abs err {e_h}")
+            err[dtype] = max(err[dtype], e)
+            err_h = max(err_h, e_h)
+            line = {"phase": "ssm_kernels", "case": label, "fused": fused,
+                    "B": b, "S": s, "D_in": d_in, "N": n, "h0": with_h0,
+                    "dtype": str(dtype)[6:], "max_abs_err": e,
+                    "h_max_abs_err": e_h,
+                    # the kernel rounds as the plain version does (csrc)
+                    "bitwise_equal": bool(torch.equal(y, want_y)
+                                          and torch.equal(h, want_h))}
+            if label in SS_TIMED:
+                nbytes, flops, sfu = _ssm_work(*args, **kw)
+                b_ms, b_by = bound_ms(nbytes, flops, sfu_ops=sfu,
+                                      sfu_per_s=sfu_per_s)
+                term = ("bytes" if b_by == "bytes" else "SFU (exp, log)"
+                        if sfu / sfu_per_s >= flops / F32_FLOP_PER_S
+                        else "f32 FLOPs")
+                kern = functools.partial(ss_ops.ssm_scan, *args, **kw)
+                plain = functools.partial(ss_ref.ssm_scan_ref, *args, **kw)
+                ms, ms_one = cuda_ms(kern)
+                # the plain version launches ~8 kernels a step: few windows
+                plain_ms, _ = cuda_ms(plain, reps=3, calls=1) if s > 1 \
+                    else cuda_ms(plain)
+                line.update({
+                    "ms": ms, "ms_one_call": ms_one,
+                    "ms_cold": cuda_ms_cold(kern),
+                    "ms_cold_spin": cuda_ms_cold(kern, spin=True),
+                    "plain_ms": plain_ms,
+                    "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+                    "bound_term": term, "bytes": nbytes, "flops": flops,
+                    "sfu_ops": sfu, "max_sm_clock_mhz": clock_mhz})
+                timings.append(line)
+            emit(line)
+            del y, h, want_y, want_h, args, kw
+        del case_args
+    # the headline: the prefill in f32 in the fused form, the call the
+    # serving path makes
+    head = next(t for t in timings if t["case"] == "prefill"
+                and t["dtype"] == "float32" and t["fused"])
     return {"name": "ssm_scan", "route": "cuda", "source": SS_SOURCE,
             "replaces": SS_REPLACES, "max_abs_err": err[torch.float32],
             "max_abs_err_bf16": err[torch.bfloat16], "h_max_abs_err": err_h,
@@ -1310,9 +1488,9 @@ def phase_ssm_kernels():
             "bound_by": head["bound_by"], "library_ms": None,
             "library": LIBRARY_NONE,
             "timings": [{k: t[k] for k in (
-                "case", "dtype", "ms", "ms_one_call", "ms_cold",
+                "case", "dtype", "fused", "ms", "ms_one_call", "ms_cold",
                 "ms_cold_spin", "plain_ms", "bound_ms", "bound_by",
-                "bound_term")} for t in timings]}
+                "bound_term", "bitwise_equal")} for t in timings]}
 
 
 def _teacher_forced(cfg, params, prompts, forced, impl):
@@ -1344,7 +1522,7 @@ def _teacher_forced(cfg, params, prompts, forced, impl):
 def _serve_category(kernel: str) -> str:
     if any(name in kernel for name in FA_KERNEL_NAMES):
         return "flash_attention kernel"
-    if "ssm_scan_kernel" in kernel:
+    if any(name in kernel for name in SS_KERNEL_NAMES):
         return "ssm_scan kernel"
     if any(tag in kernel.lower() for tag in ("gemm", "gemv", "cutlass",
                                              "xmma", "cublas", "nvjet")):
@@ -1387,15 +1565,38 @@ def profile_serve(cfg, params, prompts, kernel: str):
         if flash != want:
             raise AssertionError(f"serve profile {step}: {flash} flash-"
                                  f"attention kernels, expected {want}")
+        # the mixer's eager softplus chain (its log1p) and gate (a second
+        # silu a layer) are folded into the scan: one silu a layer is left.
+        # Counted exactly as the step's torch ops (recorded on the host);
+        # the profiler can miss a device event of a ~1,600-kernel step
+        # (one silu kernel short in one run), so the kernels may not
+        # exceed those counts
+        ops = {key: sum(1 for e in prof.events()
+                        if e.device_type == DeviceType.CPU
+                        and e.key == f"aten::{key}")
+               for key in ("log1p", "silu")}
+        mixer = {key: sum(1 for *_, name in spans if key in name)
+                 for key in ("log1p", "silu")}
+        if kernel == "ssm_scan" and (
+                ops != {"log1p": 0, "silu": cfg.num_layers}
+                or any(mixer[key] > ops[key] for key in ops)):
+            raise AssertionError(f"serve profile {step}: mixer ops {ops}, "
+                                 f"kernels {mixer}, expected no log1p and "
+                                 "one silu a layer")
         top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:6]
-        emit({"phase": "serve_profile",
-              "dtype": str(params["embed"].dtype)[6:], "step": step,
-              "window_ms": 1e3 * window_s,
+        dtype = str(params["embed"].dtype)[6:]
+        emit({"phase": "serve_profile", "arch": cfg.name, "dtype": dtype,
+              "step": step, "window_ms": 1e3 * window_s,
               "kernels": len(spans), "flash_attention_kernels": flash,
+              **{f"{key}_kernels": n for key, n in mixer.items()},
+              **{f"{key}_ops": n for key, n in ops.items()},
               "device_busy_ms": busy_us / 1e3,
               "device_idle_share": 1.0 - busy_us / 1e6 / window_s,
               "by_category_ms": by_cat,
               "top_ms": [[name[:70], ms] for name, ms in top]})
+        if step == "decode":
+            emit({"phase": "serve_decode_launches", "arch": cfg.name,
+                  "dtype": dtype, "launches_per_step": len(spans)})
         pos = torch.full((b, 1), s, dtype=torch.int32, device="cuda")
     torch.cuda.set_sync_debug_mode("error")
     try:

@@ -6,7 +6,10 @@ state (B, D_in, N) in f32,
     y_t = sum_n c_t[n] * h_t[:, n] + d_skip * u_t
 
 starting from ``h0`` (zeros when None), with the kernel's rounding step
-for step (the sum over n as its pairwise tree). It keeps one (B, D_in, N) state
+for step (the sum over n as its pairwise tree). The kernel's fused
+inputs are the Mamba mixer's own eager ops around the scan: dt = dt +
+``dt_bias``, then ``softplus`` of it (``dt_softplus``), and y * silu(``z``)
+in u's dtype. It keeps one (B, D_in, N) state
 and a few step-sized temporaries, never the (B, S, D_in, N) tensors of
 the reference model's associative scan: at Falcon-Mamba-7B's width those
 are 4.3 GB each in f32."""
@@ -15,16 +18,31 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.softplus: logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|)),
+    exact for every x (torch's softplus returns x above its threshold)."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
 
 
 def ssm_scan_ref(u: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
                  c: torch.Tensor, a: torch.Tensor, d_skip: torch.Tensor,
-                 h0: Optional[torch.Tensor] = None
+                 h0: Optional[torch.Tensor] = None, *,
+                 dt_bias: Optional[torch.Tensor] = None,
+                 dt_softplus: bool = False,
+                 z: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """u (B, S, D_in) f32 or bf16, dt (B, S, D_in) f32, b/c (B, S, N)
     f32, a (D_in, N) f32 (already negative), d_skip (D_in,) f32, h0
-    (B, D_in, N) f32 or None -> (y (B, S, D_in) in u's dtype, h_final
-    (B, D_in, N) f32)."""
+    (B, D_in, N) f32 or None, dt_bias (D_in,) f32 or None, z (B, S, D_in)
+    in u's dtype or None -> (y (B, S, D_in) in u's dtype — y * silu(z)
+    when z is given — and h_final (B, D_in, N) f32)."""
+    if dt_bias is not None:
+        dt = dt + dt_bias
+    if dt_softplus:
+        dt = softplus(dt)
     bsz, s, d_in = u.shape
     n = b.shape[-1]
     uf = u.float()
@@ -37,7 +55,10 @@ def ssm_scan_ref(u: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
         decay = torch.exp(dt_t[..., None] * a)               # (B, D_in, N)
         h = h * decay + (dt_t * u_t)[..., None] * b[:, t, None, :]
         y[:, t] = _sum_states(h * c[:, t, None, :]) + d_skip * u_t
-    return y.to(u.dtype), h
+    y = y.to(u.dtype)
+    if z is not None:
+        y = y * F.silu(z)
+    return y, h
 
 
 def _sum_states(x: torch.Tensor) -> torch.Tensor:

@@ -15,6 +15,12 @@ the plain version on any device. A continuation starts the recurrence
 from the carried h where the reference adds ``cum_decay * h0`` after its
 scan: the same value by linearity, up to rounding.
 
+The scan call is the fused one: it is handed x_proj's raw dt rows times
+W_dt, dt's bias and the gate's z, and forms dt = softplus(raw + bias) and
+the output y * silu(z) itself, rounded as the eager ops round them (the
+plain version runs those very ops) — one launch, and no eager softplus
+chain or gate around it.
+
 Parameters keep the reference's tree and names; ``a_log`` and ``d_skip``
 are f32 whatever the model dtype, and dt is computed in f32 from the
 (model-dtype) projection.
@@ -65,30 +71,27 @@ def init_ssm_state(cfg, batch, dtype, device=None):
     }
 
 
-def _softplus(x: torch.Tensor) -> torch.Tensor:
-    """jax.nn.softplus: logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|)),
-    exact for every x (torch's softplus returns x above its threshold)."""
-    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
-
-
 def _ssm_params(cfg, p, u):
-    """u: (..., d_in) -> dt (..., d_in) f32, B/C (..., st) f32."""
+    """u: (..., d_in) -> dt's raw value (..., d_in) f32 (x_proj's dt rows
+    times W_dt; the scan adds the bias and takes softplus), B/C (..., st)
+    f32."""
     st, dtr = cfg.ssm_state, cfg.resolved_dt_rank
     proj = linear(p["x_proj"], u)
-    dt = _softplus(proj[..., :dtr].float() @ p["dt_proj"]["w"].float()
-                   + p["dt_proj"]["b"].float())
+    dt = proj[..., :dtr].float() @ p["dt_proj"]["w"].float()
     b = proj[..., dtr:dtr + st].float()
     c = proj[..., dtr + st:].float()
     return dt, b, c
 
 
-def _scan(cfg, p, u_c, h0, impl):
-    """The selective scan of u_c (B, S, d_in) post-conv/silu from h0 ->
-    (y in u_c's dtype, h_final f32)."""
+def _scan(cfg, p, u_c, z, h0, impl):
+    """The selective scan of u_c (B, S, d_in) post-conv/silu from h0, with
+    dt's bias and softplus and the gate by z folded in -> (y * silu(z) in
+    u_c's dtype, h_final f32)."""
     a = -torch.exp(p["a_log"])
     dt, bmat, cmat = _ssm_params(cfg, p, u_c)
     scan = ssm_ops.ssm_scan if impl == "auto" else ssm_ref.ssm_scan_ref
-    return scan(u_c, dt, bmat, cmat, a, p["d_skip"], h0)
+    return scan(u_c, dt, bmat, cmat, a, p["d_skip"], h0,
+                dt_bias=p["dt_proj"]["b"].float(), dt_softplus=True, z=z)
 
 
 def mamba_forward(cfg, p, x, *, state: Optional[dict] = None,
@@ -111,8 +114,8 @@ def mamba_forward(cfg, p, x, *, state: Optional[dict] = None,
         u_ext = torch.cat([prev, u], dim=1)
         conv_in = u_ext[:, -(s + cw - 1):]
         u_c = F.silu(_conv_causal_from(p, conv_in, s, cw))
-        y, h_last = _scan(cfg, p, u_c,
-                          None if state is None else state["h"], impl)
+        out, h_last = _scan(cfg, p, u_c, z,
+                            None if state is None else state["h"], impl)
         # a copy: a view would keep the whole (B, S + cw - 1, d_in) u_ext
         # alive in every layer's state (16 GiB at B 8, S 1024, f32)
         new_state = {"conv": u_ext[:, -(cw - 1):].to(u.dtype).clone(),
@@ -122,10 +125,9 @@ def mamba_forward(cfg, p, x, *, state: Optional[dict] = None,
         conv_window = torch.cat([state["conv"], u], dim=1)    # (B, cw, d_in)
         u_c = F.silu(torch.einsum("bwd,wd->bd", conv_window, p["conv_w"])
                      + p["conv_b"])[:, None, :]
-        y, h = _scan(cfg, p, u_c, state["h"], impl)
+        out, h = _scan(cfg, p, u_c, z, state["h"], impl)
         new_state = {"conv": conv_window[:, 1:], "h": h}
 
-    out = y * F.silu(z)
     return linear(p["out_proj"], out), new_state
 
 

@@ -58,9 +58,14 @@ def _check_all(q, k, v, q_pos, k_pos, dtype="float32", **kw):
     # the reference's own kernel tolerances (tests/test_kernels.py)
     tol = 2e-5 if dtype == "float32" else 4e-2
     assert got.dtype == DTYPES[dtype][1]
-    for want in (ref_fa_ref.attention_ref(jq, jk, jv, q_pos, k_pos, **kw),
-                 ref_fa_ops.flash_attention(jq, jk, jv, q_pos, k_pos, **kw)):
-        np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+    wants = {"oracle": ref_fa_ref.attention_ref(jq, jk, jv, q_pos, k_pos,
+                                                **kw),
+             "kernel (interpret)": ref_fa_ops.flash_attention(
+                 jq, jk, jv, q_pos, k_pos, **kw)}
+    for name, want in wants.items():
+        np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol,
+                                   err_msg=f"attention_ref vs the "
+                                           f"reference's {name}")
     return got
 
 

@@ -588,11 +588,13 @@ def test_decode_step_never_waits_for_the_card(cuda):
 # ---- the selective scan and the pure-SSM serving path ----
 
 # (B, S, D_in, N, with h0): the smoke's prefill, continuation and decode
-# shapes at a narrower width, the reference's ragged sweep shapes, and N
-# at the kernel's limit
+# shapes at a narrower width, the reference's ragged sweep shapes, N at
+# the kernel's limit, and a decode step (S = 1) at the decode kernel's
+# other instances (N <= 4: one lane a channel; N = 32: eight)
 SSM_CASES = [(2, 300, 1024, 16, False), (2, 100, 1024, 16, True),
              (8, 1, 8192, 16, True), (2, 100, 96, 8, False),
-             (1, 17, 64, 4, False), (1, 70, 200, 32, True)]
+             (1, 17, 64, 4, False), (1, 70, 200, 32, True),
+             (2, 1, 200, 32, True), (2, 1, 64, 4, True)]
 
 
 def _ssm_inputs(b, s, d_in, n, with_h0, dtype, device, seed=0):
@@ -628,6 +630,56 @@ def test_ssm_scan_matches_plain_version(cuda, case, dtype):
     # and closer still: the kernel rounds step for step as the plain
     # version does (no FMA contraction, the same tree over the states)
     assert torch.equal(y, want_y) and torch.equal(h, want_h)
+
+
+def _fused_inputs(b, s, d_in, dtype, device, seed=1):
+    """x_proj's raw dt rows times W_dt, dt's bias (near dt_proj's -4.6)
+    and the gate's z."""
+    rng = np.random.default_rng(seed)
+
+    def f32(*shape):
+        return torch.from_numpy(rng.standard_normal(shape,
+                                                    dtype=np.float32))
+    raw = f32(b, s, d_in) * 2 + 4.0
+    bias = f32(d_in) * 0.5 - 4.6
+    z = (f32(b, s, d_in) * 2).to(dtype)
+    return raw.to(device), bias.to(device), z.to(device)
+
+
+@pytest.mark.parametrize("case", SSM_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_scan_fused_matches_plain_version(cuda, case, dtype):
+    """dt's bias and softplus and the gate by z inside the launch, bit for
+    bit against the plain version's eager ops on the card."""
+    u, _, bm, cm, a, dsk, h0 = _ssm_inputs(*case, dtype, cuda)
+    raw, bias, z = _fused_inputs(case[0], case[1], case[2], dtype, cuda)
+    kw = {"dt_bias": bias, "dt_softplus": True, "z": z}
+    before = ss_ops.ssm_scan.launches
+    y, h = ss_ops.ssm_scan(u, raw, bm, cm, a, dsk, h0, **kw)
+    want_y, want_h = ss_ref.ssm_scan_ref(u, raw, bm, cm, a, dsk, h0, **kw)
+    torch.cuda.synchronize()
+    assert ss_ops.ssm_scan.launches == before + 1
+    assert y.dtype == dtype and y.shape == u.shape
+    assert torch.equal(y, want_y) and torch.equal(h, want_h)
+
+
+def test_ssm_scan_fused_reads_unaligned_rows_on_the_card(cuda):
+    """z as the model hands it (a slice of in_proj's output), b and c
+    slices at odd offsets and an odd D_in in bf16: the element-by-element
+    staging path, still bit for bit."""
+    for d_in, s, h0_on in ((37, 21, False), (37, 1, True)):
+        u, _, _, _, a, dsk, h0 = _ssm_inputs(2, s, d_in, 5, h0_on,
+                                             torch.bfloat16, cuda)
+        raw, bias, _ = _fused_inputs(2, s, d_in, torch.bfloat16, cuda)
+        xz = torch.randn(2, s, 2 * d_in, device=cuda).to(torch.bfloat16)
+        proj = torch.randn(2, s, 3 + 10, device=cuda)
+        bm, cm = proj[..., 3:8], proj[..., 8:]
+        kw = {"dt_bias": bias, "dt_softplus": True, "z": xz[..., d_in:]}
+        y, h = ss_ops.ssm_scan(u, raw, bm, cm, a, dsk, h0, **kw)
+        want_y, want_h = ss_ref.ssm_scan_ref(u, raw, bm, cm, a, dsk, h0,
+                                             **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(y, want_y) and torch.equal(h, want_h)
 
 
 def test_ssm_scan_takes_strided_b_and_c_on_the_card(cuda):

@@ -2,8 +2,9 @@
 the same numpy inputs: the kernel's plain version (``ref.ssm_scan_ref``,
 which ``ops.ssm_scan`` runs on CPU tensors) against the reference's
 Pallas kernel in interpret mode and its oracle on the reference's sweep
-shapes; the carried-in state against the reference model's
-``_scan_full(h0=...)``; ``mamba_forward`` — fresh prefill, continuation,
+shapes; its fused form (dt's bias and softplus, the gate by z) against
+the unfused ops and the reference's composition of them; the carried-in
+state against the reference model's ``_scan_full(h0=...)``; ``mamba_forward`` — fresh prefill, continuation,
 prefill then decode — against the reference's on the Falcon-Mamba SMOKE
 mixer carried across by the bridge."""
 import functools
@@ -93,6 +94,82 @@ def test_scan_matches_reference_kernel_and_oracle(b, s, d_in, n, dtype):
                                    atol=H_TOL)
 
 
+def _fused_inputs(seed, b, s, d_in, dtype="float32"):
+    """x_proj's raw dt rows times W_dt (centred where dt_proj's -4.6 bias
+    puts softplus's bend), dt's bias and the gate's z, as numpy f32 (z
+    rounded to bf16 for a bf16 case)."""
+    rng = np.random.default_rng(seed)
+    raw = (rng.standard_normal((b, s, d_in), dtype=np.float32) * 2
+           + 4.0).astype(np.float32)
+    bias = np.full(d_in, -4.6, np.float32) + rng.standard_normal(
+        d_in, dtype=np.float32) * 0.5
+    z = rng.standard_normal((b, s, d_in), dtype=np.float32) * 2
+    if dtype == "bfloat16":
+        z = z.astype(ml_dtypes.bfloat16).astype(np.float32)
+    return raw, bias.astype(np.float32), z
+
+
+# ragged S and D_in, N below a power of two
+FUSED = [(2, 64, 128, 16), (1, 17, 37, 5), (3, 9, 96, 8), (2, 1, 64, 16)]
+
+
+@pytest.mark.parametrize("b,s,d_in,n", FUSED)
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_plain_version_equals_unfused_ops(b, s, d_in, n, with_h0,
+                                                dtype):
+    """dt_bias, dt_softplus and z in the plain version are the mixer's own
+    eager ops around the unfused scan: softplus(raw + bias) before it,
+    y * silu(z) after it — bit for bit, y and h, through the wrapper (CPU:
+    the plain version, no launch)."""
+    u, _, bm, cm, a, dsk, *h0 = _torch(
+        _scan_inputs(7, b, s, d_in, n, dtype, with_h0), dtype)
+    h0 = h0[0] if h0 else None
+    raw, bias, z = (torch.from_numpy(x) for x in _fused_inputs(8, b, s,
+                                                                d_in, dtype))
+    z = z.to(DTYPES[dtype][1])
+    before = ss_ops.ssm_scan.launches
+    got_y, got_h = ss_ops.ssm_scan(u, raw, bm, cm, a, dsk, h0, dt_bias=bias,
+                                   dt_softplus=True, z=z)
+    assert ss_ops.ssm_scan.launches == before
+    dt = torch.clamp(raw + bias, min=0) + torch.log1p(
+        torch.exp(-(raw + bias).abs()))
+    y, h = ss_ref.ssm_scan_ref(u, dt, bm, cm, a, dsk, h0)
+    want_y = y * torch.nn.functional.silu(z)
+    assert got_y.dtype == DTYPES[dtype][1] and got_y.shape == (b, s, d_in)
+    assert torch.equal(got_y, want_y) and torch.equal(got_h, h)
+    # softplus without a bias is the same op on dt as handed in
+    y_s, h_s = ss_ref.ssm_scan_ref(u, raw + bias, bm, cm, a, dsk, h0,
+                                   dt_softplus=True)
+    assert torch.equal(y_s, y) and torch.equal(h_s, h)
+
+
+@pytest.mark.parametrize("b,s,d_in,n", SWEEP)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_scan_matches_jax_composition(b, s, d_in, n, dtype):
+    """The fused plain version against the same numpy inputs through
+    jax.nn.softplus(raw + bias) -> the reference's Pallas kernel
+    (interpret) -> y * jax.nn.silu(z), and through its oracle."""
+    arrays = _scan_inputs(9, b, s, d_in, n, dtype)
+    raw, bias, z = _fused_inputs(10, b, s, d_in, dtype)
+    u, _, bm, cm, a, dsk = _torch(arrays, dtype)
+    zt = torch.from_numpy(z).to(DTYPES[dtype][1])
+    y, h = ss_ops.ssm_scan(u, torch.from_numpy(raw), bm, cm, a, dsk,
+                           dt_bias=torch.from_numpy(bias), dt_softplus=True,
+                           z=zt)
+    ju, _, jb, jc, ja, jd = _jax(arrays, dtype)
+    jdt = jax.nn.softplus(jnp.asarray(raw) + jnp.asarray(bias))
+    jz = jnp.asarray(z).astype(DTYPES[dtype][0])
+    for fn in (ref_ss_ops.ssm_scan, ref_ss_ref.ssm_scan_ref):
+        wy, wh = fn(ju, jdt, jb, jc, ja, jd)
+        want = wy * jax.nn.silu(jz)
+        assert want.dtype == DTYPES[dtype][0]
+        np.testing.assert_allclose(_f32(y), _f32(want), rtol=TOL[dtype],
+                                   atol=TOL[dtype])
+        np.testing.assert_allclose(h.numpy(), _f32(wh), rtol=H_TOL,
+                                   atol=H_TOL)
+
+
 @functools.lru_cache(maxsize=None)
 def _ref_mixer(dtype="float32"):
     """The reference's init_mamba on the Falcon-Mamba SMOKE config, as
@@ -121,19 +198,22 @@ def test_h0_carry_in_matches_reference_scan_full():
     want_y, want_h = ref_ssm._scan_full(rcfg, np_p, jnp.asarray(u),
                                         h0=jnp.asarray(h0))
     ut = torch.from_numpy(u)
-    dt, bm, cm = ssm._ssm_params(cfg, p, ut)
-    got_y, got_h = ss_ops.ssm_scan(ut, dt, bm, cm, -torch.exp(p["a_log"]),
-                                   p["d_skip"], torch.from_numpy(h0))
+    raw, bm, cm = ssm._ssm_params(cfg, p, ut)
+    fused = {"dt_bias": p["dt_proj"]["b"].float(), "dt_softplus": True}
+    got_y, got_h = ss_ops.ssm_scan(ut, raw, bm, cm, -torch.exp(p["a_log"]),
+                                   p["d_skip"], torch.from_numpy(h0),
+                                   **fused)
     np.testing.assert_allclose(got_y.numpy(), _f32(want_y), rtol=H_TOL,
                                atol=H_TOL)
     np.testing.assert_allclose(got_h.numpy(), _f32(want_h), rtol=H_TOL,
                                atol=H_TOL)
     # and a split scan carrying h equals the whole one
-    y1, h1 = ss_ref.ssm_scan_ref(ut[:, :5], dt[:, :5], bm[:, :5], cm[:, :5],
-                                 -torch.exp(p["a_log"]), p["d_skip"],
-                                 torch.from_numpy(h0))
-    y2, h2 = ss_ref.ssm_scan_ref(ut[:, 5:], dt[:, 5:], bm[:, 5:], cm[:, 5:],
-                                 -torch.exp(p["a_log"]), p["d_skip"], h1)
+    y1, h1 = ss_ref.ssm_scan_ref(ut[:, :5], raw[:, :5], bm[:, :5],
+                                 cm[:, :5], -torch.exp(p["a_log"]),
+                                 p["d_skip"], torch.from_numpy(h0), **fused)
+    y2, h2 = ss_ref.ssm_scan_ref(ut[:, 5:], raw[:, 5:], bm[:, 5:],
+                                 cm[:, 5:], -torch.exp(p["a_log"]),
+                                 p["d_skip"], h1, **fused)
     torch.testing.assert_close(torch.cat([y1, y2], 1), got_y, rtol=1e-6,
                                atol=1e-6)
     torch.testing.assert_close(h2, got_h, rtol=1e-6, atol=1e-6)
@@ -141,16 +221,19 @@ def test_h0_carry_in_matches_reference_scan_full():
 
 def test_ssm_params_and_softplus_match_reference():
     """dt in f32 through jax.nn.softplus's exact form (torch's softplus
-    returns x above 20), B and C as f32 slices of the projection."""
+    returns x above 20) of the raw dt plus its bias, as the scan forms it;
+    B and C as f32 slices of the projection."""
     x = np.linspace(-60, 60, 2001, dtype=np.float32)
-    np.testing.assert_allclose(ssm._softplus(torch.from_numpy(x)).numpy(),
+    np.testing.assert_allclose(ss_ref.softplus(torch.from_numpy(x)).numpy(),
                                np.asarray(jax.nn.softplus(x)), rtol=1e-6,
                                atol=1e-7)
     rcfg, cfg = ref_get_config(ARCH, smoke=True), get_config(ARCH, smoke=True)
     u = np.random.default_rng(2).standard_normal((2, 5, cfg.ssm_d_inner),
                                                  dtype=np.float32)
     want = ref_ssm._ssm_params(rcfg, _ref_mixer(), jnp.asarray(u))
-    got = ssm._ssm_params(cfg, _mixer(), torch.from_numpy(u))
+    p = _mixer()
+    raw, bm, cm = ssm._ssm_params(cfg, p, torch.from_numpy(u))
+    got = (ss_ref.softplus(raw + p["dt_proj"]["b"].float()), bm, cm)
     for g, w in zip(got, want, strict=True):
         assert g.dtype == torch.float32
         np.testing.assert_allclose(g.numpy(), _f32(w), rtol=1e-5, atol=1e-5)
@@ -287,6 +370,14 @@ def test_scan_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError, match="impl"):
         ssm.mamba_forward(get_config(ARCH, smoke=True), {}, u,
                           impl="kernel")
+    with pytest.raises(ValueError, match="dt_bias must be"):
+        ss_ops.ssm_scan(u, dt, b, c, a, dsk, dt_bias=dsk[:7])
+    with pytest.raises(TypeError, match="dt_bias must be float32"):
+        ss_ops.ssm_scan(u, dt, b, c, a, dsk, dt_bias=dsk.double())
+    with pytest.raises(ValueError, match="z must be"):
+        ss_ops.ssm_scan(u, dt, b, c, a, dsk, z=u[:, :2])
+    with pytest.raises(TypeError, match="z must be u's dtype"):
+        ss_ops.ssm_scan(u, dt, b, c, a, dsk, z=u.to(torch.bfloat16))
     assert ss_ops.ssm_scan.launches == before
 
 
