@@ -8,8 +8,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
   1. build    nvcc-builds the FedDPC, flash-attention and ssm_scan
               libraries from the checkout's sources, all three at once;
               prints the card's name, power limit and top SM clock
-              (nvidia-smi), ptxas's registers and spills of each
-              flash-attention kernel and the count of tensor-core (HMMA)
+              (nvidia-smi), ptxas's registers and spills of each FedDPC
+              kernel instance and of each flash-attention kernel and the
+              count of tensor-core (HMMA)
               instructions in the flash library's SASS (cuobjdump), which
               must not be 0; ptxas's registers and spills of each ssm_scan
               kernel and the SASS instruction mix of its hot loop, with
@@ -31,7 +32,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               events at K = B = 10, N = 11,220,132, beside its bound:
               per call, over windows of 10 back-to-back calls (``ms``)
               and of one call (``ms_one_call``, with the host's launch
-              path), median of 20 windows.
+              path), median of 20 windows; the folds also cold (one call
+              after an L2 flush and a spin, ``ms_cold_spin``) and as a
+              share of their bound (``pct_of_bound``).
   3. project  projection.project_and_scale(use_kernel=True) on one
               ResNet18-GN-sized flat delta: one feddpc_fused_epilogue
               launch, held against the same call on the CPU.
@@ -202,6 +205,9 @@ REPLACES = {"feddpc_dots": f"{_TPU}:44",
 # boundaries inside every column tile
 FOLD_KS = (1, 10, 33)
 SYNTH_NUMELS = (5, 31, 1, 17) * 4 + (2048, 7, 997_732)
+# the FedDPC kernel templates (a ptxas or SASS name holds one)
+FEDDPC_KERNEL_NAMES = ("dots_kernel", "fold_kernel", "epilogue_kernel",
+                       "dequant_fold_kernel")
 # no single PyTorch call computes any of these functions (the FedDPC seven
 # and the selective scan)
 LIBRARY_NONE = "no single PyTorch call computes this function"
@@ -361,6 +367,10 @@ def phase_build() -> str:
           "nvcc_seconds": dict(_build.build_seconds), "seconds": seconds,
           "nvidia_smi": smi, "max_sm_clock_mhz": _max_sm_clock_mhz(),
           "torch": torch.__version__, "cuda": torch.version.cuda})
+    fd_lib = paths[mods.index(ops)]
+    emit({"phase": "build_feddpc_project",
+          "kernels": _ptxas_report(fd_lib.with_suffix(".log").read_text(),
+                                   FEDDPC_KERNEL_NAMES)})
     fa_lib = paths[mods.index(fa_ops)]
     sass = subprocess.run([_build.tool("cuobjdump"), "-sass", str(fa_lib)],
                           capture_output=True, text=True,
@@ -378,20 +388,27 @@ def phase_build() -> str:
     return smi
 
 
+def _kernel_name(mangled: str, names):
+    """kernel<mangled template arguments> for the longest of ``names``
+    that ``mangled`` holds, or None."""
+    base = max((n for n in names if n in mangled), key=len, default=None)
+    if base is None:
+        return None
+    rest = mangled.split(base, 1)[1]
+    # the arguments end where the nested name and the signature begin
+    args = rest[:rest.index("EEv")].rstrip("E") if "EEv" in rest else rest
+    return f"{base}<{args}>"
+
+
 def _ptxas_report(log: str, names=FA_KERNEL_NAMES) -> dict:
     """kernel<template arguments> -> registers and spill bytes, from nvcc
     -Xptxas -v's output, for the kernels named in ``names``."""
     out, name = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            mangled = line.split("'")[1]
-            base = next((n for n in names[::-1] if n in mangled), None)
-            if base is None:
-                name = None
-                continue
-            args = mangled.split(base, 1)[1].split("EEEv")[0]
-            name = f"{base}<{args}>"
-            out[name] = {}
+            name = _kernel_name(line.split("'")[1], names)
+            if name is not None:
+                out[name] = {}
         elif name and "spill stores" in line:
             nums = [int(w) for w in line.replace(",", " ").split()
                     if w.isdigit()]
@@ -415,13 +432,9 @@ def _sass_functions(sass: str, names) -> dict:
     out, fn, pending = {}, None, []
     for line in sass.splitlines():
         if "Function :" in line:
-            mangled = line.split("Function :")[1].strip()
-            base = next((n for n in names if n in mangled), None)
-            fn = None
-            if base is not None:
-                args = mangled.split(base, 1)[1].split("EEEv")[0]
-                fn = out.setdefault(f"{base}<{args}>",
-                                    {"ins": [], "labels": {}})
+            name = _kernel_name(line.split("Function :")[1].strip(), names)
+            fn = (None if name is None
+                  else out.setdefault(name, {"ins": [], "labels": {}}))
             pending = []
             continue
         if fn is None:
@@ -885,8 +898,10 @@ def phase_folds():
             b_ms, b_by = bound_ms(nbytes, flops)
             row = {"name": name, "route": "cuda", "source": SOURCE,
                    "replaces": REPLACES[name], "max_abs_err": err[name],
-                   "ms": ms, "ms_one_call": ms_one, "plain_ms": plain_ms,
-                   "bound_ms": b_ms,
+                   "ms": ms, "ms_one_call": ms_one,
+                   "ms_cold_spin": cuda_ms_cold(kern, spin=True),
+                   "plain_ms": plain_ms, "bound_ms": b_ms,
+                   "pct_of_bound": 100.0 * b_ms / ms,
                    "bound_by": b_by, "library_ms": None,
                    "library": LIBRARY_NONE, "K": K_MAIN, "N": N_MAIN,
                    "payload": ("float32" if name == "feddpc_buffer_fold"

@@ -110,9 +110,14 @@ def _payload(k, offsets, qdtype, seed):
 
 # (K, leaf sizes): leaves shorter than a warp, a boundary inside every
 # 2,048-column tile, K = 33 past one shared-memory chunk of rows, and
-# ResNet18-GN's real layout (62 leaves, 11,220,132 parameters)
+# ResNet18-GN's real layout (62 leaves, 11,220,132 parameters); for the
+# dequant folds' 16-byte payload loads: N < 16, N = 1 mod 16 with K = 17
+# (the rows' byte shifts take every residue), N a multiple of 16 (every
+# row aligned), and leaves of 1-15 elements (a boundary in every word)
 FOLD_CASES = [(1, (5, 37, 3, 2048, 1, 999)), (10, (7,) * 300 + (4099,)),
-              (33, (31, 64, 5000, 17)), (10, "resnet18")]
+              (33, (31, 64, 5000, 17)), (10, "resnet18"), (3, (5,)),
+              (17, (6400, 9601)), (4, (16000,)),
+              (5, tuple(range(1, 16)) * 20)]
 
 
 @pytest.mark.parametrize("k,numels", FOLD_CASES)
@@ -150,6 +155,36 @@ def test_folds_match_plain_versions(cuda, k, numels, qdtype):
                                        msg=key)
     assert [fn.launches - b for fn, b in zip(ops.KERNELS, before)] == \
         [0, 0, 1, 1, 1, 0, 0]
+
+
+@pytest.mark.parametrize("qdtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("at", [1, 3])
+def test_dequant_folds_read_an_offset_view_in_place(cuda, qdtype, at):
+    """q a contiguous view at an odd storage offset of a larger buffer
+    whose other elements hold extreme codes: the folds read none of them
+    and agree bitwise with the same folds on a fresh copy of q."""
+    k, offsets = 5, _offsets((1, 15, 2, 7, 3000, 1, 12))
+    n = int(offsets[-1])
+    q, qscale, qzero = [x.to(cuda) for x in _payload(k, offsets, qdtype, 7)]
+    big = torch.full((k * n + at + 29,), 127 if qdtype == torch.int8
+                     else 1e30, dtype=qdtype, device=cuda)
+    view = big[at:at + k * n].view(k, n)
+    view.copy_(q)
+    _, p, w, coefs, scales = [x.to(cuda) for x in _case(k, n, False)]
+    wgts = torch.linspace(0.3, 1.0, k, device=cuda)
+    for name, extra in (("feddpc_dequant_batched_epilogue", ()),
+                        ("feddpc_dequant_buffer_fold", (wgts,))):
+        fold = getattr(ops, name)
+        got = fold(view, qscale, qzero, offsets, p, w, coefs, scales,
+                   *extra, 0.3)
+        fresh = fold(view.clone(), qscale, qzero, offsets, p, w, coefs,
+                     scales, *extra, 0.3)
+        plain = getattr(ref, f"{name[7:]}_ref")(
+            q, qscale, qzero, offsets, p, w, coefs, scales, *extra, 0.3)
+        torch.cuda.synchronize()
+        for a, b, c in zip(got, fresh, plain):
+            assert torch.equal(a, b), name
+            torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-5, msg=name)
 
 
 def test_dequant_folds_reject_bad_offsets_on_the_card(cuda):

@@ -112,26 +112,35 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 # inside the kernels' column tiles ----
 
 TREE = {"a": (6, 5), "b": (64,), "c": (40, 37), "conv": (3, 3, 4, 8)}
+# the shapes of the card's fold cases (tests/test_torch_cuda.py): N < 16;
+# N = 1 mod 16 (with K = 17, every row at another byte shift); N a
+# multiple of 16; leaves of 1-15 elements (a boundary in every 16-byte
+# word of an int8 row)
+FOLD_TREES = {"mixed": TREE, "n5": {"a": (5,)},
+              "n16001": {"a": (64, 100), "b": (9601,)},
+              "n16000": {"a": (250, 64)},
+              "short": {f"l{i}": (m,) for i, m in
+                        enumerate((1, 15, 2, 7, 1, 3, 1, 12))}}
 
 
-def _tree_case(k, codec, seed):
+def _tree_case(k, codec, seed, tree=TREE):
     """Reference trees (client-stacked deltas; prev, params), the
     reference's payload of the deltas, and the port's flat views."""
     from repro.codec import make_codec as ref_make_codec
     from repro_torch.bridge import layout_of
     rng = np.random.default_rng(seed)
     deltas = {n: rng.standard_normal((k,) + s, dtype=np.float32)
-              for n, s in TREE.items()}
+              for n, s in tree.items()}
     prev = {n: rng.standard_normal(s, dtype=np.float32)
-            for n, s in TREE.items()}
+            for n, s in tree.items()}
     params = {n: rng.standard_normal(s, dtype=np.float32)
-              for n, s in TREE.items()}
+              for n, s in tree.items()}
     coefs = rng.standard_normal(k, dtype=np.float32)
     scales = (1.0 + np.abs(rng.standard_normal(k))).astype(np.float32)
     wgts = rng.uniform(0.2, 1.0, k).astype(np.float32)
     payload = ref_make_codec(codec).encode_cohort(
         {n: jnp.asarray(v) for n, v in deltas.items()})
-    keys = sorted(TREE)
+    keys = sorted(tree)
 
     def flat(tree, lead):
         return torch.from_numpy(np.concatenate(
@@ -161,7 +170,7 @@ def _assert_fold_close(got, want_tree):
     want_w, want_dt = want_tree
     for g, wt in zip(got, (want_w, want_dt)):
         want = np.concatenate([np.asarray(wt[n]).reshape(-1)
-                               for n in sorted(TREE)])
+                               for n in sorted(wt)])
         np.testing.assert_allclose(g.numpy(), want, rtol=0, atol=1e-6)
 
 
@@ -178,10 +187,13 @@ def test_buffer_fold_matches_pallas(k):
 
 
 @pytest.mark.parametrize("codec", ["int8", "int8_sym", "bf16"])
-@pytest.mark.parametrize("k", [1, 5])
-def test_dequant_folds_match_pallas(codec, k):
+@pytest.mark.parametrize(
+    "k,tree", [(1, "mixed"), (5, "mixed"), (3, "n5"), (17, "n16001"),
+               (4, "n16000"), (5, "short")],
+    ids=["1", "5", "3-n5", "17-n16001", "4-n16000", "5-short"])
+def test_dequant_folds_match_pallas(codec, k, tree):
     (_, prev, params, payload, coefs, scales, wgts), port, (c, s, wg) = \
-        _tree_case(k, codec, seed=10 + k)
+        _tree_case(k, codec, seed=10 + k, tree=FOLD_TREES[tree])
     flat_payload = (port["q"], port["qscale"], port["qzero"],
                     port["offsets"], port["p"], port["w"], c, s)
     _assert_fold_close(

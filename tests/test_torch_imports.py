@@ -68,3 +68,30 @@ def test_chip_smoke_fails_alone_in_a_directory(tmp_path):
         text=True, timeout=300, env=_env(CUDA_VISIBLE_DEVICES=""))
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+TOOL_RUN = r"""
+import runpy, sys
+sys.argv = [sys.argv[1]]
+try:
+    runpy.run_path(sys.argv[0], run_name="__main__")
+except SystemExit as e:
+    print("exit", e.code if isinstance(e.code, int) else 1)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not bad, bad
+"""
+
+
+@pytest.mark.parametrize("tool", sorted(p.name for p in
+                                        (ROOT / "tools").glob("*.py")))
+def test_tools_import_no_jax_and_need_a_card(tool):
+    """Each tool under tools/ imports neither JAX nor the reference and
+    ends non-zero without a card, printing no measurement."""
+    proc = subprocess.run(
+        [sys.executable, "-c", TOOL_RUN, str(ROOT / "tools" / tool)],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env=_env(CUDA_VISIBLE_DEVICES=""))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "exit 1" in proc.stdout and "{" not in proc.stdout, (
+        proc.stdout + proc.stderr)

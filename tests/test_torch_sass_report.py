@@ -64,3 +64,31 @@ def test_ptxas_report_takes_the_names_asked_for():
     assert got == {"ssm_scan_kernel<IfLi16>": {
         "spill_store_bytes": 0, "spill_load_bytes": 0, "registers": 40}}
     assert list(cs._ptxas_report(PTXAS)) == ["fa_fwd_kernel<ILi64>"]
+
+
+FEDDPC_PTXAS = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119dequant_fold_kernelIaLb1EEEvPKT_PKfS5_PKliS5_S5_S5_S5_S5_fPfS8_ll' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 112 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_111fold_kernelILb0EEEvPKfS2_S2_S2_S2_S2_fPfS3_ll' for 'sm_90a'
+    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 40 registers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115epilogue_kernelI13__nv_bfloat16EEvPKT_PKfS5_S5_PS2_l' for 'sm_90a'
+ptxas info    : Used 24 registers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_111dots_kernelILb1EEEvPKfS2_Pfll' for 'sm_90a'
+ptxas info    : Used 32 registers
+"""
+
+
+def test_ptxas_report_names_the_feddpc_instances():
+    """The longest kernel name that a mangled name holds wins (the
+    dequant fold is not a fold_kernel), and a template of one type
+    argument keeps it."""
+    got = cs._ptxas_report(FEDDPC_PTXAS, cs.FEDDPC_KERNEL_NAMES)
+    assert got == {
+        "dequant_fold_kernel<IaLb1>": {"spill_store_bytes": 0,
+                                       "spill_load_bytes": 0,
+                                       "registers": 112},
+        "fold_kernel<ILb0>": {"spill_store_bytes": 8, "spill_load_bytes": 4,
+                              "registers": 40},
+        "epilogue_kernel<I13__nv_bfloat16>": {"registers": 24},
+        "dots_kernel<ILb1>": {"registers": 32}}
