@@ -48,20 +48,33 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               FedDPC with the update guard, a seeded fault plan (NaN and
               exploded deltas) and a round deadline of 2.0 under
               exponential latencies (4 rounds), and the async int8+EF
-              regime with guard, faults and deadline (6 rounds). The
+              regime with guard, faults and deadline (6 rounds); then the
+              paper's baselines and ablations, 3 rounds each: FedProx,
+              FedExP, FedGA, FedCM, FedVARP (uniform, and Markov
+              availability with p_on = p_off = 0.5), FedYogi — no FedDPC
+              kernel —, the projection-only ablation (one feddpc_dots and
+              one feddpc_batched_epilogue a round), async FedDPC-M (one
+              feddpc_dots and one feddpc_buffer_fold a fold) and FedDPC
+              under a FedAdam server optimizer (dots and epilogue). The
               launch counts are set to 0 just before each run and read
               just after; each round must launch the kernels of its
               regime. The chaos runs must quarantine exactly the plan's
-              targets among the rows that arrive. The last round of sync
-              FedDPC, FedAvg, sync chaos and async-int8 runs under
+              targets among the rows that arrive. Each run's summary line
+              has its median round seconds after round 0, uplink bytes,
+              diagnostics keys, launches and FedVARP's (30, N) f32 table
+              bytes (on the card). The last round of sync FedDPC, FedAvg,
+              sync chaos, async-int8 and FedVARP runs under
               torch.profiler: device time by kernel and by category (the
               codec's encode and decode as their own) and the card's idle
               share.
   5. parity   LeNet5 at quickstart size on the card and on the CPU from
               the same initial params — 2 sync FedDPC rounds, 3
-              buffered-async int8 rounds with error feedback, and 3 sync
-              rounds with guard, faults and deadline; the per-round losses
-              (and the chaos counters) must agree.
+              buffered-async int8 rounds with error feedback, 3 sync
+              rounds with guard, faults and deadline, and 3 rounds each of
+              the projection-only ablation (the kernels against the plain
+              route), FedVARP under a 2.0 round deadline (ID_SENTINEL rows
+              on the card; the tables within TABLE_ATOL) and FedCM; the
+              per-round losses (and the chaos counters) must agree.
 
   6. attention  flash_attention against its plain version on the card,
               f32 and bf16: StarCoder2-3B's prefill (B = 8, Sq = 1024,
@@ -84,10 +97,13 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               from a seed), B = 8, prompts of 1024, 32 generated tokens,
               in f32 and in bf16; the kernel must launch exactly
               num_layers x gen times in each run, and a profiled prefill
-              and decode step must each hold exactly one flash_attention
-              kernel a layer. Then, on the same params and prompts, the
-              kernel path against the plain path (attn_impl="reference"):
-              the prefill's last logits and 8 teacher-forced decode steps.
+              and decode step must each launch, and hold on the device,
+              exactly one flash_attention kernel a layer (a step whose
+              device count is off is profiled once more on the same
+              inputs and must be exact there). Then, on the same params and
+              prompts, the kernel path against the plain path
+              (attn_impl="reference"): the prefill's last logits and 8
+              teacher-forced decode steps.
   8. serve parity  StarCoder2 SMOKE on the card and on the CPU from the
               same params: prefill plus 4 teacher-forced decode steps.
   9. ssm kernels  ssm_scan against its plain version on the card, f32
@@ -111,9 +127,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               ssm_scan must launch exactly num_layers x gen times in each
               run and flash_attention never. A profiled prefill and decode
               step, each with no eager softplus (log1p) op and one silu
-              op a layer (the conv's; the gate's is in the scan), counted
-              as torch ops, and no more such kernels than ops,
-              and the decode step's launches on a line of their own; then
+              op a layer (the conv's; the gate's is in the scan), as torch
+              ops and as device kernels (profiled once more where the
+              device count is off), and the decode step's launches on a line of their own; then
               the kernel path against the plain path (ssm_impl=
               "reference") on the same params and prompts.
  11. serve ssm parity  Falcon-Mamba SMOKE on the card and on the CPU from
@@ -127,6 +143,7 @@ from __future__ import annotations
 
 import collections
 import functools
+import gc
 import itertools
 import json
 import math
@@ -156,7 +173,8 @@ from repro_torch.core.api import (AlgoConfig, ExecConfig,  # noqa: E402
 from repro_torch.core.baselines import FedDPCHyper  # noqa: E402
 from repro_torch.core.faults import FaultPlan  # noqa: E402
 from repro_torch.core.runtime import ExponentialRuntime  # noqa: E402
-from repro_torch.core.samplers import UniformSampler  # noqa: E402
+from repro_torch.core.samplers import (MarkovSampler,  # noqa: E402
+                                       UniformSampler)
 from repro_torch.ingest.images import (StreamingImageSource,  # noqa: E402
                                        build_federated_image_data)
 from repro_torch.kernels import _build  # noqa: E402
@@ -190,6 +208,9 @@ EPI_RTOL = 1e-5
 # card vs CPU LeNet5 losses: conv/matmul algorithms and sum orders
 # differ (TF32 off), and two rounds of SGD amplify them a little
 PARITY_ATOL = 1e-3
+# card vs CPU FedVARP table (LeNet5, 3 rounds under a deadline): its rows
+# are client deltas, 3.0e-6 apart in the runs before this limit was set
+TABLE_ATOL = 1e-5
 
 SOURCE = "src/repro_torch/kernels/feddpc_project/csrc/feddpc_project.cu"
 _TPU = "src/repro/kernels/feddpc_project/kernel.py"
@@ -925,7 +946,7 @@ def _image_task(cfg, num_classes, samples_per_class, test_per_class):
 
 
 def _trainer(cfg, data, source, loss_fn, params, name, rounds, device,
-             exec_kw=None, runtime=None, fault_plan=None):
+             exec_kw=None, runtime=None, fault_plan=None, sampler=None):
     te_x = torch.from_numpy(data.test_images).to(device)
     te_y = torch.from_numpy(data.test_labels).to(device)
     algo = AlgoConfig(name=name, eta_l=0.02, eta_g=0.02,
@@ -936,8 +957,8 @@ def _trainer(cfg, data, source, loss_fn, params, name, rounds, device,
         ExecConfig(rounds=rounds, clients_per_round=10, seed=0,
                    eval_every=1, **(exec_kw or {})),
         lambda p: vision_accuracy(cfg, p, te_x, te_y), algo=algo,
-        sampler=UniformSampler(data.num_clients, 10), runtime=runtime,
-        fault_plan=fault_plan, device=device)
+        sampler=sampler or UniformSampler(data.num_clients, 10),
+        runtime=runtime, fault_plan=fault_plan, device=device)
 
 
 CODEC_CATEGORY = "codec encode/decode (plain PyTorch)"
@@ -1068,8 +1089,29 @@ RUNS = (
     ("feddpc_async_int8_chaos", "feddpc", {**ASYNC_INT8_EF, **CHAOS}, True,
      6, ("feddpc_guard_dots", "feddpc_dots", "feddpc_buffer_fold"),
      ASYNC_PLAN),
+    # the paper's baselines and ablations (Fig. 3 and 6) and the server
+    # optimizers: the FedAvg family launches no FedDPC kernel; the
+    # projection-only ablation, FedDPC-M (async: the buffer fold) and
+    # FedDPC under FedAdam go through them
+    ("fedprox", "fedprox", {}, False, 3, (), None),
+    ("fedexp", "fedexp", {}, False, 3, (), None),
+    ("fedga", "fedga", {}, False, 3, (), None),
+    ("fedcm", "fedcm", {}, False, 3, (), None),
+    ("fedvarp", "fedvarp", {}, False, 3, (), None),
+    ("fedvarp_markov", "fedvarp", {}, False, 3, (), None),
+    ("feddpc_noscale", "feddpc_noscale", {}, False, 3,
+     ("feddpc_dots", "feddpc_batched_epilogue"), None),
+    ("feddpc_m_async", "feddpc_m", ASYNC, True, 3,
+     ("feddpc_dots", "feddpc_buffer_fold"), None),
+    ("feddpc_fedadam", "feddpc", {"server_opt": "fedadam"}, False, 3,
+     ("feddpc_dots", "feddpc_batched_epilogue"), None),
+    ("fedyogi", "fedyogi", {}, False, 3, (), None),
 )
-PROFILED = ("feddpc", "fedavg", "feddpc_async_int8_ef", "feddpc_chaos")
+# runs with another participation model than uniform
+SAMPLERS = {"fedvarp_markov": lambda: MarkovSampler(30, 10, p_on=0.5,
+                                                    p_off=0.5)}
+PROFILED = ("feddpc", "fedavg", "feddpc_async_int8_ef", "feddpc_chaos",
+            "fedvarp")
 
 
 def _expected_sync_quarantine(rounds, deadline, plan):
@@ -1110,10 +1152,11 @@ def phase_trainer():
     for label, name, exec_kw, exp, rounds, want, plan_kw in RUNS:
         plan = (None if plan_kw is None
                 else FaultPlan.seeded(PLAN_SEED, **plan_kw))
+        sampler = SAMPLERS.get(label, lambda: None)()
         trainer = _trainer(cfg, data, source, loss_fn, params, name, rounds,
                            "cuda", exec_kw,
                            ExponentialRuntime(mean=1.0) if exp else None,
-                           plan)
+                           plan, sampler)
         if trainer.layout.size != N_MAIN:
             raise AssertionError(f"ResNet18-GN has {trainer.layout.size} "
                                  f"parameters, expected {N_MAIN}")
@@ -1172,8 +1215,22 @@ def phase_trainer():
                 and sum(r.deadline_dropped for r in hist) > 0):
             raise AssertionError(f"{label}: the guard or the deadline "
                                  "never acted")
-        emit({"phase": "trainer", "run": label, "launches": run_launches,
+        table = trainer.server_state.get("y")
+        if table is not None and (
+                table.device != trainer.flat.device
+                or tuple(table.shape) != (data.num_clients, N_MAIN)):
+            raise AssertionError(f"{label}: FedVARP's table is "
+                                 f"{tuple(table.shape)} on {table.device}")
+        emit({"phase": "trainer", "run": label, "algorithm": name,
+              "sampler": type(trainer.sampler).__name__,
+              "server_opt": exec_kw.get("server_opt", "sgd"),
+              "launches": run_launches,
+              "median_seconds_after_0":
+                  statistics.median(r.seconds for r in hist[1:]),
               "seconds_per_round_after_0": [r.seconds for r in hist[1:]],
+              "diagnostics_keys": sorted(hist[-1].diagnostics),
+              "table_bytes": (None if table is None
+                              else table.numel() * table.element_size()),
               "staleness_mean": [r.staleness_mean for r in hist],
               "staleness_max": [r.staleness_max for r in hist],
               "comm_bytes_up": [r.comm_bytes_up for r in hist],
@@ -1182,7 +1239,11 @@ def phase_trainer():
               "deadline_dropped": [r.deadline_dropped for r in hist],
               "peak_memory_gib":
                   torch.cuda.max_memory_allocated() / 2 ** 30})
-        del trainer
+        del trainer, table
+        # the trainer sits in reference cycles (its stager holds a bound
+        # method): free it, and FedVARP's table, before the next run's
+        # peak memory is read
+        gc.collect()
     emit({"phase": "trainer", "launches": launches})
     return launches
 
@@ -1191,20 +1252,31 @@ def phase_parity():
     cfg = paper_lenet5.CONFIG
     data, source, loss_fn = _image_task(cfg, 10, 100, 20)
     params = init_vision(cfg, torch.Generator().manual_seed(0))
-    for label, exec_kw, exp, rounds, plan_kw in (
-            ("feddpc", {}, False, 2, None),
-            ("feddpc_async_int8_ef", ASYNC_INT8_EF, True, 3, None),
-            ("feddpc_chaos", CHAOS, True, 3, SYNC_PLAN)):
+    for label, name, exec_kw, exp, rounds, plan_kw in (
+            ("feddpc", "feddpc", {}, False, 2, None),
+            ("feddpc_async_int8_ef", "feddpc", ASYNC_INT8_EF, True, 3,
+             None),
+            ("feddpc_chaos", "feddpc", CHAOS, True, 3, SYNC_PLAN),
+            # the kernels' route (dots, batched epilogue) against the
+            # plain one; FedVARP's table with the deadline's ID_SENTINEL
+            # rows; FedCM's client extra
+            ("feddpc_noscale", "feddpc_noscale", {}, False, 3, None),
+            ("fedvarp_deadline", "fedvarp", {"round_deadline": 2.0}, True,
+             3, None),
+            ("fedcm", "fedcm", {}, False, 3, None)):
         runs = {}
         for device in ("cuda", "cpu"):
             trainer = _trainer(
-                cfg, data, source, loss_fn, params, "feddpc", rounds,
+                cfg, data, source, loss_fn, params, name, rounds,
                 device, exec_kw,
                 ExponentialRuntime(mean=1.0) if exp else None,
                 None if plan_kw is None
                 else FaultPlan.seeded(PLAN_SEED, **plan_kw))
-            runs[device] = (trainer.run(), trainer.flat.cpu())
-        (h_gpu, w_gpu), (h_cpu, w_cpu) = runs["cuda"], runs["cpu"]
+            table = trainer.server_state.get("y")
+            runs[device] = (trainer.run(), trainer.flat.cpu(),
+                            None if table is None else table.cpu())
+        (h_gpu, w_gpu, y_gpu), (h_cpu, w_cpu, y_cpu) = (runs["cuda"],
+                                                        runs["cpu"])
         diffs = [abs(a.train_loss - b.train_loss)
                  for a, b in zip(h_gpu, h_cpu)]
         emit({"phase": "parity", "run": label, "model": cfg.name,
@@ -1214,7 +1286,9 @@ def phase_parity():
               "quarantined": [r.quarantined for r in h_gpu],
               "deadline_dropped": [r.deadline_dropped for r in h_gpu],
               "max_loss_diff": max(diffs),
-              "max_param_diff": float((w_gpu - w_cpu).abs().max())})
+              "max_param_diff": float((w_gpu - w_cpu).abs().max()),
+              "max_table_diff": (None if y_gpu is None
+                                 else float((y_gpu - y_cpu).abs().max()))})
         for key in ("staleness_max", "quarantined", "clipped",
                     "deadline_dropped", "comm_bytes_up"):
             if [getattr(r, key) for r in h_gpu] != \
@@ -1224,6 +1298,13 @@ def phase_parity():
         if not max(diffs) <= PARITY_ATOL:
             raise AssertionError(f"{label}: card vs CPU losses differ by "
                                  f"{max(diffs)} > {PARITY_ATOL}")
+        if y_gpu is not None and not float(
+                (y_gpu - y_cpu).abs().max()) <= TABLE_ATOL:
+            raise AssertionError(f"{label}: card vs CPU FedVARP tables "
+                                 f"differ by more than {TABLE_ATOL}")
+        if "round_deadline" in exec_kw and not sum(
+                r.deadline_dropped for r in h_gpu) > 0:
+            raise AssertionError(f"{label}: the deadline dropped no client")
 
 
 def _attention_case(gen, case, dtype):
@@ -1547,64 +1628,95 @@ def _serve_category(kernel: str) -> str:
     return "other"
 
 
+def _profile_step(cfg, params, tok, pos, states):
+    """One forward step under torch.profiler: (profile, window seconds,
+    next token, new states, the flash wrapper's launches in the step).
+    The step can be run again on the same arguments: the attention caches
+    are written in place at the same slots with the same values, the SSM
+    states are replaced."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    launched = fa_ops.flash_attention.launches
+    with torch.inference_mode(), torch.profiler.profile(
+            activities=acts) as prof:
+        tic = time.perf_counter()
+        logits, states, _ = tf.lm_forward(cfg, params, tok, positions=pos,
+                                          states=states,
+                                          logits_slice_last=True)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - tic
+    return (prof, window_s, tok, states,
+            fa_ops.flash_attention.launches - launched)
+
+
 def profile_serve(cfg, params, prompts, kernel: str):
     """One prefill and one decode step under torch.profiler (after
     serve_lm has warmed both): per step the window's wall time, the
     card's busy time (the union of kernel intervals) and idle share,
-    kernel time by category and the launches per step; each step must
-    hold exactly one flash-attention kernel a layer when ``kernel`` is
-    flash_attention, and none otherwise. Then one more decode step in
-    which any call that waits for the card raises."""
+    kernel time by category and the launches per step. Each step must
+    launch and hold on the device exactly one flash-attention kernel a
+    layer when ``kernel`` is flash_attention, and none otherwise; with
+    ssm_scan, no log1p and one silu a layer, as torch ops and as device
+    kernels. Host counts are exact on every read; where the profiler's
+    device count is off, the step is profiled once more on the same
+    inputs and must be exact there (both reads are printed). Then one
+    more decode step in which any call that waits for the card raises."""
     b, s = prompts.shape
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
     states = tf.init_states(cfg, b, s + 2, params["embed"].dtype, "cuda")
     tok = prompts
     pos = None
+    want = cfg.num_layers if kernel == "flash_attention" else 0
+    # the mixer's eager softplus chain (its log1p) and gate (a second
+    # silu a layer) are folded into the scan: one silu a layer is left
+    want_mixer = ({"log1p": 0, "silu": cfg.num_layers}
+                  if kernel == "ssm_scan" else None)
     for step in ("prefill", "decode"):
-        torch.cuda.synchronize()
-        with torch.inference_mode(), torch.profiler.profile(
-                activities=acts) as prof:
-            tic = time.perf_counter()
-            logits, states, _ = tf.lm_forward(cfg, params, tok, positions=pos,
-                                              states=states,
-                                              logits_slice_last=True)
-            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
-            torch.cuda.synchronize()
-            window_s = time.perf_counter() - tic
-        spans, busy_us, by_name, by_cat = _kernel_time(prof.events(),
-                                                       _serve_category)
-        flash = sum(1 for *_, name in spans
-                    if _serve_category(name) == "flash_attention kernel")
-        want = cfg.num_layers if kernel == "flash_attention" else 0
-        if flash != want:
-            raise AssertionError(f"serve profile {step}: {flash} flash-"
-                                 f"attention kernels, expected {want}")
-        # the mixer's eager softplus chain (its log1p) and gate (a second
-        # silu a layer) are folded into the scan: one silu a layer is left.
-        # Counted exactly as the step's torch ops (recorded on the host);
-        # the profiler can miss a device event of a ~1,600-kernel step
-        # (one silu kernel short in one run), so the kernels may not
-        # exceed those counts
-        ops = {key: sum(1 for e in prof.events()
-                        if e.device_type == DeviceType.CPU
-                        and e.key == f"aten::{key}")
-               for key in ("log1p", "silu")}
-        mixer = {key: sum(1 for *_, name in spans if key in name)
-                 for key in ("log1p", "silu")}
-        if kernel == "ssm_scan" and (
-                ops != {"log1p": 0, "silu": cfg.num_layers}
-                or any(mixer[key] > ops[key] for key in ops)):
-            raise AssertionError(f"serve profile {step}: mixer ops {ops}, "
-                                 f"kernels {mixer}, expected no log1p and "
-                                 "one silu a layer")
+        reads = []
+        for _ in range(2):
+            prof, window_s, nxt, new_states, launched = _profile_step(
+                cfg, params, tok, pos, states)
+            spans, busy_us, by_name, by_cat = _kernel_time(prof.events(),
+                                                           _serve_category)
+            flash = sum(1 for *_, name in spans
+                        if _serve_category(name) == "flash_attention kernel")
+            ops = {key: sum(1 for e in prof.events()
+                            if e.device_type == DeviceType.CPU
+                            and e.key == f"aten::{key}")
+                   for key in ("log1p", "silu")}
+            mixer = {key: sum(1 for *_, name in spans if key in name)
+                     for key in ("log1p", "silu")}
+            if launched != want:
+                raise AssertionError(f"serve profile {step}: {launched} "
+                                     "flash-attention launches, expected "
+                                     f"{want}")
+            if want_mixer is not None and ops != want_mixer:
+                raise AssertionError(f"serve profile {step}: mixer ops "
+                                     f"{ops}, expected {want_mixer}")
+            reads.append({"kernels": len(spans),
+                          "flash_attention_kernels": flash,
+                          **{f"{key}_kernels": n
+                             for key, n in mixer.items()}})
+            if flash == want and (want_mixer is None
+                                  or mixer == want_mixer):
+                break
+        else:
+            raise AssertionError(f"serve profile {step}: device kernels "
+                                 f"{reads} in two profiles, expected "
+                                 f"{want} flash-attention"
+                                 + (f" and {want_mixer}" if want_mixer
+                                    else ""))
+        tok, states = nxt, new_states
         top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:6]
         dtype = str(params["embed"].dtype)[6:]
         emit({"phase": "serve_profile", "arch": cfg.name, "dtype": dtype,
               "step": step, "window_ms": 1e3 * window_s,
               "kernels": len(spans), "flash_attention_kernels": flash,
+              "flash_attention_launches": launched,
               **{f"{key}_kernels": n for key, n in mixer.items()},
               **{f"{key}_ops": n for key, n in ops.items()},
+              "device_reads": reads,
               "device_busy_ms": busy_us / 1e3,
               "device_idle_share": 1.0 - busy_us / 1e6 / window_s,
               "by_category_ms": by_cat,

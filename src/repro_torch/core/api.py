@@ -9,7 +9,11 @@ The trainer drives three pluggable pieces through one loop:
       the same draws as the reference for the same seed;
   DataSource (ingest/sources.py)     WHERE batches come from:
       ``source.client_batches(client, round)``;
-  the algorithm registry (core/baselines.py)   HOW updates aggregate.
+  the algorithm registry (core/baselines.py)   HOW updates aggregate:
+      the server rule, its client variant (prox/cm/ga, fed Δ_{t-1}
+      through ``algo.client_extra``) and, composable with any rule, a
+      server optimizer (optim/server.py: fedadam/fedyogi moments over
+      the rule's proposed step).
 
 Parameters live in one flat f32 buffer on the trainer's device
 (``self.flat``; ``self.params`` is the tree of views into it). The
@@ -56,7 +60,8 @@ from repro_torch import bridge
 from repro_torch.codec import make_codec
 from repro_torch.core import client as client_mod
 from repro_torch.core.async_engine import BufferedAsyncEngine
-from repro_torch.core.baselines import ServerAlgo, make_algorithm
+from repro_torch.core.baselines import (ServerAlgo, client_kwargs,
+                                        make_algorithm)
 from repro_torch.core import projection as proj
 from repro_torch.core.guards import GuardConfig, UpdateGuard
 from repro_torch.core.round import (ID_SENTINEL, apply_fault_codes,
@@ -67,6 +72,7 @@ from repro_torch.core.samplers import ClientSampler, UniformSampler
 from repro_torch.ingest.pipeline import CohortStager, to_device
 from repro_torch.ingest.sources import DataSource, as_data_source
 from repro_torch.ingest.stack import stack_batches
+from repro_torch.optim.server import make_server_optimizer
 
 # fault kinds with no consumer in the port yet: kind -> what brings it
 UNCONSUMED_FAULTS = {
@@ -89,6 +95,9 @@ class AlgoConfig:
     # codec_ef feeds the quantization error back (lossy codecs only)
     codec: Optional[str] = None
     codec_ef: bool = False
+    # server optimizer (optim/server.py): "sgd" accepts the rule's step
+    # verbatim; "fedadam" / "fedyogi" precondition it
+    server_opt: str = "sgd"
 
 
 @dataclass
@@ -111,6 +120,8 @@ class ExecConfig:
     # execution-level codec overrides: None defers to AlgoConfig
     codec: Optional[str] = None
     codec_ef: Optional[bool] = None
+    # execution-level server-optimizer override: None defers to AlgoConfig
+    server_opt: Optional[str] = None
     # ---- chaos hardening (core/guards.py, core/faults.py) ----
     # update guard: quarantine non-finite / exploded-norm client deltas,
     # clip outliers against the rolling median of accepted norms
@@ -221,6 +232,12 @@ class FederatedTrainer:
         self.algo: ServerAlgo = make_algorithm(self.algo_cfg.name,
                                                self.algo_cfg.hyper)
         self.server_state = self.algo.init(self.flat, num_clients)
+        # None for sgd: the pass-through stays out of the round
+        self._server_opt = make_server_optimizer(
+            self.cfg.server_opt if self.cfg.server_opt is not None
+            else self.algo_cfg.server_opt)
+        self._opt_state = (self._server_opt.init(self.flat)
+                           if self._server_opt is not None else None)
         # server-side error-feedback accumulator (flat f32)
         self._ef = (torch.zeros_like(self.flat) if lossy and want_ef
                     else None)
@@ -253,10 +270,11 @@ class FederatedTrainer:
             guard_cfg=None if self._guard is None else self._guard.config,
             inject_faults=self._inject_deltas,
             deadline_mask=self._deadline_mask,
-            fault_magnitude=self._magnitude)
+            fault_magnitude=self._magnitude, server_opt=self._server_opt)
         self.local_update = client_mod.make_local_update(
             loss_fn, self.layout, self.algo_cfg.eta_l,
-            optimizer=self.algo_cfg.local_optimizer)
+            optimizer=self.algo_cfg.local_optimizer,
+            variant=self.algo.client_variant, **client_kwargs(self.algo))
         self.rng = np.random.RandomState(self.cfg.seed)
         self.history: List[RoundRecord] = []
         self.schedule: List[np.ndarray] = []     # sampled cohort per round
@@ -291,12 +309,16 @@ class FederatedTrainer:
         encode) and a staleness-weighted FOLD over the buffered deltas.
         The fold decodes first, then applies the chaos extras in the sync
         round's order — fault codes derived per arrival, then the guard.
-        A staleness-aware rule (FedDPC) takes the discounts into its own
-        scalars; any other rule gets the deltas pre-scaled by them."""
+        A staleness-aware rule (the FedDPC family) takes the discounts into
+        its own scalars; any other rule gets the deltas pre-scaled by them.
+        A wave's clients get ``algo.client_extra`` of the dispatch-time
+        server state; a server optimizer re-steps each fold's proposal."""
         local = client_mod.make_cohort_local_update(
             loss_fn, self.layout, self.algo_cfg.eta_l,
-            optimizer=self.algo_cfg.local_optimizer)
+            optimizer=self.algo_cfg.local_optimizer,
+            variant=self.algo.client_variant, **client_kwargs(self.algo))
         algo, eta_g = self.algo, self.algo_cfg.eta_g
+        sopt = self._server_opt
         codec = self._codec if self._codec_lossy else None
         offsets = self.layout.leaf_offsets
         inject, guard = self._inject_deltas, self._guard is not None
@@ -304,7 +326,8 @@ class FederatedTrainer:
         def wave_update(params, server_state, batches, masks):
             # a fresh stack per wave: the arrival heap keeps rows of it
             # until their fold, past later waves' training
-            deltas, losses = local(params, batches, masks)
+            deltas, losses = local(params, batches, masks,
+                                   algo.client_extra(server_state))
             if codec is None:
                 return deltas, losses
             # entries carry the wire payload; EF advances here, in
@@ -338,6 +361,11 @@ class FederatedTrainer:
                 out = algo.step(server_state, params,
                                 weights[:, None] * deltas, ids, eta_g, 0,
                                 client_mask=cm)
+            if sopt is not None:
+                # the optimizer advances at folds only (server rounds)
+                new_p, self._opt_state = sopt.apply(params, out[0],
+                                                    self._opt_state)
+                out = (new_p,) + tuple(out[1:])
             return out + (gstats,) if guard else out
 
         fold_extras = None
@@ -433,7 +461,11 @@ class FederatedTrainer:
             args.append(self._guard.threshold())
         if self._ef is not None:
             args.append(self._ef)
+        if self._server_opt is not None:
+            args.append(self._opt_state)
         outs = list(self._cohort_round(*args))
+        if self._server_opt is not None:
+            self._opt_state = outs.pop()
         if self._ef is not None:
             self._ef = outs.pop()
         gstats = outs.pop() if self._guard is not None else None
@@ -450,10 +482,12 @@ class FederatedTrainer:
         """One client at a time, then the round's stages on the stacked
         deltas in the reference's serial order: faults, encode and
         decode, deadline mask, guard, error feedback; the server rule
-        gets the decoded rows (no payload)."""
+        gets the decoded rows (no payload), then the server optimizer
+        re-steps its proposal."""
         clients = self._sample_clients(t)
         lists = self._stager.client_lists(clients, t)
         n = len(clients)
+        client_extra = self.algo.client_extra(self.server_state)
         deltas = torch.empty((n, self.layout.size), dtype=torch.float32,
                              device=self.device)
         losses = []
@@ -461,7 +495,7 @@ class FederatedTrainer:
             batches, mask = to_device(
                 stack_batches(blist, self._max_batches), self.device)
             _, loss = self.local_update(self.flat, batches, mask,
-                                        out=deltas[j])
+                                        client_extra, out=deltas[j])
             losses.append(float(loss))
         ids = torch.as_tensor(clients, dtype=torch.int32, device=self.device)
         extra: Dict[str, Any] = {}
@@ -484,9 +518,13 @@ class FederatedTrainer:
             self._observe_guard(gstats, live, extra)
         if resid is not None:
             self._ef = proj.masked_client_mean(resid, cm)
-        self.flat, self.server_state, diag = self.algo.step(
+        new_flat, self.server_state, diag = self.algo.step(
             self.server_state, self.flat, deltas, ids, self.algo_cfg.eta_g,
             0, client_mask=cm)
+        if self._server_opt is not None:
+            new_flat, self._opt_state = self._server_opt.apply(
+                self.flat, new_flat, self._opt_state)
+        self.flat = new_flat
         extra["comm_bytes_up"] = self._client_bytes_up * int(shipped.sum())
         losses_h = np.asarray(losses)
         return (float(losses_h[live].mean()) if live.any() else 0.0), \

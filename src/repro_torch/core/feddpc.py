@@ -18,6 +18,10 @@ Two passes over the (K, N) stack of client deltas:
        no                 yes            feddpc_dequant_batched_epilogue
        yes                yes            feddpc_dequant_buffer_fold
 
+``server_step_projection_only`` (the Fig. 6 ablation, ``feddpc_noscale``)
+is the same two passes with every scale 1: ``feddpc_dots`` for the
+coefficients, ``feddpc_batched_epilogue`` for the fold.
+
 The device decides the route: CUDA tensors always go through the
 kernels, CPU tensors through their plain versions. Server state is one
 vector, ``delta_prev``.
@@ -36,6 +40,24 @@ def init_state(params: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Delta_0 -> 0: projection onto a zero vector is 0, so round 1 is
     two-sided-LR FedAvg scaled by lam + 1."""
     return {"delta_prev": torch.zeros_like(params, dtype=torch.float32)}
+
+
+def _fold_mask(coefs: torch.Tensor, scales: torch.Tensor,
+               client_mask: Optional[torch.Tensor]):
+    """Fold the client mask into the fold's scalars: masked rows get
+    scale = coef = 0 and the survivors renormalize by K/n_valid. Returns
+    contiguous (coefs, scales) and the mean over the real rows."""
+    if client_mask is None:
+        diag_mean = torch.mean
+    else:
+        mf = client_mask.float()
+        nvalid = torch.clamp(mf.sum(), min=1.0)
+        coefs = coefs * mf
+        scales = scales * mf * (mf.shape[0] / nvalid)
+
+        def diag_mean(x):
+            return torch.sum(x * mf) / nvalid
+    return coefs.contiguous(), scales.contiguous(), diag_mean
 
 
 def server_step(state: Dict[str, torch.Tensor], params: torch.Tensor,
@@ -73,17 +95,7 @@ def server_step(state: Dict[str, torch.Tensor], params: torch.Tensor,
     dots = k_ops.feddpc_dots(deltas, delta_prev)
     coefs, scales, diag = proj.scalars_from_dots(
         dots[:, 0], dots[:, 1], dots[:, 2], lam)
-    if client_mask is None:
-        diag_mean = torch.mean
-    else:
-        mf = client_mask.float()
-        nvalid = torch.clamp(mf.sum(), min=1.0)
-        coefs = coefs * mf
-        scales = scales * mf * (mf.shape[0] / nvalid)
-
-        def diag_mean(x):
-            return torch.sum(x * mf) / nvalid
-    coefs, scales = coefs.contiguous(), scales.contiguous()
+    coefs, scales, diag_mean = _fold_mask(coefs, scales, client_mask)
     wgt = (None if staleness_weights is None
            else staleness_weights.to(device=deltas.device,
                                      dtype=torch.float32).contiguous())
@@ -112,3 +124,27 @@ def server_step(state: Dict[str, torch.Tensor], params: torch.Tensor,
         "global_dot_prev": proj.tree_vdot(delta_t, delta_prev),
     }
     return new_params, {"delta_prev": delta_t}, diagnostics
+
+
+def server_step_projection_only(state: Dict[str, torch.Tensor],
+                                params: torch.Tensor, deltas: torch.Tensor,
+                                eta_g: float,
+                                client_mask: Optional[torch.Tensor] = None
+                                ) -> Tuple[torch.Tensor,
+                                           Dict[str, torch.Tensor],
+                                           Dict[str, torch.Tensor]]:
+    """Ablation: orthogonal projection WITHOUT adaptive scaling (paper
+    Fig. 6): Δ_t = mean_j (Δ_j − coef_j Δ_prev), w' = w − η_g Δ_t — the
+    batched epilogue with every scale 1. The mask folds into (coef,
+    scale) as in ``server_step``, so the mean over the real rows is the
+    reference's ``masked_client_mean`` up to summation order."""
+    delta_prev = state["delta_prev"]
+    dots = k_ops.feddpc_dots(deltas, delta_prev)
+    coefs = proj.scalars_from_dots(dots[:, 0], dots[:, 1], dots[:, 2],
+                                   lam=1.0)[0]
+    coefs, scales, _ = _fold_mask(coefs, torch.ones_like(coefs),
+                                  client_mask)
+    new_params, delta_t = k_ops.feddpc_batched_epilogue(
+        deltas, delta_prev, params, coefs, scales, eta_g)
+    return new_params, {"delta_prev": delta_t}, {
+        "norm_global_update": proj.tree_norm(delta_t)}

@@ -1,6 +1,6 @@
 """One FL round over a cohort: K local trainings, the chaos and codec
 stages, then the server rule; counterpart of repro/core/round.py
-``make_cohort_round`` (without mesh, server optimizer or edges).
+``make_cohort_round`` (without mesh or edges).
 
 The K clients' deltas land in one (K, N) f32 stack — the layout the
 FedDPC kernels read. The stack is allocated once and reused for every
@@ -29,12 +29,11 @@ from repro_torch.codec.base import DeltaCodec, sanitized_residual
 from repro_torch.core import client as client_mod
 from repro_torch.core import faults as faults_mod
 from repro_torch.core import projection as proj
-from repro_torch.core.baselines import ServerAlgo
+from repro_torch.core.baselines import ServerAlgo, client_kwargs
 from repro_torch.kernels.feddpc_project import ops as k_ops
 
-# out-of-range id for quarantined / deadline-dropped rows: the reference's
-# FedVARP table (not ported yet) drops only out-of-range ids, and the ids
-# are part of what a round hands the server rule
+# out-of-range id for quarantined / deadline-dropped rows: FedVARP's table
+# never writes a row for an id outside [0, num_clients)
 ID_SENTINEL = 2_147_483_647      # the largest int32
 
 
@@ -123,10 +122,10 @@ def make_cohort_round(loss_fn: Callable, layout: FlatLayout,
                       guard: bool = False, guard_cfg=None,
                       inject_faults: bool = False,
                       deadline_mask: bool = False,
-                      fault_magnitude: float = 1e12):
+                      fault_magnitude: float = 1e12, server_opt=None):
     """Returns cohort_round(server_state, params, batches, masks,
     client_ids, *extras) -> (new_params, new_server_state, losses (K,),
-    diag[, guard_stats][, new_ef]).
+    diag[, guard_stats][, new_ef][, new_opt_state]).
 
     batches: a tree with leading axes (K, M, ...) on the params' device;
     masks (K, M) bool marks the valid minibatches (None = all valid).
@@ -142,8 +141,9 @@ def make_cohort_round(loss_fn: Callable, layout: FlatLayout,
     With a lossy codec the round aggregates the DECODED deltas; FedDPC's
     fold reads the payload itself only while no guard rewrites rows
     between decode and aggregation. Identity never enters the round."""
-    local = client_mod.make_cohort_local_update(loss_fn, layout, eta_l,
-                                                optimizer=optimizer)
+    local = client_mod.make_cohort_local_update(
+        loss_fn, layout, eta_l, optimizer=optimizer,
+        variant=algo.client_variant, **client_kwargs(algo))
     lossy = codec is not None and codec.lossy
     ef_active = lossy and codec_ef
     offsets = layout.leaf_offsets
@@ -157,12 +157,14 @@ def make_cohort_round(loss_fn: Callable, layout: FlatLayout,
         live_mask = next(it) if deadline_mask else None
         guard_thresh = next(it) if guard else None
         ef = next(it) if ef_active else None
+        opt_state = next(it) if server_opt is not None else None
         k = tree_leaves(batches)[0].shape[0]
         if stack is None or stack.shape[0] != k or \
                 stack.device != params.device:
             stack = torch.empty((k, params.shape[0]), dtype=torch.float32,
                                 device=params.device)
-        deltas, losses = local(params, batches, masks, out=stack)
+        deltas, losses = local(params, batches, masks,
+                               algo.client_extra(server_state), out=stack)
         if inject_faults:
             deltas = apply_fault_codes(deltas, fault_codes, fault_magnitude)
         cm = None
@@ -190,6 +192,10 @@ def make_cohort_round(loss_fn: Callable, layout: FlatLayout,
             outs.append(gstats)
         if ef_active:
             outs.append(proj.masked_client_mean(resid, cm))
+        if server_opt is not None:
+            outs[0], new_opt = server_opt.apply(params, new_params,
+                                                opt_state)
+            outs.append(new_opt)
         return tuple(outs)
 
     return cohort_round

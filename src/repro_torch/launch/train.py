@@ -7,10 +7,18 @@ experiment on synthetic heterogeneous data), on the card by default:
       --eta-l 0.01 --eta-g 0.01
 
 Counterpart of repro/launch/train.py with its main-path, buffered-async,
-codec and chaos flags; vision data streams from the synthetic Dirichlet-
-partitioned image task, and the participation model is uniform.
-``--device cpu`` runs on the CPU; without it the script raises when CUDA
-is absent. Buffered-async rounds with an int8 uplink and error feedback:
+codec and chaos flags, every registered server rule (``--algorithm``),
+the four participation samplers (``--sampler``) and the server optimizer
+(``--server-opt``); vision data streams from the synthetic Dirichlet-
+partitioned image task. ``--device cpu`` runs on the CPU; without it the
+script raises when CUDA is absent. FedVARP under Markov availability
+with a FedAdam server step:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --model lenet5 --algorithm fedvarp --sampler markov \\
+      --markov-p-on 0.5 --markov-p-off 0.5 --server-opt fedadam
+
+Buffered-async rounds with an int8 uplink and error feedback:
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --model lenet5 --async-buffer --runtime exponential \\
@@ -29,15 +37,18 @@ import argparse
 import functools
 import json
 
+import numpy as np
 import torch
 
 from repro_torch.core.api import (AlgoConfig, ExecConfig, FederatedTrainer,
                                   resolve_device)
 from repro_torch.codec import codec_names
-from repro_torch.core.baselines import default_hyper
+from repro_torch.core.baselines import ALGORITHM_NAMES, default_hyper
 from repro_torch.core.faults import FaultPlan
 from repro_torch.core.runtime import make_runtime
-from repro_torch.core.samplers import UniformSampler
+from repro_torch.core.samplers import (CyclicSampler, MarkovSampler,
+                                       UniformSampler, WeightedSampler)
+from repro_torch.optim.server import SERVER_OPTIMIZER_NAMES
 from repro_torch.ingest.images import (StreamingImageSource,
                                        build_federated_image_data)
 from repro_torch.models.vision import (VisionConfig, init_vision,
@@ -72,15 +83,36 @@ def build_vision_task(args, device: torch.device):
     return params, loss_fn, source, eval_fn
 
 
+def build_sampler(args, source, num_clients: int, cohort: int):
+    if args.sampler == "uniform":
+        return UniformSampler(num_clients, cohort)
+    if args.sampler == "weighted":
+        # weighted by each client's data size where the source knows it
+        weights = (source.client_weights()
+                   if hasattr(source, "client_weights")
+                   else np.ones(num_clients))
+        return WeightedSampler(weights, cohort)
+    if args.sampler == "cyclic":
+        return CyclicSampler(num_clients, cohort)
+    if args.sampler == "markov":
+        return MarkovSampler(num_clients, cohort, p_on=args.markov_p_on,
+                             p_off=args.markov_p_off)
+    raise ValueError(args.sampler)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default="lenet5",
                     choices=["lenet5", "resnet18-gn"])
     ap.add_argument("--algorithm", default="feddpc",
-                    choices=["feddpc", "fedavg"])
+                    choices=ALGORITHM_NAMES)
     ap.add_argument("--rounds", type=int, default=50)
     ap.add_argument("--clients", type=int, default=100)
     ap.add_argument("--participation", type=float, default=0.1)
+    ap.add_argument("--sampler", default="uniform",
+                    choices=["uniform", "weighted", "cyclic", "markov"])
+    ap.add_argument("--markov-p-on", type=float, default=0.5)
+    ap.add_argument("--markov-p-off", type=float, default=0.5)
     ap.add_argument("--alpha", type=float, default=0.2)
     ap.add_argument("--eta-l", type=float, default=0.01)
     ap.add_argument("--eta-g", type=float, default=0.01)
@@ -136,6 +168,11 @@ def main(argv=None):
                     help="chaos harness: a JSON FaultPlan config (inline, "
                          "or @/path/to/plan.json) — the seeded injector "
                          "schedule of core/faults.py")
+    ap.add_argument("--server-opt", default="sgd",
+                    choices=SERVER_OPTIMIZER_NAMES,
+                    help="server-side optimizer: precondition every "
+                         "rule's proposed step with fedadam/fedyogi "
+                         "moments; sgd (default) applies it verbatim")
     ap.add_argument("--device", default="cuda",
                     help="torch device; the default needs a card")
     ap.add_argument("--out", default=None)
@@ -146,7 +183,8 @@ def main(argv=None):
     cohort = max(1, int(round(args.clients * args.participation)))
     algo = AlgoConfig(name=args.algorithm, eta_l=args.eta_l,
                       eta_g=args.eta_g,
-                      hyper=default_hyper(args.algorithm, lam=args.lam))
+                      hyper=default_hyper(args.algorithm, lam=args.lam),
+                      server_opt=args.server_opt)
     cfg = ExecConfig(rounds=args.rounds, clients_per_round=cohort,
                      seed=args.seed, eval_every=args.eval_every,
                      vectorize=not args.serial,
@@ -171,7 +209,8 @@ def main(argv=None):
         fault_plan = FaultPlan.from_config(json.loads(raw))
     trainer = FederatedTrainer(loss_fn, params, args.clients, source, cfg,
                                eval_fn, algo=algo,
-                               sampler=UniformSampler(args.clients, cohort),
+                               sampler=build_sampler(args, source,
+                                                     args.clients, cohort),
                                runtime=runtime, fault_plan=fault_plan,
                                device=device)
     hist = trainer.run(verbose=True)

@@ -56,19 +56,22 @@ def quickstart_init():
 
 
 @functools.lru_cache(maxsize=None)
-def run_reference(name, rounds, exec_kw=(), runtime=None, faults=None):
+def run_reference(name, rounds, exec_kw=(), runtime=None, faults=None,
+                  hyper=None, sampler="uniform", server_opt="sgd"):
     """The reference's FederatedTrainer with blocking staging (so it draws
     exactly the waves it dispatches, as the port does). ``exec_kw`` is a
     tuple of ExecConfig (key, value) pairs; ``runtime`` is (class name in
     repro.core.runtime, tuple of (key, value) pairs) or None; ``faults``
     a tuple of (key, value) pairs for ``FaultPlan.seeded`` (its seed
-    included) or None. Returns (history, schedule, flat params); cached,
-    so callers must not mutate them."""
+    included) or None; ``hyper`` a tuple of the algorithm's hyper
+    (key, value) pairs or None (registry defaults: FedDPC's lam is 1.0);
+    ``sampler`` a name in ``samplers.sampler_matrix``; ``server_opt`` the
+    AlgoConfig's. Returns (history, schedule, flat params); cached, so
+    callers must not mutate them."""
     from repro.core import runtime as ref_runtime
+    from repro.core import samplers as ref_samplers
     from repro.core.faults import FaultPlan
     from repro.core.api import AlgoConfig, ExecConfig, FederatedTrainer
-    from repro.core.baselines import FedDPCHyper
-    from repro.core.samplers import UniformSampler
     from repro.ingest import images as ref_images
     from repro.models import vision as ref_vision
     vc = ref_vision.VisionConfig(name="quickstart", family="lenet5",
@@ -82,9 +85,10 @@ def run_reference(name, rounds, exec_kw=(), runtime=None, faults=None):
             ExecConfig(rounds=rounds, clients_per_round=QS_COHORT,
                        eval_every=10 ** 9, prefetch=False, **dict(exec_kw)),
             algo=AlgoConfig(name=name, eta_l=0.02, eta_g=0.02,
-                            hyper=FedDPCHyper(lam=1.0)
-                            if name == "feddpc" else None),
-            sampler=UniformSampler(QS_CLIENTS, QS_COHORT),
+                            hyper=None if hyper is None else dict(hyper),
+                            server_opt=server_opt),
+            sampler=ref_samplers.sampler_matrix(QS_CLIENTS,
+                                                QS_COHORT)[sampler],
             runtime=rt, fault_plan=_plan(FaultPlan, faults)) as tr:
         hist = tr.run()
         flat = np.concatenate([np.asarray(x).ravel()
@@ -99,14 +103,15 @@ def _plan(cls, faults):
     return cls.seeded(kw.pop("seed"), **kw)
 
 
-def port_trainer(name, rounds, exec_kw=(), runtime=None, faults=None):
-    """The port's FederatedTrainer on the CPU, same data and init."""
+def port_trainer(name, rounds, exec_kw=(), runtime=None, faults=None,
+                 hyper=None, sampler="uniform", server_opt="sgd"):
+    """The port's FederatedTrainer on the CPU, same data, init and
+    arguments as ``run_reference``."""
     from repro_torch.configs import paper_lenet5
     from repro_torch.core import api
+    from repro_torch.core import samplers
     from repro_torch.core.faults import FaultPlan
     from repro_torch.core import runtime as port_runtime
-    from repro_torch.core.baselines import FedDPCHyper
-    from repro_torch.core.samplers import UniformSampler
     from repro_torch.ingest import images
     from repro_torch.models import vision
     rt = (None if runtime is None
@@ -118,9 +123,10 @@ def port_trainer(name, rounds, exec_kw=(), runtime=None, faults=None):
         api.ExecConfig(rounds=rounds, clients_per_round=QS_COHORT,
                        eval_every=10 ** 9, **dict(exec_kw)),
         algo=api.AlgoConfig(name=name, eta_l=0.02, eta_g=0.02,
-                            hyper=FedDPCHyper(lam=1.0)
-                            if name == "feddpc" else None),
-        sampler=UniformSampler(QS_CLIENTS, QS_COHORT), runtime=rt,
+                            hyper=None if hyper is None else dict(hyper),
+                            server_opt=server_opt),
+        sampler=samplers.sampler_matrix(QS_CLIENTS, QS_COHORT)[sampler],
+        runtime=rt,
         fault_plan=_plan(FaultPlan, faults), device="cpu")
 
 
@@ -158,3 +164,19 @@ def assert_runs_match(ref_run, trainer, codec=False):
         np.testing.assert_allclose(flat, ref_flat, rtol=0, atol=1e-3)
     else:
         assert not off.any(), np.abs(flat - ref_flat).max()
+
+
+def assert_regime_matches(name, rounds, exec_kw=(), runtime=None,
+                          sampler="uniform", server_opt="sgd", moved=()):
+    """One trainer run of the port against the reference's with the same
+    arguments (``run_reference``), held by ``assert_runs_match``; each
+    RoundRecord counter in ``moved`` must be non-zero in some round."""
+    ref_run = run_reference(name, rounds, exec_kw, runtime,
+                            sampler=sampler, server_opt=server_opt)
+    tr = port_trainer(name, rounds, exec_kw, runtime, sampler=sampler,
+                      server_opt=server_opt)
+    tr.run()
+    assert_runs_match(ref_run, tr)
+    for key in moved:
+        assert sum(getattr(r, key) for r in tr.history) > 0, key
+    return tr

@@ -136,6 +136,14 @@ CASES = {
     # a rule that is not staleness-aware: deltas pre-scaled by the weights
     "fedavg_exponential": ("fedavg", dict(async_buffer=True, buffer_size=2,
                                           async_concurrency=3), EXP, False),
+    # staleness-aware FedDPC-M (its buffer fold at eta_g = 0), and
+    # FedVARP's table fed pre-scaled arrivals
+    "feddpc_m_exponential": ("feddpc_m", dict(async_buffer=True,
+                                              buffer_size=4,
+                                              async_concurrency=3), EXP,
+                             False),
+    "fedvarp_exponential": ("fedvarp", dict(async_buffer=True, buffer_size=4,
+                                            async_concurrency=3), EXP, False),
 }
 
 

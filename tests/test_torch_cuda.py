@@ -1,6 +1,7 @@
 """The port on the card: the CUDA kernels against their plain versions,
-the server step and trainer rounds (plain, async int8, guarded under
-faults) on CUDA against the same on the CPU, and the serving paths of
+the server step, every other server rule's step and trainer rounds
+(plain, async int8, guarded under faults) on CUDA against the same on
+the CPU, and the serving paths of
 the dense decoder (every attention call through the flash-attention
 kernel) and of the pure-SSM stack (every scan through the ssm_scan
 kernel) against the same on the CPU. Marked ``cuda``; each test skips without a card. This file imports
@@ -16,7 +17,7 @@ import torch
 
 from repro_torch.bridge import layout_of, tree_map
 from repro_torch.configs import paper_lenet5, paper_resnet18
-from repro_torch.core import feddpc
+from repro_torch.core import baselines, feddpc
 from repro_torch.core import projection as proj
 from repro_torch.core.api import AlgoConfig, ExecConfig, FederatedTrainer
 from repro_torch.core.faults import FaultPlan
@@ -226,6 +227,47 @@ def test_server_step_on_card_matches_cpu(cuda, masked):
             continue
         torch.testing.assert_close(gd[key].cpu(), cd[key], rtol=1e-4,
                                    atol=1e-5)
+
+
+# FedDPC kernel launches of one step of each rule on the card, in
+# ops.KERNELS order (dots, batched epilogue, buffer fold, ...)
+RULE_LAUNCHES = {"feddpc_noscale": [1, 1, 0, 0, 0, 0, 0],
+                 "feddpc_m": [1, 1, 0, 0, 0, 0, 0]}
+
+
+@pytest.mark.parametrize("name", [n for n in baselines.ALGORITHM_NAMES
+                                  if n not in ("feddpc", "fedavg")])
+def test_rule_step_on_card_matches_cpu(cuda, name):
+    """Two masked steps of each rule (masked rows at ID_SENTINEL): the
+    card's params and state (FedVARP's table included) against the
+    CPU's; the FedDPC family through its kernels, one dots and one
+    epilogue a step, the others through none."""
+    from repro_torch.core.round import ID_SENTINEL
+    d, p, w, _, _ = _case(6, 50_001, False, seed=1)
+    mask = torch.tensor([True, False, True, True, True, False])
+    ids = torch.tensor([3, ID_SENTINEL, 7, 1, 0, ID_SENTINEL],
+                       dtype=torch.int32)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        algo = baselines.make_algorithm(name)
+        params, state = w.to(dev), algo.init(w.to(dev), 12)
+        state["delta_prev"] = p.to(dev)
+        before = [fn.launches for fn in ops.KERNELS]
+        for step in range(2):
+            params, state, _ = algo.step(
+                state, params, (d * (1 + step)).to(dev), ids.to(dev), 0.1,
+                step, client_mask=mask.to(dev))
+        added = [fn.launches - b for fn, b in zip(ops.KERNELS, before)]
+        want = [2 * n for n in RULE_LAUNCHES.get(name, [0] * 7)]
+        assert added == (want if dev == "cuda" else [0] * 7)
+        outs[dev] = params, state
+    (cw, cs), (gw, gs) = outs["cpu"], outs["cuda"]
+    torch.testing.assert_close(gw.cpu(), cw, rtol=1e-5, atol=1e-6)
+    assert set(gs) == set(cs)
+    for key in cs:
+        assert gs[key].device.type == "cuda", key
+        torch.testing.assert_close(gs[key].cpu(), cs[key], rtol=1e-5,
+                                   atol=1e-6)
 
 
 def test_trainer_round_on_card_matches_cpu(cuda):
