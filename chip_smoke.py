@@ -67,6 +67,24 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               torch.profiler: device time by kernel and by category (the
               codec's encode and decode as their own) and the card's idle
               share.
+ 4b. checkpoint  save and resume at full width, in a temporary directory
+              (launch counts set to 0 before it; cuDNN's deterministic
+              algorithms, so that runs repeat bit for bit): sync FedDPC 4
+              rounds uninterrupted twice, and 2 rounds, save, a fresh
+              trainer's restore, rounds 2-3 (state bit for bit, one
+              feddpc_dots and one feddpc_batched_epilogue a resumed round,
+              losses within CKPT_LOSS_RTOL, params bitwise if the two
+              uninterrupted runs are); FedVARP under Markov availability and
+              FedAdam saved after round 2 (table, moments and chain bit for
+              bit; save and restore seconds, bytes on disk, the host's RSS);
+              async int8+EF and the async int8 chaos run saved mid-buffer
+              (entries in flight, EF and the guard window back bit for bit,
+              the regime's kernels each resumed round — the dequant fold
+              without the guard —, the plan's targets quarantined); the newest
+              step truncated, bit-flipped or stripped of its manifest (resume
+              falls back to the step before with a RuntimeWarning and goes
+              on); the health monitor stopping a NaN run with the reference's
+              alarm, one log row a round.
   5. parity   LeNet5 at quickstart size on the card and on the CPU from
               the same initial params — 2 sync FedDPC rounds, 3
               buffered-async int8 rounds with error feedback, 3 sync
@@ -74,7 +92,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               the projection-only ablation (the kernels against the plain
               route), FedVARP under a 2.0 round deadline (ID_SENTINEL rows
               on the card; the tables within TABLE_ATOL) and FedCM; the
-              per-round losses (and the chaos counters) must agree.
+              per-round losses (and the chaos counters) must agree. A
+              checkpoint of 2 sync FedDPC rounds written on the card
+              resumes on the CPU, and one written on the CPU on the card:
+              both go on within PARITY_ATOL of the CPU's 4-round run.
 
   6. attention  flash_attention against its plain version on the card,
               f32 and bf16: StarCoder2-3B's prefill (B = 8, Sq = 1024,
@@ -149,10 +170,14 @@ import json
 import math
 import os
 import re
+import resource
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -171,7 +196,8 @@ from repro_torch.core import projection as proj  # noqa: E402
 from repro_torch.core.api import (AlgoConfig, ExecConfig,  # noqa: E402
                                   FederatedTrainer)
 from repro_torch.core.baselines import FedDPCHyper  # noqa: E402
-from repro_torch.core.faults import FaultPlan  # noqa: E402
+from repro_torch.core.faults import (FaultPlan,  # noqa: E402
+                                     corrupt_checkpoint)
 from repro_torch.core.runtime import ExponentialRuntime  # noqa: E402
 from repro_torch.core.samplers import (MarkovSampler,  # noqa: E402
                                        UniformSampler)
@@ -946,19 +972,25 @@ def _image_task(cfg, num_classes, samples_per_class, test_per_class):
 
 
 def _trainer(cfg, data, source, loss_fn, params, name, rounds, device,
-             exec_kw=None, runtime=None, fault_plan=None, sampler=None):
+             exec_kw=None, runtime=None, fault_plan=None, sampler=None,
+             resume_from=None):
+    """A FederatedTrainer of the smoke's runs; with ``resume_from`` the
+    same construction resumed from that checkpoint directory."""
     te_x = torch.from_numpy(data.test_images).to(device)
     te_y = torch.from_numpy(data.test_labels).to(device)
     algo = AlgoConfig(name=name, eta_l=0.02, eta_g=0.02,
                       hyper=FedDPCHyper(lam=1.0) if name == "feddpc"
                       else None)
-    return FederatedTrainer(
-        loss_fn, params, data.num_clients, source,
-        ExecConfig(rounds=rounds, clients_per_round=10, seed=0,
-                   eval_every=1, **(exec_kw or {})),
-        lambda p: vision_accuracy(cfg, p, te_x, te_y), algo=algo,
-        sampler=sampler or UniformSampler(data.num_clients, 10),
-        runtime=runtime, fault_plan=fault_plan, device=device)
+    args = (loss_fn, params, data.num_clients, source,
+            ExecConfig(**{"rounds": rounds, "clients_per_round": 10,
+                          "seed": 0, "eval_every": 1, **(exec_kw or {})}),
+            lambda p: vision_accuracy(cfg, p, te_x, te_y))
+    kw = dict(algo=algo,
+              sampler=sampler or UniformSampler(data.num_clients, 10),
+              runtime=runtime, fault_plan=fault_plan, device=device)
+    if resume_from is not None:
+        return FederatedTrainer.resume(resume_from, *args, **kw)
+    return FederatedTrainer(*args, **kw)
 
 
 CODEC_CATEGORY = "codec encode/decode (plain PyTorch)"
@@ -1305,6 +1337,353 @@ def phase_parity():
         if "round_deadline" in exec_kw and not sum(
                 r.deadline_dropped for r in h_gpu) > 0:
             raise AssertionError(f"{label}: the deadline dropped no client")
+    _parity_checkpoint((cfg, data, source, loss_fn, params))
+
+
+# ---- the checkpoint phase: save, resume, the fallback, the health stop.
+# Full width (ResNet18-GN, 10 of 30 clients), checkpoints in a temporary
+# directory; every resumed round must launch its regime's kernels.
+
+CKPT_LOSS_RTOL = 1e-5      # resumed vs uninterrupted round losses
+NO_EVAL = {"eval_every": 10 ** 9}       # evaluate in the last round only
+CORRUPT_MODES = ("truncate", "bitflip", "drop_digest")
+
+
+def _rss_gib() -> dict:
+    """The process's peak resident set (getrusage) and current one."""
+    peak_kib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    with open("/proc/self/statm") as fh:
+        pages = int(fh.read().split()[1])
+    return {"peak_rss_gib": peak_kib / 2 ** 20,
+            "rss_gib": pages * os.sysconf("SC_PAGE_SIZE") / 2 ** 30}
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def _snapshot(trainer) -> dict:
+    """Copies of everything a checkpoint must bring back bit for bit."""
+    snap = {"flat": trainer.flat.clone()}
+    for k, v in trainer.server_state.items():
+        snap[f"state/{k}"] = v.clone()
+    for k, v in (trainer._opt_state or {}).items():
+        snap[f"opt/{k}"] = v.clone()
+    if trainer._ef is not None:
+        snap["ef"] = trainer._ef.clone()
+    return snap
+
+
+def _check_restored(label, snap, trainer):
+    got = _snapshot(trainer)
+    if set(got) != set(snap):
+        raise AssertionError(f"{label}: restored {sorted(got)}, saved "
+                             f"{sorted(snap)}")
+    for k, v in snap.items():
+        if got[k].device != trainer.flat.device or not torch.equal(got[k], v):
+            raise AssertionError(f"{label}: {k} not restored bit for bit")
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - tic
+
+
+def _resumed_rounds(label, trainer, rounds, want):
+    """Run the resumed rounds; each must launch each kernel of ``want``
+    once (and no other) and have a finite loss."""
+    out = []
+    for t in rounds:
+        before = [fn.launches for fn in ops.KERNELS]
+        rec = trainer.run_round(t)
+        added = {fn.__name__: fn.launches - b
+                 for fn, b in zip(ops.KERNELS, before)}
+        expect = {k: int(k in want) for k in added}
+        if added != expect:
+            raise AssertionError(f"{label} resumed round {t}: launches "
+                                 f"{added}, expected {expect}")
+        if not math.isfinite(rec.train_loss):
+            raise AssertionError(f"{label} resumed round {t}: loss "
+                                 f"{rec.train_loss}")
+        out.append(rec)
+    return out
+
+
+def _check_losses(label, recs, reference):
+    """Each resumed round's loss within CKPT_LOSS_RTOL of the
+    uninterrupted run's same round."""
+    for rec in recs:
+        want = reference[rec.round].train_loss
+        if not abs(rec.train_loss - want) <= CKPT_LOSS_RTOL * abs(want):
+            raise AssertionError(f"{label} resumed round {rec.round}: loss "
+                                 f"{rec.train_loss}, uninterrupted {want}")
+
+
+def _ckpt_sync(task, root):
+    """(a) Sync FedDPC: 4 rounds uninterrupted twice; 2 rounds, save,
+    resume in a fresh trainer, rounds 2-3. The resumed trainer saves
+    after round 2, for (d)."""
+    mk = functools.partial(_trainer, *task, "feddpc", 4, "cuda", NO_EVAL)
+    want = ("feddpc_dots", "feddpc_batched_epilogue")
+    fulls = []
+    for _ in range(2):
+        tr = mk()
+        tr.run()
+        fulls.append((tr.history, tr.flat.clone()))
+        del tr
+    d = os.path.join(root, "sync")
+    part = mk()
+    for t in range(2):
+        part.run_round(t)
+    snap = _snapshot(part)
+    _, save_s = _timed(lambda: part.save(d))
+    del part
+    res = mk()
+    _, restore_s = _timed(lambda: res.restore(d))
+    _check_restored("sync feddpc", snap, res)
+    if res.start_round != 2:
+        raise AssertionError(f"sync feddpc resumed at {res.start_round}")
+    recs = _resumed_rounds("sync feddpc", res, [2], want)
+    res.save(d)                                   # step 3, for (d)
+    recs += _resumed_rounds("sync feddpc", res, [3], want)
+    (h0, w0), (h1, w1) = fulls
+    repeat = float((w0 - w1).abs().max())
+    resumed = float((res.flat - w0).abs().max())
+    emit({"phase": "checkpoint", "case": "sync_feddpc",
+          "N": res.layout.size, "save_s": save_s, "restore_s": restore_s,
+          "bytes_on_disk": _dir_bytes(os.path.join(d, "step_00000002")),
+          "loss_uninterrupted": [r.train_loss for r in h0],
+          "loss_repeat": [r.train_loss for r in h1],
+          "loss_resumed": [r.train_loss for r in recs],
+          "max_abs_dparams_repeat": repeat,
+          "max_abs_dparams_resumed": resumed,
+          "bitwise_repeat": repeat == 0.0,
+          "bitwise_resumed": resumed == 0.0})
+    _check_losses("sync feddpc", recs, h0)
+    if repeat == 0.0 and resumed != 0.0:
+        raise AssertionError(f"sync feddpc: two uninterrupted runs agree "
+                             f"bit for bit, the resumed one is "
+                             f"{resumed} away")
+    return d, snap["flat"], h0
+
+
+def _ckpt_fedvarp(task, root):
+    """(b) FedVARP under Markov availability and a FedAdam server step:
+    the (30, N) table, the moments and the chain restored bit for bit;
+    save and restore seconds, bytes on disk, the host's peak RSS."""
+    def mk():
+        return _trainer(*task, "fedvarp", 3, "cuda",
+                        {**NO_EVAL, "server_opt": "fedadam"},
+                        sampler=MarkovSampler(30, 10, p_on=0.5, p_off=0.5))
+    d = os.path.join(root, "fedvarp")
+    part = mk()
+    for t in range(2):
+        part.run_round(t)
+    snap = _snapshot(part)
+    chain = part.sampler.state_dict()
+    rss = {"before_save": _rss_gib()}
+    _, save_s = _timed(lambda: part.save(d))
+    rss["after_save"] = _rss_gib()
+    del part
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = mk()
+    _, restore_s = _timed(lambda: res.restore(d))
+    rss["after_restore"] = _rss_gib()
+    _check_restored("fedvarp", snap, res)
+    if res.sampler.state_dict() != chain:
+        raise AssertionError("fedvarp: the Markov chain was not restored")
+    recs = _resumed_rounds("fedvarp", res, [2], ())
+    table = res.server_state["y"]
+    emit({"phase": "checkpoint", "case": "fedvarp_markov_fedadam",
+          "table_bytes": table.numel() * table.element_size(),
+          "save_s": save_s, "restore_s": restore_s,
+          "bytes_on_disk": _dir_bytes(os.path.join(d, "step_00000002")),
+          "rss": rss, "loss_resumed": [r.train_loss for r in recs]})
+    del res, table, snap
+    gc.collect()
+
+
+def _ckpt_async(task, root, label, exec_kw, rounds, cut, want, plan_kw):
+    """(c) An async int8+EF run saved mid-buffer (entries in flight) and
+    resumed: EF, the guard's window and the in-flight entries back bit
+    for bit; the resumed rounds launch the regime's kernels, and a chaos
+    run quarantines exactly the plan's targets among the arrivals."""
+    plan = (None if plan_kw is None
+            else FaultPlan.seeded(PLAN_SEED, **plan_kw))
+    mk = functools.partial(_trainer, *task, "feddpc", rounds, "cuda",
+                           {**NO_EVAL, **exec_kw}, fault_plan=plan)
+    full = mk(runtime=ExponentialRuntime(mean=1.0))
+    full.run()
+    d = os.path.join(root, label)
+    part = mk(runtime=ExponentialRuntime(mean=1.0))
+    for t in range(cut):
+        part.run_round(t)
+    entries = part._engine.inflight()
+    if not entries:
+        raise AssertionError(f"{label}: no entry in flight at the save")
+    snap = _snapshot(part)
+    guard = None if part._guard is None else part._guard.state_dict()
+    clock = (part._engine.clock, part._engine.seq,
+             part._engine.wave_frontier)
+    _, save_s = _timed(lambda: part.save(d))
+    del part
+    res = mk(runtime=ExponentialRuntime(mean=1.0))
+    _, restore_s = _timed(lambda: res.restore(d))
+    _check_restored(label, snap, res)
+    eng = res._engine
+    got = eng.inflight()
+    if ((eng.clock, eng.seq, eng.wave_frontier) != clock
+            or [(e.client, e.seq, e.finish) for e in got]
+            != [(e.client, e.seq, e.finish) for e in entries]
+            or not all(torch.equal(a.delta["q"], b.delta["q"])
+                       for a, b in zip(got, entries))):
+        raise AssertionError(f"{label}: the async state was not restored")
+    if guard is not None and res._guard.state_dict() != guard:
+        raise AssertionError(f"{label}: the guard window was not restored")
+    targets = _record_fold_targets(res) if plan is not None else None
+    recs = _resumed_rounds(label, res, range(cut, rounds), want)
+    if targets is not None:
+        got_q = [r.quarantined for r in recs]
+        if got_q != targets or not sum(got_q):
+            raise AssertionError(f"{label}: quarantined {got_q}, the "
+                                 f"plan's targets {targets}")
+    emit({"phase": "checkpoint", "case": label, "inflight": len(entries),
+          "save_s": save_s, "restore_s": restore_s,
+          "bytes_on_disk": _dir_bytes(os.path.join(d, f"step_{cut:08d}")),
+          "loss_uninterrupted": [r.train_loss for r in full.history],
+          "loss_resumed": [r.train_loss for r in recs],
+          "quarantined_resumed": [r.quarantined for r in recs],
+          "max_abs_dparams_resumed":
+              float((res.flat - full.flat).abs().max())})
+    _check_losses(label, recs, full.history)
+
+
+def _ckpt_corrupt(task, root, sync_dir, snap_flat, reference):
+    """(d) The newest step (3) corrupted in each mode: resume falls back
+    to step 2 with a RuntimeWarning and continues."""
+    mk = functools.partial(_trainer, *task, "feddpc", 4, "cuda", NO_EVAL)
+    for mode in CORRUPT_MODES:
+        d = os.path.join(root, f"corrupt_{mode}")
+        shutil.copytree(sync_dir, d)
+        corrupt_checkpoint(d, 3, mode)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = mk(resume_from=d)
+        skipped = [str(w.message) for w in caught
+                   if issubclass(w.category, RuntimeWarning)
+                   and "skipping corrupt checkpoint step 3" in
+                   str(w.message)]
+        if (not skipped or res.start_round != 2
+                or not torch.equal(res.flat, snap_flat)):
+            raise AssertionError(f"corrupt {mode}: resumed at "
+                                 f"{res.start_round}, warnings {skipped}")
+        recs = _resumed_rounds(f"corrupt {mode}", res, [2],
+                               ("feddpc_dots", "feddpc_batched_epilogue"))
+        emit({"phase": "checkpoint", "case": f"corrupt_{mode}",
+              "fell_back_to": res.start_round, "warning": skipped[0][:120],
+              "loss_resumed": recs[0].train_loss})
+        _check_losses(f"corrupt {mode}", recs, reference)
+        del res
+
+
+def _ckpt_health(task, root):
+    """(e) Sync FedDPC with the health monitor (patience 1) and NaN
+    deltas in round 1, unguarded (a guarded NaN row is quarantined and
+    never reaches the loss): run() stops on the reference's alarm, and
+    the health log holds one JSON row per round run."""
+    log = os.path.join(root, "health.jsonl")
+    tr = _trainer(*task, "feddpc", 4, "cuda",
+                  {**NO_EVAL, "health": True, "health_patience": 1,
+                   "health_log": log},
+                  fault_plan=FaultPlan.seeded(PLAN_SEED, nan_rate=1.0,
+                                              nan_rounds=(1,)))
+    with tr:
+        hist = tr.run()
+    rep = tr.health_report
+    with open(log) as fh:
+        rows = [json.loads(line) for line in fh]
+    if (rep is None or not rep.should_stop or "nonfinite_loss"
+            not in rep.alarms or len(hist) >= 4
+            or [r["step"] for r in rows] != [r.round for r in hist]):
+        raise AssertionError(f"health: {len(hist)} rounds, report {rep}, "
+                             f"log steps {[r['step'] for r in rows]}")
+    emit({"phase": "checkpoint", "case": "health_stop",
+          "rounds_run": len(hist), "alarms": rep.alarms,
+          "loss": [r.train_loss for r in hist],
+          "log_rows": len(rows)})
+
+
+def phase_checkpoint():
+    cfg = paper_resnet18.CONFIG
+    data, source, loss_fn = _image_task(cfg, 100, 50, 10)
+    task = (cfg, data, source, loss_fn,
+            init_vision(cfg, torch.Generator().manual_seed(0)))
+    tic = time.perf_counter()
+    ops.reset_launches()               # this phase's paths start here
+    # cuDNN's default convolution algorithms do not promise to repeat bit
+    # for bit, and on an H100 three identical ResNet18-GN runs reach round
+    # 2 with losses 3e-5 apart (relative). This phase holds resumed runs
+    # against uninterrupted ones, so it takes cuDNN's deterministic
+    # algorithms and gives the default back after; the timed runs of the
+    # trainer phase keep the default.
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as root:
+            sync_dir, snap_flat, reference = _ckpt_sync(task, root)
+            _ckpt_fedvarp(task, root)
+            _ckpt_async(task, root, "async_int8_ef", ASYNC_INT8_EF, 4, 2,
+                        ("feddpc_dots", "feddpc_dequant_buffer_fold"), None)
+            _ckpt_async(task, root, "async_int8_chaos",
+                        {**ASYNC_INT8_EF, **CHAOS}, 6, 3,
+                        ("feddpc_guard_dots", "feddpc_dots",
+                         "feddpc_buffer_fold"), ASYNC_PLAN)
+            _ckpt_corrupt(task, root, sync_dir, snap_flat, reference)
+            _ckpt_health(task, root)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    emit({"phase": "checkpoint",
+          "launches": {fn.__name__: fn.launches for fn in ops.KERNELS},
+          "seconds": time.perf_counter() - tic})
+
+
+def _parity_checkpoint(task):
+    """LeNet5: a checkpoint written on the card resumes on the CPU and one
+    written on the CPU resumes on the card; each resumed run continues
+    within PARITY_ATOL of the CPU's uninterrupted run."""
+    mk = functools.partial(_trainer, *task, "feddpc", 4)
+    cpu_full = mk("cpu")
+    cpu_full.run()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parity_") as root:
+        for src, dst in (("cuda", "cpu"), ("cpu", "cuda")):
+            d = os.path.join(root, src)
+            part = mk(src)
+            for t in range(2):
+                part.run_round(t)
+            part.save(d)
+            res = mk(dst, resume_from=d)
+            if (res.flat.device.type != dst
+                    or not torch.equal(res.flat.cpu(), part.flat.cpu())):
+                raise AssertionError(f"parity checkpoint {src} -> {dst}: "
+                                     "params not restored bit for bit")
+            hist = res.run()
+            diffs = [abs(a.train_loss - b.train_loss)
+                     for a, b in zip(hist, cpu_full.history)]
+            emit({"phase": "parity", "run": f"checkpoint_{src}_to_{dst}",
+                  "model": task[0].name, "start_round": res.start_round,
+                  "loss_resumed": [r.train_loss for r in hist],
+                  "loss_cpu": [r.train_loss for r in cpu_full.history],
+                  "max_loss_diff": max(diffs),
+                  "max_param_diff": float((res.flat.cpu()
+                                           - cpu_full.flat).abs().max())})
+            if len(hist) != 4 or not max(diffs) <= PARITY_ATOL:
+                raise AssertionError(f"parity checkpoint {src} -> {dst}: "
+                                     f"losses differ by {max(diffs)}")
 
 
 def _attention_case(gen, case, dtype):
@@ -1853,6 +2232,7 @@ def main() -> int:
     rows = phase_kernels() + phase_folds() + phase_guard_epilogue()
     project_launches = phase_project_and_scale()
     launches = phase_trainer()
+    phase_checkpoint()
     # the one-client epilogue's path is project_and_scale, not a round
     launches["feddpc_fused_epilogue"] = \
         project_launches["feddpc_fused_epilogue"]

@@ -22,7 +22,7 @@ into that list.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Iterator, List, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -48,6 +48,18 @@ def tree_leaves_with_path(tree: Tree, path: Path = ()
 
 def tree_leaves(tree: Tree) -> List[Any]:
     return [leaf for _, leaf in tree_leaves_with_path(tree)]
+
+
+def jax_keystr(tree: Tree, path: Path) -> str:
+    """``path`` (from ``tree_leaves_with_path(tree)``) spelled as the
+    reference's checkpoint manifest spells a key path — ``"/".join(str(
+    part))`` of jax's key path parts: ``['name']`` for a dict key (the
+    key's repr), ``[i]`` for a list or tuple index."""
+    parts = []
+    for key in path:
+        parts.append(f"[{key!r}]" if isinstance(tree, dict) else f"[{key}]")
+        tree = tree[key]
+    return "/".join(parts)
 
 
 def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
@@ -170,6 +182,92 @@ def load_params(params: Tree, device=None
     return layout.flatten(params, device=device), layout
 
 
+# ---- trainer state: the port's flat buffers <-> the reference's trees ----
+#
+# The port keeps every params-shaped state vector flat: (N,), or (C, N)
+# for FedVARP's per-client table, (L,) for a codec's per-leaf scalars.
+# The reference keeps them as params-shaped trees ((C, *shape) leaves for
+# the table, a 0-d scalar per leaf for the codec). These map one onto the
+# other bit for bit; the ``*_to_reference`` direction (and
+# ``FlatLayout.unflatten``, a flat vector's) returns VIEWS into the flat
+# buffers (no copy), so a checkpoint writer can move a large state to the
+# host one leaf at a time.
+
+
+def _is_tree(x) -> bool:
+    return isinstance(x, (dict, list, tuple))
+
+
+def flat_from_reference(tree: Tree, layout: FlatLayout,
+                        device=None) -> torch.Tensor:
+    """A params-shaped tree whose leaves are (..., *shape) -> one new
+    (..., N) f32 tensor (the leading dims are the first leaf's); the
+    inverse of ``layout.unflatten``."""
+    pairs = list(tree_leaves_with_path(tree))
+    if [p for p, _ in pairs] != list(layout.paths):
+        raise ValueError(f"tree leaves {[p for p, _ in pairs]} do not "
+                         f"match the layout's {list(layout.paths)}")
+    leaves = [_as_tensor(x) for _, x in pairs]
+    lead = tuple(leaves[0].shape[:leaves[0].dim() - len(layout.shapes[0])])
+    parts = []
+    for t, shape in zip(leaves, layout.shapes):
+        if tuple(t.shape) != lead + shape:
+            raise ValueError(f"leaf {tuple(t.shape)} is not {lead} + "
+                             f"{shape}")
+        parts.append(t.to(device=device, dtype=torch.float32
+                          ).reshape(lead + (-1,)))
+    return torch.cat(parts, dim=-1)
+
+
+def server_state_to_reference(state: Dict[str, Any], layout: FlatLayout
+                              ) -> Dict[str, Any]:
+    """The port's server (or server-optimizer) state -> the reference's:
+    a 0-d entry (the adaptive rules' step count ``"t"``) stays as it is,
+    in its dtype; an (N,) entry (``delta_prev``, ``m``, ``v``) becomes a
+    params-shaped tree, a (C, N) one (FedVARP's table ``y``) a tree of
+    (C, *shape) leaves — views, not copies."""
+    return {k: v if v.dim() == 0 else layout.unflatten(v)
+            for k, v in state.items()}
+
+
+def server_state_from_reference(state: Dict[str, Any], layout: FlatLayout,
+                                device=None) -> Dict[str, torch.Tensor]:
+    """Inverse of ``server_state_to_reference`` (numpy or torch leaves):
+    new tensors on ``device``; a 0-d entry keeps its dtype."""
+    single = isinstance(layout.skeleton, int)       # a one-leaf model
+    return {k: flat_from_reference(v, layout, device)
+            if _is_tree(v) or single else
+            _as_tensor(v).clone().to(device) for k, v in state.items()}
+
+
+def payload_to_reference(payload: Dict[str, torch.Tensor],
+                         layout: FlatLayout) -> Dict[str, Tree]:
+    """A codec payload {"q": (..., N), "scale": (..., L), "zero": (...,
+    L)} -> the reference's {"q": tree of (..., *shape), "scale": tree of
+    (...) scalars, "zero": ...} (views; int8/bf16 codes keep their
+    dtype)."""
+    def per_leaf(v):
+        return tree_map(lambda i: v[..., i], layout.skeleton)
+    return {"q": layout.unflatten(payload["q"]),
+            "scale": per_leaf(payload["scale"]),
+            "zero": per_leaf(payload["zero"])}
+
+
+def payload_from_reference(tree: Dict[str, Tree], layout: FlatLayout,
+                           device=None) -> Dict[str, torch.Tensor]:
+    """Inverse of ``payload_to_reference``: new tensors, the codes in
+    their dtype, the scalars f32."""
+    q = [_as_tensor(x) for x in tree_leaves(tree["q"])]
+    lead = tuple(q[0].shape[:q[0].dim() - len(layout.shapes[0])])
+    codes = torch.cat([t.reshape(lead + (-1,)) for t in q], dim=-1)
+
+    def stack(sub):
+        return torch.stack([_as_tensor(x).to(torch.float32)
+                            for x in tree_leaves(sub)], dim=-1)
+    return {"q": codes.to(device), "scale": stack(tree["scale"]).to(device),
+            "zero": stack(tree["zero"]).to(device)}
+
+
 def _unstack_layers(prefix: Tree, stack: Tree, cfg) -> List[Tree]:
     """The reference's (prefix layers, stacked groups) -> one tree per
     layer in execution order: prefix, then group by group, each group's
@@ -215,6 +313,9 @@ def lm_states_from_reference(np_states: Tree, cfg) -> List:
 
 
 __all__: Sequence[str] = (
-    "FlatLayout", "layout_of", "lm_params_from_reference",
-    "lm_states_from_reference", "load_params", "to_numpy", "to_torch",
-    "tree_leaves", "tree_leaves_with_path", "tree_map")
+    "FlatLayout", "flat_from_reference", "jax_keystr",
+    "layout_of", "lm_params_from_reference", "lm_states_from_reference",
+    "load_params", "payload_from_reference", "payload_to_reference",
+    "server_state_from_reference", "server_state_to_reference",
+    "to_numpy", "to_torch", "tree_leaves", "tree_leaves_with_path",
+    "tree_map")

@@ -42,24 +42,39 @@ rounds too), and makes the async engine fold a partial buffer.
 Shape bucketing: M is padded to the cohort max and only grows, as in
 the reference, so later rounds with fewer batches reuse the bucket.
 
+Checkpointing: ``save(dir)`` writes the full ``TrainerState`` (params,
+server state, RNG + sampler state, round, shape bucket, history, and
+the stateful layers: the server optimizer's moments, the error-feedback
+accumulator, the guard's window, the runtime model's state, the async
+engine's clock and in-flight entries) through checkpoint/checkpoint.py,
+in the reference's on-disk format: a checkpoint either package wrote
+resumes in the other. ``FederatedTrainer.resume(dir, ...)`` restores it
+into a fresh trainer whose continued run reproduces the uninterrupted
+one round for round; a corrupt newest step falls back to the newest
+intact one. ``ExecConfig.health`` feeds every RoundRecord to the
+run-health monitor (repro_torch/health), whose early stop ``run()``
+honors.
+
 Staging is blocking (ingest/pipeline.py): each round's cohort is
 sampled, read and stacked on the host, then copied to the device from
-pinned memory. The reference's prefetch ring, async eval, checkpoints
-and edges are not ported yet; nor are the fault kinds that need them.
+pinned memory. The reference's prefetch ring, async eval and edges are
+not ported yet; nor are the fault kinds that need them.
 """
 from __future__ import annotations
 
+import json
 import time
-from dataclasses import dataclass, field
+from dataclasses import asdict, dataclass, field, fields
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import bridge
+from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.codec import make_codec
 from repro_torch.core import client as client_mod
-from repro_torch.core.async_engine import BufferedAsyncEngine
+from repro_torch.core.async_engine import BufferEntry, BufferedAsyncEngine
 from repro_torch.core.baselines import (ServerAlgo, client_kwargs,
                                         make_algorithm)
 from repro_torch.core import projection as proj
@@ -68,7 +83,10 @@ from repro_torch.core.round import (ID_SENTINEL, apply_fault_codes,
                                     apply_guard, codec_stage,
                                     make_cohort_round)
 from repro_torch.core.runtime import ClientRuntimeModel, DeterministicRuntime
-from repro_torch.core.samplers import ClientSampler, UniformSampler
+from repro_torch.core.samplers import (ClientSampler, UniformSampler,
+                                       normalize_sampler_config)
+from repro_torch.health.monitor import (HealthConfig, HealthMonitor,
+                                        JsonlHealthSink)
 from repro_torch.ingest.pipeline import CohortStager, to_device
 from repro_torch.ingest.sources import DataSource, as_data_source
 from repro_torch.ingest.stack import stack_batches
@@ -78,7 +96,6 @@ from repro_torch.optim.server import make_server_optimizer
 UNCONSUMED_FAULTS = {
     "ingest_crash": "the supervised staging prefetcher (ROADMAP Queue 1 "
                     "item 11)",
-    "ckpt_corrupt": "checkpoints (ROADMAP Queue 1 item 7)",
     "edge_drop": "hierarchical edge folds (ROADMAP Queue 1 item 13)",
 }
 
@@ -134,6 +151,19 @@ class ExecConfig:
     # rounds drop and mask clients whose latency exceeds it; the async
     # engine folds a partial buffer. None = wait forever.
     round_deadline: Optional[float] = None
+    # ---- run-health monitor (repro_torch/health) ----
+    # consume every RoundRecord through a HealthMonitor: rolling-median
+    # loss spike / non-finite detection, staleness + quarantine-rate
+    # trend alarms, and (patience set) an early stop run() honors; the
+    # detector's state checkpoints through the aux sidecar
+    health: bool = False
+    health_window: int = 32
+    health_min_history: int = 8
+    health_spike_mult: float = 3.0
+    health_patience: Optional[int] = None
+    # stream every verdict to a JSONL tracker file (JsonlHealthSink);
+    # None = receipts only
+    health_log: Optional[str] = None
 
 
 @dataclass
@@ -156,6 +186,50 @@ class RoundRecord:
     deadline_dropped: int = 0      # clients dropped by the deadline
 
 
+@dataclass
+class TrainerState:
+    """Everything needed to continue a run exactly where it stopped:
+    the checkpoint unit of ``FederatedTrainer.save()/resume()``.
+
+    ``round`` is the NEXT round to run; ``rng_state`` / ``sampler_state``
+    are the values they held BEFORE that round's cohort was sampled (the
+    async engine dispatches waves ahead of server rounds, so the trainer
+    snapshots them at sampling time and rolls back to the wave frontier).
+    ``params`` is the parameter tree and ``server_state`` / ``opt_state``
+    the port's flat state dicts."""
+    params: Any
+    server_state: Any
+    round: int
+    max_batches: Optional[int]
+    rng_state: tuple                     # np.random.RandomState.get_state()
+    sampler_state: Dict
+    schedule: List[np.ndarray]
+    history: List[RoundRecord]
+    # runtime-model state (e.g. the Markov fast/slow chain) as of the
+    # next wave to dispatch; None without a runtime model
+    runtime_state: Optional[Dict] = None
+    # server-optimizer moments {"m", "v"}; None for the stateless sgd
+    opt_state: Optional[Any] = None
+
+
+# rounds of sampling-time captures kept behind the newest sampled round:
+# the reference keeps its prefetch depth + 2; blocking staging samples
+# nothing ahead, so depth 0
+_CAPTURE_SLACK = 2
+# hyper fields of the reference that pick the kernel route, which the
+# port's device decides: written as the reference's default, not compared
+_ROUTE_FIELDS = {"FedDPCHyper": {"use_kernel": False}}
+_RECORD_FIELDS = {f.name for f in fields(RoundRecord)}
+
+
+def _without_route(echo: Optional[dict]) -> Optional[dict]:
+    if not echo or "hyper" not in echo:
+        return echo
+    hyper = {k: v for k, v in echo["hyper"].items()
+             if k not in _ROUTE_FIELDS.get(echo["hyper"].get("class"), {})}
+    return {**echo, "hyper": hyper}
+
+
 def resolve_device(device=None) -> torch.device:
     """None means the card. Asking for CUDA where there is none raises —
     the port never falls back to the CPU on its own."""
@@ -173,8 +247,9 @@ class FederatedTrainer:
     ``batch_fn(client, round) -> list`` callable. ``runtime`` is the
     client runtime model of the async regime or a round deadline
     (DeterministicRuntime by default); ``fault_plan`` a
-    core/faults.FaultPlan. ``device=None`` means "cuda" and raises when
-    CUDA is absent."""
+    core/faults.FaultPlan; ``health_sink`` a tracker with the wandb-style
+    ``log(data, step)`` for the health monitor's verdicts.
+    ``device=None`` means "cuda" and raises when CUDA is absent."""
 
     def __init__(self, loss_fn: Callable, params, num_clients: int, data,
                  cfg: Optional[ExecConfig] = None,
@@ -182,7 +257,7 @@ class FederatedTrainer:
                  algo: Optional[AlgoConfig] = None,
                  sampler: Optional[ClientSampler] = None,
                  runtime: Optional[ClientRuntimeModel] = None,
-                 fault_plan=None, device=None):
+                 fault_plan=None, health_sink=None, device=None):
         self.cfg = cfg if cfg is not None else ExecConfig()
         self.algo_cfg = algo if algo is not None else AlgoConfig()
         deadline = self.cfg.round_deadline
@@ -258,6 +333,26 @@ class FederatedTrainer:
                 clip_mult=self.cfg.guard_clip_mult,
                 window=self.cfg.guard_window,
                 min_history=self.cfg.guard_min_history))
+        # ---- run-health monitor ----
+        self._health = None
+        if ((self.cfg.health_log or health_sink is not None)
+                and not self.cfg.health):
+            raise ValueError(
+                "health_log / health_sink stream the run-health "
+                "monitor's verdicts — set ExecConfig(health=True) too")
+        if self.cfg.health_log and health_sink is not None:
+            raise ValueError("pass either ExecConfig.health_log or "
+                             "health_sink=..., not both")
+        if self.cfg.health:
+            sink = health_sink
+            if sink is None and self.cfg.health_log:
+                sink = JsonlHealthSink(self.cfg.health_log)
+            self._health = HealthMonitor(HealthConfig(
+                window=self.cfg.health_window,
+                min_history=self.cfg.health_min_history,
+                spike_mult=self.cfg.health_spike_mult,
+                patience=self.cfg.health_patience,
+                clients_per_round=self.cfg.clients_per_round), sink=sink)
         # sync rounds mask timed-out clients; the async engine instead
         # stops collecting arrivals at the deadline
         self._deadline_mask = (deadline is not None
@@ -290,6 +385,11 @@ class FederatedTrainer:
                              else DeterministicRuntime())
         if self.cfg.async_buffer:
             self._engine = self._build_async_engine(loss_fn)
+        self._start_round = 0                    # advanced by restore()
+        # sampling-time snapshots for save(): async waves are sampled
+        # ahead of the server rounds, so each round's pre-draw state is
+        # captured when it is sampled (see state())
+        self._round_caps: Dict[int, dict] = {}
 
     @property
     def _max_batches(self) -> Optional[int]:
@@ -393,7 +493,19 @@ class FederatedTrainer:
             deadline=self.cfg.round_deadline, fold_extras=fold_extras,
             fold_returns_stats=guard)
 
+    def _capture(self) -> dict:
+        """The state a round's sampling starts from: RNG, sampler, shape
+        bucket and runtime model."""
+        return {"rng": self.rng.get_state(),
+                "sampler": self.sampler.state_dict(),
+                "max_batches": self._max_batches,
+                **({"runtime": self._runtime.state_dict()}
+                   if self._runtime is not None else {})}
+
     def _sample_clients(self, t: int) -> np.ndarray:
+        self._round_caps[t] = self._capture()
+        for old in [r for r in self._round_caps if r < t - _CAPTURE_SLACK]:
+            del self._round_caps[old]
         clients = np.asarray(self.sampler.sample(self.rng, t))
         k = self.cfg.clients_per_round
         if clients.shape != (k,):
@@ -570,11 +682,37 @@ class FederatedTrainer:
                              or t == self.cfg.rounds - 1):
             rec.test_accuracy = self.evaluate()
         self.history.append(rec)
+        if self._health is not None:
+            # consumes the record in round order; read the verdict from
+            # health_report (run() honors should_stop)
+            self._health.observe(rec)
         return rec
 
+    def close(self):
+        """Release trainer-owned resources: the health sink's file. The
+        data source is the caller's and is never closed here."""
+        if self._health is not None:
+            self._health.close_sink()
+
+    def __enter__(self) -> "FederatedTrainer":
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self.close()
+        return False
+
     def run(self, verbose: bool = False) -> List[RoundRecord]:
-        for t in range(len(self.history), self.cfg.rounds):
+        for t in range(self._start_round, self.cfg.rounds):
             rec = self.run_round(t)
+            if (self._health is not None
+                    and self._health.last_report is not None
+                    and self._health.last_report.should_stop):
+                # the detector asked for an early stop; the report
+                # (health_report) says why
+                if verbose:
+                    print(f"[{self.algo.name}] round {t:4d} health stop: "
+                          f"{self._health.last_report.alarms}")
+                break
             if verbose:
                 acc = ("" if rec.test_accuracy is None
                        else f"  acc={rec.test_accuracy:.4f}")
@@ -583,7 +721,467 @@ class FederatedTrainer:
         return self.history
 
     @property
+    def start_round(self) -> int:
+        """First round ``run()`` will execute — 0 for a fresh trainer,
+        the checkpointed next round after ``restore()``/``resume()``."""
+        return self._start_round
+
+    @property
+    def health_report(self):
+        """Latest HealthReport of the run-health monitor — None before
+        the first round or when ExecConfig.health is off."""
+        return None if self._health is None else self._health.last_report
+
+    @property
     def best_accuracy(self):
         accs = [(r.test_accuracy, r.round) for r in self.history
                 if r.test_accuracy is not None]
         return max(accs) if accs else (None, None)
+
+
+    # ---- checkpointing (TrainerState <-> checkpoint/checkpoint.py) ----
+
+    def state(self) -> TrainerState:
+        """Snapshot the checkpoint unit. The async engine may have
+        dispatched (and therefore sampled) waves beyond the last folded
+        round; the snapshot rolls RNG/sampler/schedule back to the wave
+        frontier using the per-round captures taken at sampling time, so
+        a resumed trainer re-draws those waves identically."""
+        # history carries every consumed round (including restored ones
+        # after a resume), so its length IS the next round — provided
+        # rounds were consumed sequentially; reject anything else loudly
+        # instead of writing a silently-wrong checkpoint
+        next_round = len(self.history)
+        if [r.round for r in self.history] != list(range(next_round)):
+            raise ValueError(
+                "save() requires rounds to have been run sequentially "
+                "from 0 (run_round(0), run_round(1), ...); history "
+                f"holds rounds {[r.round for r in self.history]}")
+        # synchronous rounds: the sampling frontier IS the next round;
+        # buffered-async: the engine's wave frontier
+        frontier = (next_round if self._engine is None
+                    else self._engine.wave_frontier)
+        cap = self._round_caps.get(frontier)
+        if cap is None:         # nothing sampled past the frontier
+            cap = self._capture()
+        return TrainerState(
+            params=self.params, server_state=self.server_state,
+            round=next_round, max_batches=cap["max_batches"],
+            rng_state=cap["rng"], sampler_state=cap["sampler"],
+            schedule=[np.asarray(c) for c in self.schedule[:frontier]],
+            history=list(self.history), runtime_state=cap.get("runtime"),
+            opt_state=self._opt_state)
+
+    def _codec_echo(self) -> Optional[dict]:
+        """JSON echo of the LOSSY codec configuration (identity is the
+        no-codec path, so it normalizes to None): restore() compares it
+        and fails loudly on a mismatch."""
+        if not self._codec_lossy:
+            return None
+        return {"config": self._codec.config_dict(),
+                "ef": self._ef is not None}
+
+    def _algo_echo(self) -> dict:
+        """JSON echo of everything that parameterizes the round — a
+        resume with ANY of these changed cannot continue the run. The
+        reference's route field (FedDPCHyper.use_kernel) is written as
+        its default."""
+        cls = type(self.algo.hyper).__name__
+        return {
+            "eta_l": self.algo_cfg.eta_l,
+            "eta_g": self.algo_cfg.eta_g,
+            "local_optimizer": self.algo_cfg.local_optimizer,
+            "hyper": {"class": cls, **asdict(self.algo.hyper),
+                      **_ROUTE_FIELDS.get(cls, {})},
+        }
+
+    def _chaos_echo(self) -> dict:
+        return {"round_deadline": self.cfg.round_deadline,
+                "fault_plan": (None if self.fault_plan is None
+                               else self.fault_plan.config_dict()),
+                "guard_config": (None if self._guard is None
+                                 else self._guard.config.config_dict())}
+
+    def _entry_to_reference(self, delta):
+        """One async entry's delta -> the reference's tree: the params
+        tree, or the codec's {"q", "scale", "zero"} trees."""
+        if self._codec_lossy:
+            return bridge.payload_to_reference(delta, self.layout)
+        return self.layout.unflatten(delta)
+
+    def save(self, ckpt_dir: str, keep: int = 3) -> str:
+        """Write the full TrainerState in the reference's format;
+        ``resume(ckpt_dir, ...)`` then reproduces the uninterrupted run
+        exactly. Device state reaches the host one leaf at a time."""
+        st = self.state()
+        rng = st.rng_state
+        k = self.cfg.clients_per_round
+        layout = self.layout
+        aux_arrays = {
+            "rng_keys": np.asarray(rng[1], np.uint32),
+            "rng_pos": np.int64(rng[2]),
+            "rng_has_gauss": np.int64(rng[3]),
+            "rng_cached": np.float64(rng[4]),
+            "round": np.int64(st.round),
+            "max_batches": np.int64(-1 if st.max_batches is None
+                                    else st.max_batches),
+            "schedule": (np.stack(st.schedule).astype(np.int64)
+                         if st.schedule else np.zeros((0, k), np.int64)),
+        }
+        if self._ef is not None:
+            # error-feedback accumulator: params-shaped f32 leaves
+            for i, leaf in enumerate(bridge.tree_leaves(
+                    layout.unflatten(self._ef))):
+                aux_arrays[f"codec_ef_{i}"] = leaf
+        if st.opt_state is not None:
+            # server-optimizer moments {"m", "v"}: params mirrors, the m
+            # leaves then the v leaves; they advance at folds only, so a
+            # mid-buffer async save carries the round-boundary state
+            for i, leaf in enumerate(bridge.tree_leaves(
+                    bridge.server_state_to_reference(st.opt_state,
+                                                     layout))):
+                aux_arrays[f"server_opt_{i}"] = leaf
+        if self._engine is not None:
+            # buffered-async streaming state: virtual clock + the
+            # in-flight entries (dispatched, not yet folded) in heap
+            # order, their deltas stacked per reference leaf with exact
+            # dtypes (int8 codes stay int8)
+            eng = self._engine
+            entries = eng.inflight()
+            aux_arrays.update({
+                "async_clock": np.float64(eng.clock),
+                "async_seq": np.int64(eng.seq),
+                "async_wave_frontier": np.int64(eng.wave_frontier),
+                "async_n_inflight": np.int64(len(entries)),
+                "async_entry_client": np.asarray(
+                    [e.client for e in entries], np.int64),
+                "async_entry_wave": np.asarray(
+                    [e.wave for e in entries], np.int64),
+                "async_entry_version": np.asarray(
+                    [e.version for e in entries], np.int64),
+                "async_entry_seq": np.asarray(
+                    [e.seq for e in entries], np.int64),
+                "async_entry_finish": np.asarray(
+                    [e.finish for e in entries], np.float64),
+                "async_entry_loss": np.asarray(
+                    [e.loss for e in entries], np.float32),
+            })
+            if entries:
+                per_entry = [bridge.tree_leaves(
+                    self._entry_to_reference(e.delta)) for e in entries]
+                for i in range(len(per_entry[0])):
+                    aux_arrays[f"async_delta_{i}"] = (
+                        lambda i=i: torch.stack([p[i] for p in per_entry]))
+        aux_json = {
+            "format": 1,
+            "algorithm": self.algo.name,
+            "algo_config": self._algo_echo(),
+            # informational, never compared: the reference's values for
+            # an unsharded run
+            "exec_mesh": {"shard_clients": False, "shard_model": 1,
+                          "devices": 0},
+            "num_clients": self.num_clients,
+            "clients_per_round": k,
+            "sampler": {"class": type(self.sampler).__name__,
+                        "config": self.sampler.config_dict(),
+                        "state": st.sampler_state},
+            "codec": self._codec_echo(),
+            "server_opt": (None if self._server_opt is None
+                           else self._server_opt.config_dict()),
+            "history": [asdict(r) for r in st.history],
+        }
+        if self._health is not None:
+            # observe() runs at consumption, never ahead of it, so the
+            # detector's window checkpoints verbatim
+            aux_json["health"] = {
+                "config": self._health.config.config_dict(),
+                "state": self._health.state_dict()}
+        if self._engine is not None:
+            aux_json["async"] = {
+                "buffer_size": self._engine.buffer_size,
+                "alpha": self._engine.alpha,
+                "concurrency": self._engine.concurrency,
+                "runtime": {"config": self._runtime.config_dict(),
+                            "state": st.runtime_state or {}},
+            }
+        elif self._runtime is not None:
+            # sync round-deadline regime: its runtime model's pre-draw
+            # state is captured like the async one's
+            aux_json["sync_runtime"] = {
+                "config": self._runtime.config_dict(),
+                "state": st.runtime_state or {}}
+        if (self._guard is not None or self.fault_plan is not None
+                or self.cfg.round_deadline is not None):
+            # the guard's window is consumed-round state (observe() runs
+            # at consumption), so it checkpoints verbatim
+            chaos = self._chaos_echo()
+            aux_json["chaos"] = {
+                "round_deadline": chaos["round_deadline"],
+                "fault_plan": chaos["fault_plan"],
+                "guard": (None if self._guard is None else
+                          {"config": chaos["guard_config"],
+                           "state": self._guard.state_dict()}),
+            }
+        return ckpt.save(ckpt_dir, st.round,
+                         {"params": st.params,
+                          "server_state": bridge.server_state_to_reference(
+                              st.server_state, layout)},
+                         keep=keep, aux_arrays=aux_arrays, aux_json=aux_json)
+
+    def _check_echoes(self, meta: dict) -> None:
+        """Every configuration echo of a checkpoint against this trainer,
+        in the reference's order: a mismatch cannot continue the run, so
+        it fails here instead of diverging silently."""
+        if meta["algorithm"] != self.algo.name:
+            raise ValueError(f"checkpoint is for {meta['algorithm']!r}, "
+                             f"trainer runs {self.algo.name!r}")
+        for field_name, mine in (("num_clients", self.num_clients),
+                                 ("clients_per_round",
+                                  self.cfg.clients_per_round),
+                                 ("algo_config", self._algo_echo())):
+            saved = meta.get(field_name)
+            if field_name == "algo_config":
+                saved, mine = _without_route(saved), _without_route(mine)
+            if saved is not None and saved != mine:
+                raise ValueError(
+                    f"checkpoint has {field_name}={saved}, trainer was "
+                    f"built with {mine} — resume with the original "
+                    "configuration")
+        saved_sampler = meta["sampler"].get("class")
+        if saved_sampler != type(self.sampler).__name__:
+            raise ValueError(
+                f"checkpoint was sampled by {saved_sampler}, trainer uses "
+                f"{type(self.sampler).__name__} — resume with the same "
+                "sampler the original run used")
+        saved_cfg = meta["sampler"].get("config")
+        if saved_cfg is not None:
+            saved_cfg = normalize_sampler_config(saved_cfg)
+        if saved_cfg is not None and saved_cfg != self.sampler.config_dict():
+            raise ValueError(
+                f"checkpoint sampler was built as {saved_cfg}, trainer's "
+                f"is {self.sampler.config_dict()} — resume with the "
+                "original sampler parameters")
+        meta_async = meta.get("async")
+        if (meta_async is not None) != (self._engine is not None):
+            raise ValueError(
+                "checkpoint and trainer disagree on the buffered-async "
+                f"regime (checkpoint async={meta_async is not None}, "
+                f"trainer async={self._engine is not None}) — the wave/"
+                "arrival trajectory is part of the run and cannot switch "
+                "mid-stream")
+        if self._engine is not None:
+            eng = self._engine
+            for knob in ("buffer_size", "alpha", "concurrency"):
+                if meta_async[knob] != getattr(eng, knob):
+                    raise ValueError(
+                        f"checkpoint has async {knob}={meta_async[knob]}, "
+                        f"trainer was built with {getattr(eng, knob)} — "
+                        "resume with the original async configuration")
+            rt = meta_async["runtime"]
+            if rt["config"] != self._runtime.config_dict():
+                raise ValueError(
+                    f"checkpoint runtime model was built as "
+                    f"{rt['config']}, trainer's is "
+                    f"{self._runtime.config_dict()} — resume with the "
+                    "original runtime model")
+        meta_sync_rt = meta.get("sync_runtime")
+        if meta_sync_rt is not None:
+            if self._engine is not None or self._runtime is None:
+                raise ValueError(
+                    "checkpoint carries a sync-deadline runtime model but "
+                    "the trainer was not built with one — resume with the "
+                    "original ExecConfig(round_deadline=...) and runtime")
+            if meta_sync_rt["config"] != self._runtime.config_dict():
+                raise ValueError(
+                    f"checkpoint sync runtime model was built as "
+                    f"{meta_sync_rt['config']}, trainer's is "
+                    f"{self._runtime.config_dict()} — resume with the "
+                    "original runtime model")
+        meta_chaos = meta.get("chaos")
+        if meta_chaos is not None:
+            mine_chaos = self._chaos_echo()
+            saved_chaos = {
+                "round_deadline": meta_chaos.get("round_deadline"),
+                "fault_plan": meta_chaos.get("fault_plan"),
+                "guard_config": (meta_chaos["guard"] or {}).get("config")
+                                if meta_chaos.get("guard") is not None
+                                else None,
+            }
+            # JSON round-trips tuples as lists: normalize through the
+            # same encoder before comparing
+            if (json.loads(json.dumps(mine_chaos, default=float))
+                    != saved_chaos):
+                raise ValueError(
+                    f"checkpoint chaos configuration {saved_chaos} does "
+                    f"not match the trainer's {mine_chaos} — resume with "
+                    "the original guard/fault-plan/deadline configuration")
+        elif (self._guard is not None or self.fault_plan is not None
+              or self.cfg.round_deadline is not None):
+            raise ValueError(
+                "trainer was built with chaos hardening (guard/fault "
+                "plan/deadline) but the checkpoint has none — resume "
+                "with the original configuration")
+        if meta.get("codec") != self._codec_echo():
+            raise ValueError(
+                f"checkpoint codec configuration {meta.get('codec')} "
+                f"does not match the trainer's {self._codec_echo()} — "
+                "resume with the original codec/codec_ef configuration")
+        mine_sopt = (None if self._server_opt is None
+                     else self._server_opt.config_dict())
+        if meta.get("server_opt") != mine_sopt:
+            raise ValueError(
+                f"checkpoint server optimizer {meta.get('server_opt')} "
+                f"does not match the trainer's {mine_sopt} — resume "
+                "with the original server_opt configuration")
+        meta_health = meta.get("health")
+        if (meta_health is not None) != (self._health is not None):
+            raise ValueError(
+                "checkpoint and trainer disagree on the run-health "
+                f"monitor (checkpoint health={meta_health is not None}, "
+                f"trainer health={self._health is not None}) — resume "
+                "with the original ExecConfig.health configuration")
+        if (meta_health is not None
+                and meta_health["config"] != self._health.config
+                .config_dict()):
+            raise ValueError(
+                f"checkpoint health configuration {meta_health['config']} "
+                f"does not match the trainer's "
+                f"{self._health.config.config_dict()} — resume with the "
+                "original health detector parameters")
+
+    @staticmethod
+    def _load_leaves(dest, arrays: dict, prefix: str, what: str) -> None:
+        """Copy aux arrays ``<prefix>0..`` into the leaves of ``dest``
+        (views into the trainer's flat buffers), shapes checked."""
+        leaves = bridge.tree_leaves(dest)
+        if f"{prefix}0" not in arrays:
+            raise ValueError(
+                f"trainer expects {what} but the checkpoint carries none "
+                "— resume with the original configuration")
+        for i, t in enumerate(leaves):
+            a = arrays[f"{prefix}{i}"]
+            if tuple(a.shape) != tuple(t.shape):
+                raise ValueError(f"{prefix}{i}: shape mismatch "
+                                 f"{tuple(t.shape)} vs {a.shape}")
+            t.copy_(ckpt.from_host(a, t.dtype))
+
+    def _restore_inflight(self, arrays: dict) -> List[BufferEntry]:
+        n = int(arrays["async_n_inflight"])
+        if not n:
+            return []
+        layout, skel = self.layout, self.layout.skeleton
+        nleaves = len(layout.shapes)
+        stacked = [ckpt.from_host(arrays[f"async_delta_{i}"])
+                   for i in range(nleaves * (3 if self._codec_lossy
+                                             else 1))]
+
+        def tree(base):
+            return bridge.tree_map(lambda i: stacked[base + i], skel)
+        if self._codec_lossy:
+            rows = bridge.payload_from_reference(
+                {"q": tree(0), "scale": tree(nleaves),
+                 "zero": tree(2 * nleaves)}, layout, self.device)
+            deltas = [{k: v[j] for k, v in rows.items()} for j in range(n)]
+        else:
+            rows = bridge.flat_from_reference(tree(0), layout, self.device)
+            deltas = [rows[j] for j in range(n)]
+        return [BufferEntry(
+            client=int(arrays["async_entry_client"][j]),
+            wave=int(arrays["async_entry_wave"][j]),
+            version=int(arrays["async_entry_version"][j]),
+            seq=int(arrays["async_entry_seq"][j]),
+            finish=float(arrays["async_entry_finish"][j]),
+            loss=float(arrays["async_entry_loss"][j]),
+            delta=deltas[j]) for j in range(n)]
+
+    def restore(self, ckpt_dir: str, step: Optional[int] = None
+                ) -> "FederatedTrainer":
+        """Load a TrainerState saved by ``save`` (by this package or the
+        reference) into this freshly constructed trainer; ``run()`` then
+        continues from the saved round. Configs/loss_fn/source are NOT
+        checkpointed — construct the trainer exactly as the original run
+        did. The newest step whose digests verify is taken (a warning for
+        each corrupt one skipped); an explicit ``step`` never falls
+        back."""
+        if self.history or self.schedule:
+            raise RuntimeError(
+                "restore() requires a freshly constructed trainer that "
+                "has not run any rounds — use FederatedTrainer.resume()")
+        step = ckpt.resolve_step(ckpt_dir, step)
+        arrays, meta = ckpt.load_aux(ckpt_dir, step)
+        if meta is None or "rng_keys" not in arrays:
+            raise ValueError(f"{ckpt_dir} has no TrainerState sidecars — "
+                             "was it written by FederatedTrainer.save()?")
+        self._check_echoes(meta)
+        layout = self.layout
+        # straight into the trainer's buffers, leaf by leaf
+        ckpt.restore_into(ckpt_dir, {
+            "params": self.params,
+            "server_state": bridge.server_state_to_reference(
+                self.server_state, layout)}, step=step)
+        if self._ef is not None:
+            self._load_leaves(layout.unflatten(self._ef),
+                              arrays, "codec_ef_",
+                              "an error-feedback accumulator")
+        if self._opt_state is not None:
+            self._load_leaves(bridge.server_state_to_reference(
+                self._opt_state, layout), arrays, "server_opt_",
+                "server-optimizer moment state")
+        self.rng.set_state(("MT19937",
+                            np.asarray(arrays["rng_keys"], np.uint32),
+                            int(arrays["rng_pos"]),
+                            int(arrays["rng_has_gauss"]),
+                            float(arrays["rng_cached"])))
+        mb = int(arrays["max_batches"])
+        self._stager.max_batches = None if mb < 0 else mb
+        self._start_round = int(arrays["round"])
+        self.schedule = [row for row in np.asarray(arrays["schedule"])]
+        # the reference's records carry fields the port does not keep
+        # (ingest timings and restarts, edge accounting): dropped here
+        self.history = [RoundRecord(**{k: v for k, v in r.items()
+                                       if k in _RECORD_FIELDS})
+                        for r in meta["history"]]
+        if meta["sampler"].get("state"):
+            self.sampler.load_state_dict(meta["sampler"]["state"])
+        if meta.get("sync_runtime", {}).get("state"):
+            self._runtime.load_state_dict(meta["sync_runtime"]["state"])
+        if (meta.get("chaos") or {}).get("guard") is not None \
+                and self._guard is not None:
+            gst = meta["chaos"]["guard"].get("state")
+            if gst:
+                self._guard.load_state_dict(gst)
+        if meta.get("health") is not None:
+            self._health.load_state_dict(meta["health"]["state"])
+        if self._engine is not None:
+            eng = self._engine
+            rt_state = meta["async"]["runtime"].get("state")
+            if rt_state:
+                self._runtime.load_state_dict(rt_state)
+            eng.clock = float(arrays["async_clock"])
+            eng.seq = int(arrays["async_seq"])
+            eng.wave_frontier = int(arrays["async_wave_frontier"])
+            # folds performed == server rounds consumed
+            eng.version = self._start_round
+            eng.load_inflight(self._restore_inflight(arrays))
+        self._round_caps.clear()
+        return self
+
+    @classmethod
+    def resume(cls, ckpt_dir: str, loss_fn: Callable, params,
+               num_clients: int, data, cfg: Optional[ExecConfig] = None,
+               eval_fn: Optional[Callable] = None, *,
+               algo: Optional[AlgoConfig] = None,
+               sampler: Optional[ClientSampler] = None,
+               runtime: Optional[ClientRuntimeModel] = None,
+               fault_plan=None, step: Optional[int] = None,
+               device=None) -> "FederatedTrainer":
+        """Fresh-process resume: construct the trainer exactly as the
+        original run did (on ``device``: a checkpoint written on the card
+        resumes on the CPU and the reverse), then restore the saved
+        TrainerState. ``run()`` continues from the checkpointed round and
+        reproduces the uninterrupted run — including mid-buffer async
+        state (pass the same ``runtime`` model and ``fault_plan``)."""
+        tr = cls(loss_fn, params, num_clients, data, cfg, eval_fn,
+                 algo=algo, sampler=sampler, runtime=runtime,
+                 fault_plan=fault_plan, device=device)
+        return tr.restore(ckpt_dir, step=step)

@@ -236,3 +236,17 @@ class BufferedAsyncEngine:
                                  if deadline_fired else 0),
         }
         return params, server_state, metrics
+
+    # ---- checkpointing (driven by FederatedTrainer.save/restore) ----
+
+    def inflight(self) -> List[BufferEntry]:
+        """In-flight entries in (finish, seq) heap order — dispatched
+        but not yet arrived/folded. The arrival buffer itself is always
+        empty between rounds (run_server_round folds exactly what it
+        collects), so this IS the full streaming state."""
+        return [e for (_, _, e) in sorted(self._heap,
+                                          key=lambda x: (x[0], x[1]))]
+
+    def load_inflight(self, entries: List[BufferEntry]) -> None:
+        self._heap = [(e.finish, e.seq, e) for e in entries]
+        heapq.heapify(self._heap)

@@ -7,12 +7,12 @@ experiment on synthetic heterogeneous data), on the card by default:
       --eta-l 0.01 --eta-g 0.01
 
 Counterpart of repro/launch/train.py with its main-path, buffered-async,
-codec and chaos flags, every registered server rule (``--algorithm``),
-the four participation samplers (``--sampler``) and the server optimizer
-(``--server-opt``); vision data streams from the synthetic Dirichlet-
-partitioned image task. ``--device cpu`` runs on the CPU; without it the
-script raises when CUDA is absent. FedVARP under Markov availability
-with a FedAdam server step:
+codec, chaos, checkpoint and health flags, every registered server rule
+(``--algorithm``), the four participation samplers (``--sampler``) and
+the server optimizer (``--server-opt``); vision data streams from the
+synthetic Dirichlet-partitioned image task. ``--device cpu`` runs on the
+CPU; without it the script raises when CUDA is absent. FedVARP under
+Markov availability with a FedAdam server step:
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --model lenet5 --algorithm fedvarp --sampler markov \\
@@ -30,6 +30,16 @@ Guarded rounds under injected faults and a round deadline:
       --model lenet5 --guard --round-deadline 2.0 --runtime exponential \\
       --fault-plan '{"seed": 0, "injectors": [{"kind": "nan_delta",
       "rate": 0.2}]}'
+
+Checkpoint every round with the run-health monitor on, then pick the run
+up where it stopped (the checkpoints are the reference's format: either
+package's driver resumes the other's):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --model lenet5 --rounds 4 --ckpt-dir ckpt --ckpt-every 1 --health \\
+      --health-log health.jsonl
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --model lenet5 --rounds 8 --ckpt-dir ckpt --resume --health
 """
 from __future__ import annotations
 
@@ -173,10 +183,31 @@ def main(argv=None):
                     help="server-side optimizer: precondition every "
                          "rule's proposed step with fedadam/fedyogi "
                          "moments; sgd (default) applies it verbatim")
+    ap.add_argument("--health", action="store_true",
+                    help="run-health monitor: rolling-median loss spike / "
+                         "NaN detection, staleness and quarantine-rate "
+                         "trend alarms over the RoundRecord stream")
+    ap.add_argument("--health-patience", type=int, default=None,
+                    help="early-stop after N consecutive alarmed rounds "
+                         "(needs --health; default: alarms only)")
+    ap.add_argument("--health-log", default=None,
+                    help="stream every health verdict to this JSONL file "
+                         "as the run goes (needs --health; one JSON object "
+                         "per round, flushed per verdict)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; the default needs a card")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="save the TrainerState every N rounds (0 = only "
+                         "at the end, and only when --ckpt-dir is set)")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the latest intact TrainerState from "
+                         "--ckpt-dir and continue the run exactly where it "
+                         "stopped")
     args = ap.parse_args(argv)
+    if args.resume and not args.ckpt_dir:
+        raise SystemExit("--resume needs --ckpt-dir")
 
     device = resolve_device(args.device)
     params, loss_fn, source, eval_fn = build_vision_task(args, device)
@@ -194,7 +225,10 @@ def main(argv=None):
                      async_concurrency=args.async_concurrency,
                      codec=args.codec,
                      codec_ef=True if args.codec_ef else None,
-                     guard=args.guard, round_deadline=args.round_deadline)
+                     guard=args.guard, round_deadline=args.round_deadline,
+                     health=args.health,
+                     health_patience=args.health_patience,
+                     health_log=args.health_log)
     runtime = None
     if args.async_buffer or args.round_deadline is not None:
         rt_kw = ({} if args.runtime == "deterministic"
@@ -207,14 +241,39 @@ def main(argv=None):
             with open(raw[1:]) as fh:
                 raw = fh.read()
         fault_plan = FaultPlan.from_config(json.loads(raw))
-    trainer = FederatedTrainer(loss_fn, params, args.clients, source, cfg,
-                               eval_fn, algo=algo,
-                               sampler=build_sampler(args, source,
-                                                     args.clients, cohort),
-                               runtime=runtime, fault_plan=fault_plan,
-                               device=device)
-    hist = trainer.run(verbose=True)
-    best, at = trainer.best_accuracy
+    kw = dict(algo=algo, sampler=build_sampler(args, source, args.clients,
+                                               cohort),
+              runtime=runtime, fault_plan=fault_plan, device=device)
+    if args.resume:
+        trainer = FederatedTrainer.resume(args.ckpt_dir, loss_fn, params,
+                                          args.clients, source, cfg,
+                                          eval_fn, **kw)
+        print(f"resumed from {args.ckpt_dir} at round "
+              f"{trainer.start_round}")
+    else:
+        trainer = FederatedTrainer(loss_fn, params, args.clients, source,
+                                   cfg, eval_fn, **kw)
+    with trainer:
+        if args.ckpt_dir and args.ckpt_every > 0:
+            for t in range(trainer.start_round, args.rounds):
+                rec = trainer.run_round(t)
+                print(f"[{args.algorithm}] round {t:4d} "
+                      f"loss={rec.train_loss:.4f}")
+                if (t + 1) % args.ckpt_every == 0:
+                    trainer.save(args.ckpt_dir)
+            hist = trainer.history
+        else:
+            hist = trainer.run(verbose=True)
+        if args.ckpt_dir:
+            path = trainer.save(args.ckpt_dir)
+            print("checkpoint written to", path)
+        best, at = trainer.best_accuracy
+        if args.health and trainer.health_report is not None:
+            hr = trainer.health_report
+            print(f"health: {hr.alarmed_rounds} alarmed rounds "
+                  f"(spikes {hr.spike_rounds}, "
+                  f"nonfinite {hr.nonfinite_rounds})"
+                  + (" — EARLY STOP" if hr.should_stop else ""))
     print(f"best eval {best} @ round {at}")
     if args.out:
         with open(args.out, "w") as f:

@@ -4,7 +4,8 @@ the server step, every other server rule's step and trainer rounds
 the CPU, and the serving paths of
 the dense decoder (every attention call through the flash-attention
 kernel) and of the pure-SSM stack (every scan through the ssm_scan
-kernel) against the same on the CPU. Marked ``cuda``; each test skips without a card. This file imports
+kernel) against the same on the CPU, and checkpoints saved on the card
+restored on the card and on the CPU. Marked ``cuda``; each test skips without a card. This file imports
 no JAX, so it also runs where only the port is installed:
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -290,6 +291,48 @@ def test_trainer_round_on_card_matches_cpu(cuda):
                          else [0] * 7)
     # TF32 off: card and CPU differ by conv algorithms and sum orders
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=1e-3)
+
+
+def _fedvarp_adam_trainer(data, params, device, resume_from=None):
+    from repro_torch.core.samplers import MarkovSampler
+    args = (functools.partial(vision_loss_fn, paper_lenet5.CONFIG), params,
+            8, StreamingImageSource(data, 16),
+            ExecConfig(rounds=4, clients_per_round=4, server_opt="fedadam"))
+    kw = dict(algo=AlgoConfig(name="fedvarp", eta_l=0.02, eta_g=0.02),
+              sampler=MarkovSampler(8, 4, p_on=0.5, p_off=0.5),
+              device=device)
+    if resume_from is not None:
+        return FederatedTrainer.resume(resume_from, *args, **kw)
+    return FederatedTrainer(*args, **kw)
+
+
+@pytest.mark.parametrize("dst", ["cuda", "cpu"])
+def test_checkpoint_saved_on_card_restores_bitwise(cuda, dst, tmp_path):
+    """FedVARP under Markov availability with a FedAdam server step,
+    saved on the card: restored on the card and on the CPU, the params,
+    the (8, N) table, Δ_prev, the moments and the chain are bit for bit
+    the saved ones, and the resumed run goes on."""
+    data = build_federated_image_data(num_classes=10, num_clients=8,
+                                      alpha=0.5, samples_per_class=16,
+                                      test_per_class=2, seed=0)
+    params = init_vision(paper_lenet5.CONFIG,
+                         torch.Generator().manual_seed(0))
+    tr = _fedvarp_adam_trainer(data, params, "cuda")
+    for t in range(2):
+        tr.run_round(t)
+    tr.save(str(tmp_path))
+    res = _fedvarp_adam_trainer(data, params, dst, str(tmp_path))
+    assert res.start_round == 2 and res.flat.device.type == dst
+    pairs = [(res.flat, tr.flat)]
+    pairs += [(res.server_state[k], tr.server_state[k])
+              for k in ("y", "delta_prev")]
+    pairs += [(res._opt_state[k], tr._opt_state[k]) for k in ("m", "v")]
+    for got, want in pairs:
+        assert got.device.type == dst
+        assert torch.equal(got.cpu(), want.cpu())
+    assert bool((tr.server_state["y"] != 0).any())
+    assert res.sampler.state_dict() == tr.sampler.state_dict()
+    assert np.isfinite(res.run_round(2).train_loss)
 
 
 def test_async_int8_trainer_on_card_matches_cpu(cuda):

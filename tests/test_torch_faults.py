@@ -198,14 +198,9 @@ def test_apply_guard_matches_reference(thresh, masked):
 @pytest.mark.parametrize("kw,match", [
     (dict(ingest_crash_rate=0.1), "item 11"),
     (dict(edge_drop_rounds=(1,)), "item 13"),
-    ("ckpt", "item 7"),
 ])
 def test_plans_without_a_consumer_raise(kw, match):
-    if kw == "ckpt":
-        plan = faults.FaultPlan(seed=0, injectors=(faults.CkptCorrupt(
-            rate=0.5),))
-    else:
-        plan = faults.FaultPlan.seeded(0, nan_rate=0.1, **kw)
+    plan = faults.FaultPlan.seeded(0, nan_rate=0.1, **kw)
     from repro_torch.core import api
     with pytest.raises(ValueError, match=match):
         api.FederatedTrainer(lambda p, b: 0.0, {"w": np.zeros(3)}, 4,

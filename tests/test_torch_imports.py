@@ -24,6 +24,8 @@ bad = sorted(m for m in sys.modules
 print(len(names), "modules")
 assert not bad, bad
 for must in ("repro_torch.optim.server", "repro_torch.core.samplers",
+             "repro_torch.checkpoint.checkpoint",
+             "repro_torch.health.monitor",
              "repro_torch.kernels.feddpc_project.ops",
              "repro_torch.kernels.flash_attention.ops",
              "repro_torch.kernels.ssm_scan.ops",
