@@ -5,8 +5,10 @@
 
 Phases, each printing JSON lines; any failure raises and exits non-zero:
 
-  1. build    nvcc-builds the FedDPC, flash-attention and ssm_scan
-              libraries from the checkout's sources, all three at once;
+  1. build    nvcc-builds the FedDPC, flash-attention, ssm_scan and
+              int8_sr libraries from the checkout's sources, all four at
+              once (and ptxas's registers and spills of the int8_sr
+              kernel);
               prints the card's name, power limit and top SM clock
               (nvidia-smi), ptxas's registers and spills of each FedDPC
               kernel instance and of each flash-attention kernel and the
@@ -35,6 +37,15 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               path), median of 20 windows; the folds also cold (one call
               after an L2 flush and a spin, ``ms_cold_spin``) and as a
               share of their bound (``pct_of_bound``).
+  2b. int8_sr the int8_sr codec's encode kernel (not a TPU kernel: the
+              reference leaves the draw to XLA) against its plain int64
+              version, bit for bit, at ResNet18-GN's 62-leaf layout (K = 1
+              and K = 10) and on a ragged synthetic layout, both counter
+              layouts of the PRNG, on the codec's own scales; the plain
+              version's uniforms against core/jax_prng's numpy draw on one
+              full leaf (the largest, two rows); timed at K = 10 beside its
+              bound (bytes, and ~85 int32 operations an element at 64 an SM
+              a clock) and its share of it.
   3. project  projection.project_and_scale(use_kernel=True) on one
               ResNet18-GN-sized flat delta: one feddpc_fused_epilogue
               launch, held against the same call on the CPU.
@@ -55,7 +66,17 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               kernel —, the projection-only ablation (one feddpc_dots and
               one feddpc_batched_epilogue a round), async FedDPC-M (one
               feddpc_dots and one feddpc_buffer_fold a fold) and FedDPC
-              under a FedAdam server optimizer (dots and epilogue). The
+              under a FedAdam server optimizer (dots and epilogue); int8_sr
+              sync (one int8_sr_quantize and one dequant fold a round) and
+              async int8_sr + EF (one int8_sr_quantize a wave, one dequant
+              buffer fold a round); sync FedDPC host-staged and with
+              prefetch off (4 rounds each, as the prefetched, device-staged
+              run of the defaults), each profiled in its last round, then
+              one staging line of the three (median round seconds after
+              round 0, ingest_host_seconds and ingest_device_seconds
+              medians, the profiled round's idle share). Every run uses
+              the trainer's defaults: the staging ring with device
+              staging and async eval. The
               launch counts are set to 0 just before each run and read
               just after; each round must launch the kernels of its
               regime. The chaos runs must quarantine exactly the plan's
@@ -67,6 +88,14 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               torch.profiler: device time by kernel and by category (the
               codec's encode and decode as their own) and the card's idle
               share.
+ 4a. ingest   the staged ingest path at full width: ResNet18-GN on
+              CIFAR100Source over the committed CIFAR-100 fixture
+              (tests/fixtures/data, read-only) with crop-and-flip
+              augmentation; sync FedDPC with an ingest_crash in round 1 and
+              a restart budget of 1 (the restart charged to round 1, losses
+              within INGEST_LOSS_RTOL of the uninterrupted prefetched run,
+              both on cuDNN's deterministic algorithms);
+              the same with no budget, which must raise, naming the crash.
  4b. checkpoint  save and resume at full width, in a temporary directory
               (launch counts set to 0 before it; cuDNN's deterministic
               algorithms, so that runs repeat bit for bit): sync FedDPC 4
@@ -86,7 +115,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               on); the health monitor stopping a NaN run with the reference's
               alarm, one log row a round.
   5. parity   LeNet5 at quickstart size on the card and on the CPU from
-              the same initial params — 2 sync FedDPC rounds, 3
+              the same initial params (the reference's draws,
+              core/jax_prng.py) — 2 sync FedDPC rounds (prefetched, the
+              default), 3 sync int8_sr rounds, 3
               buffered-async int8 rounds with error feedback, 3 sync
               rounds with guard, faults and deadline, and 3 rounds each of
               the projection-only ablation (the kernels against the plain
@@ -95,7 +126,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               per-round losses (and the chaos counters) must agree. A
               checkpoint of 2 sync FedDPC rounds written on the card
               resumes on the CPU, and one written on the CPU on the card:
-              both go on within PARITY_ATOL of the CPU's 4-round run.
+              both go on within PARITY_ATOL of the CPU's 4-round run. The
+              training CLI at the README's LeNet5 arguments on the card and
+              on the CPU: the CPU prints the reference CLI's losses and
+              accuracies, the card's losses are within PARITY_ATOL.
 
   6. attention  flash_attention against its plain version on the card,
               f32 and bf16: StarCoder2-3B's prefill (B = 8, Sq = 1024,
@@ -156,6 +190,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
  11. serve ssm parity  Falcon-Mamba SMOKE on the card and on the CPU from
               the same params: prefill plus 4 teacher-forced decode steps.
 
+Every profile opens with PROFILE_PAD spin kernels, finished before the
+profiled work and left out of its counts and times: late in a long process
+the profiler loses a profile's first device events.
+
 The last lines are the kernels' JSON summary, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
 prints no result. It imports torch and the port, nothing of JAX.
@@ -196,19 +234,25 @@ from repro_torch.core import projection as proj  # noqa: E402
 from repro_torch.core.api import (AlgoConfig, ExecConfig,  # noqa: E402
                                   FederatedTrainer)
 from repro_torch.core.baselines import FedDPCHyper  # noqa: E402
+from repro_torch.core import jax_prng  # noqa: E402
 from repro_torch.core.faults import (FaultPlan,  # noqa: E402
                                      corrupt_checkpoint)
 from repro_torch.core.runtime import ExponentialRuntime  # noqa: E402
 from repro_torch.core.samplers import (MarkovSampler,  # noqa: E402
                                        UniformSampler)
+from repro_torch.codec import make_codec  # noqa: E402
+from repro_torch.ingest.datasets import CIFAR100Source  # noqa: E402
 from repro_torch.ingest.images import (StreamingImageSource,  # noqa: E402
                                        build_federated_image_data)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.feddpc_project import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
+from repro_torch.kernels.int8_sr import ops as sr_ops  # noqa: E402
+from repro_torch.kernels.int8_sr import ref as sr_ref  # noqa: E402
 from repro_torch.kernels.ssm_scan import ops as ss_ops  # noqa: E402
 from repro_torch.kernels.ssm_scan import ref as ss_ref  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.serve import serve_lm  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.models.vision import (init_vision,  # noqa: E402
@@ -325,6 +369,31 @@ SS_KERNEL_NAMES = ("ssm_scan_kernel", "ssm_step_kernel")
 # SMs (NVIDIA's arithmetic instruction throughput table, compute 9.0)
 SFU_PER_CLOCK_PER_SM = 16
 NUM_SMS = 132
+# torch.profiler loses the first device events of a profile, more of them
+# the more profiles the process has taken (a Falcon-Mamba decode step lost
+# its first 16 kernels, layer 0's silu among them, late in a full smoke;
+# a fresh process lost none; now and then a profile loses ~90): each
+# profile opens with this many tiny spin kernels, synchronized before the
+# profiled work starts, which absorb the loss and are left out of every
+# count and time
+PROFILE_PAD = 256
+PAD_KERNEL = "spin_kernel"
+
+# ---- the int8_sr encode kernel (not a TPU kernel: XLA draws the noise in
+# the reference) ----
+SR_SOURCE = "src/repro_torch/kernels/int8_sr/csrc/int8_sr.cu"
+SR_REPLACES = ("none: not a TPU kernel; the reference's draw is XLA's "
+               "threefry, src/repro/codec/codecs.py:156")
+SR_KS = (1, 10)
+SR_RAGGED_KS = (3, 33)
+# 32-bit integer adds, shifts, logic ops: 64 per clock per SM (NVIDIA's
+# arithmetic instruction throughput table, compute 9.0)
+INT32_PER_CLOCK_PER_SM = 64
+# int32 operations an element: threefry2x32's 20 rounds (add, funnel
+# shift, xor) and its 5 key injections (two adds each, the round constant
+# folded), the key schedule's xor, the output xor, the counter (a wide
+# multiply-add), the float's shift and or, and the leaf walk's compare
+SR_INT32_OPS = 2 + 20 * 3 + 5 * 2 + 5 + 1 + 1 + 2 + 2 + 2
 
 
 def emit(obj):
@@ -401,10 +470,10 @@ def _smi(query: str, fmt: str = "csv,noheader") -> str:
 
 
 def phase_build() -> str:
-    """All three libraries at once: one nvcc per source, started
+    """All four libraries at once: one nvcc per source, started
     together."""
     tic = time.perf_counter()
-    mods = (ops, fa_ops, ss_ops)
+    mods = (ops, fa_ops, ss_ops, sr_ops)
     with ThreadPoolExecutor(max_workers=len(mods)) as pool:
         futures = [pool.submit(mod.build) for mod in mods]
         paths = [f.result() for f in futures]
@@ -432,6 +501,10 @@ def phase_build() -> str:
     ss_lib = paths[mods.index(ss_ops)]
     emit({"phase": "build_ssm_scan",
           "kernels": ssm_sass_report(ss_lib, _max_sm_clock_mhz())})
+    sr_lib = paths[mods.index(sr_ops)]
+    emit({"phase": "build_int8_sr",
+          "kernels": _ptxas_report(sr_lib.with_suffix(".log").read_text(),
+                                   ("int8_sr_kernel",))})
     return smi
 
 
@@ -834,10 +907,16 @@ def phase_project_and_scale():
     return launches
 
 
+@functools.lru_cache(maxsize=None)
+def _init(cfg):
+    """The reference's initial params for ``cfg`` (PRNGKey(0)): 11.2 M
+    normals on the host at ResNet18-GN's width, drawn once; every trainer
+    copies them into its own flat buffer."""
+    return init_vision(cfg, jax_prng.PRNGKey(0))
+
+
 def _resnet18_offsets():
-    params = init_vision(paper_resnet18.CONFIG,
-                         torch.Generator().manual_seed(0))
-    return layout_of(params).leaf_offsets
+    return layout_of(_init(paper_resnet18.CONFIG)).leaf_offsets
 
 
 def _payload(gen, k, offsets, qdtype):
@@ -962,6 +1041,105 @@ def phase_folds():
     return list(rows.values())
 
 
+def _sr_inputs(gen, k, offsets, t):
+    """int8_sr's inputs as the codec hands them to the kernel: (K, N)
+    deltas on the card, their symmetric per-leaf scales, and the per-leaf
+    keys of round t from PRNGKey(0)."""
+    x = torch.randn((k, int(offsets[-1])), generator=gen,
+                    device="cuda") * 0.01
+    scale, _ = make_codec("int8_sr")._leaf_scalars(x, offsets)
+    keys = jax_prng.fold_in_many(jax_prng.fold_in(jax_prng.PRNGKey(0), t),
+                                 np.arange(offsets.numel() - 1))
+    return x, scale, offsets, keys
+
+
+def _sr_plain(x, scale, offsets, keys, partitionable=True):
+    return sr_ref.int8_sr_quantize_ref(
+        x, scale, offsets, torch.from_numpy(keys.astype(np.int64)),
+        partitionable)
+
+
+def _sr_bytes_ops(k, n, nleaves):
+    """x read and q written once, the scales, offsets and keys; the int32
+    operations of the draw (SR_INT32_OPS an element)."""
+    return (5 * k * n + 4 * k * nleaves + 8 * (nleaves + 1) + 8 * nleaves,
+            SR_INT32_OPS * k * n)
+
+
+def phase_int8_sr():
+    """int8_sr_quantize bit for bit against its plain version at every
+    listed shape and in both counter layouts; the plain version's uniforms
+    against jax_prng's numpy draw on one full leaf; then timed at K = 10,
+    N = 11,220,132. Returns its timing row."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    layouts = {"resnet18": _resnet18_offsets(),
+               "synthetic": torch.tensor(
+                   [0] + list(itertools.accumulate(SYNTH_NUMELS)),
+                   dtype=torch.int64)}
+    cases = [("resnet18", k) for k in SR_KS] + \
+        [("synthetic", k) for k in SR_RAGGED_KS]
+    for (lname, k), part in itertools.product(cases, (True, False)):
+        x, scale, offsets, keys = _sr_inputs(gen, k, layouts[lname], k)
+        got = sr_ops.int8_sr_quantize(x, scale, offsets, keys, part)
+        want = _sr_plain(x, scale, offsets, keys, part)
+        torch.cuda.synchronize()
+        bad = int((got != want).sum())
+        emit({"phase": "kernels", "kernel": "int8_sr_quantize",
+              "layout": lname, "K": k, "N": int(offsets[-1]),
+              "leaves": offsets.numel() - 1, "partitionable": part,
+              "mismatches": bad, "bitwise_equal": bad == 0,
+              "codes_at_127": int((got.abs() == 127).sum())})
+        if bad:
+            raise AssertionError(f"int8_sr_quantize {lname} K={k} "
+                                 f"partitionable={part}: {bad} codes differ "
+                                 "from the plain version")
+        del x, scale, got, want
+    # the plain version's noise is the reference's: its uniforms on the
+    # largest ResNet18-GN leaf (two rows) against the numpy draw
+    offsets = layouts["resnet18"]
+    sizes = offsets[1:] - offsets[:-1]
+    leaf = int(torch.argmax(sizes))
+    numel = int(sizes[leaf])
+    key = jax_prng.fold_in(jax_prng.fold_in(jax_prng.PRNGKey(0), 3), leaf)
+    idx = (torch.arange(2, device="cuda")[:, None] * numel
+           + torch.arange(numel, device="cuda"))
+    u_plain = sr_ref.bits_to_unit_ref(sr_ref.draw_bits_ref(
+        int(key[0]), int(key[1]), idx, 2 * numel, jax_prng.PARTITIONABLE))
+    u_numpy = jax_prng.uniform(key, (2, numel))
+    if not np.array_equal(u_plain.cpu().numpy().view(np.uint32),
+                          u_numpy.view(np.uint32)):
+        raise AssertionError("int8_sr's plain draw differs from jax_prng's "
+                             f"on leaf {leaf}")
+    emit({"phase": "kernels", "kernel": "int8_sr_quantize",
+          "plain_vs_jax_prng_leaf": leaf, "elements": 2 * numel,
+          "bitwise_equal": True})
+    # timing at the main path's shape
+    x, scale, offsets, keys = _sr_inputs(gen, K_MAIN, offsets, 0)
+    k, n = x.shape
+    nbytes, int_ops = _sr_bytes_ops(k, n, offsets.numel() - 1)
+    clock_mhz = _max_sm_clock_mhz()
+    int_per_s = INT32_PER_CLOCK_PER_SM * NUM_SMS * 1e6 * clock_mhz
+    b_ms, b_by = bound_ms(nbytes, int_ops, flop_per_s=int_per_s)
+
+    def kern():
+        return sr_ops.int8_sr_quantize(x, scale, offsets, keys)
+    ms, ms_one = cuda_ms(kern)
+    plain_ms, _ = cuda_ms(lambda: _sr_plain(x, scale, offsets, keys),
+                          reps=3, calls=1)
+    row = {"name": "int8_sr_quantize", "route": "cuda", "source": SR_SOURCE,
+           "replaces": SR_REPLACES, "max_abs_err": 0.0, "ms": ms,
+           "ms_one_call": ms_one,
+           "ms_cold_spin": cuda_ms_cold(kern, spin=True),
+           "plain_ms": plain_ms, "bound_ms": b_ms,
+           "pct_of_bound": 100.0 * b_ms / ms, "bound_by": b_by,
+           "library_ms": None, "library": LIBRARY_NONE, "K": k, "N": n,
+           "bytes": nbytes, "int32_ops": int_ops,
+           "int32_ops_per_element": SR_INT32_OPS,
+           "max_sm_clock_mhz": clock_mhz}
+    emit({"phase": "timing", **row})
+    return row
+
+
 def _image_task(cfg, num_classes, samples_per_class, test_per_class):
     data = build_federated_image_data(
         num_classes=num_classes, num_clients=30, alpha=0.2,
@@ -1000,6 +1178,8 @@ def _category(kernel: str) -> str:
     if any(tag in kernel for tag in ("dots_kernel", "fold_kernel",
                                      "epilogue_kernel")):
         return "feddpc kernels"
+    if "int8_sr_kernel" in kernel:
+        return "int8_sr kernel"
     if any(tag in kernel for tag in ("cudnn", "xmma", "fft", "grad",
                                      "pointwise_mult_and_sum_complex")):
         return "convolutions (cuDNN)"
@@ -1015,18 +1195,33 @@ def _annotate_codec(trainer):
     for meth in ("encode_cohort", "decode_cohort"):
         fn = getattr(codec, meth)
 
-        def wrapped(*args, _fn=fn, _name=f"codec.{meth}"):
+        def wrapped(*args, _fn=fn, _name=f"codec.{meth}", **kwargs):
             with torch.profiler.record_function(_name):
-                return _fn(*args)
+                return _fn(*args, **kwargs)
         setattr(codec, meth, wrapped)
 
 
+def _pad_profile():
+    """PROFILE_PAD spin kernels at a profile's start, finished before the
+    profiled work is launched."""
+    for _ in range(PROFILE_PAD):
+        torch.cuda._sleep(1)
+    torch.cuda.synchronize()
+
+
+def _pads_seen(events) -> int:
+    return sum(1 for e in events if e.device_type == DeviceType.CUDA
+               and PAD_KERNEL in e.key)
+
+
 def _kernel_time(events, category):
-    """Device kernels of a profile: (spans, busy µs — the union of their
-    intervals —, ms by kernel name, ms by ``category(name)``)."""
+    """Device kernels of a profile, the pad kernels left out: (spans, busy
+    µs — the union of their intervals —, ms by kernel name, ms by
+    ``category(name)``)."""
     spans = sorted((e.time_range.start, e.time_range.end, e.key)
                    for e in events if e.device_type == DeviceType.CUDA
-                   and not e.key.startswith("codec."))
+                   and not e.key.startswith("codec.")
+                   and PAD_KERNEL not in e.key)
     busy_us, end = 0.0, float("-inf")
     by_name, by_cat = {}, {}
     for lo, hi, name in spans:
@@ -1041,14 +1236,20 @@ def _kernel_time(events, category):
 def profile_round(trainer, t):
     """Run round t (and its eval) under torch.profiler: kernel time by
     name and by category, and the card's busy share of the window — the
-    union of the kernels' intervals over the window's wall time. With a
-    lossy codec the kernels launched inside its encode and decode are a
-    category of their own."""
+    union of the kernels' intervals over the window's wall time. The
+    previous round's eval lands before the window opens and this round's
+    inside it (async eval runs it on a worker thread), so the window holds
+    the round and its eval, as an inline eval's would. With a lossy codec
+    the kernels launched inside its encode and decode are a category of
+    their own."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    trainer.finalize()
     with torch.profiler.profile(activities=acts) as prof:
+        _pad_profile()
         tic = time.perf_counter()
         rec = trainer.run_round(t)
+        trainer.finalize()
         torch.cuda.synchronize()
         window_s = time.perf_counter() - tic
     events = prof.events()
@@ -1072,16 +1273,18 @@ def profile_round(trainer, t):
     if ranges:
         by_cat[CODEC_CATEGORY] = codec_ms
     top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:10]
-    emit({"phase": "profile", "round": t, "round_seconds": rec.seconds,
-          "window_seconds": window_s, "kernels": len(spans),
-          "kernel_sum_ms": sum(by_name.values()),
-          "device_busy_ms": busy_us / 1e3,
-          "device_idle_share": 1.0 - busy_us / 1e6 / window_s,
-          "by_category_ms": by_cat, "codec_kernels": codec_n,
-          "feddpc_kernels_ms": {k: v for k, v in by_name.items()
-                                if _category(k) == "feddpc kernels"},
-          "top_ms": [[name[:70], ms] for name, ms in top]})
-    return rec
+    line = {"phase": "profile", "round": t, "round_seconds": rec.seconds,
+            "window_seconds": window_s, "kernels": len(spans),
+            "pad_kernels_seen": _pads_seen(events),
+            "kernel_sum_ms": sum(by_name.values()),
+            "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": 1.0 - busy_us / 1e6 / window_s,
+            "by_category_ms": by_cat, "codec_kernels": codec_n,
+            "feddpc_kernels_ms": {k: v for k, v in by_name.items()
+                                  if _category(k) == "feddpc kernels"},
+            "top_ms": [[name[:70], ms] for name, ms in top]}
+    emit(line)
+    return rec, line
 
 
 # the chaos runs: the update guard, a round deadline of 2.0 virtual
@@ -1103,15 +1306,27 @@ PLAN_SEED = 0
 # latencies?, rounds, kernels each round must launch once, fault plan)
 ASYNC = {"async_buffer": True, "buffer_size": 10, "async_concurrency": 2}
 ASYNC_INT8_EF = {**ASYNC, "codec": "int8", "codec_ef": True}
+SYNC_KERNELS = ("feddpc_dots", "feddpc_batched_epilogue")
 RUNS = (
-    ("feddpc", "feddpc", {}, False, 3,
-     ("feddpc_dots", "feddpc_batched_epilogue"), None),
+    # the three staging regimes of sync FedDPC: the ring with device
+    # staging (the defaults), host-staged, blocking staging
+    ("feddpc", "feddpc", {}, False, 4, SYNC_KERNELS, None),
+    ("feddpc_host_staged", "feddpc", {"device_stage": False}, False, 4,
+     SYNC_KERNELS, None),
+    ("feddpc_blocking", "feddpc", {"prefetch": False}, False, 4,
+     SYNC_KERNELS, None),
     ("fedavg", "fedavg", {}, False, 3, (), None),
     ("feddpc_int8", "feddpc", {"codec": "int8"}, False, 4,
      ("feddpc_dots", "feddpc_dequant_batched_epilogue"), None),
     ("feddpc_async", "feddpc", ASYNC, True, 4,
      ("feddpc_dots", "feddpc_buffer_fold"), None),
     ("feddpc_async_int8_ef", "feddpc", ASYNC_INT8_EF, True, 4,
+     ("feddpc_dots", "feddpc_dequant_buffer_fold"), None),
+    # int8_sr: one int8_sr_quantize a round (a wave, async) besides
+    ("feddpc_int8_sr", "feddpc", {"codec": "int8_sr"}, False, 4,
+     ("feddpc_dots", "feddpc_dequant_batched_epilogue"), None),
+    ("feddpc_async_int8_sr_ef", "feddpc",
+     {**ASYNC, "codec": "int8_sr", "codec_ef": True}, True, 4,
      ("feddpc_dots", "feddpc_dequant_buffer_fold"), None),
     ("feddpc_chaos", "feddpc", CHAOS, True, 4,
      ("feddpc_guard_dots", "feddpc_dots", "feddpc_batched_epilogue"),
@@ -1142,8 +1357,10 @@ RUNS = (
 # runs with another participation model than uniform
 SAMPLERS = {"fedvarp_markov": lambda: MarkovSampler(30, 10, p_on=0.5,
                                                     p_off=0.5)}
-PROFILED = ("feddpc", "fedavg", "feddpc_async_int8_ef", "feddpc_chaos",
+PROFILED = ("feddpc", "feddpc_host_staged", "feddpc_blocking", "fedavg",
+            "feddpc_async_int8_ef", "feddpc_int8_sr", "feddpc_chaos",
             "fedvarp")
+STAGING = ("feddpc", "feddpc_host_staged", "feddpc_blocking")
 
 
 def _expected_sync_quarantine(rounds, deadline, plan):
@@ -1179,8 +1396,9 @@ def _record_fold_targets(trainer):
 def phase_trainer():
     cfg = paper_resnet18.CONFIG
     data, source, loss_fn = _image_task(cfg, 100, 50, 10)
-    params = init_vision(cfg, torch.Generator().manual_seed(0))
-    launches = {fn.__name__: 0 for fn in ops.KERNELS}
+    params = _init(cfg)
+    launches = {fn.__name__: 0 for fn in ops.KERNELS + sr_ops.KERNELS}
+    staging = {}
     for label, name, exec_kw, exp, rounds, want, plan_kw in RUNS:
         plan = (None if plan_kw is None
                 else FaultPlan.seeded(PLAN_SEED, **plan_kw))
@@ -1202,15 +1420,30 @@ def phase_trainer():
         elif plan is not None:
             expect_q = _record_fold_targets(trainer)
         torch.cuda.reset_peak_memory_stats()
+        stochastic = exec_kw.get("codec") == "int8_sr"
+        profile = None
         ops.reset_launches()               # this path starts here
+        sr_ops.reset_launches()
         for t in range(rounds):
             before = [fn.launches for fn in ops.KERNELS]
-            rec = (profile_round(trainer, t)
-                   if label in PROFILED and t == rounds - 1
-                   else trainer.run_round(t))
+            sr_before = sr_ops.int8_sr_quantize.launches
+            wave = (trainer._engine.wave_frontier
+                    if trainer._engine is not None else t)
+            if label in PROFILED and t == rounds - 1:
+                rec, profile = profile_round(trainer, t)
+            else:
+                rec = trainer.run_round(t)
             added = {fn.__name__: fn.launches - b
                      for fn, b in zip(ops.KERNELS, before)}
             expect = {k: int(k in want) for k in added}
+            # int8_sr encodes once a round, or once a wave dispatched
+            waves = (trainer._engine.wave_frontier - wave
+                     if trainer._engine is not None else 1)
+            sr_added = sr_ops.int8_sr_quantize.launches - sr_before
+            if sr_added != (waves if stochastic else 0):
+                raise AssertionError(f"{label} round {t}: int8_sr_quantize "
+                                     f"launched {sr_added} times for "
+                                     f"{waves} encodes")
             if added != expect:
                 raise AssertionError(f"{label} round {t}: kernel launches "
                                      f"{added}, expected {expect}")
@@ -1232,9 +1465,11 @@ def phase_trainer():
                   "deadline_dropped": rec.deadline_dropped,
                   "test_accuracy": rec.test_accuracy,
                   "diagnostics": rec.diagnostics})
-        run_launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
+        run_launches = {fn.__name__: fn.launches
+                        for fn in ops.KERNELS + sr_ops.KERNELS}
         for k, v in run_launches.items():
             launches[k] += v
+        trainer.close()               # the eval lands; the threads end
         hist = trainer.history
         if (trainer._engine is not None
                 and not max(r.staleness_max for r in hist) > 0):
@@ -1269,13 +1504,30 @@ def phase_trainer():
               "quarantined": [r.quarantined for r in hist],
               "clipped": [r.clipped for r in hist],
               "deadline_dropped": [r.deadline_dropped for r in hist],
+              "test_accuracy": [r.test_accuracy for r in hist],
+              "ingest_host_seconds": [r.ingest_host_seconds for r in hist],
+              "ingest_device_seconds": [r.ingest_device_seconds
+                                        for r in hist],
               "peak_memory_gib":
                   torch.cuda.max_memory_allocated() / 2 ** 30})
+        if label in STAGING:
+            staging[label] = {
+                "regime": {k: getattr(trainer.cfg, k) for k in
+                           ("prefetch", "prefetch_depth", "device_stage",
+                            "async_eval")},
+                "median_seconds_after_0":
+                    statistics.median(r.seconds for r in hist[1:]),
+                "ingest_host_seconds_median": statistics.median(
+                    r.ingest_host_seconds for r in hist[1:]),
+                "ingest_device_seconds_median": statistics.median(
+                    r.ingest_device_seconds for r in hist[1:]),
+                "profiled_idle_share": profile["device_idle_share"]}
         del trainer, table
         # the trainer sits in reference cycles (its stager holds a bound
         # method): free it, and FedVARP's table, before the next run's
         # peak memory is read
         gc.collect()
+    emit({"phase": "staging", "model": cfg.name, "runs": staging})
     emit({"phase": "trainer", "launches": launches})
     return launches
 
@@ -1283,9 +1535,13 @@ def phase_trainer():
 def phase_parity():
     cfg = paper_lenet5.CONFIG
     data, source, loss_fn = _image_task(cfg, 10, 100, 20)
-    params = init_vision(cfg, torch.Generator().manual_seed(0))
+    params = _init(cfg)
     for label, name, exec_kw, exp, rounds, plan_kw in (
+            # the prefetched, device-staged defaults
             ("feddpc", "feddpc", {}, False, 2, None),
+            # the int8_sr kernel's codes against its plain version's
+            ("feddpc_int8_sr", "feddpc", {"codec": "int8_sr"}, False, 3,
+             None),
             ("feddpc_async_int8_ef", "feddpc", ASYNC_INT8_EF, True, 3,
              None),
             ("feddpc_chaos", "feddpc", CHAOS, True, 3, SYNC_PLAN),
@@ -1305,8 +1561,9 @@ def phase_parity():
                 None if plan_kw is None
                 else FaultPlan.seeded(PLAN_SEED, **plan_kw))
             table = trainer.server_state.get("y")
-            runs[device] = (trainer.run(), trainer.flat.cpu(),
-                            None if table is None else table.cpu())
+            with trainer:
+                runs[device] = (trainer.run(), trainer.flat.cpu(),
+                                None if table is None else table.cpu())
         (h_gpu, w_gpu, y_gpu), (h_cpu, w_cpu, y_cpu) = (runs["cuda"],
                                                         runs["cpu"])
         diffs = [abs(a.train_loss - b.train_loss)
@@ -1338,6 +1595,142 @@ def phase_parity():
                 r.deadline_dropped for r in h_gpu) > 0:
             raise AssertionError(f"{label}: the deadline dropped no client")
     _parity_checkpoint((cfg, data, source, loss_fn, params))
+    _parity_cli()
+
+
+# the reference CLI's losses and accuracies at the README's LeNet5
+# arguments (python -m repro.launch.train, the same flags)
+CLI_ARGS = ["--model", "lenet5", "--rounds", "2", "--clients", "6",
+            "--participation", "0.5", "--samples-per-class", "20",
+            "--batch-size", "16", "--eval-every", "1"]
+CLI_REFERENCE = {"train_loss": [2.2307, 1.9362],
+                 "test_accuracy": [0.390, 0.301]}
+
+
+def _parity_cli():
+    """The training CLI on the card and on the CPU: the CPU repeats the
+    reference CLI's printed numbers, the card's losses are within
+    PARITY_ATOL of the CPU's."""
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
+        for device in ("cuda", "cpu"):
+            path = os.path.join(root, f"{device}.json")
+            if train_cli.main(CLI_ARGS + ["--device", device, "--out",
+                                          path]) != 0:
+                raise AssertionError(f"train CLI on {device} failed")
+            with open(path) as fh:
+                out[device] = json.load(fh)
+    got = {device: {k: [r[k] for r in hist] for k in CLI_REFERENCE}
+           for device, hist in out.items()}
+    diff = max(abs(a - b) for a, b in zip(got["cuda"]["train_loss"],
+                                          got["cpu"]["train_loss"]))
+    emit({"phase": "parity", "run": "train_cli", "args": CLI_ARGS,
+          "reference_cli": CLI_REFERENCE, **{d: v for d, v in got.items()},
+          "max_loss_diff": diff})
+    cpu = {k: [round(v, 4 if k == "train_loss" else 3) for v in vals]
+           for k, vals in got["cpu"].items()}
+    if cpu != CLI_REFERENCE:
+        raise AssertionError(f"train CLI on the CPU printed {cpu}, the "
+                             f"reference CLI {CLI_REFERENCE}")
+    if not diff <= PARITY_ATOL:
+        raise AssertionError(f"train CLI card vs CPU losses differ by "
+                             f"{diff} > {PARITY_ATOL}")
+
+
+# ---- the ingest phase: a real-dataset reader, the producer's supervision
+
+# the committed CIFAR-100 fixture (read only)
+FIXTURE_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "fixtures", "data")
+# an ingest_crash run's losses against the uninterrupted run's, both on
+# cuDNN's deterministic algorithms (on the default ones identical card runs
+# drift apart: 1.2-2.0e-5 relative at round 2 in PR 20, 4.6e-5 here once)
+INGEST_LOSS_RTOL = 1e-4
+CRASH_PLAN = {"ingest_crash_rounds": (1,)}
+
+
+def _ingest_cifar100(cfg):
+    """ResNet18-GN on CIFAR100Source over the committed fixture, crop and
+    flip on the staging thread: two sync FedDPC rounds of all 10 clients,
+    one dots and one epilogue a round, accuracies on its test split."""
+    source = CIFAR100Source(FIXTURE_ROOT, num_clients=10, alpha=0.5,
+                            batch_size=8, augment=True, seed=0)
+    te_x, te_y = (torch.from_numpy(a).cuda() for a in source.test_arrays())
+    with FederatedTrainer(
+            functools.partial(vision_loss_fn, cfg), _init(cfg), 10, source,
+            ExecConfig(rounds=2, clients_per_round=10, seed=0,
+                       eval_every=1),
+            lambda p: vision_accuracy(cfg, p, te_x, te_y),
+            algo=AlgoConfig(name="feddpc", eta_l=0.02, eta_g=0.02,
+                            hyper=FedDPCHyper(lam=1.0)),
+            device="cuda") as tr:
+        ops.reset_launches()               # this path starts here
+        hist = tr.run()
+        launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
+        m = tr._max_batches
+    want = {k: 2 * int(k in SYNC_KERNELS) for k in launches}
+    emit({"phase": "ingest", "case": "cifar100_fixture", "model": cfg.name,
+          "train_images": int(sum(source.client_weights())), "M": m,
+          "loss": [r.train_loss for r in hist],
+          "test_accuracy": [r.test_accuracy for r in hist],
+          "ingest_host_seconds": [r.ingest_host_seconds for r in hist],
+          "launches": launches})
+    if (launches != want or len(hist) != 2
+            or not all(math.isfinite(r.train_loss) for r in hist)
+            or any(r.test_accuracy is None for r in hist)):
+        raise AssertionError(f"cifar100 fixture run: launches {launches}, "
+                             f"history {hist}")
+
+
+def phase_ingest():
+    cfg = paper_resnet18.CONFIG
+    tic = time.perf_counter()
+    _ingest_cifar100(cfg)
+    data, source, loss_fn = _image_task(cfg, 100, 50, 10)
+    plan = FaultPlan.seeded(PLAN_SEED, **CRASH_PLAN)
+    mk = functools.partial(_trainer, cfg, data, source, loss_fn, _init(cfg),
+                           "feddpc", 3, "cuda")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with mk() as tr:
+            plain = tr.run()
+        ops.reset_launches()               # this path starts here
+        with mk({"ingest_max_restarts": 1, "ingest_restart_backoff_s": 0.01},
+                fault_plan=plan) as tr:
+            hist = tr.run()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
+    restarts = [r.ingest_restarts for r in hist]
+    rel = max(abs(a.train_loss - b.train_loss) / abs(b.train_loss)
+              for a, b in zip(hist, plain))
+    emit({"phase": "ingest", "case": "ingest_crash_restart",
+          "ingest_restarts": restarts, "loss": [r.train_loss for r in hist],
+          "loss_uninterrupted": [r.train_loss for r in plain],
+          "max_rel_loss_diff": rel, "launches": launches})
+    if (restarts != [0, 1, 0] or not rel <= INGEST_LOSS_RTOL
+            or launches != {k: 3 * int(k in SYNC_KERNELS)
+                            for k in launches}):
+        raise AssertionError(f"ingest_crash run: restarts {restarts}, "
+                             f"rel loss diff {rel}, launches {launches}")
+    raised = None
+    with mk({"ingest_restart_backoff_s": 0.01}, fault_plan=plan) as tr:
+        try:
+            tr.run()
+        except RuntimeError as e:
+            raised = str(e)
+        rounds_run = len(tr.history)
+    emit({"phase": "ingest", "case": "ingest_crash_no_budget",
+          "rounds_run": rounds_run,
+          "raised": None if raised is None else raised.splitlines()[0],
+          "names_the_crash": raised is not None
+          and "injected ingest producer crash at round 1" in raised})
+    if (raised is None or rounds_run != 1
+            or "injected ingest producer crash at round 1" not in raised):
+        raise AssertionError("ingest_max_restarts=0 did not raise on the "
+                             f"injected crash (rounds run {rounds_run})")
+    emit({"phase": "ingest", "seconds": time.perf_counter() - tic})
 
 
 # ---- the checkpoint phase: save, resume, the fallback, the health stop.
@@ -1431,8 +1824,8 @@ def _ckpt_sync(task, root):
     want = ("feddpc_dots", "feddpc_batched_epilogue")
     fulls = []
     for _ in range(2):
-        tr = mk()
-        tr.run()
+        with mk() as tr:
+            tr.run()
         fulls.append((tr.history, tr.flat.clone()))
         del tr
     d = os.path.join(root, "sync")
@@ -1441,6 +1834,7 @@ def _ckpt_sync(task, root):
         part.run_round(t)
     snap = _snapshot(part)
     _, save_s = _timed(lambda: part.save(d))
+    part.close()
     del part
     res = mk()
     _, restore_s = _timed(lambda: res.restore(d))
@@ -1450,6 +1844,7 @@ def _ckpt_sync(task, root):
     recs = _resumed_rounds("sync feddpc", res, [2], want)
     res.save(d)                                   # step 3, for (d)
     recs += _resumed_rounds("sync feddpc", res, [3], want)
+    res.close()
     (h0, w0), (h1, w1) = fulls
     repeat = float((w0 - w1).abs().max())
     resumed = float((res.flat - w0).abs().max())
@@ -1484,10 +1879,13 @@ def _ckpt_fedvarp(task, root):
     for t in range(2):
         part.run_round(t)
     snap = _snapshot(part)
-    chain = part.sampler.state_dict()
+    # the chain as of the saved frontier (the staging ring has sampled
+    # rounds past it)
+    chain = part.state().sampler_state
     rss = {"before_save": _rss_gib()}
     _, save_s = _timed(lambda: part.save(d))
     rss["after_save"] = _rss_gib()
+    part.close()
     del part
     gc.collect()
     torch.cuda.empty_cache()
@@ -1498,6 +1896,7 @@ def _ckpt_fedvarp(task, root):
     if res.sampler.state_dict() != chain:
         raise AssertionError("fedvarp: the Markov chain was not restored")
     recs = _resumed_rounds("fedvarp", res, [2], ())
+    res.close()
     table = res.server_state["y"]
     emit({"phase": "checkpoint", "case": "fedvarp_markov_fedadam",
           "table_bytes": table.numel() * table.element_size(),
@@ -1517,8 +1916,8 @@ def _ckpt_async(task, root, label, exec_kw, rounds, cut, want, plan_kw):
             else FaultPlan.seeded(PLAN_SEED, **plan_kw))
     mk = functools.partial(_trainer, *task, "feddpc", rounds, "cuda",
                            {**NO_EVAL, **exec_kw}, fault_plan=plan)
-    full = mk(runtime=ExponentialRuntime(mean=1.0))
-    full.run()
+    with mk(runtime=ExponentialRuntime(mean=1.0)) as full:
+        full.run()
     d = os.path.join(root, label)
     part = mk(runtime=ExponentialRuntime(mean=1.0))
     for t in range(cut):
@@ -1531,6 +1930,7 @@ def _ckpt_async(task, root, label, exec_kw, rounds, cut, want, plan_kw):
     clock = (part._engine.clock, part._engine.seq,
              part._engine.wave_frontier)
     _, save_s = _timed(lambda: part.save(d))
+    part.close()
     del part
     res = mk(runtime=ExponentialRuntime(mean=1.0))
     _, restore_s = _timed(lambda: res.restore(d))
@@ -1547,6 +1947,7 @@ def _ckpt_async(task, root, label, exec_kw, rounds, cut, want, plan_kw):
         raise AssertionError(f"{label}: the guard window was not restored")
     targets = _record_fold_targets(res) if plan is not None else None
     recs = _resumed_rounds(label, res, range(cut, rounds), want)
+    res.close()
     if targets is not None:
         got_q = [r.quarantined for r in recs]
         if got_q != targets or not sum(got_q):
@@ -1584,6 +1985,7 @@ def _ckpt_corrupt(task, root, sync_dir, snap_flat, reference):
                                  f"{res.start_round}, warnings {skipped}")
         recs = _resumed_rounds(f"corrupt {mode}", res, [2],
                                ("feddpc_dots", "feddpc_batched_epilogue"))
+        res.close()
         emit({"phase": "checkpoint", "case": f"corrupt_{mode}",
               "fell_back_to": res.start_round, "warning": skipped[0][:120],
               "loss_resumed": recs[0].train_loss})
@@ -1622,7 +2024,7 @@ def phase_checkpoint():
     cfg = paper_resnet18.CONFIG
     data, source, loss_fn = _image_task(cfg, 100, 50, 10)
     task = (cfg, data, source, loss_fn,
-            init_vision(cfg, torch.Generator().manual_seed(0)))
+            _init(cfg))
     tic = time.perf_counter()
     ops.reset_launches()               # this phase's paths start here
     # cuDNN's default convolution algorithms do not promise to repeat bit
@@ -1657,8 +2059,8 @@ def _parity_checkpoint(task):
     written on the CPU resumes on the card; each resumed run continues
     within PARITY_ATOL of the CPU's uninterrupted run."""
     mk = functools.partial(_trainer, *task, "feddpc", 4)
-    cpu_full = mk("cpu")
-    cpu_full.run()
+    with mk("cpu") as cpu_full:
+        cpu_full.run()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_parity_") as root:
         for src, dst in (("cuda", "cpu"), ("cpu", "cuda")):
             d = os.path.join(root, src)
@@ -1666,12 +2068,14 @@ def _parity_checkpoint(task):
             for t in range(2):
                 part.run_round(t)
             part.save(d)
+            part.close()
             res = mk(dst, resume_from=d)
             if (res.flat.device.type != dst
                     or not torch.equal(res.flat.cpu(), part.flat.cpu())):
                 raise AssertionError(f"parity checkpoint {src} -> {dst}: "
                                      "params not restored bit for bit")
-            hist = res.run()
+            with res:
+                hist = res.run()
             diffs = [abs(a.train_loss - b.train_loss)
                      for a, b in zip(hist, cpu_full.history)]
             emit({"phase": "parity", "run": f"checkpoint_{src}_to_{dst}",
@@ -2019,6 +2423,7 @@ def _profile_step(cfg, params, tok, pos, states):
     launched = fa_ops.flash_attention.launches
     with torch.inference_mode(), torch.profiler.profile(
             activities=acts) as prof:
+        _pad_profile()
         tic = time.perf_counter()
         logits, states, _ = tf.lm_forward(cfg, params, tok, positions=pos,
                                           states=states,
@@ -2074,6 +2479,7 @@ def profile_serve(cfg, params, prompts, kernel: str):
                 raise AssertionError(f"serve profile {step}: mixer ops "
                                      f"{ops}, expected {want_mixer}")
             reads.append({"kernels": len(spans),
+                          "pad_kernels_seen": _pads_seen(prof.events()),
                           "flash_attention_kernels": flash,
                           **{f"{key}_kernels": n
                              for key, n in mixer.items()}})
@@ -2230,12 +2636,15 @@ def main() -> int:
         return 1
     smi = phase_build()
     rows = phase_kernels() + phase_folds() + phase_guard_epilogue()
+    sr_row = phase_int8_sr()
     project_launches = phase_project_and_scale()
     launches = phase_trainer()
+    phase_ingest()
     phase_checkpoint()
     # the one-client epilogue's path is project_and_scale, not a round
     launches["feddpc_fused_epilogue"] = \
         project_launches["feddpc_fused_epilogue"]
+    rows.append(sr_row)
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["launches"] < 1:

@@ -17,12 +17,32 @@ the FedDPC dequant folds apply in their kernels
 Non-finite contract (as the reference's): a NaN/Inf delta still looks
 non-finite after decode, so quantizers keep non-finite scales; only
 exact-zero ranges flatten to a unit scale.
+
+A stochastic codec (int8_sr) takes the round's PRNG key
+(core/jax_prng.py) in ``encode_cohort(..., key=)``.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Sequence
 
+import numpy as np
 import torch
+
+from repro_torch.bridge import tree_leaves
+
+
+def tree_nbytes(tree) -> int:
+    """Wire bytes of a tree: ``numel * itemsize`` summed over its leaves
+    (torch tensors or numpy arrays)."""
+    total = 0
+    for leaf in tree_leaves(tree):
+        if isinstance(leaf, torch.Tensor):
+            total += leaf.numel() * leaf.element_size()
+        else:
+            leaf = np.asarray(leaf)
+            total += leaf.size * leaf.dtype.itemsize
+    return total
 
 
 def sanitized_residual(raw: torch.Tensor, dec: torch.Tensor
@@ -34,14 +54,29 @@ def sanitized_residual(raw: torch.Tensor, dec: torch.Tensor
     return torch.where(torch.isfinite(r), r, torch.zeros_like(r))
 
 
+@dataclasses.dataclass
+class EncodedCohort:
+    """A cohort's encoded uplink: the payload plus the codec name and
+    client count it was encoded under."""
+    codec: str
+    payload: Any
+    clients: int
+
+    @property
+    def nbytes(self) -> int:
+        return tree_nbytes(self.payload)
+
+
 class DeltaCodec:
     """Base codec interface over the (K, N) client stack."""
 
     name: str = "abstract"
     lossy: bool = False
+    stochastic: bool = False
 
     def encode_cohort(self, stacked: torch.Tensor,
-                      leaf_offsets: torch.Tensor):
+                      leaf_offsets: torch.Tensor,
+                      key: Optional[np.ndarray] = None):
         raise NotImplementedError
 
     def decode_cohort(self, payload, leaf_offsets: torch.Tensor
@@ -59,13 +94,6 @@ class DeltaCodec:
 
 _REGISTRY: Dict[str, Callable[[], DeltaCodec]] = {}
 
-# registered in the reference, not ported yet: name -> why
-NOT_PORTED = {
-    "int8_sr": "int8_sr rounds stochastically with jax.random noise; its "
-               "port needs a seam that feeds the noise in and a test of "
-               "unbiasedness (ROADMAP Queue 1 item 9)",
-}
-
 
 def register_codec(name: str):
     """Decorator: ``@register_codec("mycodec")`` over a zero-arg factory
@@ -82,8 +110,6 @@ def make_codec(name: Optional[str]) -> Optional[DeltaCodec]:
     """Build a codec by registry name; None/"" -> None (codec off)."""
     if not name:
         return None
-    if name in NOT_PORTED:
-        raise NotImplementedError(NOT_PORTED[name])
     try:
         factory = _REGISTRY[name]
     except KeyError:

@@ -1,5 +1,5 @@
-"""The shipped codecs on the flat layout: identity, bf16, int8 and
-int8_sym (counterpart of repro/codec/codecs.py).
+"""The shipped codecs on the flat layout: identity, bf16, int8, int8_sym
+and int8_sr (counterpart of repro/codec/codecs.py).
 
 Each leaf segment of the (K, N) stack encodes with the reference's f32
 expressions in the reference's order (codecs.py ``_encode_leaf``):
@@ -11,15 +11,25 @@ per-leaf scalars repeated over their columns — the same operations on
 the same values, so the codes are the reference's. A NaN code (a leaf
 holding NaN or Inf) becomes 0 before the cast, as XLA converts NaN to an
 integer; torch's cast of NaN is undefined.
+
+int8_sr rounds with ``floor(y + u)`` instead, u the reference's uniform
+noise: the caller passes the round's PRNG key
+(``fold_in(PRNGKey(seed), round)``, core/jax_prng.py), leaf i draws from
+``fold_in(key, i)``, and the quantize step runs as one kernel over the
+whole stack on the card (``kernels/int8_sr``; its plain version on the
+CPU), so the codes are the reference's bit for bit.
 """
 from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.codec.base import DeltaCodec, register_codec
+from repro_torch.core import jax_prng
 from repro_torch.kernels.feddpc_project.ref import dequant_ref
+from repro_torch.kernels.int8_sr import ops as sr_ops
 
 
 @register_codec("identity")
@@ -30,7 +40,7 @@ class IdentityCodec(DeltaCodec):
     name = "identity"
     lossy = False
 
-    def encode_cohort(self, stacked, leaf_offsets):
+    def encode_cohort(self, stacked, leaf_offsets, key=None):
         return stacked
 
     def decode_cohort(self, payload, leaf_offsets):
@@ -62,7 +72,7 @@ class _QuantCodec(DeltaCodec):
     def _quantize(self, y):
         raise NotImplementedError
 
-    def encode_cohort(self, stacked, leaf_offsets):
+    def encode_cohort(self, stacked, leaf_offsets, key=None):
         x = stacked.float()
         n = x.shape[1]
         scale, zero = self._leaf_scalars(x, leaf_offsets)
@@ -87,7 +97,7 @@ class BF16Codec(_QuantCodec):
     lossy = True
     _itemsize = 2
 
-    def encode_cohort(self, stacked, leaf_offsets):
+    def encode_cohort(self, stacked, leaf_offsets, key=None):
         k, nleaves = stacked.shape[0], leaf_offsets.numel() - 1
         ones = torch.ones((k, nleaves), dtype=torch.float32,
                           device=stacked.device)
@@ -100,14 +110,22 @@ class Int8Codec(_QuantCodec):
     """int8 with per-leaf, per-client scales: affine by default
     (scale = (max - min) / 254, zero = min + 127 scale, codes in
     [-127, 127]); ``symmetric=True`` drops the zero-point
-    (scale = max|x| / 127, zero = 0)."""
+    (scale = max|x| / 127, zero = 0); ``stochastic=True`` (symmetric only)
+    rounds with floor(y + u), u ~ U[0, 1) from the caller's key —
+    unbiased."""
 
     lossy = True
     _itemsize = 1
 
-    def __init__(self, symmetric: bool = False):
+    def __init__(self, symmetric: bool = False, stochastic: bool = False):
+        if stochastic and not symmetric:
+            raise ValueError("stochastic rounding is the symmetric "
+                             "option (int8_sr); affine int8 rounds to "
+                             "nearest")
         self.symmetric = symmetric
-        self.name = "int8_sym" if symmetric else "int8"
+        self.stochastic = stochastic
+        self.name = ("int8_sr" if stochastic
+                     else "int8_sym" if symmetric else "int8")
 
     def _leaf_scalars(self, x, leaf_offsets):
         sizes = (leaf_offsets[1:] - leaf_offsets[:-1]).tolist()
@@ -132,12 +150,28 @@ class Int8Codec(_QuantCodec):
         return torch.where(torch.isnan(y), torch.zeros_like(y), y
                            ).to(torch.int8)
 
+    def encode_cohort(self, stacked, leaf_offsets, key=None):
+        if not self.stochastic:
+            return super().encode_cohort(stacked, leaf_offsets)
+        if key is None:
+            raise ValueError(f"codec {self.name!r} rounds stochastically "
+                             "and needs an explicit PRNG key per encode "
+                             "(pass key=)")
+        x = stacked.float()
+        scale, zero = self._leaf_scalars(x, leaf_offsets)
+        leaf_keys = jax_prng.fold_in_many(
+            key, np.arange(leaf_offsets.numel() - 1))
+        q = sr_ops.int8_sr_quantize(x.contiguous(), scale, leaf_offsets,
+                                    leaf_keys)
+        return {"q": q, "scale": scale, "zero": zero}
+
     def config_dict(self):
-        # the reference's echo, whose int8_sr sets stochastic (not
-        # ported): a checkpoint's codec echo compares equal across the
-        # two packages
+        # the reference's echo: a checkpoint's codec echo compares equal
+        # across the two packages
         return {"name": self.name, "symmetric": self.symmetric,
-                "stochastic": False}
+                "stochastic": self.stochastic}
 
 
 register_codec("int8_sym")(lambda: Int8Codec(symmetric=True))
+register_codec("int8_sr")(lambda: Int8Codec(symmetric=True,
+                                            stochastic=True))

@@ -55,17 +55,28 @@ intact one. ``ExecConfig.health`` feeds every RoundRecord to the
 run-health monitor (repro_torch/health), whose early stop ``run()``
 honors.
 
-Staging is blocking (ingest/pipeline.py): each round's cohort is
-sampled, read and stacked on the host, then copied to the device from
-pinned memory. The reference's prefetch ring, async eval and edges are
-not ported yet; nor are the fault kinds that need them.
+Staged ingest (ingest/pipeline.py), as the reference's defaults have
+it: ``ExecConfig.prefetch`` runs sampling, reads, stacking into a
+``prefetch_depth`` ring of pinned host buffers and (``device_stage``) the
+non-blocking copy to the card on a producer thread, while the current
+round trains; the round's stream waits only on the copy's event. The
+producer is supervised (``ingest_max_restarts``; the ``ingest_crash``
+fault kind injects its failures). ``async_eval`` runs ``eval_fn`` on a
+params snapshot in a worker thread on its own stream; the accuracy lands
+in its RoundRecord at the next eval boundary, ``finalize()`` or the end
+of ``run()``. The trainer is a context manager: ``close()`` releases the
+producer and the eval worker. Edges and the multi-process cohort are not
+ported yet (ROADMAP Queue 1 item 13), nor the fault kind that needs them.
 """
 from __future__ import annotations
 
 import json
+import threading
 import time
+import warnings
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import asdict, dataclass, field, fields
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -76,7 +87,8 @@ from repro_torch.codec import make_codec
 from repro_torch.core import client as client_mod
 from repro_torch.core.async_engine import BufferEntry, BufferedAsyncEngine
 from repro_torch.core.baselines import (ServerAlgo, client_kwargs,
-                                        make_algorithm)
+                                        default_hyper, make_algorithm)
+from repro_torch.core import jax_prng
 from repro_torch.core import projection as proj
 from repro_torch.core.guards import GuardConfig, UpdateGuard
 from repro_torch.core.round import (ID_SENTINEL, apply_fault_codes,
@@ -87,15 +99,14 @@ from repro_torch.core.samplers import (ClientSampler, UniformSampler,
                                        normalize_sampler_config)
 from repro_torch.health.monitor import (HealthConfig, HealthMonitor,
                                         JsonlHealthSink)
-from repro_torch.ingest.pipeline import CohortStager, to_device
+from repro_torch.ingest.pipeline import CohortIngestPipeline
+from repro_torch.ingest.placement import CohortPlacer
 from repro_torch.ingest.sources import DataSource, as_data_source
 from repro_torch.ingest.stack import stack_batches
 from repro_torch.optim.server import make_server_optimizer
 
 # fault kinds with no consumer in the port yet: kind -> what brings it
 UNCONSUMED_FAULTS = {
-    "ingest_crash": "the supervised staging prefetcher (ROADMAP Queue 1 "
-                    "item 11)",
     "edge_drop": "hierarchical edge folds (ROADMAP Queue 1 item 13)",
 }
 
@@ -125,6 +136,19 @@ class ExecConfig:
     seed: int = 0
     eval_every: int = 5
     vectorize: bool = True           # cohort-vectorized round (default)
+    # ---- staged ingest (ingest/pipeline.py) ----
+    prefetch: bool = True            # staging ring on a producer thread
+    # staging slots: the producer stages up to prefetch_depth rounds past
+    # the oldest round still in flight
+    prefetch_depth: int = 2
+    # issue the copy to the card on the producer thread (a side stream;
+    # the round's stream waits on its event); False copies on the
+    # consumer thread, measured as RoundRecord.ingest_device_seconds
+    device_stage: bool = True
+    # eval_fn on a params snapshot in a worker thread, overlapped with the
+    # next round: read the accuracy from history, not from the record
+    # run_round just returned; False evaluates inline
+    async_eval: bool = True
     # ---- buffered-async regime (core/async_engine.py) ----
     async_buffer: bool = False
     # arrivals per server step (B); None -> clients_per_round, which at
@@ -139,6 +163,13 @@ class ExecConfig:
     codec_ef: Optional[bool] = None
     # execution-level server-optimizer override: None defers to AlgoConfig
     server_opt: Optional[str] = None
+    # staging-ring stall deadline (seconds): a producer alive but stuck
+    # inside a source read raises instead of hanging; None waits forever
+    ingest_stall_s: Optional[float] = None
+    # supervised restarts of a failed staging producer over the run, with
+    # exponential backoff from ingest_restart_backoff_s; 0 fails fast
+    ingest_max_restarts: int = 0
+    ingest_restart_backoff_s: float = 0.05
     # ---- chaos hardening (core/guards.py, core/faults.py) ----
     # update guard: quarantine non-finite / exploded-norm client deltas,
     # clip outliers against the rolling median of accepted norms
@@ -164,6 +195,80 @@ class ExecConfig:
     # stream every verdict to a JSONL tracker file (JsonlHealthSink);
     # None = receipts only
     health_log: Optional[str] = None
+    # driver hints, read by source constructors, never by the trainer:
+    # the decode pool of path-indexed datasets (0 = serial), batch size
+    # and local epochs
+    decode_workers: int = 0
+    batch_size: int = 256
+    local_epochs: int = 1
+
+
+@dataclass
+class FLConfig:
+    """DEPRECATED flat config (the reference's pre-registry surface).
+    Passing it to ``FederatedTrainer`` warns and splits into (AlgoConfig,
+    ExecConfig) with round-for-round identical results. ``use_kernel`` and
+    ``shard_clients`` are kept for the surface: the port's device picks
+    the server step's route, and sharding waits for item 13."""
+    algorithm: str = "feddpc"
+    rounds: int = 50
+    clients_per_round: int = 10
+    eta_l: float = 0.1
+    eta_g: float = 1.0
+    lam: float = 1.0                 # FedDPC adaptive-scaling hyper-param
+    mu: float = 0.01                 # FedProx
+    cm_alpha: float = 0.1            # FedCM
+    ga_beta: float = 0.1             # FedGA
+    batch_size: int = 256
+    local_epochs: int = 1
+    local_optimizer: str = "sgd"
+    seed: int = 0
+    eval_every: int = 5
+    use_kernel: bool = False
+    vectorize: bool = True
+    shard_clients: bool = False
+    prefetch: bool = True
+    async_eval: bool = True
+
+    def split(self) -> Tuple[AlgoConfig, ExecConfig]:
+        """The flat knobs on the composable configs; the per-algorithm
+        hypers pick up whichever flat field used to feed them."""
+        if self.shard_clients:
+            raise ValueError("shard_clients needs multi-device execution "
+                             "(ROADMAP Queue 1 item 13)")
+        hyper = default_hyper(self.algorithm, lam=self.lam, mu=self.mu,
+                              cm_alpha=self.cm_alpha, ga_beta=self.ga_beta)
+        algo = AlgoConfig(name=self.algorithm, eta_l=self.eta_l,
+                          eta_g=self.eta_g,
+                          local_optimizer=self.local_optimizer, hyper=hyper)
+        exe = ExecConfig(rounds=self.rounds,
+                         clients_per_round=self.clients_per_round,
+                         seed=self.seed, eval_every=self.eval_every,
+                         vectorize=self.vectorize, prefetch=self.prefetch,
+                         async_eval=self.async_eval,
+                         batch_size=self.batch_size,
+                         local_epochs=self.local_epochs)
+        return algo, exe
+
+
+def _coerce_cfg(cfg, algo) -> Tuple[AlgoConfig, ExecConfig]:
+    """The (cfg, algo) pair ``__init__`` and ``resume()`` accept: a
+    deprecated FLConfig warns (attributed to the end caller) and splits;
+    an ExecConfig pairs with ``algo`` or the defaults."""
+    if isinstance(cfg, FLConfig):
+        if algo is not None:
+            raise ValueError("pass either a flat FLConfig or "
+                             "algo=AlgoConfig(...), not both")
+        warnings.warn(
+            "FLConfig is deprecated: pass ExecConfig(...) plus "
+            "algo=AlgoConfig(name=..., hyper=...)", DeprecationWarning,
+            stacklevel=3)
+        return cfg.split()
+    if cfg is None or isinstance(cfg, ExecConfig):
+        return (algo if algo is not None else AlgoConfig(),
+                cfg if cfg is not None else ExecConfig())
+    raise TypeError(f"cfg must be ExecConfig or FLConfig, got "
+                    f"{type(cfg).__name__}")
 
 
 @dataclass
@@ -172,6 +277,14 @@ class RoundRecord:
     train_loss: float
     test_accuracy: Optional[float] = None
     seconds: float = 0.0
+    # time this round spent blocked on cohort ingest: host + device
+    ingest_seconds: float = 0.0
+    # blocked on host staging (sample, read, stack; with prefetch on, the
+    # wait for the staged round)
+    ingest_host_seconds: float = 0.0
+    # blocked on the copy to the device at dispatch (host-staged and
+    # blocking placement); 0 when the producer thread issues it
+    ingest_device_seconds: float = 0.0
     diagnostics: Dict[str, float] = field(default_factory=dict)
     # staleness of the arrivals this server step folded (buffered-async
     # only; 0.0 in synchronous rounds)
@@ -184,6 +297,7 @@ class RoundRecord:
     clipped: int = 0               # deltas norm-clipped by the guard
     deadline_fired: int = 0        # 1 if the round hit round_deadline
     deadline_dropped: int = 0      # clients dropped by the deadline
+    ingest_restarts: int = 0       # staging-producer restarts this round
 
 
 @dataclass
@@ -212,10 +326,6 @@ class TrainerState:
     opt_state: Optional[Any] = None
 
 
-# rounds of sampling-time captures kept behind the newest sampled round:
-# the reference keeps its prefetch depth + 2; blocking staging samples
-# nothing ahead, so depth 0
-_CAPTURE_SLACK = 2
 # hyper fields of the reference that pick the kernel route, which the
 # port's device decides: written as the reference's default, not compared
 _ROUTE_FIELDS = {"FedDPCHyper": {"use_kernel": False}}
@@ -244,7 +354,9 @@ class FederatedTrainer:
     """loss_fn(params_tree, batch) -> scalar; eval_fn(params_tree) ->
     accuracy. ``params`` is a parameter tree (numpy or torch leaves),
     copied into the trainer's flat buffer. ``data`` is a DataSource or a
-    ``batch_fn(client, round) -> list`` callable. ``runtime`` is the
+    ``batch_fn(client, round) -> list`` callable. ``cfg`` is an ExecConfig
+    (pair it with ``algo=AlgoConfig(...)``) or a deprecated flat
+    FLConfig. ``runtime`` is the
     client runtime model of the async regime or a round deadline
     (DeterministicRuntime by default); ``fault_plan`` a
     core/faults.FaultPlan; ``health_sink`` a tracker with the wandb-style
@@ -252,14 +364,12 @@ class FederatedTrainer:
     ``device=None`` means "cuda" and raises when CUDA is absent."""
 
     def __init__(self, loss_fn: Callable, params, num_clients: int, data,
-                 cfg: Optional[ExecConfig] = None,
-                 eval_fn: Optional[Callable] = None, *,
+                 cfg=None, eval_fn: Optional[Callable] = None, *,
                  algo: Optional[AlgoConfig] = None,
                  sampler: Optional[ClientSampler] = None,
                  runtime: Optional[ClientRuntimeModel] = None,
                  fault_plan=None, health_sink=None, device=None):
-        self.cfg = cfg if cfg is not None else ExecConfig()
-        self.algo_cfg = algo if algo is not None else AlgoConfig()
+        self.algo_cfg, self.cfg = _coerce_cfg(cfg, algo)
         deadline = self.cfg.round_deadline
         if (runtime is not None and not self.cfg.async_buffer
                 and deadline is None):
@@ -292,6 +402,10 @@ class FederatedTrainer:
                 f"codec={codec_name!r} has no quantization residual to "
                 "feed back")
         self._codec_lossy = lossy
+        # int8_sr's noise: the round's key is fold_in(key, round) (the
+        # async wave frontier for a wave), as the reference draws it
+        self._codec_key = (jax_prng.PRNGKey(self.cfg.seed)
+                           if lossy and self._codec.stochastic else None)
         self.device = resolve_device(device)
         # The reference computes in full f32. cuDNN's TF32 default for
         # convolutions would put the card's losses about three digits
@@ -373,8 +487,19 @@ class FederatedTrainer:
         self.rng = np.random.RandomState(self.cfg.seed)
         self.history: List[RoundRecord] = []
         self.schedule: List[np.ndarray] = []     # sampled cohort per round
-        self._stager = CohortStager(self.source, self._sample_clients,
-                                    self.device)
+        # the staged ingest path; the async engine dispatches a dynamic
+        # number of waves, so its horizon is open (the ring backpressures
+        # on its depth)
+        self._pipeline = CohortIngestPipeline(
+            self.source, self._sample_clients, num_clients=num_clients,
+            rounds=None if self.cfg.async_buffer else self.cfg.rounds,
+            placer=CohortPlacer(self.device), depth=self.cfg.prefetch_depth,
+            device_stage=self.cfg.device_stage,
+            stall_timeout=self.cfg.ingest_stall_s,
+            max_restarts=self.cfg.ingest_max_restarts,
+            restart_backoff=self.cfg.ingest_restart_backoff_s,
+            crash_hook=(fault_plan.ingest_crash
+                        if fault_plan is not None else None))
         # a round deadline without async_buffer needs latencies too: the
         # runtime model decides who times out
         self._runtime = None
@@ -386,15 +511,23 @@ class FederatedTrainer:
         if self.cfg.async_buffer:
             self._engine = self._build_async_engine(loss_fn)
         self._start_round = 0                    # advanced by restore()
-        # sampling-time snapshots for save(): async waves are sampled
-        # ahead of the server rounds, so each round's pre-draw state is
-        # captured when it is sampled (see state())
+        # sampling-time snapshots for save(): the producer thread samples
+        # rounds (and async waves) ahead of the consumed ones, so each
+        # round's pre-draw state is captured when it is sampled, under
+        # this lock (see state())
+        self._sample_lock = threading.Lock()
         self._round_caps: Dict[int, dict] = {}
+        # async eval: one worker thread (and, on the card, its stream);
+        # (RoundRecord, Future) of the eval in flight
+        self._async_eval = eval_fn is not None and self.cfg.async_eval
+        self._eval_pool: Optional[ThreadPoolExecutor] = None
+        self._eval_stream = None
+        self._pending_eval = None
 
     @property
     def _max_batches(self) -> Optional[int]:
-        """The grow-once M bucket, owned by the stager."""
-        return self._stager.max_batches
+        """The grow-once M bucket, owned by the ingest pipeline."""
+        return self._pipeline.max_batches
 
     @property
     def params(self):
@@ -432,7 +565,10 @@ class FederatedTrainer:
                 return deltas, losses
             # entries carry the wire payload; EF advances here, in
             # dispatch order, over the whole wave, as in the reference
-            _, payload, resid = codec_stage(codec, deltas, self._ef, offsets)
+            key = (None if self._codec_key is None else jax_prng.fold_in(
+                self._codec_key, self._engine.wave_frontier))
+            _, payload, resid = codec_stage(codec, deltas, self._ef, offsets,
+                                            key)
             if resid is not None:
                 self._ef = proj.masked_client_mean(resid)
             return payload, losses
@@ -484,8 +620,8 @@ class FederatedTrainer:
                 return tuple(out)
 
         return BufferedAsyncEngine(
-            pipeline=self._stager, wave_update=wave_update, fold=fold,
-            runtime_take=self._wave_runtime.pop,
+            pipeline=self._pipeline, wave_update=wave_update, fold=fold,
+            runtime_take=self._runtime_take, prefetch=self.cfg.prefetch,
             buffer_size=(self.cfg.buffer_size
                          or self.cfg.clients_per_round),
             alpha=self.cfg.staleness_alpha,
@@ -502,40 +638,51 @@ class FederatedTrainer:
                 **({"runtime": self._runtime.state_dict()}
                    if self._runtime is not None else {})}
 
+    def _runtime_take(self, wave: int):
+        """The (latencies, dropped) pair drawn for this wave at sampling
+        time (on the producer thread, under the sampling lock)."""
+        with self._sample_lock:
+            return self._wave_runtime.pop(wave)
+
     def _sample_clients(self, t: int) -> np.ndarray:
-        self._round_caps[t] = self._capture()
-        for old in [r for r in self._round_caps if r < t - _CAPTURE_SLACK]:
-            del self._round_caps[old]
-        clients = np.asarray(self.sampler.sample(self.rng, t))
-        k = self.cfg.clients_per_round
-        if clients.shape != (k,):
-            raise ValueError(
-                f"sampler returned shape {clients.shape}; the cohort "
-                f"round needs exactly clients_per_round={k} ids")
-        if clients.min() < 0 or clients.max() >= self.num_clients:
-            raise ValueError(f"sampler returned out-of-range ids "
-                             f"(num_clients={self.num_clients})")
-        if len(np.unique(clients)) != k:
-            raise ValueError(f"sampler returned duplicate client ids: "
-                             f"{clients.tolist()}")
-        self.schedule.append(clients)
-        if self._runtime is not None:
-            # the runtime draws right after the sampler's, wave by wave:
-            # the reference's RNG stream, draw for draw
-            lat, dropped = self._runtime.draw(self.rng, t, clients)
-            lat = np.asarray(lat, np.float64)
-            if self.fault_plan is not None:
-                # hangs: stateless, added after the draw, so the RNG
-                # stream is the no-faults stream
-                lat = lat + self.fault_plan.latency_boost(t, clients)
-            self._wave_runtime[t] = (lat, np.asarray(dropped, bool))
-        return clients
+        with self._sample_lock:
+            self._round_caps[t] = self._capture()
+            # keep the captures of the staging look-ahead: the producer
+            # samples up to prefetch_depth rounds past the consumed frontier,
+            # and state() needs the next unconsumed round's
+            horizon = t - (self.cfg.prefetch_depth + 2)
+            for old in [r for r in self._round_caps if r < horizon]:
+                del self._round_caps[old]
+            clients = np.asarray(self.sampler.sample(self.rng, t))
+            k = self.cfg.clients_per_round
+            if clients.shape != (k,):
+                raise ValueError(
+                    f"sampler returned shape {clients.shape}; the cohort "
+                    f"round needs exactly clients_per_round={k} ids")
+            if clients.min() < 0 or clients.max() >= self.num_clients:
+                raise ValueError(f"sampler returned out-of-range ids "
+                                 f"(num_clients={self.num_clients})")
+            if len(np.unique(clients)) != k:
+                raise ValueError(f"sampler returned duplicate client ids: "
+                                 f"{clients.tolist()}")
+            self.schedule.append(clients)
+            if self._runtime is not None:
+                # the runtime draws right after the sampler's, wave by wave:
+                # the reference's RNG stream, draw for draw
+                lat, dropped = self._runtime.draw(self.rng, t, clients)
+                lat = np.asarray(lat, np.float64)
+                if self.fault_plan is not None:
+                    # hangs: stateless, added after the draw, so the RNG
+                    # stream is the no-faults stream
+                    lat = lat + self.fault_plan.latency_boost(t, clients)
+                self._wave_runtime[t] = (lat, np.asarray(dropped, bool))
+            return clients
 
     def _deadline_live(self, t: int, extra: Dict[str, Any]):
         """(live, shipped) masks of round t's clients under the deadline.
         A late client shipped its update (it pays its uplink) but arrived
         too late for the fold; a runtime dropout shipped nothing."""
-        lat, dropped = self._wave_runtime.pop(t)
+        lat, dropped = self._runtime_take(t)
         live = ~dropped & (lat <= self.cfg.round_deadline)
         extra["deadline_dropped"] = int((~live).sum())
         extra["deadline_fired"] = int((~live).any())
@@ -556,39 +703,49 @@ class FederatedTrainer:
                             clipped=extra["clipped"])
 
     def _run_round_vectorized(self, t: int):
-        staged = self._stager.stage_blocking(t)
-        n = len(staged.clients)
-        args = [self.server_state, self.flat, staged.batches, staged.masks,
-                staged.ids]
-        extra: Dict[str, Any] = {}
-        live = shipped = np.ones(n, bool)
-        if self._inject_deltas:
-            args.append(torch.as_tensor(
-                self.fault_plan.delta_codes(t, staged.clients),
-                device=self.device))
-        if self._deadline_mask:
-            live, shipped = self._deadline_live(t, extra)
-            args.append(torch.as_tensor(live, device=self.device))
-        if self._guard is not None:
-            args.append(self._guard.threshold())
-        if self._ef is not None:
-            args.append(self._ef)
-        if self._server_opt is not None:
-            args.append(self._opt_state)
-        outs = list(self._cohort_round(*args))
-        if self._server_opt is not None:
-            self._opt_state = outs.pop()
-        if self._ef is not None:
-            self._ef = outs.pop()
-        gstats = outs.pop() if self._guard is not None else None
-        self.flat, self.server_state, losses, diag = outs
-        if gstats is not None:
-            self._observe_guard(gstats, live, extra)
-        extra["comm_bytes_up"] = self._client_bytes_up * int(shipped.sum())
-        # the loss over the clients whose update arrived
-        losses_h = losses.cpu().numpy()
-        return (float(losses_h[live].mean()) if live.any() else 0.0), \
-            diag, extra
+        staged = (self._pipeline.get(t) if self.cfg.prefetch
+                  else self._pipeline.stage_blocking(t))
+        try:
+            staged.wait()
+            n = len(staged.clients)
+            args = [self.server_state, self.flat, staged.batches,
+                    staged.masks, staged.ids]
+            extra: Dict[str, Any] = {}
+            live = shipped = np.ones(n, bool)
+            if self._inject_deltas:
+                args.append(torch.as_tensor(
+                    self.fault_plan.delta_codes(t, staged.clients),
+                    device=self.device))
+            if self._deadline_mask:
+                live, shipped = self._deadline_live(t, extra)
+                args.append(torch.as_tensor(live, device=self.device))
+            if self._guard is not None:
+                args.append(self._guard.threshold())
+            if self._codec_key is not None:
+                args.append(jax_prng.fold_in(self._codec_key, t))
+            if self._ef is not None:
+                args.append(self._ef)
+            if self._server_opt is not None:
+                args.append(self._opt_state)
+            outs = list(self._cohort_round(*args))
+            if self._server_opt is not None:
+                self._opt_state = outs.pop()
+            if self._ef is not None:
+                self._ef = outs.pop()
+            gstats = outs.pop() if self._guard is not None else None
+            self.flat, self.server_state, losses, diag = outs
+            if gstats is not None:
+                self._observe_guard(gstats, live, extra)
+            extra["comm_bytes_up"] = self._client_bytes_up * int(
+                shipped.sum())
+            # the loss over the clients whose update arrived; the host
+            # read waits for the round, after which the slot is free
+            losses_h = losses.cpu().numpy()
+            loss = float(losses_h[live].mean()) if live.any() else 0.0
+        finally:
+            # on error too: a leaked slot would deadlock the next round
+            staged.release()
+        return loss, diag, staged.host_seconds, staged.device_seconds, extra
 
     def _run_round_serial(self, t: int):
         """One client at a time, then the round's stages on the stacked
@@ -597,15 +754,18 @@ class FederatedTrainer:
         gets the decoded rows (no payload), then the server optimizer
         re-steps its proposal."""
         clients = self._sample_clients(t)
-        lists = self._stager.client_lists(clients, t)
+        tic = time.perf_counter()
+        lists = self._pipeline.client_lists(clients, t)
+        ingest = time.perf_counter() - tic
         n = len(clients)
         client_extra = self.algo.client_extra(self.server_state)
         deltas = torch.empty((n, self.layout.size), dtype=torch.float32,
                              device=self.device)
         losses = []
         for j, blist in enumerate(lists):
-            batches, mask = to_device(
-                stack_batches(blist, self._max_batches), self.device)
+            batches, mask = bridge.tree_map(
+                lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(
+                    self.device), stack_batches(blist, self._max_batches))
             _, loss = self.local_update(self.flat, batches, mask,
                                         client_extra, out=deltas[j])
             losses.append(float(loss))
@@ -618,8 +778,10 @@ class FederatedTrainer:
                 deltas, torch.as_tensor(self.fault_plan.delta_codes(
                     t, clients)), self._magnitude)
         if self._codec_lossy:
+            key = (None if self._codec_key is None
+                   else jax_prng.fold_in(self._codec_key, t))
             deltas, _, resid = codec_stage(self._codec, deltas, self._ef,
-                                           self.layout.leaf_offsets)
+                                           self.layout.leaf_offsets, key)
         if self._deadline_mask:
             live, shipped = self._deadline_live(t, extra)
             cm = torch.as_tensor(live, device=self.device)
@@ -640,7 +802,7 @@ class FederatedTrainer:
         extra["comm_bytes_up"] = self._client_bytes_up * int(shipped.sum())
         losses_h = np.asarray(losses)
         return (float(losses_h[live].mean()) if live.any() else 0.0), \
-            diag, extra
+            diag, ingest, 0.0, extra
 
     def _run_round_async(self, t: int):
         """One buffered-async server step: the engine collects the next
@@ -654,13 +816,56 @@ class FederatedTrainer:
                  # bytes are paid when an update ships, whichever fold
                  # takes it
                  "comm_bytes_up": self._client_bytes_up * int(m["n_shipped"])}
+        # restarts charged to the waves staged during this round's
+        # collection (keyed by the staged wave, final once handed out)
+        restarts = sum(self._pipeline.restarts_for(w)
+                       for w in range(m["wave_start"], m["wave_end"]))
+        if restarts:
+            extra["ingest_restarts"] = restarts
         if self.cfg.round_deadline is not None:
             extra["deadline_fired"] = int(m["deadline_fired"])
             extra["deadline_dropped"] = int(m["deadline_dropped"])
         if m["guard_stats"] is not None:
             self._observe_guard(m["guard_stats"],
                                 np.ones(int(m["n_arrivals"]), bool), extra)
-        return m["train_loss"], m["diag"], extra
+        return (m["train_loss"], m["diag"], m["host_seconds"],
+                m["device_seconds"], extra)
+
+    def _eval_async(self, rec: RoundRecord):
+        """Evaluate a snapshot of the params in the worker thread: the
+        clone is taken on the round's stream and an event recorded after
+        it; the worker's stream waits on the event. The accuracy lands in
+        ``rec`` when the future is resolved."""
+        snap = self.flat.clone()
+        event = stream = None
+        if snap.is_cuda:
+            if self._eval_stream is None:
+                self._eval_stream = torch.cuda.Stream(device=snap.device)
+            stream = self._eval_stream
+            event = torch.cuda.Event()
+            event.record()
+            snap.record_stream(stream)
+        if self._eval_pool is None:
+            self._eval_pool = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="fl-eval")
+
+        def run(fn=self.eval_fn, layout=self.layout):
+            if stream is None:
+                with torch.no_grad():
+                    return float(fn(layout.unflatten(snap)))
+            with torch.cuda.device(snap.device), torch.cuda.stream(stream), \
+                    torch.no_grad():
+                stream.wait_event(event)
+                return float(fn(layout.unflatten(snap)))
+        self._pending_eval = (rec, self._eval_pool.submit(run))
+
+    def _resolve_pending_eval(self):
+        """Land the eval in flight in its record; a failed eval raises
+        here."""
+        if self._pending_eval is not None:
+            rec, fut = self._pending_eval
+            self._pending_eval = None
+            rec.test_accuracy = fut.result()
 
     # ---- public ----
 
@@ -669,18 +874,36 @@ class FederatedTrainer:
             return float(self.eval_fn(self.params))
 
     def run_round(self, t: int) -> RoundRecord:
+        # a finished async eval lands without blocking (and its error
+        # surfaces here)
+        if self._pending_eval is not None and self._pending_eval[1].done():
+            self._resolve_pending_eval()
         tic = time.perf_counter()
         run = (self._run_round_async if self._engine is not None
                else self._run_round_vectorized if self.cfg.vectorize
                else self._run_round_serial)
-        train_loss, diag, extra = run(t)   # reads the losses: syncs
+        train_loss, diag, ingest_host, ingest_dev, extra = run(t)
+        if self._engine is None:
+            # restarts charged to the round whose STAGING failed (the
+            # producer stages ahead); the async engine charges waves
+            restarts = self._pipeline.restarts_for(t)
+            if restarts:
+                extra["ingest_restarts"] = restarts
         rec = RoundRecord(round=t, train_loss=train_loss,
                           seconds=time.perf_counter() - tic,
+                          ingest_seconds=ingest_host + ingest_dev,
+                          ingest_host_seconds=ingest_host,
+                          ingest_device_seconds=ingest_dev,
                           diagnostics={k: float(v) for k, v in diag.items()},
                           **extra)
         if self.eval_fn and (t % self.cfg.eval_every == 0
                              or t == self.cfg.rounds - 1):
-            rec.test_accuracy = self.evaluate()
+            # the previous eval lands before its boundary passes
+            self._resolve_pending_eval()
+            if self._async_eval:
+                self._eval_async(rec)
+            else:
+                rec.test_accuracy = self.evaluate()
         self.history.append(rec)
         if self._health is not None:
             # consumes the record in round order; read the verdict from
@@ -688,11 +911,24 @@ class FederatedTrainer:
             self._health.observe(rec)
         return rec
 
+    def finalize(self):
+        """Land the eval in flight into its RoundRecord."""
+        self._resolve_pending_eval()
+
     def close(self):
-        """Release trainer-owned resources: the health sink's file. The
-        data source is the caller's and is never closed here."""
-        if self._health is not None:
-            self._health.close_sink()
+        """Release trainer-owned resources: the staging thread, the eval
+        worker (its result lands first; its error raises after the rest
+        is released) and the health sink's file. The data source is the
+        caller's and is never closed here."""
+        try:
+            self.finalize()
+        finally:
+            self._pipeline.close()
+            if self._eval_pool is not None:
+                self._eval_pool.shutdown(wait=True)
+                self._eval_pool = None
+            if self._health is not None:
+                self._health.close_sink()
 
     def __enter__(self) -> "FederatedTrainer":
         return self
@@ -714,10 +950,14 @@ class FederatedTrainer:
                           f"{self._health.last_report.alarms}")
                 break
             if verbose:
+                # someone is watching: land this round's eval now, so the
+                # accuracy prints with its round
+                self._resolve_pending_eval()
                 acc = ("" if rec.test_accuracy is None
                        else f"  acc={rec.test_accuracy:.4f}")
                 print(f"[{self.algo.name}] round {t:4d} "
                       f"loss={rec.train_loss:.4f}{acc}")
+        self.finalize()
         return self.history
 
     @property
@@ -734,6 +974,7 @@ class FederatedTrainer:
 
     @property
     def best_accuracy(self):
+        self._resolve_pending_eval()
         accs = [(r.test_accuracy, r.round) for r in self.history
                 if r.test_accuracy is not None]
         return max(accs) if accs else (None, None)
@@ -742,35 +983,37 @@ class FederatedTrainer:
     # ---- checkpointing (TrainerState <-> checkpoint/checkpoint.py) ----
 
     def state(self) -> TrainerState:
-        """Snapshot the checkpoint unit. The async engine may have
-        dispatched (and therefore sampled) waves beyond the last folded
-        round; the snapshot rolls RNG/sampler/schedule back to the wave
-        frontier using the per-round captures taken at sampling time, so
-        a resumed trainer re-draws those waves identically."""
-        # history carries every consumed round (including restored ones
-        # after a resume), so its length IS the next round — provided
-        # rounds were consumed sequentially; reject anything else loudly
-        # instead of writing a silently-wrong checkpoint
-        next_round = len(self.history)
-        if [r.round for r in self.history] != list(range(next_round)):
-            raise ValueError(
-                "save() requires rounds to have been run sequentially "
-                "from 0 (run_round(0), run_round(1), ...); history "
-                f"holds rounds {[r.round for r in self.history]}")
-        # synchronous rounds: the sampling frontier IS the next round;
-        # buffered-async: the engine's wave frontier
-        frontier = (next_round if self._engine is None
-                    else self._engine.wave_frontier)
-        cap = self._round_caps.get(frontier)
-        if cap is None:         # nothing sampled past the frontier
-            cap = self._capture()
+        """Snapshot the checkpoint unit. The staging producer (and the
+        async engine) may have sampled rounds or waves beyond the last
+        consumed one; the snapshot rolls RNG/sampler/schedule back to the
+        consumed frontier using the per-round captures taken at sampling
+        time, so a resumed trainer re-draws those rounds identically."""
+        self.finalize()
+        with self._sample_lock:
+            # history carries every consumed round (including restored
+            # ones after a resume), so its length IS the next round —
+            # provided rounds were consumed sequentially; reject anything
+            # else loudly instead of writing a silently-wrong checkpoint
+            next_round = len(self.history)
+            if [r.round for r in self.history] != list(range(next_round)):
+                raise ValueError(
+                    "save() requires rounds to have been run sequentially "
+                    "from 0 (run_round(0), run_round(1), ...); history "
+                    f"holds rounds {[r.round for r in self.history]}")
+            # synchronous rounds: the consumed frontier IS the next round;
+            # buffered-async: the engine's wave frontier
+            frontier = (next_round if self._engine is None
+                        else self._engine.wave_frontier)
+            cap = self._round_caps.get(frontier)
+            if cap is None:     # nothing sampled past the frontier
+                cap = self._capture()
+            schedule = [np.asarray(c) for c in self.schedule[:frontier]]
         return TrainerState(
             params=self.params, server_state=self.server_state,
             round=next_round, max_batches=cap["max_batches"],
             rng_state=cap["rng"], sampler_state=cap["sampler"],
-            schedule=[np.asarray(c) for c in self.schedule[:frontier]],
-            history=list(self.history), runtime_state=cap.get("runtime"),
-            opt_state=self._opt_state)
+            schedule=schedule, history=list(self.history),
+            runtime_state=cap.get("runtime"), opt_state=self._opt_state)
 
     def _codec_echo(self) -> Optional[dict]:
         """JSON echo of the LOSSY codec configuration (identity is the
@@ -1103,7 +1346,9 @@ class FederatedTrainer:
         did. The newest step whose digests verify is taken (a warning for
         each corrupt one skipped); an explicit ``step`` never falls
         back."""
-        if self.history or self.schedule:
+        if self._pipeline.started or self.history or self.schedule:
+            # a used trainer has a producer drawing this RNG and rounds
+            # staged past the restore point: rewinding it would race
             raise RuntimeError(
                 "restore() requires a freshly constructed trainer that "
                 "has not run any rounds — use FederatedTrainer.resume()")
@@ -1133,11 +1378,11 @@ class FederatedTrainer:
                             int(arrays["rng_has_gauss"]),
                             float(arrays["rng_cached"])))
         mb = int(arrays["max_batches"])
-        self._stager.max_batches = None if mb < 0 else mb
+        self._pipeline.max_batches = None if mb < 0 else mb
         self._start_round = int(arrays["round"])
         self.schedule = [row for row in np.asarray(arrays["schedule"])]
-        # the reference's records carry fields the port does not keep
-        # (ingest timings and restarts, edge accounting): dropped here
+        # the reference's records carry the edge accounting, which the
+        # port does not keep yet (item 13): dropped here
         self.history = [RoundRecord(**{k: v for k, v in r.items()
                                        if k in _RECORD_FIELDS})
                         for r in meta["history"]]
@@ -1168,7 +1413,7 @@ class FederatedTrainer:
 
     @classmethod
     def resume(cls, ckpt_dir: str, loss_fn: Callable, params,
-               num_clients: int, data, cfg: Optional[ExecConfig] = None,
+               num_clients: int, data, cfg=None,
                eval_fn: Optional[Callable] = None, *,
                algo: Optional[AlgoConfig] = None,
                sampler: Optional[ClientSampler] = None,

@@ -70,9 +70,10 @@ class BufferedAsyncEngine:
 
     Collaborators (all trainer-owned):
 
-      pipeline       stager with ``stage_blocking(wave)`` -> a staged
-                     cohort (clients, batches, masks, host_seconds,
-                     device_seconds, release())
+      pipeline       ingest/pipeline.CohortIngestPipeline staging wave
+                     cohorts in wave order: ``get(wave)`` from its ring
+                     (``prefetch``) or ``stage_blocking(wave)`` -> a
+                     StagedCohort
       wave_update    (params, server_state, batches, masks) ->
                      (deltas (K, ...), losses (K,)) — the cohort local
                      update against the CURRENT snapshot, in new tensors
@@ -88,7 +89,8 @@ class BufferedAsyncEngine:
     def __init__(self, *, pipeline, wave_update: Callable,
                  fold: Callable, runtime_take: Callable,
                  buffer_size: int, alpha: float = 0.5,
-                 concurrency: int = 1, deadline: float = None,
+                 concurrency: int = 1, prefetch: bool = True,
+                 deadline: float = None,
                  fold_extras: Callable = None,
                  fold_returns_stats: bool = False):
         if buffer_size < 1:
@@ -106,6 +108,7 @@ class BufferedAsyncEngine:
         self.buffer_size = int(buffer_size)
         self.alpha = float(alpha)
         self.concurrency = int(concurrency)
+        self.prefetch = prefetch
         # round deadline in virtual seconds: stop collecting arrivals
         # once the next one would land more than ``deadline`` past the
         # round's start and fold the PARTIAL buffer (at least one
@@ -133,8 +136,10 @@ class BufferedAsyncEngine:
         push its surviving updates onto the arrival heap. Returns
         (n_pushed, host_seconds, device_seconds)."""
         w = self.wave_frontier
-        staged = self.pipeline.stage_blocking(w)
+        staged = (self.pipeline.get(w) if self.prefetch
+                  else self.pipeline.stage_blocking(w))
         try:
+            staged.wait()
             deltas, losses = self.wave_update(
                 params, server_state, staged.batches, staged.masks)
             # host read of the losses: waits for the wave's training

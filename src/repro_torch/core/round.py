@@ -99,16 +99,18 @@ def apply_guard(deltas: torch.Tensor, client_ids: torch.Tensor,
 
 
 def codec_stage(codec: DeltaCodec, deltas: torch.Tensor,
-                ef: Optional[torch.Tensor], leaf_offsets: torch.Tensor):
+                ef: Optional[torch.Tensor], leaf_offsets: torch.Tensor,
+                key=None):
     """The uplink, in the reference's order: every client ships Δ_j + ef
     (the server-held error-feedback accumulator, broadcast to every row),
-    and the payload is encoded and decoded. Returns (decoded (K, N) f32,
+    and the payload is encoded (a stochastic codec draws from ``key``,
+    the round's PRNG key) and decoded. Returns (decoded (K, N) f32,
     payload, resid or None): with error feedback, ``resid`` is the
     sanitized quantization residual of this (pre-guard) decode, and the
     next accumulator is ``masked_client_mean(resid, client_mask)`` over
     the rows the round's deadline and guard leave."""
     shipped = deltas if ef is None else deltas + ef[None]
-    payload = codec.encode_cohort(shipped, leaf_offsets)
+    payload = codec.encode_cohort(shipped, leaf_offsets, key=key)
     decoded = codec.decode_cohort(payload, leaf_offsets)
     resid = None if ef is None else sanitized_residual(shipped, decoded)
     return decoded, payload, resid
@@ -135,8 +137,9 @@ def make_cohort_round(loss_fn: Callable, layout: FlatLayout,
     a (K,) bool ``live_mask`` (False = timed out: the row folds out of
     the client mask and its id becomes ``ID_SENTINEL``), ``guard`` a
     float ``guard_thresh`` and a trailing ``guard_stats`` output
-    (``apply_guard``), and ``codec_ef`` (with a LOSSY ``codec``) an (N,)
-    error-feedback accumulator and a ``new_ef`` output after that.
+    (``apply_guard``), a stochastic ``codec`` (int8_sr) the round's PRNG
+    key (core/jax_prng.py), and ``codec_ef`` (with a LOSSY ``codec``) an
+    (N,) error-feedback accumulator and a ``new_ef`` output after that.
 
     With a lossy codec the round aggregates the DECODED deltas; FedDPC's
     fold reads the payload itself only while no guard rewrites rows
@@ -146,6 +149,7 @@ def make_cohort_round(loss_fn: Callable, layout: FlatLayout,
         variant=algo.client_variant, **client_kwargs(algo))
     lossy = codec is not None and codec.lossy
     ef_active = lossy and codec_ef
+    stochastic = lossy and codec.stochastic
     offsets = layout.leaf_offsets
     stack: Optional[torch.Tensor] = None
 
@@ -156,6 +160,7 @@ def make_cohort_round(loss_fn: Callable, layout: FlatLayout,
         fault_codes = next(it) if inject_faults else None
         live_mask = next(it) if deadline_mask else None
         guard_thresh = next(it) if guard else None
+        codec_key = next(it) if stochastic else None
         ef = next(it) if ef_active else None
         opt_state = next(it) if server_opt is not None else None
         k = tree_leaves(batches)[0].shape[0]
@@ -176,7 +181,7 @@ def make_cohort_round(loss_fn: Callable, layout: FlatLayout,
         payload = resid = None
         if lossy:
             deltas, payload, resid = codec_stage(codec, deltas, ef,
-                                                 offsets)
+                                                 offsets, codec_key)
         gstats = None
         if guard:
             # quarantine and clip read the DECODED rows: the values the

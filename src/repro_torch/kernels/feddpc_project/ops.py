@@ -141,7 +141,7 @@ def _check_offsets(name: str, offsets: torch.Tensor, n: int, nleaves: int):
                          "strictly increasing")
 
 
-def _device_offsets(offsets: torch.Tensor, device: torch.device):
+def device_offsets(offsets: torch.Tensor, device: torch.device):
     key = (str(device), offsets.numpy().tobytes())
     out = _device_offsets_cache.get(key)
     if out is None:
@@ -267,7 +267,7 @@ def _fold(name: str, d: torch.Tensor, p: torch.Tensor, w: torch.Tensor,
         if qscale is None:
             err = getattr(lib, name)(d.data_ptr(), *tail)
         else:
-            offs = _device_offsets(leaf_offsets, d.device)
+            offs = device_offsets(leaf_offsets, d.device)
             err = getattr(lib, name)(
                 d.data_ptr(), QTYPES[d.dtype], qscale.data_ptr(),
                 qzero.data_ptr(), offs.data_ptr(), qscale.shape[1], *tail)

@@ -1,0 +1,77 @@
+"""Plain PyTorch version of ``int8_sr_quantize`` (csrc/int8_sr.cu): the
+same threefry2x32 draw and the same f32 steps, in int64 tensor ops masked
+to 32 bits. The wrapper (ops.py) calls it for CPU tensors; chip_smoke.py
+holds the kernel against it, bit for bit, on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+_MASK = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def threefry2x32_ref(k0, k1, x0: torch.Tensor, x1: torch.Tensor):
+    """threefry2x32 (20 rounds) on int64 tensors holding uint32 values;
+    ``k0`` and ``k1`` broadcast against the counters. Returns the two
+    output words (int64, in [0, 2**32))."""
+    k2 = k0 ^ k1 ^ 0x1BD11BDA
+    ks = (k0, k1, k2)
+    x0 = (x0 + k0) & _MASK
+    x1 = (x1 + k1) & _MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _MASK
+            x1 = ((x1 << r) & _MASK) | (x1 >> (32 - r))
+            x1 = x1 ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _MASK
+    return x0, x1
+
+
+def draw_bits_ref(k0, k1, n: torch.Tensor, size, partitionable: bool):
+    """The 32 random bits of elements ``n`` of a draw of ``size`` elements
+    (jax.random.bits' two counter layouts; see core/jax_prng.py)."""
+    if partitionable:
+        y0, y1 = threefry2x32_ref(k0, k1, n >> 32, n & _MASK)
+        return y0 ^ y1
+    h = (size + 1) // 2
+    first = n < h
+    x0 = torch.where(first, n, n - h)
+    x1 = torch.where(first, torch.where(n + h < size, n + h,
+                                        torch.zeros_like(n)), n)
+    y0, y1 = threefry2x32_ref(k0, k1, x0, x1)
+    return torch.where(first, y0, y1)
+
+
+def bits_to_unit_ref(bits: torch.Tensor) -> torch.Tensor:
+    """32 random bits -> f32 in [0, 1), as jax.random.uniform builds it."""
+    return ((bits >> 9) | 0x3F800000).to(torch.int32).view(
+        torch.float32) - 1.0
+
+
+def int8_sr_quantize_ref(x: torch.Tensor, scale: torch.Tensor,
+                         leaf_offsets: torch.Tensor, keys: torch.Tensor,
+                         partitionable: bool = True) -> torch.Tensor:
+    """x (K, N) f32, scale (K, L) f32, leaf_offsets (L+1,) int64, keys
+    (L, 2) int64 uint32 words, on x's device -> q (K, N) int8:
+    int8(clip(floor(x / scale_leaf + u), -127, 127)) with NaN -> 0, u the
+    uniform of the leaf's key at counter k * numel_leaf + j."""
+    k, n = x.shape
+    dev = x.device
+    offsets = leaf_offsets.to(dev)
+    counts = offsets[1:] - offsets[:-1]
+    leaf = torch.repeat_interleave(
+        torch.arange(counts.numel(), device=dev), counts, output_size=n)
+    numel = counts[leaf]
+    j = torch.arange(n, device=dev) - offsets[leaf]
+    idx = torch.arange(k, device=dev)[:, None] * numel + j
+    keys = keys.to(dev)
+    bits = draw_bits_ref(keys[leaf, 0], keys[leaf, 1], idx, k * numel,
+                         partitionable)
+    u = bits_to_unit_ref(bits)
+    del bits, idx
+    y = x.float() / scale[:, leaf]
+    v = torch.clamp(torch.floor(y + u), -127.0, 127.0)
+    return torch.where(torch.isnan(v), torch.zeros_like(v), v
+                       ).to(torch.int8)

@@ -7,16 +7,31 @@ experiment on synthetic heterogeneous data), on the card by default:
       --eta-l 0.01 --eta-g 0.01
 
 Counterpart of repro/launch/train.py with its main-path, buffered-async,
-codec, chaos, checkpoint and health flags, every registered server rule
-(``--algorithm``), the four participation samplers (``--sampler``) and
-the server optimizer (``--server-opt``); vision data streams from the
-synthetic Dirichlet-partitioned image task. ``--device cpu`` runs on the
-CPU; without it the script raises when CUDA is absent. FedVARP under
-Markov availability with a FedAdam server step:
+codec, chaos, checkpoint, health and ingest flags, every registered
+server rule (``--algorithm``), the four participation samplers
+(``--sampler``) and the server optimizer (``--server-opt``). The initial
+params are the reference's draws from ``PRNGKey(--seed)``
+(core/jax_prng.py), so a run repeats the reference CLI's at the same
+arguments. Vision data streams through the staged ingest pipeline
+(prefetched, copied to the card on the producer thread;
+``--prefetch-depth``, ``--host-staged``): synthetic by default, or the
+paper's real datasets from their standard download layout with
+``--dataset cifar10|cifar100|tiny-imagenet --data-root DIR`` (and
+``--augment``, ``--decode-workers``). ``--device cpu`` runs on the CPU;
+without it the script raises when CUDA is absent. FedVARP under Markov
+availability with a FedAdam server step:
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --model lenet5 --algorithm fedvarp --sampler markov \\
       --markov-p-on 0.5 --markov-p-off 0.5 --server-opt fedadam
+
+CIFAR-100 from disk with crop-and-flip augmentation and a stochastic-
+rounding int8 uplink (its noise is the reference's):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --model resnet18-gn --dataset cifar100 \\
+      --data-root tests/fixtures/data --augment --clients 4 \\
+      --participation 0.5 --codec int8_sr
 
 Buffered-async rounds with an int8 uplink and error feedback:
 
@@ -54,11 +69,14 @@ from repro_torch.core.api import (AlgoConfig, ExecConfig, FederatedTrainer,
                                   resolve_device)
 from repro_torch.codec import codec_names
 from repro_torch.core.baselines import ALGORITHM_NAMES, default_hyper
+from repro_torch.core import jax_prng
 from repro_torch.core.faults import FaultPlan
 from repro_torch.core.runtime import make_runtime
 from repro_torch.core.samplers import (CyclicSampler, MarkovSampler,
                                        UniformSampler, WeightedSampler)
 from repro_torch.optim.server import SERVER_OPTIMIZER_NAMES
+from repro_torch.ingest.datasets import (CIFAR10Source, CIFAR100Source,
+                                         TinyImageNetSource)
 from repro_torch.ingest.images import (StreamingImageSource,
                                        build_federated_image_data)
 from repro_torch.models.vision import (VisionConfig, init_vision,
@@ -69,17 +87,39 @@ EVAL_CHUNK = 1000      # test images per forward pass
 
 def build_vision_task(args, device: torch.device):
     family = "lenet5" if args.model == "lenet5" else "resnet18"
-    nclass = 10 if args.model == "lenet5" else args.num_classes
-    data = build_federated_image_data(
-        num_classes=nclass, num_clients=args.clients, alpha=args.alpha,
-        samples_per_class=args.samples_per_class, seed=args.seed)
-    source = StreamingImageSource(data, args.batch_size, args.local_epochs)
+    if args.dataset == "synthetic":
+        nclass = 10 if args.model == "lenet5" else args.num_classes
+        data = build_federated_image_data(
+            num_classes=nclass, num_clients=args.clients, alpha=args.alpha,
+            samples_per_class=args.samples_per_class, seed=args.seed)
+        source = StreamingImageSource(data, args.batch_size,
+                                      args.local_epochs)
+        test_x, test_y = data.test_images, data.test_labels
+        image_size = 32
+    else:
+        # disk-backed reader: Dirichlet-partitioned on load, records
+        # decoded (and augmented) lazily on the staging thread
+        if not args.data_root:
+            raise SystemExit(f"--dataset {args.dataset} needs --data-root "
+                             "(the standard download directory)")
+        src_cls = {"cifar10": CIFAR10Source, "cifar100": CIFAR100Source,
+                   "tiny-imagenet": TinyImageNetSource}[args.dataset]
+        src_kw = {}
+        if args.dataset == "tiny-imagenet":
+            src_kw["decode_workers"] = args.decode_workers
+        source = src_cls(args.data_root, num_clients=args.clients,
+                         alpha=args.alpha, batch_size=args.batch_size,
+                         local_epochs=args.local_epochs,
+                         augment=args.augment, seed=args.seed, **src_kw)
+        nclass = source.num_classes
+        test_x, test_y = source.test_arrays()
+        image_size = 64 if args.dataset == "tiny-imagenet" else 32
     vc = VisionConfig(name=args.model, family=family, num_classes=nclass,
-                      image_size=32)
-    params = init_vision(vc, torch.Generator().manual_seed(args.seed))
+                      image_size=image_size)
+    params = init_vision(vc, jax_prng.PRNGKey(args.seed))
     loss_fn = functools.partial(vision_loss_fn, vc)
-    te_x = torch.from_numpy(data.test_images).to(device)
-    te_y = torch.from_numpy(data.test_labels).to(device)
+    te_x = torch.from_numpy(test_x).to(device)
+    te_y = torch.from_numpy(test_y).to(device)
 
     def eval_fn(p):
         # in chunks: one forward over the whole test set would hold every
@@ -123,6 +163,35 @@ def main(argv=None):
                     choices=["uniform", "weighted", "cyclic", "markov"])
     ap.add_argument("--markov-p-on", type=float, default=0.5)
     ap.add_argument("--markov-p-off", type=float, default=0.5)
+    ap.add_argument("--dataset", default="synthetic",
+                    choices=["synthetic", "cifar10", "cifar100",
+                             "tiny-imagenet"],
+                    help="vision data: offline synthetic (default) or a "
+                         "disk-backed reader over the standard download "
+                         "layout under --data-root")
+    ap.add_argument("--data-root", default=None,
+                    help="directory holding cifar-10-batches-py / "
+                         "cifar-100-python / tiny-imagenet-200")
+    ap.add_argument("--augment", action="store_true",
+                    help="random crop + flip on the ingest path "
+                         "(disk-backed datasets)")
+    ap.add_argument("--decode-workers", type=int, default=0,
+                    help="thread pool for the per-image file decode of "
+                         "tiny-imagenet; 0 = serial, same output order")
+    ap.add_argument("--prefetch-depth", type=int, default=2,
+                    help="staging-ring depth: cohort buffers the ingest "
+                         "pipeline cycles through")
+    ap.add_argument("--host-staged", action="store_true",
+                    help="copy the staged cohort to the card on the "
+                         "consumer thread (timed as ingest_device_seconds) "
+                         "instead of the staging thread")
+    ap.add_argument("--ingest-stall-s", type=float, default=None,
+                    help="staging-ring stall deadline in seconds (a hung "
+                         "producer raises instead of waiting forever)")
+    ap.add_argument("--ingest-max-restarts", type=int, default=0,
+                    help="supervised staging-producer restarts: retry a "
+                         "failed staging up to N times over the run "
+                         "(bounded exponential backoff), then fail")
     ap.add_argument("--alpha", type=float, default=0.2)
     ap.add_argument("--eta-l", type=float, default=0.01)
     ap.add_argument("--eta-g", type=float, default=0.01)
@@ -219,6 +288,13 @@ def main(argv=None):
     cfg = ExecConfig(rounds=args.rounds, clients_per_round=cohort,
                      seed=args.seed, eval_every=args.eval_every,
                      vectorize=not args.serial,
+                     prefetch_depth=args.prefetch_depth,
+                     device_stage=not args.host_staged,
+                     ingest_stall_s=args.ingest_stall_s,
+                     ingest_max_restarts=args.ingest_max_restarts,
+                     decode_workers=args.decode_workers,
+                     batch_size=args.batch_size,
+                     local_epochs=args.local_epochs,
                      async_buffer=args.async_buffer,
                      buffer_size=args.buffer_size,
                      staleness_alpha=args.staleness_alpha,
@@ -261,6 +337,7 @@ def main(argv=None):
                       f"loss={rec.train_loss:.4f}")
                 if (t + 1) % args.ckpt_every == 0:
                     trainer.save(args.ckpt_dir)
+            trainer.finalize()
             hist = trainer.history
         else:
             hist = trainer.run(verbose=True)

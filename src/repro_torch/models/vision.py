@@ -17,9 +17,11 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import jax_prng
 from repro_torch.models.layers import group_norm, init_group_norm
 
 
@@ -34,12 +36,15 @@ class VisionConfig:
     groups: int = 8             # groupnorm groups
 
 
-def _he_normal(gen: torch.Generator, shape, fan_in: int) -> torch.Tensor:
-    return torch.randn(shape, generator=gen) * math.sqrt(2.0 / fan_in)
+def _he_normal(key, shape, fan_in: int) -> torch.Tensor:
+    """jax.random.normal(key, shape) * sqrt(2 / fan_in), in f32 as the
+    reference multiplies it."""
+    w = jax_prng.normal(key, shape) * np.float32(math.sqrt(2.0 / fan_in))
+    return torch.from_numpy(w)
 
 
-def _conv_init(gen, kh, kw, cin, cout):
-    return _he_normal(gen, (kh, kw, cin, cout), kh * kw * cin)
+def _conv_init(key, kh, kw, cin, cout):
+    return _he_normal(key, (kh, kw, cin, cout), kh * kw * cin)
 
 
 def _same_pads(size: int, k: int, stride: int):
@@ -66,15 +71,17 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
 
 # ---------------- LeNet5 ----------------
 
-def init_lenet5(cfg: VisionConfig, gen: torch.Generator):
+def init_lenet5(cfg: VisionConfig, key):
+    ks = jax_prng.split(key, 5)
     flat = ((cfg.image_size // 4 - 3) ** 2) * 16    # 32 -> 5*5*16 = 400
     return {
-        "c1": _conv_init(gen, 5, 5, cfg.channels, 6),
-        "c2": _conv_init(gen, 5, 5, 6, 16),
-        "f1": {"w": _he_normal(gen, (flat, 120), flat),
+        "c1": _conv_init(ks[0], 5, 5, cfg.channels, 6),
+        "c2": _conv_init(ks[1], 5, 5, 6, 16),
+        "f1": {"w": _he_normal(ks[2], (flat, 120), flat),
                "b": torch.zeros(120)},
-        "f2": {"w": _he_normal(gen, (120, 84), 120), "b": torch.zeros(84)},
-        "f3": {"w": _he_normal(gen, (84, cfg.num_classes), 84),
+        "f2": {"w": _he_normal(ks[3], (120, 84), 120),
+               "b": torch.zeros(84)},
+        "f3": {"w": _he_normal(ks[4], (84, cfg.num_classes), 84),
                "b": torch.zeros(cfg.num_classes)},
     }
 
@@ -98,15 +105,16 @@ _WIDTHS = (1, 1, 2, 2, 4, 4, 8, 8)
 _STRIDES = (1, 1, 2, 1, 2, 1, 2, 1)
 
 
-def _init_block(gen, cin, cout, stride, groups):
+def _init_block(key, cin, cout, stride, groups):
+    ks = jax_prng.split(key, 3)
     p = {
-        "conv1": _conv_init(gen, 3, 3, cin, cout),
+        "conv1": _conv_init(ks[0], 3, 3, cin, cout),
         "gn1": init_group_norm(groups, cout),
-        "conv2": _conv_init(gen, 3, 3, cout, cout),
+        "conv2": _conv_init(ks[1], 3, 3, cout, cout),
         "gn2": init_group_norm(groups, cout),
     }
     if stride != 1 or cin != cout:
-        p["proj"] = _conv_init(gen, 1, 1, cin, cout)
+        p["proj"] = _conv_init(ks[2], 1, 1, cin, cout)
         p["gn_proj"] = init_group_norm(groups, cout)
     return p
 
@@ -121,19 +129,20 @@ def _block(p, x, stride, groups):
     return F.relu(h + x)
 
 
-def init_resnet18(cfg: VisionConfig, gen: torch.Generator):
+def init_resnet18(cfg: VisionConfig, key):
     w = cfg.width
-    stem = _conv_init(gen, 3, 3, cfg.channels, w)
+    ks = jax_prng.split(key, 10)
     blocks = []
     cin = w
-    for mult, stride in zip(_WIDTHS, _STRIDES):
-        blocks.append(_init_block(gen, cin, mult * w, stride, cfg.groups))
+    for i, (mult, stride) in enumerate(zip(_WIDTHS, _STRIDES)):
+        blocks.append(_init_block(ks[1 + i], cin, mult * w, stride,
+                                  cfg.groups))
         cin = mult * w
     return {
-        "stem": stem,
+        "stem": _conv_init(ks[0], 3, 3, cfg.channels, w),
         "gn_stem": init_group_norm(cfg.groups, w),
         "blocks": blocks,
-        "head": {"w": _he_normal(gen, (8 * w, cfg.num_classes), 8 * w),
+        "head": {"w": _he_normal(ks[9], (8 * w, cfg.num_classes), 8 * w),
                  "b": torch.zeros(cfg.num_classes)},
     }
 
@@ -150,12 +159,14 @@ def resnet18_forward(cfg: VisionConfig, p, x: torch.Tensor) -> torch.Tensor:
 
 # ---------------- unified ----------------
 
-def init_vision(cfg: VisionConfig, gen: torch.Generator):
-    """He-normal init from ``gen`` (the port's own draws; a run that must
-    match the reference carries the reference's params across instead)."""
+def init_vision(cfg: VisionConfig, key):
+    """He-normal init from the reference's key tree: ``key`` is a
+    ``core.jax_prng.PRNGKey``, split as ``repro/models/vision.py`` splits
+    it, so the parameters are the reference's ``init_vision`` draws (f32
+    CPU tensors; normals within a few ulp, see core/jax_prng.py)."""
     if cfg.family == "lenet5":
-        return init_lenet5(cfg, gen)
-    return init_resnet18(cfg, gen)
+        return init_lenet5(cfg, key)
+    return init_resnet18(cfg, key)
 
 
 def vision_forward(cfg: VisionConfig, p, x: torch.Tensor) -> torch.Tensor:

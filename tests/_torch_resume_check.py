@@ -163,7 +163,8 @@ def finals(tr) -> dict:
     server-optimizer moments, EF, schedule, losses, quarantine counts and
     the health window."""
     out = {"params": tr.flat.numpy().copy(),
-           "schedule": np.stack(tr.schedule),
+           # the consumed schedule (the staging ring samples ahead)
+           "schedule": np.stack(tr.state().schedule),
            "losses": np.asarray([r.train_loss for r in tr.history]),
            "quarantined": np.asarray([r.quarantined for r in tr.history])}
     for k, v in tr.server_state.items():

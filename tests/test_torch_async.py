@@ -54,6 +54,9 @@ class _Staged:
         self.batches, self.masks = wave, None
         self.host_seconds = self.device_seconds = 0.0
 
+    def wait(self):
+        pass
+
     def release(self):
         pass
 
@@ -104,7 +107,8 @@ def test_engine_matches_reference_arrival_for_arrival(deadline):
     ref = _drive(functools.partial(ref_engine_mod.BufferedAsyncEngine,
                                    prefetch=False),
                  jnp.asarray, None, deadline)
-    mine = _drive(engine_mod.BufferedAsyncEngine,
+    mine = _drive(functools.partial(engine_mod.BufferedAsyncEngine,
+                                    prefetch=False),
                   lambda a: torch.from_numpy(np.asarray(a, np.float32)),
                   None, deadline)
     assert len(ref[0]) == len(mine[0]) == 6

@@ -1,7 +1,8 @@
 """The port on the card: the CUDA kernels against their plain versions,
 the server step, every other server rule's step and trainer rounds
-(plain, async int8, guarded under faults) on CUDA against the same on
-the CPU, and the serving paths of
+(plain, async int8, guarded under faults, int8_sr) on CUDA against the
+same on the CPU, the int8_sr encode kernel bit for bit against its plain
+version, and the serving paths of
 the dense decoder (every attention call through the flash-attention
 kernel) and of the pure-SSM stack (every scan through the ssm_scan
 kernel) against the same on the CPU, and checkpoints saved on the card
@@ -18,7 +19,7 @@ import torch
 
 from repro_torch.bridge import layout_of, tree_map
 from repro_torch.configs import paper_lenet5, paper_resnet18
-from repro_torch.core import baselines, feddpc
+from repro_torch.core import baselines, feddpc, jax_prng
 from repro_torch.core import projection as proj
 from repro_torch.core.api import AlgoConfig, ExecConfig, FederatedTrainer
 from repro_torch.core.faults import FaultPlan
@@ -28,6 +29,8 @@ from repro_torch.ingest.images import (StreamingImageSource,
 from repro_torch.configs.base import get_config
 from repro_torch.kernels.feddpc_project import ops, ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.int8_sr import ops as sr_ops
+from repro_torch.kernels.int8_sr import ref as sr_ref
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.ssm_scan import ops as ss_ops
 from repro_torch.kernels.ssm_scan import ref as ss_ref
@@ -89,8 +92,7 @@ def _offsets(numels):
 
 @functools.lru_cache(maxsize=None)
 def _resnet18_offsets():
-    params = init_vision(paper_resnet18.CONFIG,
-                         torch.Generator().manual_seed(0))
+    params = init_vision(paper_resnet18.CONFIG, jax_prng.PRNGKey(0))
     return layout_of(params).leaf_offsets
 
 
@@ -276,7 +278,7 @@ def test_trainer_round_on_card_matches_cpu(cuda):
     data = build_federated_image_data(num_classes=10, num_clients=8,
                                       alpha=0.5, samples_per_class=16,
                                       test_per_class=2, seed=0)
-    params = init_vision(cfg, torch.Generator().manual_seed(0))
+    params = init_vision(cfg, jax_prng.PRNGKey(0))
     losses = {}
     for dev in ("cpu", "cuda"):
         tr = FederatedTrainer(functools.partial(vision_loss_fn, cfg), params,
@@ -292,6 +294,63 @@ def test_trainer_round_on_card_matches_cpu(cuda):
     # TF32 off: card and CPU differ by conv algorithms and sum orders
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=1e-3)
 
+
+
+@pytest.mark.parametrize("layout,k", [("resnet18", 1), ("resnet18", 10),
+                                      ("ragged", 3), ("ragged", 33)])
+@pytest.mark.parametrize("partitionable", [True, False])
+def test_int8_sr_kernel_matches_plain_version(cuda, layout, k,
+                                              partitionable):
+    """Codes bit for bit: the kernel and ref.py draw the same threefry
+    bits and round the same f32 steps; rows 0 and 1 (K > 2) hold a NaN
+    and are all zero (unit scale), as the codec hands them over."""
+    offsets = (_resnet18_offsets() if layout == "resnet18"
+               else _offsets((5, 31, 1, 17, 2048, 7, 99_991)))
+    n, nleaves = int(offsets[-1]), offsets.numel() - 1
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    x = torch.randn((k, n), generator=gen, device=cuda) * 0.01
+    scale = torch.rand((k, nleaves), generator=gen, device=cuda) * 1e-4
+    if k > 2:
+        x[0, 7] = float("nan")
+        x[1] = 0.0
+        scale[0] = float("nan")
+        scale[1] = 1.0
+    keys = np.random.default_rng(k).integers(0, 2 ** 32, (nleaves, 2),
+                                             dtype=np.uint32)
+    before = sr_ops.int8_sr_quantize.launches
+    got = sr_ops.int8_sr_quantize(x, scale, offsets, keys, partitionable)
+    want = sr_ref.int8_sr_quantize_ref(
+        x, scale, offsets, torch.from_numpy(keys.astype(np.int64)),
+        partitionable)
+    torch.cuda.synchronize()
+    assert sr_ops.int8_sr_quantize.launches - before == 1
+    assert got.dtype == torch.int8 and torch.equal(got, want)
+
+
+def test_int8_sr_trainer_on_card_matches_cpu(cuda):
+    """Sync FedDPC with int8_sr: one int8_sr launch and one dequant fold a
+    round on the card; losses within the card-vs-CPU gate."""
+    cfg = paper_lenet5.CONFIG
+    data = build_federated_image_data(num_classes=10, num_clients=8,
+                                      alpha=0.5, samples_per_class=16,
+                                      test_per_class=2, seed=0)
+    params = init_vision(cfg, jax_prng.PRNGKey(0))
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        tr = FederatedTrainer(functools.partial(vision_loss_fn, cfg), params,
+                              8, StreamingImageSource(data, 16),
+                              ExecConfig(rounds=2, clients_per_round=4,
+                                         codec="int8_sr"),
+                              algo=AlgoConfig(eta_l=0.02, eta_g=0.02),
+                              device=dev)
+        before = (sr_ops.int8_sr_quantize.launches,
+                  ops.feddpc_dequant_batched_epilogue.launches)
+        with tr:
+            losses[dev] = [r.train_loss for r in tr.run()]
+        added = (sr_ops.int8_sr_quantize.launches - before[0],
+                 ops.feddpc_dequant_batched_epilogue.launches - before[1])
+        assert added == ((2, 2) if dev == "cuda" else (0, 0))
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=1e-3)
 
 def _fedvarp_adam_trainer(data, params, device, resume_from=None):
     from repro_torch.core.samplers import MarkovSampler
@@ -315,8 +374,7 @@ def test_checkpoint_saved_on_card_restores_bitwise(cuda, dst, tmp_path):
     data = build_federated_image_data(num_classes=10, num_clients=8,
                                       alpha=0.5, samples_per_class=16,
                                       test_per_class=2, seed=0)
-    params = init_vision(paper_lenet5.CONFIG,
-                         torch.Generator().manual_seed(0))
+    params = init_vision(paper_lenet5.CONFIG, jax_prng.PRNGKey(0))
     tr = _fedvarp_adam_trainer(data, params, "cuda")
     for t in range(2):
         tr.run_round(t)
@@ -331,7 +389,9 @@ def test_checkpoint_saved_on_card_restores_bitwise(cuda, dst, tmp_path):
         assert got.device.type == dst
         assert torch.equal(got.cpu(), want.cpu())
     assert bool((tr.server_state["y"] != 0).any())
-    assert res.sampler.state_dict() == tr.sampler.state_dict()
+    # the chain as of the saved frontier (the staging ring of ``tr`` has
+    # sampled rounds past it)
+    assert res.sampler.state_dict() == tr.state().sampler_state
     assert np.isfinite(res.run_round(2).train_loss)
 
 
@@ -343,7 +403,7 @@ def test_async_int8_trainer_on_card_matches_cpu(cuda):
     data = build_federated_image_data(num_classes=10, num_clients=8,
                                       alpha=0.5, samples_per_class=16,
                                       test_per_class=2, seed=0)
-    params = init_vision(cfg, torch.Generator().manual_seed(0))
+    params = init_vision(cfg, jax_prng.PRNGKey(0))
     runs = {}
     for dev in ("cpu", "cuda"):
         tr = FederatedTrainer(
@@ -458,7 +518,7 @@ def test_guarded_faulted_trainer_on_card_matches_cpu(cuda):
     data = build_federated_image_data(num_classes=10, num_clients=8,
                                       alpha=0.5, samples_per_class=16,
                                       test_per_class=2, seed=0)
-    params = init_vision(cfg, torch.Generator().manual_seed(0))
+    params = init_vision(cfg, jax_prng.PRNGKey(0))
     runs = {}
     for dev in ("cpu", "cuda"):
         tr = FederatedTrainer(

@@ -196,7 +196,6 @@ def test_apply_guard_matches_reference(thresh, masked):
 # guarded run ----
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(ingest_crash_rate=0.1), "item 11"),
     (dict(edge_drop_rounds=(1,)), "item 13"),
 ])
 def test_plans_without_a_consumer_raise(kw, match):

@@ -30,7 +30,13 @@ for must in ("repro_torch.optim.server", "repro_torch.core.samplers",
              "repro_torch.kernels.flash_attention.ops",
              "repro_torch.kernels.ssm_scan.ops",
              "repro_torch.models.ssm",
-             "repro_torch.launch.serve"):
+             "repro_torch.launch.serve",
+             "repro_torch.core.jax_prng",
+             "repro_torch.kernels.int8_sr.ops",
+             "repro_torch.ingest.prefetch",
+             "repro_torch.ingest.placement",
+             "repro_torch.ingest.readers",
+             "repro_torch.ingest.datasets"):
     assert must in names, (must, names)
 print("chip_smoke.main() ->", chip_smoke.main())   # CUDA is hidden
 """

@@ -16,6 +16,7 @@ from repro.models import layers as ref_layers
 from repro.models import vision as ref_vision
 from repro_torch import bridge
 from repro_torch.configs import paper_lenet5, paper_resnet18
+from repro_torch.core import jax_prng
 from repro_torch.models import layers, vision
 
 PORT_CONFIGS = {"lenet5": paper_lenet5.SMOKE,
@@ -85,7 +86,7 @@ def test_group_norm_matches_reference():
 def test_init_and_accuracy(name):
     rcfg, pcfg = REF_CONFIGS[name], PORT_CONFIGS[name]
     params = ref_params(name)
-    mine = vision.init_vision(pcfg, torch.Generator().manual_seed(0))
+    mine = vision.init_vision(pcfg, jax_prng.PRNGKey(0))
     # the port's own init has the reference's tree and layouts
     assert bridge.layout_of(mine) == bridge.layout_of(params)
     batch = image_batch(np.random.default_rng(2), (32,), rcfg)

@@ -1,13 +1,14 @@
-"""Seconds per round of chip_smoke.py's trainer runs, for one checkout's
-port: the smoke's trainer phase as it stands (ResNet18-GN at full width,
-the same runs, cohorts and per-round launch checks; its lines printed as
-they come), then one summary line with each run's median round seconds
-after round 0.
+"""Seconds per round of chip_smoke.py's trainer runs, for one checkout:
+its smoke's trainer phase (ResNet18-GN at full width, the runs, cohorts
+and per-round launch checks; its lines printed as they come), then one
+summary line with each run's median round seconds after round 0 and its
+seconds per round.
 
-``--src DIR`` takes the port from DIR/src — an older commit unpacked there
-— while the runs stay this checkout's, so two versions of the port meet
-the same runs. A card's round times drift from call to call, so compare
-two trees only within one call, in turns (A B B A ...). Needs the card:
+``--src DIR`` runs the checkout unpacked in DIR (an older commit): its
+port and its own chip_smoke.py's trainer phase, so each tree runs the
+regime its defaults define, and the runs both trees hold compare one to
+one. A card's round times drift from call to call, so compare two trees
+only within one call, in turns (A B B A ...). Needs the card:
 
     python3 tools/round_seconds.py [--src DIR]
 """
@@ -28,7 +29,7 @@ def main() -> int:
     src = os.path.join(os.path.abspath(args.src), "src")
     sys.path.insert(0, src)
     import repro_torch  # noqa: F401  (chip_smoke's imports resolve here)
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.abspath(args.src))
     import torch
 
     import chip_smoke as cs
@@ -36,18 +37,20 @@ def main() -> int:
         print("round_seconds: CUDA is not available; this tool needs a card",
               file=sys.stderr)
         return 1
-    medians = {}
+    medians, rounds = {}, {}
     emit = cs.emit
 
     def collect(obj):
         if "median_seconds_after_0" in obj:
             medians[obj["run"]] = obj["median_seconds_after_0"]
+            rounds[obj["run"]] = obj["seconds_per_round_after_0"]
         emit(obj)
 
     cs.emit = collect
     launches = cs.phase_trainer()
     emit({"src": src, "card": cs._smi("name,power.limit"),
-          "launches": launches, "median_seconds_after_0": medians})
+          "launches": launches, "median_seconds_after_0": medians,
+          "seconds_per_round_after_0": rounds})
     return 0
 
 
