@@ -73,10 +73,9 @@ from __future__ import annotations
 import json
 import threading
 import time
-import warnings
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import asdict, dataclass, field, fields
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -87,7 +86,7 @@ from repro_torch.codec import make_codec
 from repro_torch.core import client as client_mod
 from repro_torch.core.async_engine import BufferEntry, BufferedAsyncEngine
 from repro_torch.core.baselines import (ServerAlgo, client_kwargs,
-                                        default_hyper, make_algorithm)
+                                        make_algorithm)
 from repro_torch.core import jax_prng
 from repro_torch.core import projection as proj
 from repro_torch.core.guards import GuardConfig, UpdateGuard
@@ -195,80 +194,13 @@ class ExecConfig:
     # stream every verdict to a JSONL tracker file (JsonlHealthSink);
     # None = receipts only
     health_log: Optional[str] = None
-    # driver hints, read by source constructors, never by the trainer:
-    # the decode pool of path-indexed datasets (0 = serial), batch size
-    # and local epochs
+    # the data source's settings, read by the training CLI when it builds
+    # the source (launch/train.py build_vision_task), never by the
+    # trainer: the decode pool of path-indexed datasets (0 = serial),
+    # batch size and local epochs
     decode_workers: int = 0
     batch_size: int = 256
     local_epochs: int = 1
-
-
-@dataclass
-class FLConfig:
-    """DEPRECATED flat config (the reference's pre-registry surface).
-    Passing it to ``FederatedTrainer`` warns and splits into (AlgoConfig,
-    ExecConfig) with round-for-round identical results. ``use_kernel`` and
-    ``shard_clients`` are kept for the surface: the port's device picks
-    the server step's route, and sharding waits for item 13."""
-    algorithm: str = "feddpc"
-    rounds: int = 50
-    clients_per_round: int = 10
-    eta_l: float = 0.1
-    eta_g: float = 1.0
-    lam: float = 1.0                 # FedDPC adaptive-scaling hyper-param
-    mu: float = 0.01                 # FedProx
-    cm_alpha: float = 0.1            # FedCM
-    ga_beta: float = 0.1             # FedGA
-    batch_size: int = 256
-    local_epochs: int = 1
-    local_optimizer: str = "sgd"
-    seed: int = 0
-    eval_every: int = 5
-    use_kernel: bool = False
-    vectorize: bool = True
-    shard_clients: bool = False
-    prefetch: bool = True
-    async_eval: bool = True
-
-    def split(self) -> Tuple[AlgoConfig, ExecConfig]:
-        """The flat knobs on the composable configs; the per-algorithm
-        hypers pick up whichever flat field used to feed them."""
-        if self.shard_clients:
-            raise ValueError("shard_clients needs multi-device execution "
-                             "(ROADMAP Queue 1 item 13)")
-        hyper = default_hyper(self.algorithm, lam=self.lam, mu=self.mu,
-                              cm_alpha=self.cm_alpha, ga_beta=self.ga_beta)
-        algo = AlgoConfig(name=self.algorithm, eta_l=self.eta_l,
-                          eta_g=self.eta_g,
-                          local_optimizer=self.local_optimizer, hyper=hyper)
-        exe = ExecConfig(rounds=self.rounds,
-                         clients_per_round=self.clients_per_round,
-                         seed=self.seed, eval_every=self.eval_every,
-                         vectorize=self.vectorize, prefetch=self.prefetch,
-                         async_eval=self.async_eval,
-                         batch_size=self.batch_size,
-                         local_epochs=self.local_epochs)
-        return algo, exe
-
-
-def _coerce_cfg(cfg, algo) -> Tuple[AlgoConfig, ExecConfig]:
-    """The (cfg, algo) pair ``__init__`` and ``resume()`` accept: a
-    deprecated FLConfig warns (attributed to the end caller) and splits;
-    an ExecConfig pairs with ``algo`` or the defaults."""
-    if isinstance(cfg, FLConfig):
-        if algo is not None:
-            raise ValueError("pass either a flat FLConfig or "
-                             "algo=AlgoConfig(...), not both")
-        warnings.warn(
-            "FLConfig is deprecated: pass ExecConfig(...) plus "
-            "algo=AlgoConfig(name=..., hyper=...)", DeprecationWarning,
-            stacklevel=3)
-        return cfg.split()
-    if cfg is None or isinstance(cfg, ExecConfig):
-        return (algo if algo is not None else AlgoConfig(),
-                cfg if cfg is not None else ExecConfig())
-    raise TypeError(f"cfg must be ExecConfig or FLConfig, got "
-                    f"{type(cfg).__name__}")
 
 
 @dataclass
@@ -354,9 +286,7 @@ class FederatedTrainer:
     """loss_fn(params_tree, batch) -> scalar; eval_fn(params_tree) ->
     accuracy. ``params`` is a parameter tree (numpy or torch leaves),
     copied into the trainer's flat buffer. ``data`` is a DataSource or a
-    ``batch_fn(client, round) -> list`` callable. ``cfg`` is an ExecConfig
-    (pair it with ``algo=AlgoConfig(...)``) or a deprecated flat
-    FLConfig. ``runtime`` is the
+    ``batch_fn(client, round) -> list`` callable. ``runtime`` is the
     client runtime model of the async regime or a round deadline
     (DeterministicRuntime by default); ``fault_plan`` a
     core/faults.FaultPlan; ``health_sink`` a tracker with the wandb-style
@@ -364,12 +294,14 @@ class FederatedTrainer:
     ``device=None`` means "cuda" and raises when CUDA is absent."""
 
     def __init__(self, loss_fn: Callable, params, num_clients: int, data,
-                 cfg=None, eval_fn: Optional[Callable] = None, *,
+                 cfg: Optional[ExecConfig] = None,
+                 eval_fn: Optional[Callable] = None, *,
                  algo: Optional[AlgoConfig] = None,
                  sampler: Optional[ClientSampler] = None,
                  runtime: Optional[ClientRuntimeModel] = None,
                  fault_plan=None, health_sink=None, device=None):
-        self.algo_cfg, self.cfg = _coerce_cfg(cfg, algo)
+        self.cfg = cfg if cfg is not None else ExecConfig()
+        self.algo_cfg = algo if algo is not None else AlgoConfig()
         deadline = self.cfg.round_deadline
         if (runtime is not None and not self.cfg.async_buffer
                 and deadline is None):
@@ -1413,7 +1345,7 @@ class FederatedTrainer:
 
     @classmethod
     def resume(cls, ckpt_dir: str, loss_fn: Callable, params,
-               num_clients: int, data, cfg=None,
+               num_clients: int, data, cfg: Optional[ExecConfig] = None,
                eval_fn: Optional[Callable] = None, *,
                algo: Optional[AlgoConfig] = None,
                sampler: Optional[ClientSampler] = None,

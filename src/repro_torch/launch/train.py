@@ -85,15 +85,17 @@ from repro_torch.models.vision import (VisionConfig, init_vision,
 EVAL_CHUNK = 1000      # test images per forward pass
 
 
-def build_vision_task(args, device: torch.device):
+def build_vision_task(args, cfg: ExecConfig, device: torch.device):
+    """(params, loss_fn, source, eval_fn) of a CLI run. The source's batch
+    size, local epochs and decode pool are ``cfg``'s."""
     family = "lenet5" if args.model == "lenet5" else "resnet18"
     if args.dataset == "synthetic":
         nclass = 10 if args.model == "lenet5" else args.num_classes
         data = build_federated_image_data(
             num_classes=nclass, num_clients=args.clients, alpha=args.alpha,
             samples_per_class=args.samples_per_class, seed=args.seed)
-        source = StreamingImageSource(data, args.batch_size,
-                                      args.local_epochs)
+        source = StreamingImageSource(data, cfg.batch_size,
+                                      cfg.local_epochs)
         test_x, test_y = data.test_images, data.test_labels
         image_size = 32
     else:
@@ -106,10 +108,10 @@ def build_vision_task(args, device: torch.device):
                    "tiny-imagenet": TinyImageNetSource}[args.dataset]
         src_kw = {}
         if args.dataset == "tiny-imagenet":
-            src_kw["decode_workers"] = args.decode_workers
+            src_kw["decode_workers"] = cfg.decode_workers
         source = src_cls(args.data_root, num_clients=args.clients,
-                         alpha=args.alpha, batch_size=args.batch_size,
-                         local_epochs=args.local_epochs,
+                         alpha=args.alpha, batch_size=cfg.batch_size,
+                         local_epochs=cfg.local_epochs,
                          augment=args.augment, seed=args.seed, **src_kw)
         nclass = source.num_classes
         test_x, test_y = source.test_arrays()
@@ -279,7 +281,6 @@ def main(argv=None):
         raise SystemExit("--resume needs --ckpt-dir")
 
     device = resolve_device(args.device)
-    params, loss_fn, source, eval_fn = build_vision_task(args, device)
     cohort = max(1, int(round(args.clients * args.participation)))
     algo = AlgoConfig(name=args.algorithm, eta_l=args.eta_l,
                       eta_g=args.eta_g,
@@ -305,6 +306,7 @@ def main(argv=None):
                      health=args.health,
                      health_patience=args.health_patience,
                      health_log=args.health_log)
+    params, loss_fn, source, eval_fn = build_vision_task(args, cfg, device)
     runtime = None
     if args.async_buffer or args.round_deadline is not None:
         rt_kw = ({} if args.runtime == "deterministic"

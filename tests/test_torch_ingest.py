@@ -4,8 +4,9 @@ restarts, an owner dropped without close), ``stack_cohort_into`` against
 ``stack_cohort``, the disk readers and sources on the committed fixtures
 byte for byte against the reference's, and the trainer: prefetch on, off
 and host-staged bitwise equal, a resume from a save taken with the ring
-ahead bitwise the uninterrupted run, ``ingest_crash`` consumed, the
-FLConfig shim and async eval."""
+ahead bitwise the uninterrupted run, ``ingest_crash`` consumed and async
+eval; the training CLI's source built from its ExecConfig."""
+import argparse
 import gc
 import os
 import threading
@@ -18,8 +19,7 @@ import torch
 import _torch_resume_check as rc
 from repro.ingest import datasets as ref_datasets
 from repro.ingest import readers as ref_readers
-from repro_torch.core.api import (AlgoConfig, ExecConfig, FederatedTrainer,
-                                  FLConfig)
+from repro_torch.core.api import ExecConfig
 from repro_torch.core.faults import FaultPlan
 from repro_torch.ingest import datasets, readers
 from repro_torch.ingest.pipeline import CohortIngestPipeline
@@ -275,32 +275,23 @@ def test_ingest_crash_is_consumed(exec_kw):
         _run("feddpc", exec_kw, fault_plan=plan)
 
 
-def test_flconfig_shim_is_the_split_spelling():
-    with pytest.warns(DeprecationWarning, match="FLConfig is deprecated"):
-        old = FederatedTrainer(
-            rc.port_loss, rc.make_params(), rc.NUM_CLIENTS,
-            rc.ragged_batch_fn,
-            FLConfig(algorithm="feddpc", rounds=3, clients_per_round=rc.K,
-                     eta_l=0.05, eta_g=0.1, lam=1.3, seed=7,
-                     eval_every=10 ** 9), device="cpu")
-    with pytest.raises(ValueError, match="not both"):
-        FederatedTrainer(rc.port_loss, rc.make_params(), rc.NUM_CLIENTS,
-                         rc.ragged_batch_fn, FLConfig(), algo=AlgoConfig(),
-                         device="cpu")
-    from repro_torch.core.baselines import FedDPCHyper
-    new = FederatedTrainer(
-        rc.port_loss, rc.make_params(), rc.NUM_CLIENTS, rc.ragged_batch_fn,
-        ExecConfig(rounds=3, clients_per_round=rc.K, seed=7,
-                   eval_every=10 ** 9),
-        algo=AlgoConfig(eta_l=0.05, eta_g=0.1, hyper=FedDPCHyper(lam=1.3)),
-        device="cpu")
-    for tr in (old, new):
-        with tr:
-            tr.run()
-    assert torch.equal(old.flat, new.flat)
-    assert [r.train_loss for r in old.history] == \
-        [r.train_loss for r in new.history]
-
+@pytest.mark.parametrize("dataset", ["synthetic", "tiny-imagenet"])
+def test_cli_source_takes_its_settings_from_exec_config(dataset):
+    """The training CLI builds its data source from ExecConfig's
+    batch_size, local_epochs and decode_workers (args carries none of
+    them here, so a read of args would raise)."""
+    from repro_torch.launch.train import build_vision_task
+    args = argparse.Namespace(model="lenet5", dataset=dataset, num_classes=10,
+                              clients=4, alpha=0.5, samples_per_class=4,
+                              seed=0, data_root=FIXTURES, augment=False)
+    cfg = ExecConfig(batch_size=3, local_epochs=2, decode_workers=2)
+    _, _, source, _ = build_vision_task(args, cfg, torch.device("cpu"))
+    assert (source.batch_size, source.local_epochs) == (3, 2)
+    if dataset == "tiny-imagenet":
+        assert source.decoder.workers == 2
+        source.decoder.close()
+    batches = list(source.client_batches(0, 0))
+    assert batches and all(len(b["labels"]) == 3 for b in batches)
 
 def test_async_eval_lands_in_history_and_raises_its_errors():
     """The accuracy of each eval round lands in its record (from a snapshot
