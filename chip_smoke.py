@@ -189,6 +189,38 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               "reference") on the same params and prompts.
  11. serve ssm parity  Falcon-Mamba SMOKE on the card and on the CPU from
               the same params: prefill plus 4 teacher-forced decode steps.
+ 12. lm train  one client's local training at full width and depth:
+              StarCoder2-3B in f32 (random weights from a seed), B = 2
+              sequences of 1,024 tokens, 3 SGD steps through
+              launch/steps.make_train_step(remat="full") (each layer
+              recomputed in the backward); the loss must be finite and
+              fall, and the training route (plain attention: neither
+              kernel has a backward) must launch no flash_attention or
+              ssm_scan kernel. Seconds a step, tokens/s, peak memory and
+              the bound (8·N·tokens f32 FLOP at the f32 peak).
+ 13. lm fl    the reference example's federated LM run at its own size
+              (repro_torch.examples.federated_llm_pretraining without
+              --tiny: ~101M params, 20 clients, 5 a round, FedDPC) for 4
+              rounds on the trainer's defaults (the staging ring, async
+              eval), the last profiled (idle share; kernel time by
+              matmuls, elementwise and FedDPC); each round must launch
+              feddpc_dots and feddpc_batched_epilogue once, and the losses
+              must be the reference example's (JAX on the CPU) within
+              1e-4 relative.
+ 14. serve vlm  serve_lm on LLaVA-NeXT-Mistral-7B at full width and
+              depth (32 layers, d_model 4096, random weights), B = 8, a
+              zero prefix of 576 patch embeddings and prompts of 1,024
+              tokens, 32 generated, f32 and bf16 — as phase 7: 32 x 32
+              flash_attention launches a run, the profiled steps, the
+              kernel path against the plain path (f32 logits within 1e-3
+              x max|logit|, bf16 top-1 >= 90 %).
+ 15. quickstart  repro_torch.examples.quickstart at its own size (LeNet5,
+              15 rounds of 10 of 30 clients, FedAvg then FedDPC): FedDPC
+              launches feddpc_dots and feddpc_batched_epilogue once a
+              round, FedAvg none.
+ 16. lm parity  federated_llm_pretraining --tiny for 2 rounds on the card
+              and on the CPU: losses and holdout NLLs within 1e-4
+              relative.
 
 Every profile opens with PROFILE_PAD spin kernels, finished before the
 profiled work and left out of its counts and times: late in a long process
@@ -201,8 +233,10 @@ prints no result. It imports torch and the port, nothing of JAX.
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
 import gc
+import io
 import itertools
 import json
 import math
@@ -240,6 +274,8 @@ from repro_torch.core.faults import (FaultPlan,  # noqa: E402
 from repro_torch.core.runtime import ExponentialRuntime  # noqa: E402
 from repro_torch.core.samplers import (MarkovSampler,  # noqa: E402
                                        UniformSampler)
+from repro_torch.examples import federated_llm_pretraining as llm_example  # noqa: E402,E501
+from repro_torch.examples import quickstart as quickstart_example  # noqa: E402,E501
 from repro_torch.codec import make_codec  # noqa: E402
 from repro_torch.ingest.datasets import CIFAR100Source  # noqa: E402
 from repro_torch.ingest.images import (StreamingImageSource,  # noqa: E402
@@ -252,6 +288,7 @@ from repro_torch.kernels.int8_sr import ops as sr_ops  # noqa: E402
 from repro_torch.kernels.int8_sr import ref as sr_ref  # noqa: E402
 from repro_torch.kernels.ssm_scan import ops as ss_ops  # noqa: E402
 from repro_torch.kernels.ssm_scan import ref as ss_ref  # noqa: E402
+from repro_torch.launch import steps as lm_steps  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.serve import serve_lm  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
@@ -320,6 +357,7 @@ FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 4e-2}
 # at most one step apart); FA_TOL alone is as large as a decode's outputs
 BF16_STEPS_TOL = 2
 SERVE_ARCH = "starcoder2-3b"
+VLM_ARCH = "llava-next-mistral-7b"
 SERVE_B, SERVE_PROMPT, SERVE_GEN = 8, 1024, 32
 SERVE_STEPS = 8               # teacher-forced steps, kernel vs plain path
 SMOKE_STEPS = 4               # ... and card vs CPU on the SMOKE config
@@ -1239,7 +1277,7 @@ def _kernel_time(events, category):
     return spans, busy_us, by_name, by_cat
 
 
-def profile_round(trainer, t):
+def profile_round(trainer, t, category=_category):
     """Run round t (and its eval) under torch.profiler: kernel time by
     name and by category, and the card's busy share of the window — the
     union of the kernels' intervals over the window's wall time. The
@@ -1247,7 +1285,8 @@ def profile_round(trainer, t):
     inside it (async eval runs it on a worker thread), so the window holds
     the round and its eval, as an inline eval's would. With a lossy codec
     the kernels launched inside its encode and decode are a category of
-    their own."""
+    their own. ``category`` names a kernel's category (the LM rounds'
+    is ``_lm_category``)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     trainer.finalize()
@@ -1259,7 +1298,7 @@ def profile_round(trainer, t):
         torch.cuda.synchronize()
         window_s = time.perf_counter() - tic
     events = prof.events()
-    spans, busy_us, by_name, by_cat = _kernel_time(events, _category)
+    spans, busy_us, by_name, by_cat = _kernel_time(events, category)
     # codec kernels: those launched by CPU ops inside a codec range
     ranges = [(e.time_range.start, e.time_range.end) for e in events
               if e.device_type == DeviceType.CPU
@@ -1287,7 +1326,7 @@ def profile_round(trainer, t):
             "device_idle_share": 1.0 - busy_us / 1e6 / window_s,
             "by_category_ms": by_cat, "codec_kernels": codec_n,
             "feddpc_kernels_ms": {k: v for k, v in by_name.items()
-                                  if _category(k) == "feddpc kernels"},
+                                  if category(k) == "feddpc kernels"},
             "top_ms": [[name[:70], ms] for name, ms in top]}
     emit(line)
     return rec, line
@@ -2379,23 +2418,34 @@ def phase_ssm_kernels():
                 "bound_term", "bitwise_equal")} for t in timings]}
 
 
+def _patch_prefix(cfg, b, dtype, device):
+    """(P, zero patch embeddings (B, P, D) or None): a VLM's prefix as
+    serve_lm feeds it (the stub's shape), none for a text model."""
+    if cfg.modality != "vision":
+        return 0, None
+    return cfg.num_patches, torch.zeros((b, cfg.num_patches, cfg.d_model),
+                                        dtype=dtype, device=device)
+
+
 def _teacher_forced(cfg, params, prompts, forced, impl):
-    """Prefill ``prompts``, then one decode step per column of ``forced``
-    (the same tokens whatever the model predicts): the last-position
-    logits of each, stacked (1 + steps, B, V) in f32. ``impl`` ("auto"
-    or "reference") is both the attention's and the SSM mixer's."""
+    """Prefill ``prompts`` (after a VLM's zero patch prefix), then one
+    decode step per column of ``forced`` (the same tokens whatever the
+    model predicts): the last-position logits of each, stacked (1 +
+    steps, B, V) in f32. ``impl`` ("auto" or "reference") is both the
+    attention's and the SSM mixer's."""
     b, s = prompts.shape
     steps = forced.shape[1]
     dtype = params["embed"].dtype
-    states = tf.init_states(cfg, b, s + steps, dtype, prompts.device)
+    p, embeds = _patch_prefix(cfg, b, dtype, prompts.device)
+    states = tf.init_states(cfg, b, p + s + steps, dtype, prompts.device)
     with torch.inference_mode():
         logits, states, _ = tf.lm_forward(cfg, params, prompts,
-                                          states=states, attn_impl=impl,
-                                          ssm_impl=impl,
+                                          embeds=embeds, states=states,
+                                          attn_impl=impl, ssm_impl=impl,
                                           logits_slice_last=True)
         out = [logits[:, -1].float()]
         for i in range(steps):
-            pos = torch.full((b, 1), s + i, dtype=torch.int32,
+            pos = torch.full((b, 1), p + s + i, dtype=torch.int32,
                              device=prompts.device)
             logits, states, _ = tf.lm_forward(
                 cfg, params, forced[:, i:i + 1], positions=pos,
@@ -2418,7 +2468,7 @@ def _serve_category(kernel: str) -> str:
     return "other"
 
 
-def _profile_step(cfg, params, tok, pos, states):
+def _profile_step(cfg, params, tok, pos, states, embeds=None):
     """One forward step under torch.profiler: (profile, window seconds,
     next token, new states, the flash wrapper's launches in the step).
     The step can be run again on the same arguments: the attention caches
@@ -2433,7 +2483,7 @@ def _profile_step(cfg, params, tok, pos, states):
         _pad_profile()
         tic = time.perf_counter()
         logits, states, _ = tf.lm_forward(cfg, params, tok, positions=pos,
-                                          states=states,
+                                          embeds=embeds, states=states,
                                           logits_slice_last=True)
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
         torch.cuda.synchronize()
@@ -2455,7 +2505,9 @@ def profile_serve(cfg, params, prompts, kernel: str):
     inputs and must be exact there (both reads are printed). Then one
     more decode step in which any call that waits for the card raises."""
     b, s = prompts.shape
-    states = tf.init_states(cfg, b, s + 2, params["embed"].dtype, "cuda")
+    p, embeds = _patch_prefix(cfg, b, params["embed"].dtype, "cuda")
+    states = tf.init_states(cfg, b, p + s + 2, params["embed"].dtype,
+                            "cuda")
     tok = prompts
     pos = None
     want = cfg.num_layers if kernel == "flash_attention" else 0
@@ -2467,7 +2519,8 @@ def profile_serve(cfg, params, prompts, kernel: str):
         reads = []
         for _ in range(2):
             prof, window_s, nxt, new_states, launched = _profile_step(
-                cfg, params, tok, pos, states)
+                cfg, params, tok, pos, states,
+                embeds if step == "prefill" else None)
             spans, busy_us, by_name, by_cat = _kernel_time(prof.events(),
                                                            _serve_category)
             flash = sum(1 for *_, name in spans
@@ -2516,7 +2569,7 @@ def profile_serve(cfg, params, prompts, kernel: str):
         if step == "decode":
             emit({"phase": "serve_decode_launches", "arch": cfg.name,
                   "dtype": dtype, "launches_per_step": len(spans)})
-        pos = torch.full((b, 1), s, dtype=torch.int32, device="cuda")
+        pos = torch.full((b, 1), p + s, dtype=torch.int32, device="cuda")
     torch.cuda.set_sync_debug_mode("error")
     try:
         with torch.inference_mode():
@@ -2590,6 +2643,8 @@ def phase_serve(arch: str, kernel: str) -> int:
         line = {"phase": "serve", "arch": cfg.name, "dtype": str(dtype)[6:],
                 "layers": cfg.num_layers, "d_model": cfg.d_model,
                 "params": n_params, "batch": SERVE_B,
+                "patches": (cfg.num_patches if cfg.modality == "vision"
+                            else 0),
                 "prompt_len": SERVE_PROMPT, "gen": SERVE_GEN, **stats,
                 "decode_step_ms": 1e3 * stats["decode_s"] / (SERVE_GEN - 1),
                 **{f"{name}_launches": n for name, n in launches.items()},
@@ -2636,6 +2691,212 @@ def phase_serve_parity(arch: str):
                              f"{diff} > {SMOKE_ATOL}")
 
 
+# ---- LM training: one client's local steps at full width, federated LM
+# rounds (the reference example's ~101M run), the paper's quickstart, and
+# the tiny LM example card vs CPU ----
+
+LM_TRAIN_ARCH = "starcoder2-3b"
+LM_TRAIN_B, LM_TRAIN_S, LM_TRAIN_STEPS, LM_TRAIN_LR = 2, 1024, 3, 0.01
+LM_FL_ROUNDS = 4
+# the reference example's numbers for these 4 rounds (python
+# examples/federated_llm_pretraining.py --rounds 4, JAX on the CPU): its
+# losses rise over the first rounds at eta 0.05, and the port's must too
+LM_FL_REFERENCE_LOSS = [10.198956, 12.759791, 12.111839, 31.315639]
+LM_FL_REFERENCE_NLL = {0: 12.667036, 3: 14.620679}    # round -> holdout NLL
+LM_FL_RTOL = 1e-4
+LM_TINY_RTOL = 1e-4           # card vs CPU losses of the tiny LM example
+QUICKSTART_ROUNDS = 15
+
+
+def _lm_category(kernel: str) -> str:
+    if any(tag in kernel for tag in ("dots_kernel", "fold_kernel",
+                                     "epilogue_kernel")):
+        return "feddpc kernels"
+    if any(name in kernel for name in FA_KERNEL_NAMES):
+        return "flash_attention kernel"
+    if any(tag in kernel.lower() for tag in ("gemm", "gemv", "cutlass",
+                                             "xmma", "cublas", "nvjet")):
+        return "matmuls (cuBLAS)"
+    if "at::native" in kernel:
+        return "PyTorch elementwise and reductions"
+    return "other"
+
+
+def phase_lm_train():
+    """One client's local training at full width and depth: StarCoder2-3B
+    (30 layers, d_model 3072, f32, random weights from seed 0), B = 2
+    sequences of 1,024 tokens, LM_TRAIN_STEPS SGD steps through
+    launch/steps.make_train_step(remat="full") — plain autograd, each
+    layer recomputed in the backward. The loss must be finite and fall,
+    and the training route must launch no serving kernel (no backward in
+    either package). Bound: 6·N·tokens (forward and backward) plus
+    2·N·tokens (the recomputed forward) f32 FLOP at the f32 peak."""
+    cfg = get_config(LM_TRAIN_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = tf.init_lm(cfg, gen, torch.float32)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    tokens = torch.randint(0, cfg.vocab_size, (LM_TRAIN_B, LM_TRAIN_S + 1),
+                           generator=gen, device="cuda")
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    step = lm_steps.make_train_step(cfg, lr=LM_TRAIN_LR, remat="full")
+    for mod in SERVE_KERNELS.values():
+        mod.reset_launches()               # this path starts here
+    losses, seconds = [], []
+    for _ in range(LM_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        params, loss = step(params, batch)
+        losses.append(float(loss))         # a sync
+        seconds.append(time.perf_counter() - tic)
+    launches = _serve_launches()
+    ntok = LM_TRAIN_B * LM_TRAIN_S
+    flops = 8.0 * n_params * ntok
+    bound, _ = bound_ms(0, flops)
+    emit({"phase": "lm_train", "arch": cfg.name, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "params": n_params, "dtype": "float32",
+          "batch": LM_TRAIN_B, "seq_len": LM_TRAIN_S, "remat": "full",
+          "lr": LM_TRAIN_LR, "losses": losses, "step_seconds": seconds,
+          "median_step_s": statistics.median(seconds[1:] or seconds),
+          "tokens_per_s": ntok / statistics.median(seconds[1:] or seconds),
+          "bound_s": bound / 1e3, "bound_flop": flops,
+          "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          **{f"{name}_launches": n for name, n in launches.items()}})
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"lm_train: non-finite losses {losses}")
+    if not all(b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"lm_train: the loss did not fall: {losses}")
+    if any(launches.values()):
+        raise AssertionError(f"lm_train: the training route launched "
+                             f"serving kernels {launches}")
+    del params, step
+    torch.cuda.empty_cache()
+
+
+def phase_lm_fl():
+    """The reference example's full federated LM run on the card
+    (examples/federated_llm_pretraining.py without --tiny: StarCoder2's
+    family at ~101M params, 20 clients, 5 a round, Dirichlet(0.3) over
+    2,000 Zipf documents of 257 tokens, batch 8, FedDPC with lam = 1 and
+    eta = 0.05), LM_FL_ROUNDS rounds through FederatedTrainer on its
+    defaults (the staging ring, async eval every round), the last one
+    profiled. Each round must launch feddpc_dots and
+    feddpc_batched_epilogue once and no serving kernel, and the losses
+    and holdout NLLs must be the reference example's within
+    LM_FL_RTOL."""
+    task = llm_example.build(tiny=False, rounds=LM_FL_ROUNDS, device="cuda")
+    algo = AlgoConfig(name="feddpc", eta_l=task.eta, eta_g=task.eta,
+                      hyper=FedDPCHyper(lam=1.0))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = FederatedTrainer(
+        task.loss_fn, task.params, task.clients, task.batch_fn,
+        ExecConfig(rounds=LM_FL_ROUNDS, clients_per_round=task.cohort,
+                   eval_every=1), task.eval_fn, algo=algo, device="cuda")
+    per_round = []
+    with trainer:
+        ops.reset_launches()               # this path starts here
+        for mod in SERVE_KERNELS.values():
+            mod.reset_launches()
+        for t in range(LM_FL_ROUNDS):
+            before = [fn.launches for fn in ops.KERNELS]
+            if t == LM_FL_ROUNDS - 1:
+                _, profile = profile_round(trainer, t, _lm_category)
+            else:
+                trainer.run_round(t)
+            per_round.append({fn.__name__: fn.launches - b
+                              for fn, b in zip(ops.KERNELS, before)
+                              if fn.launches > b})
+        trainer.finalize()
+        hist = trainer.history
+        n = trainer.layout.size
+    serve_launches = _serve_launches()
+    want = {name: 1 for name in SYNC_KERNELS}
+    seconds = [r.seconds for r in hist]
+    emit({"phase": "lm_fl", "model": "starcoder2 family, 12 layers, "
+          "d_model 768", "params": n, "clients": task.clients,
+          "cohort": task.cohort, "rounds": LM_FL_ROUNDS,
+          "losses": [r.train_loss for r in hist],
+          "holdout_nll": [None if r.test_accuracy is None
+                          else -r.test_accuracy for r in hist],
+          "round_seconds": seconds,
+          "median_round_s_after_0": statistics.median(seconds[1:]),
+          "launches_per_round": per_round,
+          "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "profile_idle_share": profile["device_idle_share"],
+          "profile_by_category_ms": profile["by_category_ms"],
+          **{f"{name}_launches": v for name, v in serve_launches.items()}})
+    if any(r != want for r in per_round):
+        raise AssertionError(f"lm_fl: launches a round {per_round}, "
+                             f"expected {want}")
+    if any(serve_launches.values()):
+        raise AssertionError(f"lm_fl: serving kernels launched "
+                             f"{serve_launches}")
+    losses = [r.train_loss for r in hist]
+    holdout = {t: -hist[t].test_accuracy for t in LM_FL_REFERENCE_NLL}
+    for got, want in zip(losses + list(holdout.values()),
+                         LM_FL_REFERENCE_LOSS
+                         + list(LM_FL_REFERENCE_NLL.values())):
+        if not abs(got - want) <= LM_FL_RTOL * abs(want):
+            raise AssertionError(
+                f"lm_fl: losses {losses} and holdout NLLs {holdout}, the "
+                f"reference's {LM_FL_REFERENCE_LOSS} and "
+                f"{LM_FL_REFERENCE_NLL}")
+    del trainer, task
+    torch.cuda.empty_cache()
+
+
+def phase_quickstart():
+    """The paper's quickstart at its own size (LeNet5, 15 rounds, 10 of 30
+    clients, FedAvg then FedDPC) through repro_torch.examples.quickstart:
+    FedDPC's rounds launch feddpc_dots and feddpc_batched_epilogue once
+    each, FedAvg's none."""
+    ops.reset_launches()                   # this path starts here
+    hists = quickstart_example.main(rounds=QUICKSTART_ROUNDS,
+                                    device="cuda")
+    launches = {fn.__name__: fn.launches for fn in ops.KERNELS
+                if fn.launches}
+    line = {"phase": "quickstart", "rounds": QUICKSTART_ROUNDS,
+            "launches": launches}
+    for name, hist in hists.items():
+        secs = [r.seconds for r in hist[1:]]
+        accs = [r.test_accuracy for r in hist if r.test_accuracy is not None]
+        line[name] = {"final_loss": hist[-1].train_loss,
+                      "best_accuracy": max(accs),
+                      "median_round_s_after_0": statistics.median(secs)}
+        if not all(math.isfinite(r.train_loss) for r in hist):
+            raise AssertionError(f"quickstart {name}: non-finite losses")
+    emit(line)
+    want = {name: QUICKSTART_ROUNDS for name in SYNC_KERNELS}
+    if launches != want:
+        raise AssertionError(f"quickstart: launches {launches}, expected "
+                             f"{want}")
+
+
+def phase_lm_parity():
+    """federated_llm_pretraining --tiny for 2 rounds on the card and on
+    the CPU (the same init, data and cohorts): losses and holdout NLLs
+    within LM_TINY_RTOL relative."""
+    runs = {}
+    for device in ("cuda", "cpu"):
+        with contextlib.redirect_stdout(io.StringIO()):
+            runs[device] = llm_example.main(["--tiny", "--rounds", "2",
+                                             "--device", device])
+    pairs = [(getattr(a, k), getattr(b, k))
+             for a, b in zip(runs["cuda"], runs["cpu"])
+             for k in ("train_loss", "test_accuracy")
+             if getattr(b, k) is not None]
+    rel = max(abs(a - b) / abs(b) for a, b in pairs)
+    emit({"phase": "parity", "run": "federated_llm_pretraining_tiny",
+          "loss_cuda": [r.train_loss for r in runs["cuda"]],
+          "loss_cpu": [r.train_loss for r in runs["cpu"]],
+          "max_rel_diff": rel})
+    if not rel <= LM_TINY_RTOL:
+        raise AssertionError(f"tiny LM example: card vs CPU differ by "
+                             f"{rel} relative > {LM_TINY_RTOL}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs a card",
@@ -2666,6 +2927,11 @@ def main() -> int:
     ss_row["launches"] = phase_serve(SSM_ARCH, "ssm_scan")
     rows.append(ss_row)
     phase_serve_parity(SSM_ARCH)
+    phase_lm_train()
+    phase_lm_fl()
+    phase_serve(VLM_ARCH, "flash_attention")
+    phase_quickstart()
+    phase_lm_parity()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: row[k] for k in keys} for row in rows]})

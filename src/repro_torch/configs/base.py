@@ -4,8 +4,9 @@ the port imports nothing of the reference).
 Every architecture the port runs has one ``configs/<id>.py`` exporting
 ``CONFIG`` (the full-size config) and ``SMOKE`` (a reduced variant of the
 same family used by the CPU tests). ``get_config`` maps an arch id to
-one of them; the port carries the two vision models and the four dense
-GQA decoders so far, and every other id raises ``NotImplementedError``.
+one of them; the port carries the two vision models, the four dense
+GQA decoders, the pure-SSM Falcon-Mamba and LLaVA-NeXT's VLM trunk so
+far, and every other id raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -177,6 +178,7 @@ _MOD = {
     "phi4-mini-3.8b": "phi4_mini_3_8b",
     "command-r-35b": "command_r_35b",
     "falcon-mamba-7b": "falcon_mamba_7b",
+    "llava-next-mistral-7b": "llava_next_mistral_7b",
     # paper-native models (vision CNNs for the faithful reproduction)
     "lenet5": "paper_lenet5",
     "resnet18-gn": "paper_resnet18",
@@ -191,10 +193,10 @@ def get_config(arch_id: str, smoke: bool = False):
             raise NotImplementedError(
                 f"{arch_id} is not ported to repro_torch yet: the port "
                 "carries the dense GQA decoders (starcoder2-3b, "
-                "phi4-mini-3.8b, minitron-8b, command-r-35b) and the "
-                "pure-SSM falcon-mamba-7b; MLA, MoE, hybrid, "
-                "encoder-decoder and VLM archs are ROADMAP Queue 1 item "
-                "14")
+                "phi4-mini-3.8b, minitron-8b, command-r-35b), the "
+                "pure-SSM falcon-mamba-7b and the VLM trunk of "
+                "llava-next-mistral-7b; encoder-decoder is ROADMAP Queue 1 "
+                "item 14's next slice, then MoE, MLA and hybrid archs")
         raise KeyError(f"unknown arch id {arch_id!r}")
     mod = importlib.import_module(f"repro_torch.configs.{_MOD[arch_id]}")
     return mod.SMOKE if smoke else mod.CONFIG

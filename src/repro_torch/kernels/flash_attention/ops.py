@@ -3,7 +3,10 @@ the contract of repro/kernels/flash_attention/ops.py: q (B, Sq, H, D),
 k/v (B, Sk, KV, D), positions (B, Sq) / (B, Sk) int (-1 = an empty cache
 slot), ``window`` (0 = full) and ``soft_cap`` (0 = none).
 
-``flash_attention`` checks shapes, dtypes and devices, then
+``flash_attention`` checks shapes, dtypes and devices, refuses (with a
+ValueError naming the training route) any input that requires grad or is
+wrapped by a ``torch.func`` transform — the kernel has no backward, nor
+has the reference's — then
 
   * for CUDA tensors launches the kernel on the current stream (or
     raises — there is no fallback) and adds one to its ``launches``
@@ -37,7 +40,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_training
 from repro_torch.kernels.flash_attention import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
@@ -49,6 +52,8 @@ TENSOR_CORE_DIMS = (32, 64, 128, 256)   # bf16 head dims with mma bodies
 ROUTES = ("fma", "mma_bf16", "split_decode", "split_decode_mma")
 SPLIT_ROWS = 16       # rows a (batch, KV head) up to which decode splits
 MAX_SPLITS = 256      # chunks a (batch, KV head): the merge's weights
+TRAINING_ROUTE = ("the plain attention (models.transformer.loss_fn, or "
+                  "attention.sdpa(impl='plain'))")
 
 _lib = None           # the loaded library, once per process
 _scratch = {}         # (device index, stream) -> (f32 partials, counters)
@@ -157,6 +162,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(B, Sq, H, D) attention output in q's dtype (f32 or bf16); query
     head h reads KV head h // (H / KV)."""
     _check(q, k, v, q_pos, k_pos)
+    refuse_training("flash_attention", TRAINING_ROUTE, q, k, v)
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, q_pos, k_pos, window=window,
                                  soft_cap=soft_cap)

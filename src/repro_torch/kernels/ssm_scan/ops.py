@@ -11,7 +11,10 @@ takes softplus of the sum (dt is then x_proj's raw dt rows times W_dt);
 ``z`` (B, S, D_in) in u's dtype makes the output y * silu(z). Without
 them the call computes what it always did.
 
-``ssm_scan`` checks shapes, dtypes and devices, then
+``ssm_scan`` checks shapes, dtypes and devices, refuses (with a
+ValueError naming the training route) any input that requires grad or is
+wrapped by a ``torch.func`` transform — the kernel has no backward, and
+the reference's training never calls its scan kernel — then
 
   * for CUDA tensors makes u, dt and the small inputs contiguous (b, c and
     z are read in place, at their batch and step strides, when their last
@@ -32,13 +35,15 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_training
 from repro_torch.kernels.ssm_scan import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssm_scan.cu"
 LIBRARY = "ssm_scan"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # u's dtype -> code
 MAX_STATE = 32            # the kernel's largest N (csrc: kMaxState)
+TRAINING_ROUTE = ("the plain scan (models.transformer.loss_fn, or "
+                  "ssm.mamba_forward(impl='reference'))")
 
 _lib = None           # the loaded library, once per process
 
@@ -122,6 +127,8 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     (when given), then softplus of it (when ``dt_softplus``), and y is
     y * silu(z) (when ``z`` is given)."""
     _check(u, dt, b, c, a, d_skip, h0, dt_bias, z)
+    refuse_training("ssm_scan", TRAINING_ROUTE, u, dt, b, c, a, d_skip, h0,
+                    dt_bias, z)
     if u.device.type == "cpu":
         return ref.ssm_scan_ref(u, dt, b, c, a, d_skip, h0, dt_bias=dt_bias,
                                 dt_softplus=dt_softplus, z=z)

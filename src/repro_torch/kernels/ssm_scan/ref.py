@@ -49,13 +49,16 @@ def ssm_scan_ref(u: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     dtf = dt.float()
     h = (torch.zeros((bsz, d_in, n), dtype=torch.float32, device=u.device)
          if h0 is None else h0.float().clone())
-    y = torch.empty((bsz, s, d_in), dtype=torch.float32, device=u.device)
+    ys = []
     for t in range(s):
         dt_t, u_t = dtf[:, t], uf[:, t]                      # (B, D_in)
         decay = torch.exp(dt_t[..., None] * a)               # (B, D_in, N)
         h = h * decay + (dt_t * u_t)[..., None] * b[:, t, None, :]
-        y[:, t] = _sum_states(h * c[:, t, None, :]) + d_skip * u_t
-    y = y.to(u.dtype)
+        ys.append(_sum_states(h * c[:, t, None, :]) + d_skip * u_t)
+    # stacked, not written into a preallocated buffer: the training route
+    # runs this under torch.func.vmap and autograd, which refuse an
+    # in-place write of a batched value into an unbatched buffer
+    y = torch.stack(ys, dim=1).to(u.dtype)
     if z is not None:
         y = y * F.silu(z)
     return y, h

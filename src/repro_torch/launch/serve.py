@@ -11,9 +11,11 @@ scan through the ssm_scan kernel:
 ``--size full`` runs the full-size config (random weights from
 ``--seed``), ``--dtype bfloat16`` the bf16 model, and ``--device cpu``
 the CPU (plain attention and scan); without it the script raises when
-CUDA is absent. The port carries the dense GQA decoders and the pure-SSM
-Falcon-Mamba; encoder-decoder, VLM, MoE, MLA and hybrid serving come
-with later slices.
+CUDA is absent. The port carries the dense GQA decoders, the pure-SSM
+Falcon-Mamba and LLaVA-NeXT's VLM trunk (``--arch
+llava-next-mistral-7b``: a zero patch prefix, the stub's, before each
+prompt); encoder-decoder, MoE, MLA and hybrid serving come with later
+slices.
 """
 from __future__ import annotations
 
@@ -39,17 +41,21 @@ def serve_lm(cfg, batch, prompt_len, gen, seed=0, *, device="cuda",
              prompts=None, params=None):
     """Greedy generation of ``gen`` tokens for ``batch`` prompts of
     ``prompt_len`` tokens: one prefill (logits of the last position),
-    then ``gen - 1`` decode steps at positions prompt_len + i, in caches
-    of capacity prompt_len + gen (an SSM layer carries its fixed-size
-    state instead). ``params`` (from ``tf.init_lm``, on ``device``) and
+    then ``gen - 1`` decode steps at positions P + prompt_len + i, in
+    caches of capacity P + prompt_len + gen (an SSM layer carries its
+    fixed-size state instead). P is a VLM's ``num_patches`` — its prefill
+    prepends P zero patch embeddings, as the reference's — else 0. The
+    reference sizes a VLM's cache prompt_len + gen and so overwrites its
+    first patches while decoding; the port's holds them all (ROADMAP
+    Queue 3). ``params`` (from ``tf.init_lm``, on ``device``) and
     ``prompts`` (B, prompt_len) are drawn from ``seed`` when not given.
     ``attn_impl`` and ``ssm_impl`` go to ``tf.lm_forward``. Returns
     (tokens (B, gen) int64, stats)."""
-    if cfg.is_encoder_decoder or cfg.modality != "text":
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder and VLM "
-                                  "serving are not ported to repro_torch "
-                                  "yet (ROADMAP Queue 1 item 14); it serves "
-                                  "dense GQA decoders and pure-SSM stacks")
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(f"{cfg.name}: encoder-decoder serving is "
+                                  "not ported to repro_torch yet (ROADMAP "
+                                  "Queue 1 item 14); it serves dense GQA "
+                                  "decoders, pure-SSM stacks and VLMs")
     device = resolve_device(device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False   # the reference is f32
@@ -62,13 +68,18 @@ def serve_lm(cfg, batch, prompt_len, gen, seed=0, *, device="cuda",
     if tuple(prompts.shape) != (batch, prompt_len):
         raise ValueError(f"prompts must be ({batch}, {prompt_len}), got "
                          f"{tuple(prompts.shape)}")
-    states = tf.init_states(cfg, batch, prompt_len + gen, dtype, device)
+    patches = cfg.num_patches if cfg.modality == "vision" else 0
+    embeds = (torch.zeros((batch, patches, cfg.d_model), dtype=dtype,
+                          device=device) if patches else None)
+    states = tf.init_states(cfg, batch, patches + prompt_len + gen, dtype,
+                            device)
 
     with torch.inference_mode():
         _sync(device)
         t0 = time.perf_counter()
         logits, states, _ = tf.lm_forward(cfg, params, prompts.to(device),
-                                          states=states, attn_impl=attn_impl,
+                                          embeds=embeds, states=states,
+                                          attn_impl=attn_impl,
                                           ssm_impl=ssm_impl,
                                           logits_slice_last=True)
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
@@ -77,8 +88,8 @@ def serve_lm(cfg, batch, prompt_len, gen, seed=0, *, device="cuda",
         out = [tok]
         t0 = time.perf_counter()
         for i in range(gen - 1):
-            pos = torch.full((batch, 1), prompt_len + i, dtype=torch.int32,
-                             device=device)
+            pos = torch.full((batch, 1), patches + prompt_len + i,
+                             dtype=torch.int32, device=device)
             logits, states, _ = tf.lm_forward(cfg, params, tok,
                                               positions=pos, states=states,
                                               attn_impl=attn_impl,

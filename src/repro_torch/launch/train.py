@@ -46,6 +46,16 @@ Guarded rounds under injected faults and a round deadline:
       --fault-plan '{"seed": 0, "injectors": [{"kind": "nan_delta",
       "rate": 0.2}]}'
 
+Federated LM training (the beyond-paper scenario: cross-silo pretraining
+on topic-skewed Zipf streams) with an arch's SMOKE config — a dense
+decoder, Falcon-Mamba or LLaVA-NeXT's VLM trunk (its patch prefix is
+zeros, as the reference's stub) — and the reference's init, data and
+holdout eval (``-loss``):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --model starcoder2-3b --seq-len 33 --rounds 2 --clients 4 \\
+      --participation 0.5 --batch-size 4 --eval-every 1
+
 Checkpoint every round with the run-health monitor on, then pick the run
 up where it stopped (the checkpoints are the reference's format: either
 package's driver resumes the other's):
@@ -65,6 +75,7 @@ import json
 import numpy as np
 import torch
 
+from repro_torch.configs.base import get_config
 from repro_torch.core.api import (AlgoConfig, ExecConfig, FederatedTrainer,
                                   resolve_device)
 from repro_torch.codec import codec_names
@@ -74,15 +85,25 @@ from repro_torch.core.faults import FaultPlan
 from repro_torch.core.runtime import make_runtime
 from repro_torch.core.samplers import (CyclicSampler, MarkovSampler,
                                        UniformSampler, WeightedSampler)
+from repro_torch.data.dirichlet import dirichlet_partition
+from repro_torch.data.synthetic import make_lm_dataset
 from repro_torch.optim.server import SERVER_OPTIMIZER_NAMES
 from repro_torch.ingest.datasets import (CIFAR10Source, CIFAR100Source,
                                          TinyImageNetSource)
 from repro_torch.ingest.images import (StreamingImageSource,
                                        build_federated_image_data)
+from repro_torch.ingest.sources import ListDataSource
+from repro_torch.models import transformer as tf
 from repro_torch.models.vision import (VisionConfig, init_vision,
                                        vision_forward, vision_loss_fn)
 
 EVAL_CHUNK = 1000      # test images per forward pass
+VISION_MODELS = ("lenet5", "resnet18-gn")
+# the ARCH ids whose decoders the port trains: dense GQA, pure SSM, VLM
+LM_MODELS = ("starcoder2-3b", "minitron-8b", "llava-next-mistral-7b",
+             "falcon-mamba-7b", "phi4-mini-3.8b", "command-r-35b")
+LM_DOCS_PER_CLIENT = 16
+LM_HOLDOUT = 64        # holdout sequences of the eval
 
 
 def build_vision_task(args, cfg: ExecConfig, device: torch.device):
@@ -135,6 +156,53 @@ def build_vision_task(args, cfg: ExecConfig, device: torch.device):
     return params, loss_fn, source, eval_fn
 
 
+def build_lm_task(args, cfg: ExecConfig, device: torch.device):
+    """(params, loss_fn, source, eval_fn) of federated LM training, as the
+    reference CLI builds it: ``args.model``'s SMOKE config in f32 from
+    ``PRNGKey(seed)``; clients x 16 Zipf documents of ``--seq-len``
+    tokens, Dirichlet-partitioned over their topics; client c's round-t
+    batch is ``--batch-size`` of its documents, shuffled by
+    ``RandomState(hash((c, t)))`` (repeated when it has fewer); the eval
+    is minus the loss on the first 64 documents. A VLM's batches carry
+    zero patch embeddings (the stub's shape) before the text."""
+    arch = get_config(args.model, smoke=True)
+    tokens, topics = make_lm_dataset(args.clients * LM_DOCS_PER_CLIENT,
+                                     args.seq_len, arch.vocab_size,
+                                     seed=args.seed)
+    parts = dirichlet_partition(topics, args.clients, args.alpha,
+                                seed=args.seed, min_size=1)
+    params = tf.init_lm(arch, jax_prng.PRNGKey(args.seed), torch.float32)
+    bsz = cfg.batch_size
+
+    def lm_batch(tk):
+        batch = {"tokens": tk[:, :-1], "labels": tk[:, 1:]}
+        if arch.modality == "vision":
+            batch["patch_embeds"] = np.zeros(
+                (len(tk), arch.num_patches, arch.d_model), np.float32)
+        return batch
+
+    def batch_fn(c, t):
+        idx = parts[c]
+        rng = np.random.RandomState(hash((c, t)) % (2 ** 31))
+        sel = idx[rng.permutation(len(idx))][:bsz]
+        if len(sel) < bsz:
+            sel = np.concatenate([sel] * ((bsz // max(len(sel), 1))
+                                          + 1))[:bsz]
+        return [lm_batch(tokens[sel])]
+
+    holdout = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+               for k, v in lm_batch(tokens[:LM_HOLDOUT]).items()}
+
+    def loss_fn(p, batch):
+        return tf.loss_fn(arch, p, batch)
+
+    def eval_fn(p):    # negative perplexity proxy -> the "accuracy" slot
+        with torch.no_grad():
+            return -loss_fn(p, holdout)
+
+    return params, loss_fn, ListDataSource(batch_fn), eval_fn
+
+
 def build_sampler(args, source, num_clients: int, cohort: int):
     if args.sampler == "uniform":
         return UniformSampler(num_clients, cohort)
@@ -155,7 +223,9 @@ def build_sampler(args, source, num_clients: int, cohort: int):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default="lenet5",
-                    choices=["lenet5", "resnet18-gn"])
+                    choices=[*VISION_MODELS, *LM_MODELS],
+                    help="a vision model of the paper, or an ARCH id the "
+                         "port trains federated (its SMOKE config)")
     ap.add_argument("--algorithm", default="feddpc",
                     choices=ALGORITHM_NAMES)
     ap.add_argument("--rounds", type=int, default=50)
@@ -200,6 +270,9 @@ def main(argv=None):
     ap.add_argument("--lam", type=float, default=1.0)
     ap.add_argument("--batch-size", type=int, default=64)
     ap.add_argument("--local-epochs", type=int, default=1)
+    ap.add_argument("--seq-len", type=int, default=128,
+                    help="LM task: tokens a document (the batches hold "
+                         "seq_len - 1 input tokens)")
     ap.add_argument("--samples-per-class", type=int, default=100)
     ap.add_argument("--num-classes", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
@@ -306,7 +379,9 @@ def main(argv=None):
                      health=args.health,
                      health_patience=args.health_patience,
                      health_log=args.health_log)
-    params, loss_fn, source, eval_fn = build_vision_task(args, cfg, device)
+    build = (build_vision_task if args.model in VISION_MODELS
+             else build_lm_task)
+    params, loss_fn, source, eval_fn = build(args, cfg, device)
     runtime = None
     if args.async_buffer or args.round_deadline is not None:
         rt_kw = ({} if args.runtime == "deterministic"

@@ -5,17 +5,28 @@ ring-buffer KV cache of the serving path:
   cache = {"k": (B, C, KV, HD), "v": (B, C, KV, HD),
            "pos": (B, C) int32 (-1 = empty), "idx": int next slot}
 
-Full-sequence attention (``sdpa``) has three implementations:
+Full-sequence attention (``sdpa``) has these implementations:
   * "reference": plain einsum over the whole score tensor (the
     reference's ``_sdpa_reference``, plain PyTorch);
   * "blocked":   online-softmax attention over key blocks (the
     reference's ``_sdpa_blocked``, plain PyTorch);
+  * "plain":     the reference's own rule between those two, on any
+    device (blocked only when Sk > BLOCKED_THRESHOLD and Sq > 8,
+    reference otherwise);
   * "kernel":    the hand-written CUDA kernel, ``kernels/flash_attention``
     (its plain version on CPU tensors).
 "auto" is "kernel" for every call on a CUDA tensor, prefill and decode,
-so the card never runs a plain version on the path; on the CPU it keeps
-the reference's rule (blocked only when Sk > BLOCKED_THRESHOLD and
-Sq > 8, reference otherwise).
+so the card never runs a plain version on the serving path; on the CPU
+it is "plain".
+
+The training route is "plain", on every device. Neither the flash
+kernel nor the reference's Pallas kernel has a backward, and the
+reference's training never reaches Pallas (its "auto" picks only
+reference or blocked). So ``transformer.loss_fn`` maps "auto" to "plain"
+(and the Mamba mixer to its plain scan), and the kernel's wrapper raises
+a ValueError on an input that requires grad or is wrapped by a
+``torch.func`` transform: a route chosen by the mode, as in the
+reference, never a fallback. Serving keeps the kernel.
 
 On a row with no visible key the three differ, as in the reference:
 "reference" gives the uniform mean of v (bias + softmax), "blocked" the
@@ -31,24 +42,28 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.layers import (apply_rope, init_linear, linear,
-                                       rope_frequencies)
+                                       rope_frequencies, split_rng)
 
 NEG_INF = -1e30
 BLOCKED_THRESHOLD = 2048  # the reference's rule on the CPU
-IMPLS = ("auto", "reference", "blocked", "kernel")
+IMPLS = ("auto", "plain", "reference", "blocked", "kernel")
 
 
 # =====================  GQA  =====================
 
-def init_gqa(gen: torch.Generator, cfg, dtype):
+def init_gqa(rng, cfg, dtype):
+    """``rng``: a torch.Generator, a jax_prng key or "meta" (layers.py)."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
+    ks = split_rng(rng, 4)
     return {
-        "wq": init_linear(gen, d, cfg.num_heads * hd, dtype, cfg.attn_bias),
-        "wk": init_linear(gen, d, cfg.num_kv_heads * hd, dtype,
+        "wq": init_linear(ks[0], d, cfg.num_heads * hd, dtype,
                           cfg.attn_bias),
-        "wv": init_linear(gen, d, cfg.num_kv_heads * hd, dtype,
+        "wk": init_linear(ks[1], d, cfg.num_kv_heads * hd, dtype,
                           cfg.attn_bias),
-        "wo": init_linear(gen, cfg.num_heads * hd, d, dtype, cfg.attn_bias),
+        "wv": init_linear(ks[2], d, cfg.num_kv_heads * hd, dtype,
+                          cfg.attn_bias),
+        "wo": init_linear(ks[3], cfg.num_heads * hd, d, dtype,
+                          cfg.attn_bias),
     }
 
 
@@ -122,11 +137,10 @@ def sdpa(q, k, v, q_pos, k_pos, window=0, soft_cap=0.0, impl="auto"):
     if impl not in IMPLS:
         raise ValueError(f"sdpa: impl must be one of {IMPLS}, got {impl!r}")
     if impl == "auto":
-        if q.device.type == "cuda":
-            impl = "kernel"
-        else:
-            impl = ("blocked" if (k.shape[1] > BLOCKED_THRESHOLD
-                                  and q.shape[1] > 8) else "reference")
+        impl = "kernel" if q.device.type == "cuda" else "plain"
+    if impl == "plain":
+        impl = ("blocked" if (k.shape[1] > BLOCKED_THRESHOLD
+                              and q.shape[1] > 8) else "reference")
     if impl == "kernel":
         return fa_ops.flash_attention(q, k, v, q_pos, k_pos, window=window,
                                       soft_cap=soft_cap)
@@ -205,9 +219,9 @@ def _gqa_only(cfg):
             "(MLA is ROADMAP Queue 1 item 14); the port carries GQA")
 
 
-def init_attention(gen, cfg, dtype):
+def init_attention(rng, cfg, dtype):
     _gqa_only(cfg)
-    return init_gqa(gen, cfg, dtype)
+    return init_gqa(rng, cfg, dtype)
 
 
 def attention_forward(cfg, p, x, positions, *, window=0, cache=None,

@@ -3,17 +3,30 @@ the vision models; linear, norms, MLPs and RoPE for the decoders.
 
 Parameters are plain dicts of tensors in the reference's layouts (a
 linear weight is (d_in, d_out), applied as ``x @ w``), so the reference's
-params carry across leaf for leaf. Initializers draw from an explicit
-``torch.Generator`` on its own device, with the reference's
-distributions (not its numbers: the two generators differ).
+params carry across leaf for leaf. Initializers take an ``rng`` of one of
+three kinds:
+
+  * a ``torch.Generator``: draws on its device, in call order, with the
+    reference's distributions (not its numbers) — the serving path, where
+    numpy draws of 3-7 B parameters would take minutes;
+  * a ``core.jax_prng`` key: the reference's own numbers, drawn on the
+    CPU in numpy and split along the reference's key tree — training and
+    the examples;
+  * ``"meta"``: tensors on the meta device, shapes and dtypes only
+    (``launch/steps.params_spec``).
 """
 from __future__ import annotations
 
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core import jax_prng
+
+META = "meta"         # the shapes-only rng
 
 
 def init_group_norm(groups: int, channels: int, dtype=torch.float32):
@@ -31,20 +44,63 @@ def group_norm(p, x: torch.Tensor, groups: int, eps: float = 1e-5
                         eps).to(x.dtype)
 
 
+# ---------------- rng ----------------
+
+def rng_device(rng) -> torch.device:
+    if isinstance(rng, torch.Generator):
+        return rng.device
+    return torch.device(META if isinstance(rng, str) else "cpu")
+
+
+def split_rng(rng, num: int):
+    """``jax.random.split`` of a key; a generator (or "meta") is handed
+    on ``num`` times: it draws in call order."""
+    if isinstance(rng, (torch.Generator, str)):
+        return [rng] * num
+    return list(jax_prng.split(rng, num))
+
+
+def fold_rng(rng, data: int):
+    """``jax.random.fold_in`` of a key; a generator is handed on."""
+    if isinstance(rng, (torch.Generator, str)):
+        return rng
+    return jax_prng.fold_in(rng, data)
+
+
+def normal(rng, shape, *, mul: Optional[float] = None,
+           div: Optional[float] = None) -> torch.Tensor:
+    """f32 N(0, 1) of ``shape`` times ``mul`` or over ``div``. From a key,
+    the reference's ``jax.random.normal(key, shape) * mul`` (or ``/ div``)
+    in f32, the arithmetic in numpy as XLA rounds it."""
+    shape = tuple(shape)
+    if isinstance(rng, torch.Generator):
+        x = torch.randn(shape, generator=rng, device=rng.device)
+        if mul is not None:
+            x = x * mul
+        return x / div if div is not None else x
+    if isinstance(rng, str):
+        return torch.empty(shape, dtype=torch.float32, device=META)
+    x = jax_prng.normal(rng, shape)
+    if mul is not None:
+        x = x * np.float32(mul)
+    if div is not None:
+        x = x / np.float32(div)
+    return torch.from_numpy(x)
+
+
 # ---------------- linear ----------------
 
-def _dense_init(gen: torch.Generator, shape, dtype,
-                scale: Optional[float] = None) -> torch.Tensor:
+def _dense_init(rng, shape, dtype, scale: Optional[float] = None
+                ) -> torch.Tensor:
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
-    return (torch.randn(shape, generator=gen, device=gen.device) * scale
-            ).to(dtype)
+    return normal(rng, shape, mul=scale).to(dtype)
 
 
-def init_linear(gen: torch.Generator, d_in: int, d_out: int, dtype,
-                bias: bool = False, scale: Optional[float] = None):
-    p = {"w": _dense_init(gen, (d_in, d_out), dtype, scale)}
+def init_linear(rng, d_in: int, d_out: int, dtype, bias: bool = False,
+                scale: Optional[float] = None):
+    p = {"w": _dense_init(rng, (d_in, d_out), dtype, scale)}
     if bias:
-        p["b"] = torch.zeros(d_out, dtype=dtype, device=gen.device)
+        p["b"] = torch.zeros(d_out, dtype=dtype, device=rng_device(rng))
     return p
 
 
@@ -78,14 +134,15 @@ def apply_norm(kind: str, p, x: torch.Tensor, eps: float = 1e-6
 
 # ---------------- MLP ----------------
 
-def init_mlp(gen: torch.Generator, kind: str, d_model: int, d_ff: int,
-             dtype, bias: bool = False):
+def init_mlp(rng, kind: str, d_model: int, d_ff: int, dtype,
+             bias: bool = False):
+    ks = split_rng(rng, 3)
     if kind == "swiglu":
-        return {"gate": init_linear(gen, d_model, d_ff, dtype, bias),
-                "up": init_linear(gen, d_model, d_ff, dtype, bias),
-                "down": init_linear(gen, d_ff, d_model, dtype, bias)}
-    return {"up": init_linear(gen, d_model, d_ff, dtype, bias),
-            "down": init_linear(gen, d_ff, d_model, dtype, bias)}
+        return {"gate": init_linear(ks[0], d_model, d_ff, dtype, bias),
+                "up": init_linear(ks[1], d_model, d_ff, dtype, bias),
+                "down": init_linear(ks[2], d_ff, d_model, dtype, bias)}
+    return {"up": init_linear(ks[0], d_model, d_ff, dtype, bias),
+            "down": init_linear(ks[1], d_ff, d_model, dtype, bias)}
 
 
 def apply_mlp(kind: str, p, x: torch.Tensor) -> torch.Tensor:

@@ -35,30 +35,32 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.kernels.ssm_scan import ref as ssm_ref
-from repro_torch.models.layers import init_linear, linear
+from repro_torch.models.layers import (init_linear, linear, normal,
+                                       rng_device, split_rng)
 
 IMPLS = ("auto", "reference")
 
 
-def init_mamba(gen: torch.Generator, cfg, dtype):
+def init_mamba(rng, cfg, dtype):
+    """``rng``: a torch.Generator, a jax_prng key or "meta" (layers.py)."""
     d, d_in = cfg.d_model, cfg.ssm_d_inner
     st, dtr, cw = cfg.ssm_state, cfg.resolved_dt_rank, cfg.ssm_conv
-    dev = gen.device
+    dev = rng_device(rng)
+    ks = split_rng(rng, 6)
     a_init = torch.arange(1, st + 1, dtype=torch.float32,
                           device=dev)[None, :].repeat(d_in, 1)
     return {
-        "in_proj": init_linear(gen, d, 2 * d_in, dtype),
-        "conv_w": (torch.randn((cw, d_in), generator=gen, device=dev)
-                   / math.sqrt(cw)).to(dtype),
+        "in_proj": init_linear(ks[0], d, 2 * d_in, dtype),
+        "conv_w": normal(ks[1], (cw, d_in), div=math.sqrt(cw)).to(dtype),
         "conv_b": torch.zeros(d_in, dtype=dtype, device=dev),
-        "x_proj": init_linear(gen, d_in, dtr + 2 * st, dtype),
-        "dt_proj": {"w": (torch.randn((dtr, d_in), generator=gen, device=dev)
-                          / math.sqrt(dtr)).to(dtype),
+        "x_proj": init_linear(ks[2], d_in, dtr + 2 * st, dtype),
+        "dt_proj": {"w": normal(ks[3], (dtr, d_in),
+                                div=math.sqrt(dtr)).to(dtype),
                     "b": torch.full((d_in,), -4.6, dtype=dtype,
                                     device=dev)},     # softplus^-1(0.01)
         "a_log": torch.log(a_init),                   # f32, A = -exp(a_log)
         "d_skip": torch.ones(d_in, dtype=torch.float32, device=dev),
-        "out_proj": init_linear(gen, d_in, d, dtype),
+        "out_proj": init_linear(ks[4], d_in, d, dtype),
     }
 
 

@@ -1,36 +1,55 @@
 """Decoder-only transformer stack (counterpart of repro/models/transformer.py):
-its dense path (GQA attention and a dense MLP in every layer) and its
-pure-SSM path (a Mamba-1 mixer is the whole layer, as in Falcon-Mamba).
+its dense path (GQA attention and a dense MLP in every layer), its
+pure-SSM path (a Mamba-1 mixer is the whole layer, as in Falcon-Mamba)
+and its VLM path (a dense GQA trunk after a prefix of patch embeddings
+from the stubbed vision tower, models/frontend.py).
 
 The reference runs the periodic part of the stack with ``lax.scan`` over
-stacked groups (``stack_plan``: a dense or pure-SSM arch is prefix 0,
-period 1, groups = num_layers). The port keeps one parameter dict and one
-cache or state per layer in a list, in the reference's execution order
-(prefix layers, then group by group), and loops over them in Python.
+stacked groups (``stack_plan``: a dense, VLM or pure-SSM arch is prefix
+0, period 1, groups = num_layers). The port loops over the layers in
+Python, in the reference's execution order (prefix layers, then group by
+group), and takes its parameters in either of two trees:
 
-  params = {"embed": (V, D), "final_norm": {...}, "lm_head": {...} unless
-            tied, "layers": [{"norm1", "mixer", "norm2", "mlp"}, ...]}
-            (an SSM layer is {"norm1", "mixer"})
+  serving  {"embed": (V, D), "final_norm": {...}, "lm_head": {...} unless
+           tied, "layers": [{"norm1", "mixer", "norm2", "mlp"}, ...]}
+           (an SSM layer is {"norm1", "mixer"}) — ``init_lm`` from a
+           torch.Generator;
+  training the reference's own tree: "prefix_layers" (a tuple of layer
+           dicts) and "stack" (a tuple of ``period`` layer dicts whose
+           leaves carry a leading groups axis) in place of "layers" —
+           ``init_lm`` from a jax_prng key, the reference's numbers. The
+           flat vector, checkpoint key paths and leaf order are then the
+           reference's; the forward reads layer j of group g as views
+           ``stack[j][g]``, never a copy.
+
   states = [per-layer attention cache (attention.init_cache) or SSM state
             {"conv", "h"} (ssm.init_ssm_state), ...]
 
-Modes: prefill (full sequence, writes the caches and states) and decode
-(S = 1 against them); without states, a full-sequence forward. MoE,
-hybrid, MLA and VLM layers raise ``NotImplementedError``; training
-(``loss_fn``) comes with a later slice.
+Modes: a full-sequence forward (training: ``loss_fn``), prefill (writes
+the caches and states) and decode (S = 1 against them). ``loss_fn`` is
+the reference's causal-LM cross entropy on the training route: attention
+by the reference's rule between its plain einsum and blocked forms
+(``attention.sdpa(impl="plain")``) and the Mamba mixer through its plain
+scan, on every device — neither hand-written kernel has a backward, nor
+has the reference's (attention.py's docstring). MoE, hybrid and MLA
+stacks raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import (apply_mlp, apply_norm, init_linear,
-                                       init_mlp, init_norm, linear)
+from repro_torch.models.layers import (apply_mlp, apply_norm, fold_rng,
+                                       init_linear, init_mlp, init_norm,
+                                       linear, normal, rng_device,
+                                       split_rng)
 
 _TODO = "not ported to repro_torch yet (ROADMAP Queue 1 item 14)"
+REMATS = ("none", "full")
 
 
 # ---------------- stack plan ----------------
@@ -58,14 +77,16 @@ def stack_plan(cfg) -> Tuple[int, int, int]:
 
 
 def _check_ported(cfg):
-    """Dense decoders and pure-SSM stacks pass; everything else raises
-    (MLA in the attention module)."""
-    if cfg.arch_type not in ("dense", "ssm") or cfg.modality != "text":
+    """Dense decoders, pure-SSM stacks and VLMs on a dense GQA trunk pass;
+    everything else raises (MLA in the attention module)."""
+    want_modality = "vision" if cfg.arch_type == "vlm" else "text"
+    if (cfg.arch_type not in ("dense", "ssm", "vlm")
+            or cfg.modality != want_modality):
         raise NotImplementedError(
             f"{cfg.name}: arch_type={cfg.arch_type!r}, modality="
-            f"{cfg.modality!r} is {_TODO}; the port carries dense decoders "
-            "and pure-SSM stacks")
-    want = "attn" if cfg.arch_type == "dense" else "ssm"
+            f"{cfg.modality!r} is {_TODO}; the port carries dense "
+            "decoders, pure-SSM stacks and VLMs with a dense trunk")
+    want = "ssm" if cfg.arch_type == "ssm" else "attn"
     for kind, is_moe in layer_specs(cfg):
         if kind != want or is_moe:
             raise NotImplementedError(
@@ -75,15 +96,16 @@ def _check_ported(cfg):
 
 # ---------------- single layer ----------------
 
-def _init_layer(gen, cfg, dtype):
-    dev = gen.device
+def _init_layer(rng, cfg, dtype):
+    dev = rng_device(rng)
+    ks = split_rng(rng, 4)
     p = {"norm1": init_norm(cfg.norm, cfg.d_model, dtype, dev)}
     if cfg.arch_type == "ssm":          # the mamba block IS the layer
-        p["mixer"] = ssm_mod.init_mamba(gen, cfg, dtype)
+        p["mixer"] = ssm_mod.init_mamba(ks[0], cfg, dtype)
         return p
-    p["mixer"] = attn_mod.init_attention(gen, cfg, dtype)
+    p["mixer"] = attn_mod.init_attention(ks[0], cfg, dtype)
     p["norm2"] = init_norm(cfg.norm, cfg.d_model, dtype, dev)
-    p["mlp"] = init_mlp(gen, cfg.mlp, cfg.d_model, cfg.d_ff, dtype,
+    p["mlp"] = init_mlp(ks[1], cfg.mlp, cfg.d_model, cfg.d_ff, dtype,
                         cfg.mlp_bias)
     return p
 
@@ -103,24 +125,79 @@ def _layer_forward(cfg, p, x, positions, state, *, window, attn_impl,
     return x + apply_mlp(cfg.mlp, p["mlp"], h2), new_state
 
 
+# ---------------- parameter trees ----------------
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(fn, x) for x in tree)
+    return fn(tree)
+
+
+def _stack_trees(trees):
+    """Trees of one structure -> one tree whose leaves are the stacked
+    leaves (a new leading axis), as ``jax.vmap`` of an init returns."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(_stack_trees([t[i] for t in trees])
+                           for i in range(len(first)))
+    return torch.stack(trees)
+
+
+def layer_params(cfg, params) -> List:
+    """The per-layer parameter trees in execution order, from either tree
+    (module docstring): the serving tree's list, or views ``stack[j][g]``
+    of the reference's stacked groups (under ``torch.func.vmap`` too)."""
+    if "layers" in params:
+        return list(params["layers"])
+    _, period, groups = stack_plan(cfg)
+    layers = list(params["prefix_layers"])
+    for g in range(groups):
+        layers += [_map(lambda x: x[g], params["stack"][j])
+                   for j in range(period)]
+    return layers
+
+
 # ---------------- full model ----------------
 
-def init_lm(cfg, gen: torch.Generator, dtype=None):
-    """Parameters drawn from ``gen`` (on its device) with the reference's
-    distributions: embed N(0, 0.02^2), linear N(0, 1/fan_in), zero
-    biases, unit norm scales."""
+def init_lm(cfg, rng, dtype=None):
+    """Parameters with the reference's distributions: embed N(0, 0.02^2),
+    linear N(0, 1/fan_in), zero biases, unit norm scales.
+
+    ``rng`` a torch.Generator: the serving tree on its device (drawn in
+    order, layer by layer). ``rng`` a ``core.jax_prng`` key: the
+    reference's tree and numbers — ``transformer.init_lm``'s key tree
+    (``split(key, 4)`` into embed, prefix, stack and head; ``fold_in`` a
+    prefix layer's index; ``split(k_stack, groups)``, then ``fold_in``
+    the layer's index in its group) — as CPU tensors. ``rng="meta"``: the
+    reference's tree on the meta device (shapes and dtypes only)."""
     _check_ported(cfg)
     dtype = dtype or getattr(torch, cfg.dtype)
+    dev = rng_device(rng)
+    k_embed, k_prefix, k_stack, k_head = split_rng(rng, 4)
     params = {
-        "embed": (torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
-                              device=gen.device) * 0.02).to(dtype),
-        "final_norm": init_norm(cfg.norm, cfg.d_model, dtype, gen.device),
+        "embed": normal(k_embed, (cfg.vocab_size, cfg.d_model),
+                        mul=0.02).to(dtype),
+        "final_norm": init_norm(cfg.norm, cfg.d_model, dtype, dev),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = init_linear(gen, cfg.d_model, cfg.vocab_size,
+        params["lm_head"] = init_linear(k_head, cfg.d_model, cfg.vocab_size,
                                         dtype)
-    params["layers"] = [_init_layer(gen, cfg, dtype)
-                        for _ in range(cfg.num_layers)]
+    if isinstance(rng, torch.Generator):
+        params["layers"] = [_init_layer(rng, cfg, dtype)
+                            for _ in range(cfg.num_layers)]
+        return params
+    prefix, period, groups = stack_plan(cfg)
+    params["prefix_layers"] = tuple(
+        _init_layer(fold_rng(k_prefix, i), cfg, dtype)
+        for i in range(prefix))
+    gkeys = split_rng(k_stack, groups)
+    params["stack"] = _stack_trees([
+        tuple(_init_layer(fold_rng(gkey, j), cfg, dtype)
+              for j in range(period)) for gkey in gkeys]) if groups else ()
     return params
 
 
@@ -138,36 +215,68 @@ def init_states(cfg, batch, capacity, dtype=None, device=None) -> List:
 
 
 def _embed_inputs(cfg, params, tokens, embeds):
+    if embeds is not None and cfg.modality != "vision":
+        raise NotImplementedError(
+            f"{cfg.name}: embeddings for modality {cfg.modality!r}: the "
+            "port takes a VLM's patch embeddings only; audio frames come "
+            f"with the encoder-decoder, {_TODO}")
+    x = params["embed"][tokens]
     if embeds is not None:
-        raise NotImplementedError(f"VLM patch embeddings are {_TODO}")
-    return params["embed"][tokens]
+        # VLM: the stubbed vision tower's pre-projected patch embeddings,
+        # prepended to the text tokens (anyres tiles flattened)
+        x = torch.cat([embeds.to(x.dtype), x], dim=1)
+    return x
+
+
+def _remat(remat: str, fn):
+    """``fn`` as it is ("none"), or under torch.utils.checkpoint
+    (non-reentrant, "full"): only its inputs are kept, the rest is
+    recomputed in the backward."""
+    if remat == "none":
+        return fn
+    return lambda *args: torch_checkpoint.checkpoint(fn, *args,
+                                                     use_reentrant=False)
 
 
 def lm_forward(cfg, params, tokens, positions=None, *, embeds=None,
                states: Optional[List] = None, window: int = 0,
                attn_impl: str = "auto", ssm_impl: str = "auto",
-               logits_slice_last: bool = False):
+               logits_slice_last: bool = False, remat: str = "none"):
     """Returns (logits, new_states, aux_loss); aux_loss is 0 (no MoE).
 
-    tokens (B, S) int. states from init_states: prefill fills them,
-    decode (S = 1) steps them — the attention caches are written in place,
-    the SSM states replaced, and all returned in a new list. ``attn_impl``
-    goes to every attention call, ``ssm_impl`` ("auto" | "reference") to
-    every SSM mixer."""
+    tokens (B, S) int; embeds (B, P, D) patch embeddings of a VLM,
+    prepended (positions then cover P + S). states from init_states:
+    prefill fills them, decode (S = 1) steps them — the attention caches
+    are written in place, the SSM states replaced, and all returned in a
+    new list. ``attn_impl`` goes to every attention call, ``ssm_impl``
+    ("auto" | "reference") to every SSM mixer. ``remat`` ("none" or
+    "full", full-sequence forwards only) checkpoints each layer for the
+    backward (``_remat``); it needs plain autograd, not torch.func."""
     _check_ported(cfg)
+    if remat not in REMATS:
+        raise ValueError(f"lm_forward: remat must be one of {REMATS}, got "
+                         f"{remat!r}")
+    if remat != "none" and states is not None:
+        raise ValueError("lm_forward: remat is for full-sequence forwards; "
+                         "a prefill or decode with states keeps none")
     x = _embed_inputs(cfg, params, tokens, embeds)
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
     new_states = None if states is None else []
-    for i, p in enumerate(params["layers"]):
-        x, nst = _layer_forward(cfg, p, x, positions,
-                                None if states is None else states[i],
+    for i, p in enumerate(layer_params(cfg, params)):
+        if states is None:
+            def layer(x, p=p):
+                return _layer_forward(cfg, p, x, positions, None,
+                                      window=window, attn_impl=attn_impl,
+                                      ssm_impl=ssm_impl)[0]
+            x = _remat(remat, layer)(x)
+            continue
+        x, nst = _layer_forward(cfg, p, x, positions, states[i],
                                 window=window, attn_impl=attn_impl,
                                 ssm_impl=ssm_impl)
-        if states is not None:
-            new_states.append(nst)
+        new_states.append(nst)
     x = apply_norm(cfg.norm, params["final_norm"], x)
     if logits_slice_last:
         x = x[:, -1:, :]
@@ -177,3 +286,34 @@ def lm_forward(cfg, params, tokens, positions=None, *, embeds=None,
         logits = linear(params["lm_head"], x)
     return logits, new_states, torch.zeros((), dtype=torch.float32,
                                            device=x.device)
+
+
+def loss_fn(cfg, params, batch, *, attn_impl: str = "auto",
+            ssm_impl: str = "auto", **fw_kw):
+    """Causal-LM cross entropy (+ the MoE aux term, 0 here): batch
+    {"tokens": (B, S), "labels": (B, S)} with -100 = ignore; a VLM adds
+    "patch_embeds" (B, P, D), whose logits are sliced off. Logits in f32;
+    the mean over valid labels, ce.sum() / max(valid, 1).
+
+    The training route (module docstring): "auto" attention is the
+    reference's plain rule (``sdpa(impl="plain")``) and the "auto" mixer
+    the plain scan, on every device. ``fw_kw`` go to ``lm_forward``
+    (``remat`` under plain autograd only)."""
+    tokens = batch["tokens"]
+    labels = batch["labels"]
+    embeds = batch.get("patch_embeds")
+    logits, _, aux = lm_forward(
+        cfg, params, tokens, embeds=embeds,
+        attn_impl="plain" if attn_impl == "auto" else attn_impl,
+        ssm_impl="reference" if ssm_impl == "auto" else ssm_impl, **fw_kw)
+    if embeds is not None:
+        # logits cover [patches + text]; labels only the text part
+        logits = logits[:, embeds.shape[1]:, :]
+    logits = logits.float()
+    valid = labels >= 0
+    safe = torch.where(valid, labels, 0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    ce = torch.where(valid, logz - gold, 0.0)
+    loss = ce.sum() / torch.clamp(valid.sum(), min=1)
+    return loss + aux

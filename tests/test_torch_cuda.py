@@ -5,8 +5,9 @@ same on the CPU, the int8_sr encode kernel bit for bit against its plain
 version, and the serving paths of
 the dense decoder (every attention call through the flash-attention
 kernel) and of the pure-SSM stack (every scan through the ssm_scan
-kernel) against the same on the CPU, and checkpoints saved on the card
-restored on the card and on the CPU. Marked ``cuda``; each test skips without a card. This file imports
+kernel) against the same on the CPU, checkpoints saved on the card
+restored on the card and on the CPU, and the LM training route (no
+serving kernel: neither has a backward) against the CPU. Marked ``cuda``; each test skips without a card. This file imports
 no JAX, so it also runs where only the port is installed:
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -17,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.bridge import layout_of, tree_map
+from repro_torch.bridge import layout_of, tree_leaves, tree_map
 from repro_torch.configs import paper_lenet5, paper_resnet18
 from repro_torch.core import baselines, feddpc, jax_prng
 from repro_torch.core import projection as proj
@@ -925,3 +926,57 @@ def test_serve_ssm_on_card_matches_cpu(cuda, dtype):
     tokens, stats = serve.serve_lm(cfg, 3, 20, 6, device="cuda", dtype=dtype)
     assert ss_ops.ssm_scan.launches - before == cfg.num_layers * 6
     assert tokens.shape == (3, 6) and stats["tok_per_s"] > 0
+
+
+# ---- the training route on the card ----
+
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "falcon-mamba-7b",
+                                  "llava-next-mistral-7b"])
+def test_training_route_launches_no_serving_kernel(cuda, arch):
+    """loss_fn and a make_train_step step on the card take the plain
+    attention and scan (neither kernel has a backward): no flash_attention
+    or ssm_scan launch, and the step's loss and params match the CPU's."""
+    from repro_torch.launch import steps
+    cfg = get_config(arch, smoke=True)
+    params = tf.init_lm(cfg, jax_prng.PRNGKey(0), torch.float32)
+    g = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 17), generator=g)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.modality == "vision":
+        batch["patch_embeds"] = 0.02 * torch.randn(
+            2, cfg.num_patches, cfg.d_model, generator=g)
+    step = steps.make_train_step(cfg, lr=0.01, remat="full")
+    fa_ops.reset_launches()
+    ss_ops.reset_launches()
+    got, loss = step(tree_map(lambda t: t.to(cuda), params),
+                     {k: v.to(cuda) for k, v in batch.items()})
+    assert fa_ops.flash_attention.launches == 0
+    assert ss_ops.ssm_scan.launches == 0
+    want, want_loss = step(params, batch)
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * float(want_loss)
+    for a, b in zip(tree_leaves(got), tree_leaves(want), strict=True):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+
+
+def test_kernels_refuse_training_inputs_on_the_card(cuda):
+    """On CUDA tensors the wrappers raise before launching: an input that
+    requires grad, or one under torch.func, never reaches the kernel."""
+    from torch.func import grad
+    q = torch.randn(1, 8, 2, 64, device=cuda, requires_grad=True)
+    k = torch.randn(1, 8, 1, 64, device=cuda)
+    pos = torch.arange(8, device=cuda)[None]
+    fa_ops.reset_launches()
+    with pytest.raises(ValueError, match="no backward"):
+        fa_ops.flash_attention(q, k, k, pos, pos)
+    with pytest.raises(ValueError, match="no backward"):
+        grad(lambda q: fa_ops.flash_attention(q, k, k, pos, pos).sum())(
+            q.detach())
+    assert fa_ops.flash_attention.launches == 0
+    u = torch.randn(1, 4, 8, device=cuda, requires_grad=True)
+    dt = torch.rand(1, 4, 8, device=cuda)
+    b = torch.randn(1, 4, 4, device=cuda)
+    a = -torch.rand(8, 4, device=cuda)
+    ss_ops.reset_launches()
+    with pytest.raises(ValueError, match="no backward"):
+        ss_ops.ssm_scan(u, dt, b, b, a, torch.ones(8, device=cuda))
+    assert ss_ops.ssm_scan.launches == 0

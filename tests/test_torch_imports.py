@@ -36,7 +36,14 @@ for must in ("repro_torch.optim.server", "repro_torch.core.samplers",
              "repro_torch.ingest.prefetch",
              "repro_torch.ingest.placement",
              "repro_torch.ingest.readers",
-             "repro_torch.ingest.datasets"):
+             "repro_torch.ingest.datasets",
+             "repro_torch.configs.shapes",
+             "repro_torch.configs.llava_next_mistral_7b",
+             "repro_torch.models.frontend",
+             "repro_torch.launch.steps",
+             "repro_torch.examples.quickstart",
+             "repro_torch.examples.heterogeneity_study",
+             "repro_torch.examples.federated_llm_pretraining"):
     assert must in names, (must, names)
 print("chip_smoke.main() ->", chip_smoke.main())   # CUDA is hidden
 """
