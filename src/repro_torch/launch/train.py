@@ -48,9 +48,9 @@ Guarded rounds under injected faults and a round deadline:
 
 Federated LM training (the beyond-paper scenario: cross-silo pretraining
 on topic-skewed Zipf streams) with an arch's SMOKE config — a dense
-decoder, Falcon-Mamba or LLaVA-NeXT's VLM trunk (its patch prefix is
-zeros, as the reference's stub) — and the reference's init, data and
-holdout eval (``-loss``):
+decoder, Falcon-Mamba or LLaVA-NeXT's VLM trunk (on text alone, as the
+reference's CLI trains it) — and the reference's init, data and holdout
+eval (``-loss``):
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --model starcoder2-3b --seq-len 33 --rounds 2 --clients 4 \\
@@ -163,8 +163,9 @@ def build_lm_task(args, cfg: ExecConfig, device: torch.device):
     tokens, Dirichlet-partitioned over their topics; client c's round-t
     batch is ``--batch-size`` of its documents, shuffled by
     ``RandomState(hash((c, t)))`` (repeated when it has fewer); the eval
-    is minus the loss on the first 64 documents. A VLM's batches carry
-    zero patch embeddings (the stub's shape) before the text."""
+    is minus the loss on the first 64 documents. The batches are text
+    alone for every arch: a VLM's trunk trains without patch embeddings,
+    as in the reference's CLI."""
     arch = get_config(args.model, smoke=True)
     tokens, topics = make_lm_dataset(args.clients * LM_DOCS_PER_CLIENT,
                                      args.seq_len, arch.vocab_size,
@@ -175,11 +176,7 @@ def build_lm_task(args, cfg: ExecConfig, device: torch.device):
     bsz = cfg.batch_size
 
     def lm_batch(tk):
-        batch = {"tokens": tk[:, :-1], "labels": tk[:, 1:]}
-        if arch.modality == "vision":
-            batch["patch_embeds"] = np.zeros(
-                (len(tk), arch.num_patches, arch.d_model), np.float32)
-        return batch
+        return {"tokens": tk[:, :-1], "labels": tk[:, 1:]}
 
     def batch_fn(c, t):
         idx = parts[c]
