@@ -137,7 +137,13 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               D = 128) and decode (Sq = 1) shapes, a decode against a
               long cache (Sk = 8192), a ragged shape, a ring-cache decode
               with a window, the soft cap and a batch row whose keys are
-              all empty (exactly 0). Each line names the kernel's route
+              all empty (exactly 0); and the newer models' shapes:
+              Whisper-base's encoder (B = 8, 1,500 keys, D = 64, every key
+              visible) and cross-attention decode, DeepSeek-V2's MLA
+              prefill (H = KV = 128, D = 192) and a short one (8 rows a
+              head: the split decode's body at D 192), Kimi-K2's prefill
+              and decode (64 heads on 8, D = 112: CUDA cores in both
+              dtypes). Each line names the kernel's route
               (ops.plan: fma, mma_bf16, split_decode, split_decode_mma).
               Times the kernel, the plain version and torch's
               scaled_dot_product_attention (the library yardstick; never
@@ -222,6 +228,30 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               and on the CPU: losses and holdout NLLs within 1e-4
               relative.
 
+ 17. serve encdec  Whisper-base through phase 7's loop (serve_encdec):
+              full width and depth (6 + 6 layers, d_model 512, 1,500
+              random frames), B = 8, 32 tokens from BOS, f32 and bf16;
+              flash_attention launches exactly 6 + 2 x 6 x 32 times (the
+              encoder once, then a self- and a cross-attention call a
+              decoder layer a step); the profiled encode and decode step;
+              the kernel path against the plain path.
+ 18. serve moe  phase 7's loop on DeepSeek-V2 (MLA + MoE), Jamba-1.5
+              (Mamba + attention + MoE) and Kimi-K2 (MoE; bf16 only) at
+              full width, their depth cut to two layers (MOE_SERVE); the
+              launches per step by layer kind (MLA's absorbed decode
+              launches no kernel).
+ 19. whisper train  3 SGD steps of make_train_step on Whisper-base at full
+              width (B = 8, 1,500 frames, 448 target tokens): the loss
+              falls, no serving kernel launches; seconds a step beside the
+              FLOP bound, peak memory.
+ 20. moe parity  DeepSeek-V2, Jamba and Kimi-K2 SMOKE and Whisper-base
+              SMOKE on the card and on the CPU from the same params
+              (logits within 1e-4 relative, expert assignments equal); the
+              training CLI with --model deepseek-v2-236b on both; the bits
+              that two identical full-width MoE calls differ in.
+ 21. serve batched  repro_torch.examples.serve_batched on the card, its
+              launches counted.
+
 Every profile opens with PROFILE_PAD spin kernels, finished before the
 profiled work and left out of its counts and times: late in a long process
 the profiler loses a profile's first device events.
@@ -276,6 +306,7 @@ from repro_torch.core.samplers import (MarkovSampler,  # noqa: E402
                                        UniformSampler)
 from repro_torch.examples import federated_llm_pretraining as llm_example  # noqa: E402,E501
 from repro_torch.examples import quickstart as quickstart_example  # noqa: E402,E501
+from repro_torch.examples import serve_batched as serve_batched_example  # noqa: E402,E501
 from repro_torch.codec import make_codec  # noqa: E402
 from repro_torch.ingest.datasets import CIFAR100Source  # noqa: E402
 from repro_torch.ingest.images import (StreamingImageSource,  # noqa: E402
@@ -290,8 +321,11 @@ from repro_torch.kernels.ssm_scan import ops as ss_ops  # noqa: E402
 from repro_torch.kernels.ssm_scan import ref as ss_ref  # noqa: E402
 from repro_torch.launch import steps as lm_steps  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
-from repro_torch.launch.serve import serve_lm  # noqa: E402
+from repro_torch.launch.serve import serve_encdec, serve_lm  # noqa: E402
+from repro_torch.models import encdec  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.models.layers import linear  # noqa: E402
 from repro_torch.models.vision import (init_vision,  # noqa: E402
                                        vision_accuracy, vision_loss_fn)
 
@@ -365,7 +399,9 @@ SERVE_F32_RTOL = 1e-3         # kernel vs plain logits, relative to max |logit|
 SERVE_BF16_TOP1 = 0.9         # kernel vs plain top-1 agreement in bf16
 SMOKE_ATOL = 1e-4             # card vs CPU SMOKE logits, f32
 # (label, B, Sq, Sk, H, KV, D, window, soft_cap, empty trailing slots,
-#  position of the first query, a batch row with every slot empty)
+#  position of the first query, a batch row with every slot empty[, every
+#  key visible: queries at position Sk, keys at 0..Sk-1, as the
+#  encoder-decoder's encoder and cross-attention call it])
 FA_CASES = (
     ("prefill", 8, 1024, 1056, 24, 2, 128, 0, 0.0, 32, 0, False),
     ("decode", 8, 1, 1056, 24, 2, 128, 0, 0.0, 16, 1039, False),
@@ -375,8 +411,21 @@ FA_CASES = (
      False),
     ("soft_cap", 2, 256, 256, 24, 2, 128, 0, 30.0, 0, 0, False),
     ("all_empty_row", 3, 16, 200, 8, 2, 128, 0, 0.0, 0, 184, True),
+    # Whisper-base's encoder over 1,500 frames and its cross-attention
+    # decode; DeepSeek-V2's MLA prefill (D 192, V padded to it) and a short
+    # one (8 rows a head: the split decode's tensor-core body at D 192);
+    # Kimi-K2's GQA prefill and decode (D 112: CUDA cores in both dtypes)
+    ("whisper_encoder", 8, 1500, 1500, 8, 8, 64, 0, 0.0, 0, 0, False, True),
+    ("whisper_cross_decode", 8, 1, 1500, 8, 8, 64, 0, 0.0, 0, 0, False,
+     True),
+    ("mla_prefill", 8, 1024, 1024, 128, 128, 192, 0, 0.0, 0, 0, False),
+    ("mla_short_prefill", 8, 8, 64, 128, 128, 192, 0, 0.0, 56, 0, False),
+    ("kimi_prefill", 8, 1024, 1024, 64, 8, 112, 0, 0.0, 0, 0, False),
+    ("kimi_decode", 8, 1, 1056, 64, 8, 112, 0, 0.0, 16, 1039, False),
 )
-FA_TIMED = ("prefill", "decode", "decode_long")
+FA_TIMED = ("prefill", "decode", "decode_long", "whisper_encoder",
+            "whisper_cross_decode", "mla_prefill", "mla_short_prefill",
+            "kimi_prefill", "kimi_decode")
 # the flash-attention kernels' names (a profile's key contains one)
 FA_KERNEL_NAMES = ("fa_fwd_kernel", "fa_mma_kernel", "fa_split_kernel",
                    "fa_split_mma_kernel")
@@ -2139,11 +2188,17 @@ def _parity_checkpoint(task):
 def _attention_case(gen, case, dtype):
     """The inputs of one FA_CASES entry on the card: q, k, v of dtype,
     int32 positions (queries at consecutive positions from q0; the cache
-    slots rolled as a ring buffer when the first query is past Sk)."""
+    slots rolled as a ring buffer when the first query is past Sk; or,
+    with every key visible, queries at Sk and keys at 0..Sk-1)."""
     (_, b, sq, sk, h, kv, d, window, soft_cap, empty, q0,
-     empty_row) = case
+     empty_row, *all_visible) = case
     q, k, v = [torch.randn(shape, generator=gen, device="cuda").to(dtype)
                for shape in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d))]
+    if all_visible and all_visible[0]:
+        q_pos = torch.full((b, sq), sk, dtype=torch.int32, device="cuda")
+        k_pos = torch.arange(sk, dtype=torch.int32,
+                             device="cuda")[None].repeat(b, 1)
+        return q, k, v, q_pos, k_pos
     if soft_cap:
         q = q * 6                     # scores well past the cap
     q_pos = torch.arange(q0, q0 + sq, dtype=torch.int32,
@@ -2468,12 +2523,10 @@ def _serve_category(kernel: str) -> str:
     return "other"
 
 
-def _profile_step(cfg, params, tok, pos, states, embeds=None):
-    """One forward step under torch.profiler: (profile, window seconds,
-    next token, new states, the flash wrapper's launches in the step).
-    The step can be run again on the same arguments: the attention caches
-    are written in place at the same slots with the same values, the SSM
-    states are replaced."""
+def _profiled(fn):
+    """fn() under torch.profiler, inference mode, its work synchronized:
+    (profile, window seconds, fn's result, the flash wrapper's launches
+    in it)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -2482,93 +2535,152 @@ def _profile_step(cfg, params, tok, pos, states, embeds=None):
             activities=acts) as prof:
         _pad_profile()
         tic = time.perf_counter()
-        logits, states, _ = tf.lm_forward(cfg, params, tok, positions=pos,
-                                          embeds=embeds, states=states,
-                                          logits_slice_last=True)
-        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        result = fn()
         torch.cuda.synchronize()
         window_s = time.perf_counter() - tic
-    return (prof, window_s, tok, states,
-            fa_ops.flash_attention.launches - launched)
+    return prof, window_s, result, fa_ops.flash_attention.launches - launched
 
 
-def profile_serve(cfg, params, prompts, kernel: str):
+def _profile_step(cfg, params, tok, pos, states, embeds=None):
+    """One forward step under torch.profiler (``_profiled``), its result
+    (next token, new states). The step can be run again on the same
+    arguments: the attention caches are written in place at the same
+    slots with the same values, the SSM states are replaced."""
+    def step():
+        logits, new_states, _ = tf.lm_forward(
+            cfg, params, tok, positions=pos, embeds=embeds, states=states,
+            logits_slice_last=True)
+        return torch.argmax(logits[:, -1], dim=-1)[:, None], new_states
+    return _profiled(step)
+
+
+def _step_launches(cfg, step: str) -> dict:
+    """Serving kernels one forward of ``cfg``'s decoder launches: every
+    attention layer's flash call (prefill and decode, but for MLA's
+    absorbed decode, which is plain f32 einsums as in the reference) and
+    every SSM layer's scan."""
+    kinds = [kind for kind, _ in tf.layer_specs(cfg)]
+    flash = (kinds.count("attn")
+             if step == "prefill" or cfg.attention != "mla" else 0)
+    return {"flash_attention": flash, "ssm_scan": kinds.count("ssm")}
+
+
+def _serve_want(cfg, gen: int) -> dict:
+    """A serve_lm run's launches: one prefill and gen - 1 decode steps."""
+    pre, dec = _step_launches(cfg, "prefill"), _step_launches(cfg, "decode")
+    return {name: pre[name] + (gen - 1) * dec[name] for name in pre}
+
+
+def _silu_ops(cfg) -> int:
+    """silu ops a forward: each Mamba mixer's conv (the gate's is folded
+    into the scan), each SwiGLU MLP, each MoE layer's experts and shared
+    experts."""
+    n = 0
+    for kind, is_moe in tf.layer_specs(cfg):
+        n += kind == "ssm"
+        if cfg.arch_type == "ssm":
+            continue
+        if is_moe:
+            n += 1 + bool(cfg.num_shared_experts)
+        elif cfg.mlp == "swiglu":
+            n += 1
+    return n
+
+
+def _check_profiled_step(label, step, profiled, want_flash, want_mixer):
+    """``profiled()`` -> (profile, window s, result, flash launches): run
+    it, then once more on the same inputs if the device count is off
+    (the profiler can miss a step's first device events). Host counts
+    must be exact on every read. Returns the exact read's numbers, its
+    ``result`` and every read's device counts (``reads``)."""
+    reads = []
+    for _ in range(2):
+        prof, window_s, result, launched = profiled()
+        spans, busy_us, by_name, by_cat = _kernel_time(prof.events(),
+                                                       _serve_category)
+        flash = sum(1 for *_, name in spans
+                    if _serve_category(name) == "flash_attention kernel")
+        ops = {key: sum(1 for e in prof.events()
+                        if e.device_type == DeviceType.CPU
+                        and e.key == f"aten::{key}")
+               for key in ("log1p", "silu")}
+        mixer = {key: sum(1 for *_, name in spans if key in name)
+                 for key in ("log1p", "silu")}
+        if launched != want_flash:
+            raise AssertionError(f"{label} profile {step}: {launched} "
+                                 "flash-attention launches, expected "
+                                 f"{want_flash}")
+        if want_mixer is not None and ops != want_mixer:
+            raise AssertionError(f"{label} profile {step}: mixer ops "
+                                 f"{ops}, expected {want_mixer}")
+        reads.append({"kernels": len(spans),
+                      "pad_kernels_seen": _pads_seen(prof.events()),
+                      "flash_attention_kernels": flash,
+                      **{f"{key}_kernels": n for key, n in mixer.items()}})
+        if flash == want_flash and (want_mixer is None
+                                    or mixer == want_mixer):
+            return {"window_s": window_s, "result": result,
+                    "launched": launched, "kernels": len(spans),
+                    "busy_us": busy_us, "by_name": by_name,
+                    "by_cat": by_cat, "flash": flash, "mixer": mixer,
+                    "ops": ops, "reads": reads}
+    raise AssertionError(f"{label} profile {step}: device kernels {reads} "
+                         f"in two profiles, expected {want_flash} "
+                         "flash-attention"
+                         + (f" and {want_mixer}" if want_mixer else ""))
+
+
+def _emit_profile(arch, dtype, step, read):
+    top = sorted(read["by_name"].items(), key=lambda kv: kv[1],
+                 reverse=True)[:6]
+    emit({"phase": "serve_profile", "arch": arch, "dtype": dtype,
+          "step": step, "window_ms": 1e3 * read["window_s"],
+          "kernels": read["kernels"],
+          "flash_attention_kernels": read["flash"],
+          "flash_attention_launches": read["launched"],
+          **{f"{key}_kernels": n for key, n in read["mixer"].items()},
+          **{f"{key}_ops": n for key, n in read["ops"].items()},
+          "device_reads": read["reads"],
+          "device_busy_ms": read["busy_us"] / 1e3,
+          "device_idle_share": 1.0 - read["busy_us"] / 1e6
+          / read["window_s"],
+          "by_category_ms": read["by_cat"],
+          "top_ms": [[name[:70], ms] for name, ms in top]})
+    if step == "decode":
+        emit({"phase": "serve_decode_launches", "arch": arch,
+              "dtype": dtype, "launches_per_step": read["kernels"]})
+
+
+def profile_serve(cfg, params, prompts):
     """One prefill and one decode step under torch.profiler (after
     serve_lm has warmed both): per step the window's wall time, the
     card's busy time (the union of kernel intervals) and idle share,
     kernel time by category and the launches per step. Each step must
-    launch and hold on the device exactly one flash-attention kernel a
-    layer when ``kernel`` is flash_attention, and none otherwise; with
-    ssm_scan, no log1p and one silu a layer, as torch ops and as device
-    kernels. Host counts are exact on every read; where the profiler's
-    device count is off, the step is profiled once more on the same
-    inputs and must be exact there (both reads are printed). Then one
-    more decode step in which any call that waits for the card raises."""
+    launch, and hold on the device, exactly the flash-attention kernels
+    of ``_step_launches``; with SSM layers, no log1p and ``_silu_ops``
+    silu, as torch ops and as device kernels. Host counts are exact on
+    every read; where the profiler's device count is off, the step is
+    profiled once more on the same inputs and must be exact there (both
+    reads are printed). Then one more decode step in which any call that
+    waits for the card raises."""
     b, s = prompts.shape
     p, embeds = _patch_prefix(cfg, b, params["embed"].dtype, "cuda")
     states = tf.init_states(cfg, b, p + s + 2, params["embed"].dtype,
                             "cuda")
-    tok = prompts
-    pos = None
-    want = cfg.num_layers if kernel == "flash_attention" else 0
+    dtype = str(params["embed"].dtype)[6:]
     # the mixer's eager softplus chain (its log1p) and gate (a second
-    # silu a layer) are folded into the scan: one silu a layer is left
-    want_mixer = ({"log1p": 0, "silu": cfg.num_layers}
-                  if kernel == "ssm_scan" else None)
+    # silu a layer) are folded into the scan
+    want_mixer = ({"log1p": 0, "silu": _silu_ops(cfg)}
+                  if _step_launches(cfg, "prefill")["ssm_scan"] else None)
+    tok, pos = prompts, None
     for step in ("prefill", "decode"):
-        reads = []
-        for _ in range(2):
-            prof, window_s, nxt, new_states, launched = _profile_step(
-                cfg, params, tok, pos, states,
-                embeds if step == "prefill" else None)
-            spans, busy_us, by_name, by_cat = _kernel_time(prof.events(),
-                                                           _serve_category)
-            flash = sum(1 for *_, name in spans
-                        if _serve_category(name) == "flash_attention kernel")
-            ops = {key: sum(1 for e in prof.events()
-                            if e.device_type == DeviceType.CPU
-                            and e.key == f"aten::{key}")
-                   for key in ("log1p", "silu")}
-            mixer = {key: sum(1 for *_, name in spans if key in name)
-                     for key in ("log1p", "silu")}
-            if launched != want:
-                raise AssertionError(f"serve profile {step}: {launched} "
-                                     "flash-attention launches, expected "
-                                     f"{want}")
-            if want_mixer is not None and ops != want_mixer:
-                raise AssertionError(f"serve profile {step}: mixer ops "
-                                     f"{ops}, expected {want_mixer}")
-            reads.append({"kernels": len(spans),
-                          "pad_kernels_seen": _pads_seen(prof.events()),
-                          "flash_attention_kernels": flash,
-                          **{f"{key}_kernels": n
-                             for key, n in mixer.items()}})
-            if flash == want and (want_mixer is None
-                                  or mixer == want_mixer):
-                break
-        else:
-            raise AssertionError(f"serve profile {step}: device kernels "
-                                 f"{reads} in two profiles, expected "
-                                 f"{want} flash-attention"
-                                 + (f" and {want_mixer}" if want_mixer
-                                    else ""))
-        tok, states = nxt, new_states
-        top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:6]
-        dtype = str(params["embed"].dtype)[6:]
-        emit({"phase": "serve_profile", "arch": cfg.name, "dtype": dtype,
-              "step": step, "window_ms": 1e3 * window_s,
-              "kernels": len(spans), "flash_attention_kernels": flash,
-              "flash_attention_launches": launched,
-              **{f"{key}_kernels": n for key, n in mixer.items()},
-              **{f"{key}_ops": n for key, n in ops.items()},
-              "device_reads": reads,
-              "device_busy_ms": busy_us / 1e3,
-              "device_idle_share": 1.0 - busy_us / 1e6 / window_s,
-              "by_category_ms": by_cat,
-              "top_ms": [[name[:70], ms] for name, ms in top]})
-        if step == "decode":
-            emit({"phase": "serve_decode_launches", "arch": cfg.name,
-                  "dtype": dtype, "launches_per_step": len(spans)})
+        read = _check_profiled_step(
+            cfg.name, step,
+            functools.partial(_profile_step, cfg, params, tok, pos, states,
+                              embeds if step == "prefill" else None),
+            _step_launches(cfg, step)["flash_attention"], want_mixer)
+        _emit_profile(cfg.name, dtype, step, read)
+        tok, states = read["result"]
         pos = torch.full((b, 1), p + s, dtype=torch.int32, device="cuda")
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -2588,85 +2700,153 @@ def _serve_launches() -> dict:
             for name, mod in SERVE_KERNELS.items()}
 
 
-def phase_serve(arch: str, kernel: str) -> int:
-    """serve_lm on ``arch`` at full width and depth, f32 then bf16, with
-    the serving kernels' counts set to 0 just before each run and read
-    just after: ``kernel`` must launch num_layers x gen times, the others
-    never. Then a profiled prefill and decode step, and the kernel path
-    against the plain path on the same params and prompts (each timed).
-    Returns the f32 run's launch count of ``kernel``."""
-    cfg = get_config(arch)
+def _reset_serve_launches():
+    for mod in SERVE_KERNELS.values():
+        mod.reset_launches()
+
+
+def _gates(label, dtype, kern, plain):
+    """Kernel path against plain path, (steps, B, V) f32 logits: (the
+    line's fields, the failure or None) — f32 within SERVE_F32_RTOL x
+    max|logit|, bf16 top-1 >= SERVE_BF16_TOP1, all finite."""
+    finite = bool(torch.isfinite(kern).all() & torch.isfinite(plain).all())
+    diff = float((kern - plain).abs().max())
+    scale = max(1.0, float(plain.abs().max()))
+    top1 = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
+    fields = {"kernel_vs_plain_max_abs_logit_diff": diff,
+              "max_abs_logit": float(plain.abs().max()),
+              "kernel_vs_plain_top1_agreement": top1,
+              "logits_finite": finite}
+    failure = None
+    if not finite:
+        failure = f"{label} {dtype}: non-finite logits"
+    elif dtype == torch.float32 and not diff <= SERVE_F32_RTOL * scale:
+        failure = (f"{label} f32: kernel vs plain logits differ by {diff} "
+                   f"> {SERVE_F32_RTOL} x {scale}")
+    elif dtype == torch.bfloat16 and not top1 >= SERVE_BF16_TOP1:
+        failure = (f"{label} bf16: kernel vs plain top-1 agreement {top1} "
+                   f"< {SERVE_BF16_TOP1}")
+    return fields, failure
+
+
+def _check_tokens(label, tokens, shape, vocab):
+    if tuple(tokens.shape) != shape or not bool(
+            ((tokens >= 0) & (tokens < vocab)).all()):
+        raise AssertionError(f"{label}: tokens {tuple(tokens.shape)} out of "
+                             "range")
+
+
+# what phase_serve drives for one model family: its params, serve() ->
+# (tokens, stats), the launches a run must make, profile(), forced(forced
+# tokens, impl) -> teacher-forced logits, the serve line's own fields, and
+# the decode steps a run's decode_s covers
+ServeRun = collections.namedtuple(
+    "ServeRun", "params serve want profile forced fields decode_steps")
+
+
+def _lm_run(cfg, gen, dtype) -> ServeRun:
+    """A decoder: random params and SERVE_B prompts of SERVE_PROMPT tokens
+    from ``gen``, served by serve_lm."""
+    params = tf.init_lm(cfg, gen, dtype)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT),
+                            generator=gen, device="cuda")
+    return ServeRun(
+        params,
+        lambda: serve_lm(cfg, SERVE_B, SERVE_PROMPT, SERVE_GEN,
+                         device="cuda", dtype=dtype, params=params,
+                         prompts=prompts),
+        _serve_want(cfg, SERVE_GEN),
+        lambda: profile_serve(cfg, params, prompts),
+        lambda forced, impl: _teacher_forced(cfg, params, prompts, forced,
+                                             impl),
+        {"layer_specs": tf.layer_specs(cfg),
+         "patches": cfg.num_patches if cfg.modality == "vision" else 0,
+         "prompt_len": SERVE_PROMPT},
+        SERVE_GEN - 1)
+
+
+def _encdec_run(cfg, gen, dtype) -> ServeRun:
+    """The encoder-decoder: random params and SERVE_B clips of random
+    frames from ``gen``, served by serve_encdec (from BOS): the encoder's
+    layers launch once, then each decoder layer twice a step (self- and
+    cross-attention)."""
+    params = encdec.init_encdec(cfg, gen, dtype)
+    frames = torch.randn((SERVE_B, cfg.encoder_seq_len, cfg.d_model),
+                         generator=gen, device="cuda").to(dtype)
+    return ServeRun(
+        params,
+        lambda: serve_encdec(cfg, SERVE_B, SERVE_GEN, device="cuda",
+                             dtype=dtype, params=params, frames=frames),
+        {"flash_attention": cfg.encoder_layers
+         + 2 * cfg.num_layers * SERVE_GEN, "ssm_scan": 0},
+        lambda: profile_serve_encdec(cfg, params, frames),
+        lambda forced, impl: _encdec_teacher_forced(cfg, params, frames,
+                                                    forced, impl),
+        {"encoder_layers": cfg.encoder_layers,
+         "frames": cfg.encoder_seq_len},
+        SERVE_GEN)
+
+
+def phase_serve(arch: str, kernel: str, dtypes=(torch.float32,
+                                                torch.bfloat16),
+                cut=None) -> int:
+    """serve_lm (serve_encdec for the encoder-decoder) on ``arch`` at full
+    width — full depth, or the config ``.with_(**cut)`` —, in each of
+    ``dtypes``, with the serving kernels' counts set to 0 just before each
+    run and read just after: they must be the run's ``want`` exactly.
+    Then a profiled prefill (encode) and decode step, and the kernel path
+    against the plain path on the same params and inputs (each timed).
+    Returns the first run's launch count of ``kernel``."""
+    cfg = get_config(arch).with_(**(cut or {}))
+    make_run = _encdec_run if cfg.is_encoder_decoder else _lm_run
     counts = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         gen = torch.Generator(device="cuda").manual_seed(0)
-        params = tf.init_lm(cfg, gen, dtype)
-        prompts = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT),
-                                generator=gen, device="cuda")
-        n_params = sum(t.numel() for t in tree_leaves(params))
-        for mod in SERVE_KERNELS.values():
-            mod.reset_launches()           # this path starts here
-        tokens, stats = serve_lm(cfg, SERVE_B, SERVE_PROMPT, SERVE_GEN,
-                                 device="cuda", dtype=dtype, params=params,
-                                 prompts=prompts)
+        tic = time.perf_counter()
+        run = make_run(cfg, gen, dtype)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - tic
+        n_params = sum(t.numel() for t in tree_leaves(run.params))
+        _reset_serve_launches()            # this path starts here
+        tokens, stats = run.serve()
         launches = _serve_launches()
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-        want = {name: cfg.num_layers * SERVE_GEN if name == kernel else 0
-                for name in SERVE_KERNELS}
-        if launches != want:
+        if launches != run.want:
             raise AssertionError(f"serve {arch} {dtype}: launches "
-                                 f"{launches}, expected {want}")
-        if tuple(tokens.shape) != (SERVE_B, SERVE_GEN) or not bool(
-                ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
-            raise AssertionError(f"serve {dtype}: tokens {tokens.shape} out "
-                                 "of range")
+                                 f"{launches}, expected {run.want}")
+        _check_tokens(f"serve {arch} {dtype}", tokens, (SERVE_B, SERVE_GEN),
+                      cfg.vocab_size)
         counts[dtype] = launches[kernel]
-        profile_serve(cfg, params, prompts, kernel)
+        run.profile()
         forced = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_STEPS),
                                generator=gen, device="cuda")
-        path_s = {}
+        path_s, logits = {}, {}
         for impl in ("auto", "reference"):
             torch.cuda.synchronize()
             tic = time.perf_counter()
-            logits = _teacher_forced(cfg, params, prompts, forced, impl)
+            logits[impl] = run.forced(forced, impl)
             torch.cuda.synchronize()
             path_s[impl] = time.perf_counter() - tic
-            if impl == "auto":
-                kern = logits
-        plain = logits
-        if not bool(torch.isfinite(kern).all() & torch.isfinite(plain).all()):
-            raise AssertionError(f"serve {dtype}: non-finite logits")
-        diff = float((kern - plain).abs().max())
-        scale = max(1.0, float(plain.abs().max()))
-        top1 = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
-        line = {"phase": "serve", "arch": cfg.name, "dtype": str(dtype)[6:],
-                "layers": cfg.num_layers, "d_model": cfg.d_model,
-                "params": n_params, "batch": SERVE_B,
-                "patches": (cfg.num_patches if cfg.modality == "vision"
-                            else 0),
-                "prompt_len": SERVE_PROMPT, "gen": SERVE_GEN, **stats,
-                "decode_step_ms": 1e3 * stats["decode_s"] / (SERVE_GEN - 1),
-                **{f"{name}_launches": n for name, n in launches.items()},
-                "peak_memory_gib": peak_gib, "tokens_in_range": True,
-                "sample": tokens[0, :8].tolist(),
-                "parity_steps": 1 + SERVE_STEPS,
-                "kernel_path_s": path_s["auto"],
-                "plain_path_s": path_s["reference"],
-                "kernel_vs_plain_max_abs_logit_diff": diff,
-                "max_abs_logit": float(plain.abs().max()),
-                "kernel_vs_plain_top1_agreement": top1,
-                "logits_finite": True}
-        emit(line)
-        if dtype == torch.float32 and not diff <= SERVE_F32_RTOL * scale:
-            raise AssertionError(f"serve f32: kernel vs plain logits differ "
-                                 f"by {diff} > {SERVE_F32_RTOL} x {scale}")
-        if dtype == torch.bfloat16 and not top1 >= SERVE_BF16_TOP1:
-            raise AssertionError(f"serve bf16: kernel vs plain top-1 "
-                                 f"agreement {top1} < {SERVE_BF16_TOP1}")
-        del params, kern, plain, logits
+        gates, failure = _gates(f"serve {arch}", dtype, logits["auto"],
+                                logits["reference"])
+        emit({"phase": "serve", "arch": cfg.name, "dtype": str(dtype)[6:],
+              "layers": cfg.num_layers, "cut": cut or {},
+              "d_model": cfg.d_model, "params": n_params, "init_s": init_s,
+              "batch": SERVE_B, **run.fields, "gen": SERVE_GEN, **stats,
+              "decode_step_ms": 1e3 * stats["decode_s"] / run.decode_steps,
+              **{f"{name}_launches": n for name, n in launches.items()},
+              "peak_memory_gib": peak_gib, "tokens_in_range": True,
+              "sample": tokens[0, :8].tolist(),
+              "parity_steps": 1 + SERVE_STEPS,
+              "kernel_path_s": path_s["auto"],
+              "plain_path_s": path_s["reference"], **gates})
+        if failure:
+            raise AssertionError(failure)
+        del run, logits
     torch.cuda.empty_cache()
-    return counts[torch.float32]
+    return counts[dtypes[0]]
 
 
 def phase_serve_parity(arch: str):
@@ -2897,6 +3077,312 @@ def phase_lm_parity():
                              f"{rel} relative > {LM_TINY_RTOL}")
 
 
+# ---- the encoder-decoder, MoE, MLA and hybrid decoders (Whisper-base,
+# DeepSeek-V2, Jamba-1.5, Kimi-K2) ----
+
+WHISPER_ARCH = "whisper-base"
+DEEPSEEK_ARCH = "deepseek-v2-236b"
+JAMBA_ARCH = "jamba-1.5-large-398b"
+KIMI_ARCH = "kimi-k2-1t-a32b"
+# full width, depth cut to fit one card and the smoke's time: one dense
+# and one MoE layer; Jamba's 1:7 attention interleave cut to 1:1 (8
+# full-width layers are 45e9 parameters); Kimi-K2 at two layers is 39.9 GB
+# in bf16, so it runs bf16 only
+MOE_SERVE = (
+    (DEEPSEEK_ARCH, {"num_layers": 2}, (torch.float32, torch.bfloat16)),
+    (JAMBA_ARCH, {"num_layers": 2, "attn_every": 2},
+     (torch.float32, torch.bfloat16)),
+    (KIMI_ARCH, {"num_layers": 2}, (torch.bfloat16,)),
+)
+WHISPER_TRAIN_B, WHISPER_TRAIN_T, WHISPER_TRAIN_STEPS = 8, 448, 3
+WHISPER_TRAIN_LR = 0.01
+MOE_PARITY_RTOL = 1e-4        # card vs CPU, relative to max |logit| or |loss|
+MOE_CLI_ARGS = ["--model", DEEPSEEK_ARCH, "--seq-len", "33", "--rounds", "2",
+                "--clients", "4", "--participation", "0.5", "--batch-size",
+                "4", "--eval-every", "1"]
+
+
+def _encdec_teacher_forced(cfg, params, frames, forced, impl):
+    """Encode ``frames``, then decode from BOS with one cached step per
+    column of ``forced`` (the same tokens whatever the model predicts):
+    each step's logits, stacked (1 + steps, B, V) in f32."""
+    b, steps = forced.shape
+    states = encdec.init_decoder_states(cfg, b, steps + 1,
+                                        params["embed"].dtype, frames.device)
+    with torch.inference_mode():
+        enc_out = encdec.encode(cfg, params, frames, impl)
+        tok = torch.zeros((b, 1), dtype=torch.int64, device=frames.device)
+        out = []
+        for i in range(steps + 1):
+            pos = torch.full((b, 1), i, dtype=torch.int32,
+                             device=frames.device)
+            logits, states = encdec.decode(cfg, params, tok, enc_out, pos,
+                                           states=states, attn_impl=impl)
+            out.append(logits[:, -1].float())
+            if i < steps:
+                tok = forced[:, i:i + 1]
+    return torch.stack(out)
+
+
+def profile_serve_encdec(cfg, params, frames):
+    """The encode and one decode step under torch.profiler: the encode
+    must launch one flash kernel an encoder layer, the decode step two a
+    decoder layer (self- and cross-attention), on the host and on the
+    device (a step whose device count is off is profiled once more)."""
+    b = frames.shape[0]
+    dtype = str(params["embed"].dtype)[6:]
+    states = encdec.init_decoder_states(cfg, b, 2, params["embed"].dtype,
+                                        "cuda")
+    read = _check_profiled_step(
+        cfg.name, "prefill",
+        lambda: _profiled(lambda: encdec.encode(cfg, params, frames)),
+        cfg.encoder_layers, None)
+    _emit_profile(cfg.name, dtype, "prefill", read)
+    enc_out = read["result"]
+    tok = torch.zeros((b, 1), dtype=torch.int64, device="cuda")
+    pos = torch.zeros((b, 1), dtype=torch.int32, device="cuda")
+
+    def step():
+        logits, _ = encdec.decode(cfg, params, tok, enc_out, pos,
+                                  states=states)
+        return logits
+    read = _check_profiled_step(cfg.name, "decode",
+                                lambda: _profiled(step),
+                                2 * cfg.num_layers, None)
+    _emit_profile(cfg.name, dtype, "decode", read)
+
+
+def _encdec_train_flops(cfg, b, t_enc, t_dec) -> float:
+    """FLOPs of one training step (forward + backward = 3 forwards) of
+    the encoder-decoder on (b, t_enc) frames and (b, t_dec) tokens: the
+    linears at 2 FLOPs a weight a token, attention at 4·d a visible
+    (query, key) pair — bidirectional in the encoder and across, causal
+    in the decoder's self-attention."""
+    d, dff, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    mlp = 2 * d * dff
+    enc = cfg.encoder_layers * (2 * b * t_enc * (4 * d * d + mlp)
+                                + 4 * d * b * t_enc * t_enc)
+    causal_pairs = b * t_dec * (t_dec + 1) // 2
+    dec = cfg.num_layers * (
+        2 * b * t_dec * (4 * d * d + 2 * d * d + mlp)   # self, cross q/o
+        + 2 * b * t_enc * 2 * d * d                     # cross k/v
+        + 4 * d * causal_pairs + 4 * d * b * t_dec * t_enc)
+    head = 2 * b * t_dec * d * v
+    return 3.0 * (enc + dec + head)
+
+
+def phase_whisper_train():
+    """Whisper-base's training step at full width and depth:
+    launch/steps.make_train_step (encdec_loss_fn, plain autograd, SGD at
+    WHISPER_TRAIN_LR) on B = 8 clips of 1,500 random frames and 448
+    target tokens, 3 steps (random weights from seed 0). The loss must be
+    finite and fall, and the training route (plain attention: the kernel
+    has no backward) must launch no serving kernel. Seconds a step, peak
+    memory and the FLOP bound at the f32 peak."""
+    cfg = get_config(WHISPER_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = encdec.init_encdec(cfg, gen, torch.float32)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    b, t = WHISPER_TRAIN_B, WHISPER_TRAIN_T
+    frames = torch.randn((b, cfg.encoder_seq_len, cfg.d_model),
+                         generator=gen, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (b, t + 1), generator=gen,
+                           device="cuda")
+    batch = {"frames": frames, "tokens": tokens[:, :-1],
+             "labels": tokens[:, 1:]}
+    step = lm_steps.make_train_step(cfg, lr=WHISPER_TRAIN_LR)
+    _reset_serve_launches()                # this path starts here
+    losses, seconds = [], []
+    for _ in range(WHISPER_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        params, loss = step(params, batch)
+        losses.append(float(loss))         # a sync
+        seconds.append(time.perf_counter() - tic)
+    launches = _serve_launches()
+    flops = _encdec_train_flops(cfg, b, cfg.encoder_seq_len, t)
+    bound, _ = bound_ms(0, flops)
+    median = statistics.median(seconds[1:])
+    emit({"phase": "whisper_train", "arch": cfg.name,
+          "encoder_layers": cfg.encoder_layers, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "params": n_params, "dtype": "float32",
+          "batch": b, "frames": cfg.encoder_seq_len, "target_len": t,
+          "lr": WHISPER_TRAIN_LR, "losses": losses, "step_seconds": seconds,
+          "median_step_s": median, "bound_s": bound / 1e3,
+          "bound_flop": flops, "pct_of_bound": 100.0 * bound / 1e3 / median,
+          "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          **{f"{name}_launches": n for name, n in launches.items()}})
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"whisper_train: non-finite losses {losses}")
+    if not all(b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"whisper_train: the loss did not fall: "
+                             f"{losses}")
+    if any(launches.values()):
+        raise AssertionError(f"whisper_train: the training route launched "
+                             f"serving kernels {launches}")
+    del params, step, batch
+    torch.cuda.empty_cache()
+
+
+def _rel(card, cpu) -> float:
+    return float((card.cpu() - cpu).abs().max()) / max(
+        float(cpu.abs().max()), 1e-30)
+
+
+def _routing(cfg, router, x):
+    """(expert ids (1, T, k), ties) of ``x`` (B, S, D) through
+    ``router``: a tie is a token whose k-th and (k + 1)-th probabilities
+    are equal (top-k then takes the lower expert, as jax.lax.top_k)."""
+    logits = linear(router, x.reshape(1, -1, x.shape[-1]).float())
+    _, idx, _ = moe._route(cfg, logits)
+    if cfg.top_k >= cfg.num_experts:
+        return idx, 0
+    top = torch.topk(torch.softmax(logits, -1), cfg.top_k + 1, dim=-1).values
+    return idx, int((top[..., -1] == top[..., -2]).sum())
+
+
+def _moe_atomics(arch, dtype):
+    """One MoE layer of ``arch`` at full width in ``dtype`` (random
+    weights), B·S = SERVE_B x SERVE_PROMPT tokens, run twice on the same
+    input: the output elements that differ bit for bit between the two
+    calls (the combine's scatter-add sums a token's top-k contributions
+    by atomics, in no fixed order), and the routing ties."""
+    cfg = get_config(arch)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    p = moe.init_moe(gen, cfg, dtype)
+    x = torch.randn((SERVE_B, SERVE_PROMPT, cfg.d_model), generator=gen,
+                    device="cuda").to(dtype)
+    with torch.inference_mode():
+        a, _ = moe.moe_forward(cfg, p, x)
+        b, _ = moe.moe_forward(cfg, p, x)
+        _, ties = _routing(cfg, p["router"], x)
+    out = {"arch": arch, "dtype": str(dtype)[6:],
+           "tokens": SERVE_B * SERVE_PROMPT,
+           "top_k": cfg.top_k, "experts": cfg.num_experts,
+           "elements_differing_between_calls": int((a != b).sum()),
+           "max_abs_diff_between_calls": float((a - b).abs().max()),
+           "elements": a.numel(), "routing_ties": ties}
+    del p, x, a, b
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe_parity():
+    """Card against CPU at SMOKE size, f32, the same params and inputs:
+    DeepSeek-V2, Jamba and Kimi-K2 (prefill plus SMOKE_STEPS
+    teacher-forced decode steps, logits within MOE_PARITY_RTOL of
+    max|logit|; the first MoE layer's expert assignments equal, its
+    output within MOE_PARITY_RTOL), Whisper-base's encode and cached
+    decode; the training CLI with --model deepseek-v2-236b (MLA + MoE
+    through the FL trainer's vmap(grad)) on both, round losses within
+    MOE_PARITY_RTOL relative. Then the atomics and ties of a full-width
+    MoE layer (``_moe_atomics``) of DeepSeek-V2 (top-6, f32) and Kimi-K2
+    (top-8, bf16: its 384 experts are 67.6 GB in f32)."""
+    torch.backends.cuda.matmul.allow_tf32 = False      # the reference's f32
+    failures = []
+    for arch in (DEEPSEEK_ARCH, JAMBA_ARCH, KIMI_ARCH):
+        cfg = get_config(arch, smoke=True)
+        gen = torch.Generator().manual_seed(0)
+        params = tf.init_lm(cfg, gen, torch.float32)
+        prompts = torch.randint(0, cfg.vocab_size, (4, 64), generator=gen)
+        forced = torch.randint(0, cfg.vocab_size, (4, SMOKE_STEPS),
+                               generator=gen)
+        card_params = tree_map(lambda t: t.cuda(), params)
+        card = _teacher_forced(cfg, card_params, prompts.cuda(),
+                               forced.cuda(), "auto")
+        cpu = _teacher_forced(cfg, params, prompts, forced, "auto")
+        layer = next(i for i, (_, is_moe) in enumerate(tf.layer_specs(cfg))
+                     if is_moe)
+        mlp, card_mlp = params["layers"][layer]["mlp"], \
+            card_params["layers"][layer]["mlp"]
+        x = torch.randn((4, 64, cfg.d_model), generator=gen)
+        idx_cpu, ties = _routing(cfg, mlp["router"], x)
+        idx_card, _ = _routing(cfg, card_mlp["router"], x.cuda())
+        with torch.inference_mode():
+            y_cpu, aux_cpu = moe.moe_forward(cfg, mlp, x)
+            y_card, aux_card = moe.moe_forward(cfg, card_mlp, x.cuda())
+        line = {"phase": "moe_parity", "arch": arch,
+                "steps": 1 + SMOKE_STEPS, "logits_rel_diff": _rel(card, cpu),
+                "moe_layer": layer,
+                "assignments_equal": bool(torch.equal(idx_card.cpu(),
+                                                      idx_cpu)),
+                "routing_ties": ties, "moe_out_rel_diff": _rel(y_card, y_cpu),
+                "aux_abs_diff": abs(float(aux_card) - float(aux_cpu))}
+        emit(line)
+        if not (line["logits_rel_diff"] <= MOE_PARITY_RTOL
+                and line["moe_out_rel_diff"] <= MOE_PARITY_RTOL
+                and line["assignments_equal"]):
+            failures.append(f"{arch}: {line}")
+    cfg = get_config(WHISPER_ARCH, smoke=True)
+    gen = torch.Generator().manual_seed(0)
+    params = encdec.init_encdec(cfg, gen, torch.float32)
+    frames = torch.randn((4, cfg.encoder_seq_len, cfg.d_model), generator=gen)
+    forced = torch.randint(0, cfg.vocab_size, (4, SMOKE_STEPS),
+                           generator=gen)
+    card = _encdec_teacher_forced(cfg, tree_map(lambda t: t.cuda(), params),
+                                  frames.cuda(), forced.cuda(), "auto")
+    cpu = _encdec_teacher_forced(cfg, params, frames, forced, "auto")
+    line = {"phase": "moe_parity", "arch": WHISPER_ARCH,
+            "steps": 1 + SMOKE_STEPS, "logits_rel_diff": _rel(card, cpu)}
+    emit(line)
+    if not line["logits_rel_diff"] <= MOE_PARITY_RTOL:
+        failures.append(f"{WHISPER_ARCH}: {line}")
+    hist = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_cli_") as root:
+        for device in ("cuda", "cpu"):
+            path = os.path.join(root, f"{device}.json")
+            with contextlib.redirect_stdout(io.StringIO()):
+                if train_cli.main(MOE_CLI_ARGS + ["--device", device,
+                                                  "--out", path]) != 0:
+                    raise AssertionError(f"train CLI {DEEPSEEK_ARCH} on "
+                                         f"{device} failed")
+            with open(path) as fh:
+                hist[device] = [r["train_loss"] for r in json.load(fh)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(hist["cuda"], hist["cpu"]))
+    emit({"phase": "moe_parity", "run": "train_cli", "args": MOE_CLI_ARGS,
+          "loss_cuda": hist["cuda"], "loss_cpu": hist["cpu"],
+          "max_rel_diff": rel})
+    if not rel <= MOE_PARITY_RTOL:
+        failures.append(f"train CLI {DEEPSEEK_ARCH}: {rel}")
+    for arch, dtype in ((DEEPSEEK_ARCH, torch.float32),
+                        (KIMI_ARCH, torch.bfloat16)):
+        emit({"phase": "moe_atomics", **_moe_atomics(arch, dtype)})
+    if failures:
+        raise AssertionError("moe_parity: " + "; ".join(failures))
+
+
+def phase_serve_batched():
+    """The batched serving example (repro_torch.examples.serve_batched:
+    StarCoder2-3B, Falcon-Mamba-7B and DeepSeek-V2 SMOKE, batch 4, prompt
+    24, gen 12) on the card, its printed lines kept: the serving kernels'
+    counts set to 0 just before and read just after must be the three
+    runs' ``_serve_want``."""
+    _reset_serve_launches()                # this path starts here
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = serve_batched_example.main(["--device", "cuda"])
+    launches = _serve_launches()
+    want = {name: 0 for name in SERVE_KERNELS}
+    for arch in serve_batched_example.ARCHS:
+        for name, n in _serve_want(get_config(arch, smoke=True),
+                                   serve_batched_example.GEN).items():
+            want[name] += n
+    emit({"phase": "serve_batched", "lines": buf.getvalue().splitlines()[:3],
+          "tok_per_s": {arch: stats["tok_per_s"]
+                        for arch, (_, stats) in out.items()},
+          **{f"{name}_launches": n for name, n in launches.items()}})
+    if launches != want:
+        raise AssertionError(f"serve_batched: launches {launches}, expected "
+                             f"{want}")
+    for arch, (tokens, _) in out.items():
+        _check_tokens(f"serve_batched {arch}", tokens,
+                      (serve_batched_example.BATCH,
+                       serve_batched_example.GEN),
+                      get_config(arch, smoke=True).vocab_size)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs a card",
@@ -2932,6 +3418,12 @@ def main() -> int:
     phase_serve(VLM_ARCH, "flash_attention")
     phase_quickstart()
     phase_lm_parity()
+    phase_serve(WHISPER_ARCH, "flash_attention")
+    for arch, cut, dtypes in MOE_SERVE:
+        phase_serve(arch, "flash_attention", dtypes, cut)
+    phase_whisper_train()
+    phase_moe_parity()
+    phase_serve_batched()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: row[k] for k in keys} for row in rows]})

@@ -17,7 +17,10 @@ the server step is a pass over that stack.
 The decoders keep their parameters as a tree of tensors instead, one
 dict per layer: ``lm_params_from_reference`` and
 ``lm_states_from_reference`` split the reference's stacked layer groups
-into that list.
+into that list (MoE experts, MLA latents and caches, hybrid stacks
+alike), and ``encdec_params_from_reference`` and
+``encdec_states_from_reference`` the encoder-decoder's layer-stacked
+trees.
 """
 from __future__ import annotations
 
@@ -268,6 +271,12 @@ def payload_from_reference(tree: Dict[str, Tree], layout: FlatLayout,
             "zero": stack(tree["zero"]).to(device)}
 
 
+def _unstack(tree: Tree, n: int) -> List[Tree]:
+    """One tree of (n, ...) leaves -> n trees of its slices."""
+    return [tree_map(lambda x, i=i: np.asarray(x)[i], tree)
+            for i in range(n)]
+
+
 def _unstack_layers(prefix: Tree, stack: Tree, cfg) -> List[Tree]:
     """The reference's (prefix layers, stacked groups) -> one tree per
     layer in execution order: prefix, then group by group, each group's
@@ -278,9 +287,9 @@ def _unstack_layers(prefix: Tree, stack: Tree, cfg) -> List[Tree]:
                          f"{len(stack)} stacked, expected {n_prefix} and "
                          f"{period if groups else 0}")
     layers = list(prefix)
+    groups_of = [_unstack(stack[j], groups) for j in range(len(stack))]
     for gi in range(groups):
-        layers += [tree_map(lambda x: np.asarray(x)[gi], stack[j])
-                   for j in range(period)]
+        layers += [groups_of[j][gi] for j in range(period)]
     return layers
 
 
@@ -296,24 +305,49 @@ def lm_params_from_reference(np_params: Tree, cfg) -> Tree:
     return out
 
 
+def _state_from_reference(c) -> Dict[str, Any]:
+    """One layer's state: an SSM state {"conv", "h"} (no ``idx``), or an
+    attention cache (GQA's k/v or MLA's c_kv/k_rope, and pos) with
+    ``idx`` as a Python int."""
+    if "h" in c:                                   # an SSM layer
+        return to_torch({k: c[k] for k in ("conv", "h")})
+    cache = to_torch({k: v for k, v in c.items() if k != "idx"})
+    cache["idx"] = int(np.asarray(c["idx"]))
+    return cache
+
+
 def lm_states_from_reference(np_states: Tree, cfg) -> List:
     """The reference's ``init_states`` tree (or a prefill's / decode's
     new states, as numpy) -> the port's list of per-layer states (CPU
-    tensors): an attention cache with ``idx`` as a Python int, or an SSM
-    state {"conv", "h"} (which has no ``idx``)."""
-    out = []
-    for c in _unstack_layers(np_states["prefix"], np_states["stack"], cfg):
-        if "h" in c:                               # an SSM layer
-            out.append(to_torch({k: c[k] for k in ("conv", "h")}))
-            continue
-        cache = to_torch({k: c[k] for k in ("k", "v", "pos")})
-        cache["idx"] = int(np.asarray(c["idx"]))
-        out.append(cache)
+    tensors)."""
+    return [_state_from_reference(c) for c in _unstack_layers(
+        np_states["prefix"], np_states["stack"], cfg)]
+
+
+def encdec_params_from_reference(np_params: Tree, cfg) -> Tree:
+    """The reference's ``init_encdec`` tree (numpy leaves; "encoder" and
+    "decoder" stacked over layers by its ``vmap``) -> the port's serving
+    tree (models/encdec.py): those two as lists of layer trees."""
+    out = {k: to_torch(v) for k, v in np_params.items()
+           if k not in ("encoder", "decoder")}
+    out["encoder"] = [to_torch(t) for t in _unstack(np_params["encoder"],
+                                                    cfg.encoder_layers)]
+    out["decoder"] = [to_torch(t) for t in _unstack(np_params["decoder"],
+                                                    cfg.num_layers)]
     return out
 
 
+def encdec_states_from_reference(np_states: Tree, cfg) -> List:
+    """The reference's ``init_decoder_states`` tree (or a decode's new
+    states; leaves stacked over layers) -> the port's list of per-layer
+    self-attention caches, ``idx`` a Python int."""
+    return [_state_from_reference(c)
+            for c in _unstack(np_states, cfg.num_layers)]
+
+
 __all__: Sequence[str] = (
-    "FlatLayout", "flat_from_reference", "jax_keystr",
+    "FlatLayout", "encdec_params_from_reference",
+    "encdec_states_from_reference", "flat_from_reference", "jax_keystr",
     "layout_of", "lm_params_from_reference", "lm_states_from_reference",
     "load_params", "payload_from_reference", "payload_to_reference",
     "server_state_from_reference", "server_state_to_reference",

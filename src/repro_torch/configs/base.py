@@ -4,9 +4,10 @@ the port imports nothing of the reference).
 Every architecture the port runs has one ``configs/<id>.py`` exporting
 ``CONFIG`` (the full-size config) and ``SMOKE`` (a reduced variant of the
 same family used by the CPU tests). ``get_config`` maps an arch id to
-one of them; the port carries the two vision models, the four dense
-GQA decoders, the pure-SSM Falcon-Mamba and LLaVA-NeXT's VLM trunk so
-far, and every other id raises ``NotImplementedError``.
+one of them; the port carries every id the reference does: the two
+vision models of the paper and the ten LLM architectures (dense
+GQA, MLA + MoE, pure SSM, hybrid SSM + attention + MoE, VLM and the
+encoder-decoder).
 """
 from __future__ import annotations
 
@@ -171,7 +172,7 @@ ARCH_IDS = (
     "jamba-1.5-large-398b", "kimi-k2-1t-a32b",
 )
 
-# the ids the port carries -> module under repro_torch.configs
+# arch id -> module under repro_torch.configs
 _MOD = {
     "starcoder2-3b": "starcoder2_3b",
     "minitron-8b": "minitron_8b",
@@ -179,6 +180,10 @@ _MOD = {
     "command-r-35b": "command_r_35b",
     "falcon-mamba-7b": "falcon_mamba_7b",
     "llava-next-mistral-7b": "llava_next_mistral_7b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
+    "whisper-base": "whisper_base",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     # paper-native models (vision CNNs for the faithful reproduction)
     "lenet5": "paper_lenet5",
     "resnet18-gn": "paper_resnet18",
@@ -189,14 +194,6 @@ def get_config(arch_id: str, smoke: bool = False):
     """The ArchConfig (or, for the vision models, VisionConfig) of
     ``arch_id``; SMOKE when ``smoke``."""
     if arch_id not in _MOD:
-        if arch_id in ARCH_IDS:
-            raise NotImplementedError(
-                f"{arch_id} is not ported to repro_torch yet: the port "
-                "carries the dense GQA decoders (starcoder2-3b, "
-                "phi4-mini-3.8b, minitron-8b, command-r-35b), the "
-                "pure-SSM falcon-mamba-7b and the VLM trunk of "
-                "llava-next-mistral-7b; encoder-decoder is ROADMAP Queue 1 "
-                "item 14's next slice, then MoE, MLA and hybrid archs")
         raise KeyError(f"unknown arch id {arch_id!r}")
     mod = importlib.import_module(f"repro_torch.configs.{_MOD[arch_id]}")
     return mod.SMOKE if smoke else mod.CONFIG

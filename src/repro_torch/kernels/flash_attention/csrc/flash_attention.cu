@@ -27,7 +27,7 @@
 //     the score tile; synchronous tile loads. f32 keeps exact f32
 //     products: the port runs without TF32 to hold the reference.
 //
-//   route 1 "mma_bf16"  (bf16 prefill, D in 32/64/128/256, compiled for
+//   route 1 "mma_bf16"  (bf16 prefill, D in 32/64/128/192/256, compiled for
 //     the exact D so that every shared-memory offset is a constant):
 //     tensor cores, FlashAttention-2's layout with mma.sync. Each of 8
 //     warps owns 16 rows (128 a block, two blocks an SM); key tiles of 32
@@ -51,9 +51,9 @@
 //     without an mma body): each warp owns 4 rows and, in a 32-key
 //     sub-tile, each lane one key, CUDA-core FMAs in f32, sub-tiles
 //     through a three-slot cp.async ring. Route 3 (bf16, D in
-//     32/64/128/256): the chunk's K and V are staged at once and each warp
-//     takes 16-key tiles by mma with route 1's rounding; the warps' (m, l,
-//     o) are combined in warp order. Each block writes its chunk's (m, l,
+//     32/64/128/192/256): the chunk's K and V are staged at once and each
+//     warp takes 16-key tiles by mma with route 1's rounding; the warps'
+//     (m, l, o) are combined in warp order. Each block writes its chunk's (m, l,
 //     acc) in f32 to scratch; the last block of a (batch, kv head) to
 //     arrive (a __threadfence and an atomicAdd on a counter the wrapper
 //     keeps) merges the partials in split order and writes the output,
@@ -1597,7 +1597,7 @@ extern "C" {
 // q (b, sq, h, d), k and v (b, sk, kvh, d), contiguous and 16-byte
 // aligned, of dtype 0 = f32 or 1 = bf16; qpos (b, sq), kpos (b, sk) int32
 // -> out (b, sq, h, d) of q's dtype. h % kvh == 0, d % 4 == 0, d <= 256.
-// route 0 "fma"; 1 "mma_bf16" (bf16, d in 32/64/128/256); 2
+// route 0 "fma"; 1 "mma_bf16" (bf16, d in 32/64/128/192/256); 2
 // "split_decode" and 3 "split_decode_mma" (bf16, d as route 1), both with
 // sq * h / kvh <= 16, chunk a multiple of 32, splits = ceil(sk / chunk)
 // <= 1024, part f32 scratch of b * kvh * splits * 16 * (d + 2), counters
@@ -1632,6 +1632,9 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
       case 128:
         return launch_mma<128>(q, k, v, qpos, kpos, out, b, sq, sk, h, kvh,
                                window, soft_cap, st);
+      case 192:
+        return launch_mma<192>(q, k, v, qpos, kpos, out, b, sq, sk, h, kvh,
+                               window, soft_cap, st);
       case 256:
         return launch_mma<256>(q, k, v, qpos, kpos, out, b, sq, sk, h, kvh,
                                window, soft_cap, st);
@@ -1658,6 +1661,10 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
                                       part, counters, st);
         case 128:
           return launch_split_mma<128>(q, k, v, qpos, kpos, out, b, sq, sk, h,
+                                       kvh, window, soft_cap, chunk, splits,
+                                       part, counters, st);
+        case 192:
+          return launch_split_mma<192>(q, k, v, qpos, kpos, out, b, sq, sk, h,
                                        kvh, window, soft_cap, chunk, splits,
                                        part, counters, st);
         case 256:

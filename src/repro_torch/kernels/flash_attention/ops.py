@@ -47,7 +47,8 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 LIBRARY = "flash_attention"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # q/k/v dtype -> code
 MAX_HEAD_DIM = 256
-TENSOR_CORE_DIMS = (32, 64, 128, 256)   # bf16 head dims with mma bodies
+# bf16 head dims with mma bodies (192: MLA's qk_nope + qk_rope)
+TENSOR_CORE_DIMS = (32, 64, 128, 192, 256)
 # the kernel's bodies, by route code
 ROUTES = ("fma", "mma_bf16", "split_decode", "split_decode_mma")
 SPLIT_ROWS = 16       # rows a (batch, KV head) up to which decode splits

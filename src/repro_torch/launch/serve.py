@@ -1,21 +1,24 @@
 """Batched serving driver (counterpart of repro/launch/serve.py): prefill a
 batch of prompts, then decode greedily token by token against the
 per-layer KV caches or SSM states — on the card by default, every
-attention call through the flash-attention kernel and every selective
-scan through the ssm_scan kernel:
+attention call through the flash-attention kernel (but MLA's absorbed
+decode, plain f32 einsums as in the reference) and every selective scan
+through the ssm_scan kernel:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b \\
       --batch 4 --prompt-len 32 --gen 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base
 
 ``--size full`` runs the full-size config (random weights from
 ``--seed``), ``--dtype bfloat16`` the bf16 model, and ``--device cpu``
 the CPU (plain attention and scan); without it the script raises when
-CUDA is absent. The port carries the dense GQA decoders, the pure-SSM
-Falcon-Mamba and LLaVA-NeXT's VLM trunk (``--arch
-llava-next-mistral-7b``: a zero patch prefix, the stub's, before each
-prompt); encoder-decoder, MoE, MLA and hybrid serving come with later
-slices.
+CUDA is absent. Every architecture of the reference serves: the dense
+GQA decoders, MLA + MoE (DeepSeek-V2), GQA + MoE (Kimi-K2), the pure-SSM
+Falcon-Mamba, the hybrid Jamba, LLaVA-NeXT's VLM trunk (a zero patch
+prefix, the stub's, before each prompt) and the encoder-decoder
+Whisper (``serve_encdec``: random frames, greedy from BOS).
 """
 from __future__ import annotations
 
@@ -26,7 +29,9 @@ import torch
 
 from repro_torch.configs.base import ARCH_IDS, get_config
 from repro_torch.core.api import resolve_device
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tf
+from repro_torch.models.layers import sinusoidal_positions
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -52,14 +57,9 @@ def serve_lm(cfg, batch, prompt_len, gen, seed=0, *, device="cuda",
     ``attn_impl`` and ``ssm_impl`` go to ``tf.lm_forward``. Returns
     (tokens (B, gen) int64, stats)."""
     if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder serving is "
-                                  "not ported to repro_torch yet (ROADMAP "
-                                  "Queue 1 item 14); it serves dense GQA "
-                                  "decoders, pure-SSM stacks and VLMs")
-    device = resolve_device(device)
-    if device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False   # the reference is f32
-    rng = torch.Generator(device=device).manual_seed(seed)
+        raise ValueError(f"{cfg.name}: an encoder-decoder serves through "
+                         "serve_encdec")
+    device, rng = _device_and_rng(device, seed)
     if params is None:
         params = tf.init_lm(cfg, rng, dtype)
     if prompts is None:
@@ -104,6 +104,62 @@ def serve_lm(cfg, batch, prompt_len, gen, seed=0, *, device="cuda",
                     "tok_per_s": batch * (gen - 1) / max(t_decode, 1e-9)}
 
 
+def _device_and_rng(device, seed):
+    device = resolve_device(device)
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False   # the reference is f32
+    return device, torch.Generator(device=device).manual_seed(seed)
+
+
+def serve_encdec(cfg, batch, gen, seed=0, *, device="cuda",
+                 dtype=torch.float32, attn_impl="auto", params=None,
+                 frames=None):
+    """Greedy transcription of ``batch`` clips: encode the frames once,
+    then ``gen`` decode steps from BOS (token 0) at positions 0..gen-1
+    in self-attention caches of capacity gen + 1; each step attends
+    across to the encoder output (its K/V recomputed a step, as the
+    reference's code does). ``params`` (from ``encdec.init_encdec``, on
+    ``device``) and ``frames`` (B, encoder_seq_len, d_model), the stubbed
+    conv output, are drawn from ``seed`` when not given. Returns (tokens
+    (B, gen) int64, stats)."""
+    device, rng = _device_and_rng(device, seed)
+    if params is None:
+        params = encdec_mod.init_encdec(cfg, rng, dtype)
+    if frames is None:
+        frames = torch.randn((batch, cfg.encoder_seq_len, cfg.d_model),
+                             generator=rng, device=device).to(dtype)
+    want = (batch, cfg.encoder_seq_len, cfg.d_model)
+    if tuple(frames.shape) != want:
+        raise ValueError(f"frames must be {want}, got {tuple(frames.shape)}")
+    states = encdec_mod.init_decoder_states(cfg, batch, gen + 1, dtype,
+                                            device)
+    # the encoder's sinusoid table is built once per shape on the host,
+    # element by element: build it before the timed window
+    sinusoidal_positions(cfg.encoder_seq_len, cfg.d_model)
+    with torch.inference_mode():
+        _sync(device)
+        t0 = time.perf_counter()
+        enc_out = encdec_mod.encode(cfg, params, frames.to(device),
+                                    attn_impl)
+        _sync(device)
+        t_encode = time.perf_counter() - t0
+        tok = torch.zeros((batch, 1), dtype=torch.int64, device=device)
+        out = []
+        for i in range(gen):
+            pos = torch.full((batch, 1), i, dtype=torch.int32, device=device)
+            logits, states = encdec_mod.decode(cfg, params, tok, enc_out,
+                                               positions=pos, states=states,
+                                               attn_impl=attn_impl)
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            out.append(tok)
+        _sync(device)
+        t_total = time.perf_counter() - t0
+    t_decode = t_total - t_encode
+    return torch.cat(out, dim=1), {
+        "encode_s": t_encode, "decode_s": t_decode, "total_s": t_total,
+        "tok_per_s": batch * gen / max(t_decode, 1e-9)}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="starcoder2-3b", choices=ARCH_IDS)
@@ -117,9 +173,13 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=args.size == "smoke")
-    tokens, stats = serve_lm(cfg, args.batch, args.prompt_len, args.gen,
-                             args.seed, device=args.device,
-                             dtype=DTYPES[args.dtype])
+    kw = {"device": args.device, "dtype": DTYPES[args.dtype]}
+    if cfg.is_encoder_decoder:
+        tokens, stats = serve_encdec(cfg, args.batch, args.gen, args.seed,
+                                     **kw)
+    else:
+        tokens, stats = serve_lm(cfg, args.batch, args.prompt_len, args.gen,
+                                 args.seed, **kw)
     print(f"[{args.arch}] generated {tuple(tokens.shape)} tokens on "
           f"{args.device}; stats={stats}")
     print("sample:", tokens[0].tolist())

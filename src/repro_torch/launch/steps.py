@@ -11,12 +11,13 @@ Shapes map to step kinds (configs/shapes.py):
 
 The reference returns ``jax.ShapeDtypeStruct`` stand-ins; the port
 returns tensors on the meta device, of the same shapes and dtypes, in
-the reference's trees (``params_spec``: ``init_lm``'s key tree;
-``states_spec``: the stacked caches of ``init_states``). The steps run
-the port's decoders (transformer.py): the encoder-decoder branches raise
-``NotImplementedError`` (ROADMAP Queue 1 item 14), as do ``moe_impl``,
-``moe_groups`` and ``shard_fn`` at any value other than the default (MoE
-is item 14, sharding item 13).
+the reference's trees (``params_spec``: ``init_lm``'s or
+``init_encdec``'s key tree; ``states_spec``: the stacked caches of
+``init_states`` or ``init_decoder_states``). The steps run the port's
+decoders (transformer.py) and the encoder-decoder (encdec.py). MoE
+layers route their tokens in ``moe_groups`` groups on one device;
+``moe_impl="ep"`` and ``shard_fn`` need the multi-device layer and
+raise, citing ROADMAP Queue 1 item 13.
 """
 from __future__ import annotations
 
@@ -28,13 +29,12 @@ from repro_torch import bridge
 from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.shapes import InputShape
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import META
 
 WINDOW = 4096                 # sliding window for dense long-context decode
-_ENCDEC = "encoder-decoder steps are not ported to repro_torch yet " \
-          "(ROADMAP Queue 1 item 14)"
 
 
 def _meta(shape, dtype) -> torch.Tensor:
@@ -45,17 +45,12 @@ def _dtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def _refuse(cfg, moe_impl="gshard", moe_groups=1, shard_fn=None):
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"{cfg.name}: {_ENCDEC}")
-    if moe_impl != "gshard" or moe_groups != 1:
-        raise NotImplementedError(
-            f"moe_impl={moe_impl!r}, moe_groups={moe_groups}: MoE is not "
-            "ported to repro_torch yet (ROADMAP Queue 1 item 14)")
+def _refuse(moe_impl, shard_fn):
+    tf._check_moe_impl(moe_impl)
     if shard_fn is not None:
         raise NotImplementedError(
-            "shard_fn: sharded steps are not ported to repro_torch yet "
-            "(ROADMAP Queue 1 item 13)")
+            "shard_fn: sharded steps need the multi-device layer, ROADMAP "
+            "Queue 1 item 13")
 
 
 def effective_window(cfg: ArchConfig, shape: InputShape) -> int:
@@ -73,11 +68,19 @@ def cache_capacity(cfg: ArchConfig, shape: InputShape) -> int:
 
 def input_specs(cfg: ArchConfig, shape: InputShape) -> Dict[str, Any]:
     """Meta-tensor stand-ins for the *data* arguments of the step
-    (params and states come from params_spec / states_spec)."""
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"{cfg.name}: {_ENCDEC}")
+    (params and states come from params_spec / states_spec). An
+    encoder-decoder's train and prefill steps take the stubbed frames
+    (B, T_enc, D) and min(seq_len, max_seq_len) decoder tokens."""
     b, s = shape.global_batch, shape.seq_len
     tok = torch.int32
+    if cfg.is_encoder_decoder and shape.kind in ("train", "prefill"):
+        dec_len = min(s, cfg.max_seq_len)
+        specs = {"frames": _meta((b, cfg.encoder_seq_len, cfg.d_model),
+                                 _dtype(cfg)),
+                 "tokens": _meta((b, dec_len), tok)}
+        if shape.kind == "prefill":
+            return specs
+        return {"batch": {**specs, "labels": _meta((b, dec_len), tok)}}
     if shape.kind in ("train", "prefill"):
         if cfg.modality == "vision":
             p = cfg.num_patches
@@ -96,35 +99,47 @@ def input_specs(cfg: ArchConfig, shape: InputShape) -> Dict[str, Any]:
 
 
 def params_spec(cfg: ArchConfig):
-    """The reference's parameter tree (``init_lm``'s) in meta tensors."""
+    """The reference's parameter tree (``init_lm``'s or
+    ``init_encdec``'s) in meta tensors."""
     if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"{cfg.name}: {_ENCDEC}")
+        return encdec_mod.init_encdec(cfg, META)
     return tf.init_lm(cfg, META)
+
+
+def _meta_cache(cache, lead=()):
+    """A cache of meta tensors with ``idx`` an int32 scalar, every leaf
+    with the leading dims ``lead``."""
+    cache = {**cache, "idx": _meta((), torch.int32)}
+    return {k: v.expand(lead + tuple(v.shape)) for k, v in cache.items()}
 
 
 def states_spec(cfg: ArchConfig, shape: InputShape):
     """The reference's ``init_states`` tree in meta tensors: {"prefix":
     (per-layer states), "stack": (per-position states with a leading
     groups axis)}; an attention cache's ``idx`` is an int32 scalar a
-    layer (a (G,) vector in the stack)."""
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"{cfg.name}: {_ENCDEC}")
-    tf._check_ported(cfg)
+    layer (a (G,) vector in the stack). An encoder-decoder's: {"decoder":
+    its self-attention caches stacked over layers, "enc_out": (B, T_enc,
+    D)}."""
     cap, b, dtype = cache_capacity(cfg, shape), shape.global_batch, \
         _dtype(cfg)
+    if cfg.is_encoder_decoder:
+        cache = attn_mod.init_kv_cache(cfg, b, cap, dtype, META)
+        return {"decoder": _meta_cache(cache, (cfg.num_layers,)),
+                "enc_out": _meta((b, cfg.encoder_seq_len, cfg.d_model),
+                                 dtype)}
+    tf._check_config(cfg)
     prefix, period, groups = tf.stack_plan(cfg)
 
-    def one(i):
+    def one(i, lead=()):
         if tf.layer_specs(cfg)[i][0] == "ssm":
-            return ssm_mod.init_ssm_state(cfg, b, dtype, META)
-        cache = attn_mod.init_cache(cfg, b, cap, dtype, META)
-        return {**cache, "idx": _meta((), torch.int32)}
+            st = ssm_mod.init_ssm_state(cfg, b, dtype, META)
+            return {k: v.expand(lead + tuple(v.shape))
+                    for k, v in st.items()}
+        return _meta_cache(attn_mod.init_cache(cfg, b, cap, dtype, META),
+                           lead)
 
-    stack = ()
-    if groups:
-        stack = tuple(
-            {k: v.expand((groups,) + tuple(v.shape))
-             for k, v in one(prefix + j).items()} for j in range(period))
+    stack = tuple(one(prefix + j, (groups,)) for j in range(period)) \
+        if groups else ()
     return {"prefix": tuple(one(i) for i in range(prefix)), "stack": stack}
 
 
@@ -143,13 +158,20 @@ def make_train_step(cfg: ArchConfig, lr: float = 1e-3, remat: str = "full",
     ``microbatches`` > 1 splits the batch into M sequential chunks and
     accumulates their f32 grads (live activations scale 1/M); the loss
     and grads are the chunks' means. The params tree is not modified: the
-    step returns new leaves, each written as its grad is dropped."""
-    _refuse(cfg, moe_impl, moe_groups, shard_fn)
+    step returns new leaves, each written as its grad is dropped. An
+    encoder-decoder's loss is ``encdec.encdec_loss_fn`` (no remat, as in
+    the reference)."""
+    _refuse(moe_impl, shard_fn)
+
+    def loss_of(tree, batch):
+        if cfg.is_encoder_decoder:
+            return encdec_mod.encdec_loss_fn(cfg, tree, batch,
+                                             attn_impl=attn_impl)
+        return tf.loss_fn(cfg, tree, batch, remat=remat,
+                          attn_impl=attn_impl, moe_groups=moe_groups)
 
     def grads_of(leaves, skeleton, batch):
-        tree = bridge.tree_map(lambda i: leaves[i], skeleton)
-        loss = tf.loss_fn(cfg, tree, batch, remat=remat,
-                          attn_impl=attn_impl)
+        loss = loss_of(bridge.tree_map(lambda i: leaves[i], skeleton), batch)
         return loss.detach(), list(torch.autograd.grad(loss, leaves))
 
     def train_step(params, batch):
@@ -193,14 +215,28 @@ def make_prefill_step(cfg: ArchConfig, shape: InputShape,
                       shard_fn=None, moe_impl: str = "gshard"):
     """(params, states, tokens, patch_embeds=None) -> (new_states,
     last_token_logits). ``states`` the port's per-layer list
-    (transformer.init_states)."""
-    _refuse(cfg, moe_impl, moe_groups, shard_fn)
+    (transformer.init_states). An encoder-decoder's is (params, states,
+    frames, tokens) with states {"decoder": the per-layer caches
+    (encdec.init_decoder_states), ...} -> ({"decoder", "enc_out"},
+    last_token_logits)."""
+    _refuse(moe_impl, shard_fn)
     window = effective_window(cfg, shape)
+
+    if cfg.is_encoder_decoder:
+        def prefill_encdec(params, states, frames, tokens):
+            enc_out = encdec_mod.encode(cfg, params, frames, attn_impl)
+            logits, dec_states = encdec_mod.decode(
+                cfg, params, tokens, enc_out, states=states["decoder"],
+                window=window, attn_impl=attn_impl)
+            return ({"decoder": dec_states, "enc_out": enc_out},
+                    logits[:, -1:, :])
+        return prefill_encdec
 
     def prefill(params, states, tokens, patch_embeds=None):
         logits, new_states, _ = tf.lm_forward(
             cfg, params, tokens, embeds=patch_embeds, states=states,
-            window=window, attn_impl=attn_impl, logits_slice_last=True)
+            window=window, attn_impl=attn_impl, logits_slice_last=True,
+            moe_groups=moe_groups)
         return new_states, logits
 
     return prefill
@@ -210,14 +246,25 @@ def make_decode_step(cfg: ArchConfig, shape: InputShape,
                      attn_impl: str = "auto", moe_groups: int = 1,
                      shard_fn=None, moe_impl: str = "gshard"):
     """(params, states, tokens (B, 1), positions (B, 1)) -> (states,
-    logits)."""
-    _refuse(cfg, moe_impl, moe_groups, shard_fn)
+    logits). An encoder-decoder's states are {"decoder", "enc_out"}: the
+    step attends across to "enc_out" and carries it on."""
+    _refuse(moe_impl, shard_fn)
     window = effective_window(cfg, shape)
+
+    if cfg.is_encoder_decoder:
+        def decode_encdec(params, states, tokens, positions):
+            logits, dec_states = encdec_mod.decode(
+                cfg, params, tokens, states["enc_out"], positions=positions,
+                states=states["decoder"], window=window, attn_impl=attn_impl)
+            return ({"decoder": dec_states, "enc_out": states["enc_out"]},
+                    logits)
+        return decode_encdec
 
     def decode(params, states, tokens, positions):
         logits, new_states, _ = tf.lm_forward(
             cfg, params, tokens, positions=positions, states=states,
-            window=window, attn_impl=attn_impl, logits_slice_last=True)
+            window=window, attn_impl=attn_impl, logits_slice_last=True,
+            moe_groups=moe_groups)
         return new_states, logits
 
     return decode

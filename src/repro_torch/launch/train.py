@@ -47,10 +47,11 @@ Guarded rounds under injected faults and a round deadline:
       "rate": 0.2}]}'
 
 Federated LM training (the beyond-paper scenario: cross-silo pretraining
-on topic-skewed Zipf streams) with an arch's SMOKE config — a dense
-decoder, Falcon-Mamba or LLaVA-NeXT's VLM trunk (on text alone, as the
-reference's CLI trains it) — and the reference's init, data and holdout
-eval (``-loss``):
+on topic-skewed Zipf streams) with any arch's SMOKE config — a dense
+decoder, DeepSeek-V2 (MLA + MoE), Kimi-K2 (MoE), Falcon-Mamba, the
+hybrid Jamba, LLaVA-NeXT's VLM trunk (on text alone) or whisper-base's
+decoder-only stack, each as the reference's CLI trains it — and the
+reference's init, data and holdout eval (``-loss``):
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --model starcoder2-3b --seq-len 33 --rounds 2 --clients 4 \\
@@ -99,9 +100,13 @@ from repro_torch.models.vision import (VisionConfig, init_vision,
 
 EVAL_CHUNK = 1000      # test images per forward pass
 VISION_MODELS = ("lenet5", "resnet18-gn")
-# the ARCH ids whose decoders the port trains: dense GQA, pure SSM, VLM
+# the ARCH ids whose decoders the port trains: every one (a VLM's trunk
+# on text alone; whisper-base as a decoder-only stack of its widths, as
+# the reference's CLI builds it)
 LM_MODELS = ("starcoder2-3b", "minitron-8b", "llava-next-mistral-7b",
-             "falcon-mamba-7b", "phi4-mini-3.8b", "command-r-35b")
+             "falcon-mamba-7b", "phi4-mini-3.8b", "deepseek-v2-236b",
+             "command-r-35b", "whisper-base", "jamba-1.5-large-398b",
+             "kimi-k2-1t-a32b")
 LM_DOCS_PER_CLIENT = 16
 LM_HOLDOUT = 64        # holdout sequences of the eval
 
@@ -164,8 +169,9 @@ def build_lm_task(args, cfg: ExecConfig, device: torch.device):
     batch is ``--batch-size`` of its documents, shuffled by
     ``RandomState(hash((c, t)))`` (repeated when it has fewer); the eval
     is minus the loss on the first 64 documents. The batches are text
-    alone for every arch: a VLM's trunk trains without patch embeddings,
-    as in the reference's CLI."""
+    alone for every arch, as in the reference's CLI: a VLM's trunk trains
+    without patch embeddings, and whisper-base is ``init_lm``'s
+    decoder-only stack of its widths (no encoder, no positions)."""
     arch = get_config(args.model, smoke=True)
     tokens, topics = make_lm_dataset(args.clients * LM_DOCS_PER_CLIENT,
                                      args.seq_len, arch.vocab_size,

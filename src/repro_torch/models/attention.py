@@ -1,9 +1,12 @@
-"""Attention (counterpart of repro/models/attention.py, its GQA half):
-grouped-query attention with an optional sliding window, and the
-ring-buffer KV cache of the serving path:
+"""Attention (counterpart of repro/models/attention.py): grouped-query
+attention with an optional sliding window, DeepSeek-V2's multi-head
+latent attention (MLA), and the ring-buffer caches of the serving path:
 
-  cache = {"k": (B, C, KV, HD), "v": (B, C, KV, HD),
-           "pos": (B, C) int32 (-1 = empty), "idx": int next slot}
+  GQA cache = {"k": (B, C, KV, HD), "v": (B, C, KV, HD),
+               "pos": (B, C) int32 (-1 = empty), "idx": int next slot}
+  MLA cache = {"c_kv": (B, C, kv_lora_rank), "k_rope": (B, C, rope dim),
+               "pos", "idx"} — the compressed latent and the shared RoPE
+               key a token (576 numbers for DeepSeek-V2)
 
 Full-sequence attention (``sdpa``) has these implementations:
   * "reference": plain einsum over the whole score tensor (the
@@ -33,6 +36,13 @@ On a row with no visible key the three differ, as in the reference:
 sum of v over its block-padded key count, and the kernel 0 (as
 ``attention_ref``). The serving path never has such a row: every query
 sees its own key.
+
+MLA's prefill and training materialise per-head K and V from the latent
+and pad V up to the query-key head dim, so ``sdpa`` (and on the card the
+kernel) sees one D. Its decode (S = 1 against a cache) is the
+reference's absorbed form: k_up folded into the query and v_up into the
+output, f32 einsums over the latent cache in plain PyTorch — the
+reference computes it outside Pallas too, so it launches no kernel.
 """
 from __future__ import annotations
 
@@ -42,7 +52,8 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.layers import (apply_rope, init_linear, linear,
-                                       rope_frequencies, split_rng)
+                                       rng_device, rope_frequencies,
+                                       split_rng)
 
 NEG_INF = -1e30
 BLOCKED_THRESHOLD = 2048  # the reference's rule on the CPU
@@ -160,12 +171,13 @@ def init_kv_cache(cfg, batch, capacity, dtype, device=None):
             "idx": 0}
 
 
-def _cache_write(cache, k, v, positions):
-    """Write S new tokens at slots (idx + arange(S)) % C, IN PLACE (the
-    reference returns new arrays; the port saves the copies) -> the
-    cache dict with idx + S."""
-    cap = cache["k"].shape[1]
-    s = k.shape[1]
+def _ring_write(cache, new, positions):
+    """Write S new tokens (``new``: cache key -> (B, S, ...)) and their
+    positions at slots (idx + arange(S)) % C, IN PLACE (the reference
+    returns new arrays; the port saves the copies) -> the cache dict with
+    idx + S."""
+    cap = cache["pos"].shape[1]
+    s = positions.shape[1]
     if s > cap:
         raise ValueError(f"cache write of {s} tokens into a cache of "
                          f"capacity {cap}: slots would repeat")
@@ -173,12 +185,17 @@ def _cache_write(cache, k, v, positions):
     if start + s <= cap:
         slots = slice(start, start + s)
     else:                   # the ring wraps
-        slots = (start + torch.arange(s, device=k.device)) % cap
-    cache["k"][:, slots] = k
-    cache["v"][:, slots] = v
+        slots = (start + torch.arange(s, device=positions.device)) % cap
+    for key, x in new.items():
+        cache[key][:, slots] = x
     cache["pos"][:, slots] = positions.to(torch.int32)
-    return {"k": cache["k"], "v": cache["v"], "pos": cache["pos"],
+    return {**{key: cache[key] for key in new}, "pos": cache["pos"],
             "idx": cache["idx"] + s}
+
+
+def _cache_write(cache, k, v, positions):
+    """A GQA cache's ``_ring_write`` of k and v."""
+    return _ring_write(cache, {"k": k, "v": v}, positions)
 
 
 def gqa_forward(cfg, p, x, positions, *, window=0, cache=None, impl="auto"):
@@ -210,27 +227,130 @@ def gqa_forward(cfg, p, x, positions, *, window=0, cache=None, impl="auto"):
     return linear(p["wo"], out.reshape(b, s, cfg.num_heads * hd)), new_cache
 
 
+# =====================  MLA (DeepSeek-V2)  =====================
+
+def init_mla(rng, cfg, dtype):
+    """``rng``: a torch.Generator, a jax_prng key or "meta" (layers.py)."""
+    d, h = cfg.d_model, cfg.num_heads
+    qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    dev = rng_device(rng)
+    ks = split_rng(rng, 7)
+    return {
+        "q_down": init_linear(ks[0], d, cfg.q_lora_rank, dtype),
+        "q_norm": {"scale": torch.ones(cfg.q_lora_rank, dtype=dtype,
+                                       device=dev)},
+        "q_up": init_linear(ks[1], cfg.q_lora_rank, h * qk, dtype),
+        "kv_down": init_linear(ks[2], d,
+                               cfg.kv_lora_rank + cfg.qk_rope_head_dim,
+                               dtype),
+        "kv_norm": {"scale": torch.ones(cfg.kv_lora_rank, dtype=dtype,
+                                        device=dev)},
+        "k_up": init_linear(ks[3], cfg.kv_lora_rank,
+                            h * cfg.qk_nope_head_dim, dtype),
+        "v_up": init_linear(ks[4], cfg.kv_lora_rank, h * cfg.v_head_dim,
+                            dtype),
+        "wo": init_linear(ks[5], h * cfg.v_head_dim, d, dtype),
+    }
+
+
+def _rms(x, scale, eps=1e-6):
+    xf = x.float()
+    y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
+def init_mla_cache(cfg, batch, capacity, dtype, device=None):
+    return {"c_kv": torch.zeros((batch, capacity, cfg.kv_lora_rank),
+                                dtype=dtype, device=device),
+            "k_rope": torch.zeros((batch, capacity, cfg.qk_rope_head_dim),
+                                  dtype=dtype, device=device),
+            "pos": torch.full((batch, capacity), -1, dtype=torch.int32,
+                              device=device),
+            "idx": 0}
+
+
+def _mla_q(cfg, p, x, positions):
+    b, s, _ = x.shape
+    nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q = linear(p["q_up"], _rms(linear(p["q_down"], x), p["q_norm"]["scale"]))
+    q = q.reshape(b, s, cfg.num_heads, nope + rope)
+    cos, sin = rope_frequencies(rope, cfg.rope_theta, positions)
+    return q[..., :nope], apply_rope(q[..., nope:], cos, sin)
+
+
+def _mla_kv_compress(cfg, p, x, positions):
+    kv = linear(p["kv_down"], x)
+    c_kv = _rms(kv[..., :cfg.kv_lora_rank], p["kv_norm"]["scale"])
+    cos, sin = rope_frequencies(cfg.qk_rope_head_dim, cfg.rope_theta,
+                                positions)
+    k_rope = apply_rope(kv[..., cfg.kv_lora_rank:][:, :, None, :], cos,
+                        sin)[:, :, 0, :]
+    return c_kv, k_rope
+
+
+def mla_forward(cfg, p, x, positions, *, window=0, cache=None, impl="auto"):
+    """MLA attention, x (B, S, D) -> (out, new_cache). The cache holds the
+    COMPRESSED kv (c_kv + the shared k_rope). Decode (S = 1 with a cache)
+    is the absorbed form; otherwise per-head K and V are materialised
+    from the latent (the whole cache when there is one) and V is padded
+    to the query-key head dim for ``sdpa`` (module docstring)."""
+    b, s, _ = x.shape
+    h, nope, rope, vd = (cfg.num_heads, cfg.qk_nope_head_dim,
+                         cfg.qk_rope_head_dim, cfg.v_head_dim)
+    q_nope, q_rope = _mla_q(cfg, p, x, positions)
+    c_kv, k_rope = _mla_kv_compress(cfg, p, x, positions)
+    if cache is not None:
+        new_cache = _ring_write(cache, {"c_kv": c_kv, "k_rope": k_rope},
+                                positions)
+        c_all, r_all, k_pos = (new_cache["c_kv"], new_cache["k_rope"],
+                               new_cache["pos"])
+    else:
+        c_all, r_all, k_pos, new_cache = c_kv, k_rope, positions, None
+
+    if s == 1 and cache is not None:
+        # absorbed decode: k_up folded into q, v_up into the output
+        k_up = p["k_up"]["w"].reshape(cfg.kv_lora_rank, h, nope).float()
+        v_up = p["v_up"]["w"].reshape(cfg.kv_lora_rank, h, vd).float()
+        c_f = c_all.float()
+        q_lat = torch.einsum("bshn,lhn->bshl", q_nope.float(), k_up)
+        scores = (torch.einsum("bshl,btl->bhst", q_lat, c_f)
+                  + torch.einsum("bshr,btr->bhst", q_rope.float(),
+                                 r_all.float()))
+        scores = scores / math.sqrt(nope + rope)
+        scores = scores + _mask_bias(positions, k_pos, window)[:, None]
+        w = torch.softmax(scores, dim=-1)
+        o_lat = torch.einsum("bhst,btl->bshl", w, c_f)
+        out = torch.einsum("bshl,lhv->bshv", o_lat, v_up)
+        out = out.to(x.dtype).reshape(b, s, h * vd)
+    else:
+        t = c_all.shape[1]
+        k_nope = linear(p["k_up"], c_all).reshape(b, t, h, nope)
+        v = linear(p["v_up"], c_all).reshape(b, t, h, vd)
+        k = torch.cat([k_nope, r_all[:, :, None, :].expand(b, t, h, rope)],
+                      dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        if vd < nope + rope:
+            v = torch.nn.functional.pad(v, (0, nope + rope - vd))
+        out = sdpa(q, k, v, positions, k_pos, window=window, impl=impl)
+        out = out[..., :vd].reshape(b, s, h * vd)
+    return linear(p["wo"], out), new_cache
+
+
 # =====================  unified entry  =====================
 
-def _gqa_only(cfg):
-    if cfg.attention != "gqa":
-        raise NotImplementedError(
-            f"attention={cfg.attention!r} is not ported to repro_torch yet "
-            "(MLA is ROADMAP Queue 1 item 14); the port carries GQA")
-
-
 def init_attention(rng, cfg, dtype):
-    _gqa_only(cfg)
+    if cfg.attention == "mla":
+        return init_mla(rng, cfg, dtype)
     return init_gqa(rng, cfg, dtype)
 
 
 def attention_forward(cfg, p, x, positions, *, window=0, cache=None,
                       impl="auto"):
-    _gqa_only(cfg)
-    return gqa_forward(cfg, p, x, positions, window=window, cache=cache,
-                       impl=impl)
+    fwd = mla_forward if cfg.attention == "mla" else gqa_forward
+    return fwd(cfg, p, x, positions, window=window, cache=cache, impl=impl)
 
 
 def init_cache(cfg, batch, capacity, dtype, device=None):
-    _gqa_only(cfg)
+    if cfg.attention == "mla":
+        return init_mla_cache(cfg, batch, capacity, dtype, device)
     return init_kv_cache(cfg, batch, capacity, dtype, device)

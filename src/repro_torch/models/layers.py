@@ -1,5 +1,6 @@
 """Layer primitives (counterpart of repro/models/layers.py): GroupNorm for
-the vision models; linear, norms, MLPs and RoPE for the decoders.
+the vision models; linear, norms, MLPs, RoPE and the encoder's
+sinusoidal positions for the decoders.
 
 Parameters are plain dicts of tensors in the reference's layouts (a
 linear weight is (d_in, d_out), applied as ``x @ w``), so the reference's
@@ -17,6 +18,9 @@ three kinds:
 """
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
+import functools
 import math
 from typing import Optional
 
@@ -74,10 +78,11 @@ def normal(rng, shape, *, mul: Optional[float] = None,
     in f32, the arithmetic in numpy as XLA rounds it."""
     shape = tuple(shape)
     if isinstance(rng, torch.Generator):
+        # scaled in place: a full-width expert stack is tens of GB
         x = torch.randn(shape, generator=rng, device=rng.device)
         if mul is not None:
-            x = x * mul
-        return x / div if div is not None else x
+            x.mul_(mul)
+        return x.div_(div) if div is not None else x
     if isinstance(rng, str):
         return torch.empty(shape, dtype=torch.float32, device=META)
     x = jax_prng.normal(rng, shape)
@@ -182,3 +187,43 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
     xf1, xf2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([xf1 * cos_ - xf2 * sin_, xf2 * cos_ + xf1 * sin_],
                      dim=-1).to(x.dtype)
+
+
+# ---------------- sinusoidal positions ----------------
+
+@functools.lru_cache(maxsize=1)
+def _libm():
+    lib = ctypes.CDLL(ctypes.util.find_library("m"))
+    for name in ("sinf", "cosf"):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = [ctypes.c_float], ctypes.c_float
+    return lib
+
+
+@functools.lru_cache(maxsize=8)
+def _sinusoid_table(max_len: int, d_model: int) -> np.ndarray:
+    pos = np.arange(max_len, dtype=np.float32)[:, None]
+    dim = np.arange(0, d_model, 2, dtype=np.float32)[None, :]
+    # 10000 ** (dim / d) in f64, rounded once to f32: libm's powf, which
+    # XLA's CPU backend calls, gives these bits on these exponents
+    freq = (10000.0 ** (dim / np.float32(d_model)).astype(np.float64)
+            ).astype(np.float32)
+    ang = (pos / freq).ravel()
+    lib = _libm()
+    pe = np.zeros((max_len, d_model), np.float32)
+    pe[:, 0::2] = np.fromiter(map(lib.sinf, ang), np.float32,
+                              ang.size).reshape(max_len, -1)
+    pe[:, 1::2] = np.fromiter(map(lib.cosf, ang), np.float32,
+                              ang.size).reshape(max_len, -1)
+    pe.flags.writeable = False
+    return pe
+
+
+def sinusoidal_positions(max_len: int, d_model: int) -> torch.Tensor:
+    """(max_len, d_model) f32 on the CPU: sin in the even columns, cos in
+    the odd ones, of pos / 10000^(2i / d_model) — the encoder's table,
+    interleaved (the decoder's own is concatenated, models/encdec.py).
+    Bit for bit the reference's CPU table: the angle in f32 and the sines
+    by the C library's sinf and cosf, as XLA's CPU backend computes them;
+    built once per shape on the host."""
+    return torch.from_numpy(_sinusoid_table(max_len, d_model).copy())

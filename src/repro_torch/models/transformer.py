@@ -1,18 +1,24 @@
-"""Decoder-only transformer stack (counterpart of repro/models/transformer.py):
-its dense path (GQA attention and a dense MLP in every layer), its
-pure-SSM path (a Mamba-1 mixer is the whole layer, as in Falcon-Mamba)
-and its VLM path (a dense GQA trunk after a prefix of patch embeddings
-from the stubbed vision tower, models/frontend.py).
+"""Decoder-only transformer stack (counterpart of repro/models/transformer.py)
+for every family the reference builds from an ArchConfig: dense GQA, MLA
+(DeepSeek-V2), MoE MLPs (DeepSeek-V2, Kimi-K2: after ``first_dense_layers``
+dense layers; Jamba: every ``moe_every``-th layer), pure SSM (a Mamba-1
+mixer is the whole layer, as in Falcon-Mamba), the hybrid (Jamba: an
+attention mixer every ``attn_every``-th layer, Mamba elsewhere) and the
+VLM (a trunk after a prefix of patch embeddings from the stubbed vision
+tower, models/frontend.py). Each layer is a (mixer kind, is_moe) spec
+(``layer_specs``).
 
 The reference runs the periodic part of the stack with ``lax.scan`` over
-stacked groups (``stack_plan``: a dense, VLM or pure-SSM arch is prefix
-0, period 1, groups = num_layers). The port loops over the layers in
-Python, in the reference's execution order (prefix layers, then group by
-group), and takes its parameters in either of two trees:
+stacked groups (``stack_plan``: dense -> prefix 0, period 1; DeepSeek and
+Kimi -> 1 dense prefix layer, then period 1; Jamba -> period 8). The port
+loops over the layers in Python, in the reference's execution order
+(prefix layers, then group by group), and takes its parameters in either
+of two trees:
 
   serving  {"embed": (V, D), "final_norm": {...}, "lm_head": {...} unless
            tied, "layers": [{"norm1", "mixer", "norm2", "mlp"}, ...]}
-           (an SSM layer is {"norm1", "mixer"}) — ``init_lm`` from a
+           (an SSM arch's layer is {"norm1", "mixer"}; an MoE layer's
+           "mlp" is models/moe.py's tree) — ``init_lm`` from a
            torch.Generator;
   training the reference's own tree: "prefix_layers" (a tuple of layer
            dicts) and "stack" (a tuple of ``period`` layer dicts whose
@@ -22,17 +28,21 @@ group), and takes its parameters in either of two trees:
            reference's; the forward reads layer j of group g as views
            ``stack[j][g]``, never a copy.
 
-  states = [per-layer attention cache (attention.init_cache) or SSM state
-            {"conv", "h"} (ssm.init_ssm_state), ...]
+  states = [per-layer attention cache (attention.init_cache: GQA's K/V
+            or MLA's latent) or SSM state {"conv", "h"}
+            (ssm.init_ssm_state), ...]
 
 Modes: a full-sequence forward (training: ``loss_fn``), prefill (writes
-the caches and states) and decode (S = 1 against them). ``loss_fn`` is
-the reference's causal-LM cross entropy on the training route: attention
-by the reference's rule between its plain einsum and blocked forms
-(``attention.sdpa(impl="plain")``) and the Mamba mixer through its plain
-scan, on every device — neither hand-written kernel has a backward, nor
-has the reference's (attention.py's docstring). MoE, hybrid and MLA
-stacks raise ``NotImplementedError``.
+the caches and states) and decode (S = 1 against them). ``lm_forward``
+returns the MoE layers' summed aux loss, which ``loss_fn`` adds to the
+reference's causal-LM cross entropy. ``loss_fn`` is on the training
+route: attention by the reference's rule between its plain einsum and
+blocked forms (``attention.sdpa(impl="plain")``) and the Mamba mixer
+through its plain scan, on every device — neither hand-written kernel
+has a backward, nor has the reference's (attention.py's docstring). The
+MoE layers group their tokens on one device (``moe_groups``); the
+expert-parallel form (``moe_impl="ep"``) waits for the multi-device
+layer, ROADMAP Queue 1 item 13.
 """
 from __future__ import annotations
 
@@ -42,13 +52,13 @@ import torch
 from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm, fold_rng,
                                        init_linear, init_mlp, init_norm,
                                        linear, normal, rng_device,
                                        split_rng)
 
-_TODO = "not ported to repro_torch yet (ROADMAP Queue 1 item 14)"
 REMATS = ("none", "full")
 
 
@@ -76,53 +86,77 @@ def stack_plan(cfg) -> Tuple[int, int, int]:
     return n, 0, 0          # fully heterogeneous: all layers in prefix
 
 
-def _check_ported(cfg):
-    """Dense decoders, pure-SSM stacks and VLMs on a dense GQA trunk pass;
-    everything else raises (MLA in the attention module)."""
-    want_modality = "vision" if cfg.arch_type == "vlm" else "text"
-    if (cfg.arch_type not in ("dense", "ssm", "vlm")
-            or cfg.modality != want_modality):
+_MODALITY = {"vlm": "vision", "audio": "audio"}     # arch_type -> modality
+
+
+def _check_config(cfg):
+    """The arch's modality must be its family's: text, but for a VLM and
+    the audio encoder-decoder (whose decoder the LM CLI trains as a
+    decoder-only stack, as the reference's CLI does); a pure-SSM stack
+    has no MLP, so no MoE layer."""
+    want = _MODALITY.get(cfg.arch_type, "text")
+    if cfg.modality != want:
         raise NotImplementedError(
-            f"{cfg.name}: arch_type={cfg.arch_type!r}, modality="
-            f"{cfg.modality!r} is {_TODO}; the port carries dense "
-            "decoders, pure-SSM stacks and VLMs with a dense trunk")
-    want = "ssm" if cfg.arch_type == "ssm" else "attn"
-    for kind, is_moe in layer_specs(cfg):
-        if kind != want or is_moe:
-            raise NotImplementedError(
-                f"{cfg.name}: a {kind} layer{' with MoE' if is_moe else ''}"
-                f" in a {cfg.arch_type} stack is {_TODO}")
+            f"{cfg.name}: arch_type={cfg.arch_type!r} with modality="
+            f"{cfg.modality!r} is not a family the port builds (expected "
+            f"{want!r})")
+    if cfg.arch_type == "ssm" and cfg.moe:
+        raise NotImplementedError(
+            f"{cfg.name}: a pure-SSM stack has no MLP, so no layer with "
+            "MoE")
+
+
+def _check_moe_impl(moe_impl: str):
+    if moe_impl != "gshard":
+        raise NotImplementedError(
+            f"moe_impl={moe_impl!r}: the port routes MoE tokens on one "
+            "device ('gshard'); the expert-parallel MoE (moe_ep) needs the "
+            "multi-device layer, ROADMAP Queue 1 item 13")
 
 
 # ---------------- single layer ----------------
 
-def _init_layer(rng, cfg, dtype):
+def _init_layer(rng, cfg, spec, dtype):
+    kind, is_moe = spec
     dev = rng_device(rng)
     ks = split_rng(rng, 4)
     p = {"norm1": init_norm(cfg.norm, cfg.d_model, dtype, dev)}
-    if cfg.arch_type == "ssm":          # the mamba block IS the layer
+    if kind == "attn":
+        p["mixer"] = attn_mod.init_attention(ks[0], cfg, dtype)
+    else:
         p["mixer"] = ssm_mod.init_mamba(ks[0], cfg, dtype)
+    if cfg.arch_type == "ssm":          # the mamba block IS the layer
         return p
-    p["mixer"] = attn_mod.init_attention(ks[0], cfg, dtype)
     p["norm2"] = init_norm(cfg.norm, cfg.d_model, dtype, dev)
-    p["mlp"] = init_mlp(ks[1], cfg.mlp, cfg.d_model, cfg.d_ff, dtype,
-                        cfg.mlp_bias)
+    if is_moe:
+        p["mlp"] = moe_mod.init_moe(ks[1], cfg, dtype)
+    else:
+        p["mlp"] = init_mlp(ks[1], cfg.mlp, cfg.d_model, cfg.d_ff, dtype,
+                            cfg.mlp_bias)
     return p
 
 
-def _layer_forward(cfg, p, x, positions, state, *, window, attn_impl,
-                   ssm_impl):
+def _layer_forward(cfg, spec, p, x, positions, state, *, window, attn_impl,
+                   ssm_impl, moe_groups):
+    """-> (x, new_state, aux): aux is the MoE layer's scaled aux loss, or
+    None for a layer without MoE."""
+    kind, is_moe = spec
     h = apply_norm(cfg.norm, p["norm1"], x)
-    if cfg.arch_type == "ssm":
+    if kind == "attn":
+        mixed, new_state = attn_mod.attention_forward(
+            cfg, p["mixer"], h, positions, window=window, cache=state,
+            impl=attn_impl)
+    else:
         mixed, new_state = ssm_mod.mamba_forward(cfg, p["mixer"], h,
                                                  state=state, impl=ssm_impl)
-        return x + mixed, new_state
-    mixed, new_state = attn_mod.attention_forward(
-        cfg, p["mixer"], h, positions, window=window, cache=state,
-        impl=attn_impl)
     x = x + mixed
+    if cfg.arch_type == "ssm":
+        return x, new_state, None
     h2 = apply_norm(cfg.norm, p["norm2"], x)
-    return x + apply_mlp(cfg.mlp, p["mlp"], h2), new_state
+    if is_moe:
+        out, aux = moe_mod.moe_forward(cfg, p["mlp"], h2, groups=moe_groups)
+        return x + out, new_state, aux
+    return x + apply_mlp(cfg.mlp, p["mlp"], h2), new_state, None
 
 
 # ---------------- parameter trees ----------------
@@ -174,9 +208,10 @@ def init_lm(cfg, rng, dtype=None):
     prefix layer's index; ``split(k_stack, groups)``, then ``fold_in``
     the layer's index in its group) — as CPU tensors. ``rng="meta"``: the
     reference's tree on the meta device (shapes and dtypes only)."""
-    _check_ported(cfg)
+    _check_config(cfg)
     dtype = dtype or getattr(torch, cfg.dtype)
     dev = rng_device(rng)
+    specs = layer_specs(cfg)
     k_embed, k_prefix, k_stack, k_head = split_rng(rng, 4)
     params = {
         "embed": normal(k_embed, (cfg.vocab_size, cfg.d_model),
@@ -187,39 +222,39 @@ def init_lm(cfg, rng, dtype=None):
         params["lm_head"] = init_linear(k_head, cfg.d_model, cfg.vocab_size,
                                         dtype)
     if isinstance(rng, torch.Generator):
-        params["layers"] = [_init_layer(rng, cfg, dtype)
-                            for _ in range(cfg.num_layers)]
+        params["layers"] = [_init_layer(rng, cfg, spec, dtype)
+                            for spec in specs]
         return params
     prefix, period, groups = stack_plan(cfg)
     params["prefix_layers"] = tuple(
-        _init_layer(fold_rng(k_prefix, i), cfg, dtype)
+        _init_layer(fold_rng(k_prefix, i), cfg, specs[i], dtype)
         for i in range(prefix))
     gkeys = split_rng(k_stack, groups)
     params["stack"] = _stack_trees([
-        tuple(_init_layer(fold_rng(gkey, j), cfg, dtype)
+        tuple(_init_layer(fold_rng(gkey, j), cfg, specs[prefix + j], dtype)
               for j in range(period)) for gkey in gkeys]) if groups else ()
     return params
 
 
 def init_states(cfg, batch, capacity, dtype=None, device=None) -> List:
-    """One empty cache of ``capacity`` slots per attention layer; one
-    zero SSM state ({"conv": (B, cw - 1, d_in) in dtype, "h": (B, d_in,
-    N) f32}) per SSM layer, whatever the capacity."""
-    _check_ported(cfg)
+    """One empty cache of ``capacity`` slots per attention layer (GQA's
+    K/V or MLA's latent); one zero SSM state ({"conv": (B, cw - 1, d_in)
+    in dtype, "h": (B, d_in, N) f32}) per SSM layer, whatever the
+    capacity."""
+    _check_config(cfg)
     dtype = dtype or getattr(torch, cfg.dtype)
-    if cfg.arch_type == "ssm":
-        return [ssm_mod.init_ssm_state(cfg, batch, dtype, device)
-                for _ in range(cfg.num_layers)]
     return [attn_mod.init_cache(cfg, batch, capacity, dtype, device)
-            for _ in range(cfg.num_layers)]
+            if kind == "attn" else
+            ssm_mod.init_ssm_state(cfg, batch, dtype, device)
+            for kind, _ in layer_specs(cfg)]
 
 
 def _embed_inputs(cfg, params, tokens, embeds):
     if embeds is not None and cfg.modality != "vision":
-        raise NotImplementedError(
-            f"{cfg.name}: embeddings for modality {cfg.modality!r}: the "
-            "port takes a VLM's patch embeddings only; audio frames come "
-            f"with the encoder-decoder, {_TODO}")
+        raise ValueError(
+            f"{cfg.name}: embeddings for modality {cfg.modality!r}: a "
+            "decoder stack takes a VLM's patch embeddings only; audio "
+            "frames go through the encoder, models/encdec.py")
     x = params["embed"][tokens]
     if embeds is not None:
         # VLM: the stubbed vision tower's pre-projected patch embeddings,
@@ -241,8 +276,10 @@ def _remat(remat: str, fn):
 def lm_forward(cfg, params, tokens, positions=None, *, embeds=None,
                states: Optional[List] = None, window: int = 0,
                attn_impl: str = "auto", ssm_impl: str = "auto",
-               logits_slice_last: bool = False, remat: str = "none"):
-    """Returns (logits, new_states, aux_loss); aux_loss is 0 (no MoE).
+               logits_slice_last: bool = False, remat: str = "none",
+               moe_groups: int = 1, moe_impl: str = "gshard"):
+    """Returns (logits, new_states, aux_loss): the MoE layers' scaled aux
+    losses summed in f32 (0 without MoE).
 
     tokens (B, S) int; embeds (B, P, D) patch embeddings of a VLM,
     prepended (positions then cover P + S). states from init_states:
@@ -251,8 +288,12 @@ def lm_forward(cfg, params, tokens, positions=None, *, embeds=None,
     new list. ``attn_impl`` goes to every attention call, ``ssm_impl``
     ("auto" | "reference") to every SSM mixer. ``remat`` ("none" or
     "full", full-sequence forwards only) checkpoints each layer for the
-    backward (``_remat``); it needs plain autograd, not torch.func."""
-    _check_ported(cfg)
+    backward (``_remat``); it needs plain autograd, not torch.func.
+    ``moe_groups`` token groups route each MoE layer (moe.moe_forward);
+    ``moe_impl`` "gshard" (the single-device dispatch) — "ep" raises,
+    citing item 13."""
+    _check_config(cfg)
+    _check_moe_impl(moe_impl)
     if remat not in REMATS:
         raise ValueError(f"lm_forward: remat must be one of {REMATS}, got "
                          f"{remat!r}")
@@ -265,18 +306,24 @@ def lm_forward(cfg, params, tokens, positions=None, *, embeds=None,
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
     new_states = None if states is None else []
-    for i, p in enumerate(layer_params(cfg, params)):
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    kw = {"window": window, "attn_impl": attn_impl, "ssm_impl": ssm_impl,
+          "moe_groups": moe_groups}
+    for i, (spec, p) in enumerate(zip(layer_specs(cfg),
+                                      layer_params(cfg, params))):
         if states is None:
-            def layer(x, p=p):
-                return _layer_forward(cfg, p, x, positions, None,
-                                      window=window, attn_impl=attn_impl,
-                                      ssm_impl=ssm_impl)[0]
-            x = _remat(remat, layer)(x)
-            continue
-        x, nst = _layer_forward(cfg, p, x, positions, states[i],
-                                window=window, attn_impl=attn_impl,
-                                ssm_impl=ssm_impl)
-        new_states.append(nst)
+            def layer(x, p=p, spec=spec):
+                x, _, aux = _layer_forward(cfg, spec, p, x, positions, None,
+                                           **kw)
+                return (x,) if aux is None else (x, aux)
+            x, *aux = _remat(remat, layer)(x)
+        else:
+            x, nst, aux = _layer_forward(cfg, spec, p, x, positions,
+                                         states[i], **kw)
+            new_states.append(nst)
+            aux = [] if aux is None else [aux]
+        for a in aux:
+            aux_total = aux_total + a
     x = apply_norm(cfg.norm, params["final_norm"], x)
     if logits_slice_last:
         x = x[:, -1:, :]
@@ -284,13 +331,12 @@ def lm_forward(cfg, params, tokens, positions=None, *, embeds=None,
         logits = x @ params["embed"].T
     else:
         logits = linear(params["lm_head"], x)
-    return logits, new_states, torch.zeros((), dtype=torch.float32,
-                                           device=x.device)
+    return logits, new_states, aux_total
 
 
 def loss_fn(cfg, params, batch, *, attn_impl: str = "auto",
             ssm_impl: str = "auto", **fw_kw):
-    """Causal-LM cross entropy (+ the MoE aux term, 0 here): batch
+    """Causal-LM cross entropy (+ the MoE aux term): batch
     {"tokens": (B, S), "labels": (B, S)} with -100 = ignore; a VLM adds
     "patch_embeds" (B, P, D), whose logits are sliced off. Logits in f32;
     the mean over valid labels, ce.sum() / max(valid, 1).

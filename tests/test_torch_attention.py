@@ -271,6 +271,20 @@ def test_cache_write_longer_than_capacity_raises():
 
 
 def test_mla_is_not_ported():
-    cfg = starcoder2_3b.SMOKE.with_(attention="mla")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        attention.init_cache(cfg, 1, 4, torch.float32)
+    """MLA is ported (held against the reference in test_torch_moe.py):
+    its cache holds the compressed latent and the shared RoPE key, and a
+    wrapping write keeps the ring's order, as a GQA cache's."""
+    cfg = starcoder2_3b.SMOKE.with_(attention="mla", kv_lora_rank=16,
+                                    q_lora_rank=24, qk_nope_head_dim=8,
+                                    qk_rope_head_dim=4, v_head_dim=8)
+    cache = attention.init_cache(cfg, 1, 4, torch.float32)
+    assert {k: tuple(v.shape) for k, v in cache.items() if k != "idx"} == {
+        "c_kv": (1, 4, 16), "k_rope": (1, 4, 4), "pos": (1, 4)}
+    cache["idx"] = 3
+    c = torch.arange(2 * 16, dtype=torch.float32).reshape(1, 2, 16)
+    r = torch.ones(1, 2, 4)
+    new = attention._ring_write(cache, {"c_kv": c, "k_rope": r},
+                                torch.tensor([[3, 4]]))
+    assert new["idx"] == 5 and new["pos"].tolist() == [[4, -1, -1, 3]]
+    assert torch.equal(new["c_kv"][0, 3], c[0, 0])
+    assert torch.equal(new["c_kv"][0, 0], c[0, 1])

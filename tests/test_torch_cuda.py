@@ -5,9 +5,10 @@ same on the CPU, the int8_sr encode kernel bit for bit against its plain
 version, and the serving paths of
 the dense decoder (every attention call through the flash-attention
 kernel) and of the pure-SSM stack (every scan through the ssm_scan
-kernel) against the same on the CPU, checkpoints saved on the card
-restored on the card and on the CPU, and the LM training route (no
-serving kernel: neither has a backward) against the CPU. Marked ``cuda``; each test skips without a card. This file imports
+kernel) against the same on the CPU, the MoE, MLA and hybrid SMOKE
+decoders and the encoder-decoder against the CPU, checkpoints saved on
+the card restored on the card and on the CPU, and the LM training route
+(no serving kernel: neither has a backward) against the CPU. Marked ``cuda``; each test skips without a card. This file imports
 no JAX, so it also runs where only the port is installed:
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -554,8 +555,9 @@ def test_guarded_faulted_trainer_on_card_matches_cpu(cuda):
 # rolled as a ring]): prefill and decode at StarCoder2's heads (G = 12),
 # ragged tails, a ring-cache decode with a window, the soft cap, D = 32
 # and D = 256; then decodes (the split route) at Sk 64, 1056 and 8192, a
-# ring decode whose window leaves most splits dark, and prefills at D 32,
-# 64, 128 and 256 with Sq not a multiple of 16 (bf16: the tensor cores)
+# ring decode whose window leaves most splits dark, prefills at D 32,
+# 64, 128 and 256 with Sq not a multiple of 16 (bf16: the tensor cores),
+# and prefills and decodes at D 192 and 112
 FA_CASES = [(2, 100, 132, 24, 2, 128, 0, 0.0, 32),
             (8, 1, 1056, 24, 2, 128, 0, 0.0, 32),
             (1, 100, 300, 8, 2, 64, 0, 0.0, 0),
@@ -570,7 +572,13 @@ FA_CASES = [(2, 100, 132, 24, 2, 128, 0, 0.0, 32),
             (2, 77, 90, 8, 2, 32, 0, 0.0, 3),
             (2, 77, 90, 8, 2, 64, 0, 0.0, 3),
             (2, 77, 90, 8, 2, 128, 0, 0.0, 3),
-            (2, 77, 90, 8, 2, 256, 0, 0.0, 3)]
+            (2, 77, 90, 8, 2, 256, 0, 0.0, 3),
+            # MLA's head dim (192: tensor cores in bf16) and Kimi-K2's
+            # (112: CUDA cores), prefill and decode
+            (2, 77, 90, 8, 8, 192, 0, 0.0, 3),
+            (4, 1, 300, 8, 8, 192, 0, 0.0, 5),
+            (2, 77, 90, 8, 2, 112, 0, 0.0, 3),
+            (4, 1, 300, 8, 2, 112, 0, 0.0, 5)]
 
 
 def _fa_inputs(case, dtype, device):
@@ -926,6 +934,55 @@ def test_serve_ssm_on_card_matches_cpu(cuda, dtype):
     tokens, stats = serve.serve_lm(cfg, 3, 20, 6, device="cuda", dtype=dtype)
     assert ss_ops.ssm_scan.launches - before == cfg.num_layers * 6
     assert tokens.shape == (3, 6) and stats["tok_per_s"] > 0
+
+
+# ---- the encoder-decoder, MoE, MLA and hybrid decoders ----
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "jamba-1.5-large-398b",
+                                  "kimi-k2-1t-a32b"])
+def test_moe_decoders_on_card_match_cpu(cuda, arch):
+    """The MoE SMOKE configs (MLA, hybrid Mamba + attention, GQA) from the
+    same params and prompts on the card and on the CPU, f32: prefill and
+    4 teacher-forced decode steps within 1e-4, and the card's launches:
+    a flash call an attention layer a step (MLA's absorbed decode none),
+    a scan an SSM layer a step."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch, smoke=True)
+    params = tf.init_lm(cfg, torch.Generator().manual_seed(0), torch.float32)
+    prompts = torch.randint(0, cfg.vocab_size, (3, 20),
+                            generator=torch.Generator().manual_seed(1))
+    kinds = [kind for kind, _ in tf.layer_specs(cfg)]
+    fa_ops.reset_launches()
+    ss_ops.reset_launches()
+    got = _teacher_forced(cfg, params, prompts, 4, cuda, torch.float32)
+    decode_flash = 0 if cfg.attention == "mla" else kinds.count("attn")
+    assert fa_ops.flash_attention.launches == \
+        kinds.count("attn") + 4 * decode_flash
+    assert ss_ops.ssm_scan.launches == 5 * kinds.count("ssm")
+    want = _teacher_forced(cfg, params, prompts, 4, "cpu", torch.float32)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_encdec_on_card_matches_cpu(cuda):
+    """Whisper SMOKE from the same params and frames on the card and on
+    the CPU, f32: serve_encdec's greedy tokens equal, and its launches —
+    one flash call an encoder layer, then two a decoder layer a step."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.models import encdec
+    cfg = get_config("whisper-base", smoke=True)
+    params = encdec.init_encdec(cfg, torch.Generator().manual_seed(0),
+                                torch.float32)
+    frames = torch.randn(2, cfg.encoder_seq_len, cfg.d_model,
+                         generator=torch.Generator().manual_seed(1))
+    fa_ops.reset_launches()
+    got, _ = serve.serve_encdec(cfg, 2, 5, device="cuda",
+                                params=tree_map(lambda t: t.to(cuda), params),
+                                frames=frames.to(cuda))
+    assert fa_ops.flash_attention.launches == \
+        cfg.encoder_layers + 2 * cfg.num_layers * 5
+    want, _ = serve.serve_encdec(cfg, 2, 5, device="cpu", params=params,
+                                 frames=frames)
+    assert torch.equal(got.cpu(), want)
 
 
 # ---- the training route on the card ----

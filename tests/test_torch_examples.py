@@ -4,18 +4,23 @@ this process), on the CPU: the quickstart and the tiny federated LLM
 pretraining at 2 rounds, and one heterogeneity-study cell. Each trainer
 either example builds is recorded, and the two packages' histories must
 agree within _torch_parity's tolerances (losses within 1e-4; the evals,
-accuracies or -holdout losses, within 1e-4)."""
+accuracies or -holdout losses, within 1e-4). The batched serving example
+prints the reference's lines."""
 import contextlib
 import importlib.util
 import io
+import re
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
+from repro_torch.configs.base import get_config
 from repro_torch.examples import federated_llm_pretraining as llm
 from repro_torch.examples import heterogeneity_study as study
 from repro_torch.examples import quickstart
+from repro_torch.examples import serve_batched
 
 ROOT = Path(__file__).resolve().parents[1]
 ROUNDS = 2
@@ -109,3 +114,36 @@ def test_heterogeneity_cell_repeats_the_reference(recording, monkeypatch):
     _assert_histories(port_trainers, ref_trainers)
     assert got[1] == pytest.approx(want[1], abs=1e-12)
     assert abs(got[0] - float(want[0])) <= 1e-4
+
+
+def _masked(text):
+    """The lines with their measured numbers (tok/s, seconds) masked."""
+    return [re.sub(r"\d+\.\d+", "#", ln) for ln in text.splitlines()]
+
+
+def test_serve_batched_prints_the_references_lines(monkeypatch):
+    """StarCoder2-3B, Falcon-Mamba-7B and DeepSeek-V2 (MLA + MoE) SMOKE
+    served at batch 4, prompt 24, gen 12 through the port's serve_lm on
+    the CPU: (4, 12) tokens each, in range, and the reference example's
+    lines but for the measured numbers. The reference's lines come from
+    its own main() with its serve_lm answering at once (its tokens and
+    the port's come from different generators; the serving paths are
+    held against each other in test_torch_serve.py and
+    test_torch_moe.py)."""
+    ref = _reference_example("serve_batched")
+    calls = []
+
+    def stub(cfg, batch, prompt_len, gen):
+        calls.append((cfg.name, batch, prompt_len, gen))
+        return np.zeros((batch, gen), np.int32), {
+            "tok_per_s": 1.0, "prefill_s": 1.0}
+    monkeypatch.setattr(ref, "serve_lm", stub)
+    _, ref_out = _quiet(ref.main)
+    out, printed = _quiet(serve_batched.main, ["--device", "cpu"])
+    assert list(out) == [name for name, *_ in calls]
+    assert calls == [(name, 4, 24, 12) for name in serve_batched.ARCHS]
+    for arch, (tokens, stats) in out.items():
+        assert tokens.shape == (4, 12) and int(tokens.min()) >= 0
+        assert int(tokens.max()) < get_config(arch, smoke=True).vocab_size
+        assert stats["tok_per_s"] > 0
+    assert _masked(printed) == _masked(ref_out)

@@ -43,7 +43,14 @@ for must in ("repro_torch.optim.server", "repro_torch.core.samplers",
              "repro_torch.launch.steps",
              "repro_torch.examples.quickstart",
              "repro_torch.examples.heterogeneity_study",
-             "repro_torch.examples.federated_llm_pretraining"):
+             "repro_torch.examples.federated_llm_pretraining",
+             "repro_torch.models.encdec",
+             "repro_torch.models.moe",
+             "repro_torch.configs.whisper_base",
+             "repro_torch.configs.deepseek_v2_236b",
+             "repro_torch.configs.jamba_1_5_large_398b",
+             "repro_torch.configs.kimi_k2_1t_a32b",
+             "repro_torch.examples.serve_batched"):
     assert must in names, (must, names)
 print("chip_smoke.main() ->", chip_smoke.main())   # CUDA is hidden
 """

@@ -188,15 +188,20 @@ def test_specs_match_the_references_eval_shape(arch):
 
 
 def test_steps_refuse_what_is_not_ported():
+    """Only the multi-device options raise now, citing item 13: the
+    expert-parallel MoE and sharding; an encoder-decoder and MoE groups
+    build their steps (held against the reference in
+    test_torch_encdec.py and test_torch_moe.py)."""
     cfg = get_config(DENSE, smoke=True)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 13"):
         steps.make_train_step(cfg, moe_impl="ep")
     with pytest.raises(NotImplementedError, match="item 13"):
         steps.make_prefill_step(cfg, shapes.SHAPES["prefill_32k"],
                                 shard_fn=lambda x: x)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        steps.make_step(cfg.with_(is_encoder_decoder=True),
-                        shapes.SHAPES["train_4k"])
+    fn, specs, has_states = steps.make_step(
+        get_config("whisper-base", smoke=True), shapes.SHAPES["train_4k"])
+    assert callable(fn) and not has_states and "frames" in specs["batch"]
+    assert callable(steps.make_train_step(cfg, moe_groups=4))
 
 
 # ---- the training CLI on the LM task ----
@@ -239,14 +244,17 @@ def _assert_history(got, want):
         assert abs(g["test_accuracy"] - w["test_accuracy"]) <= 1e-4, (g, w)
 
 
-@pytest.mark.parametrize("model", ARCHS)
+@pytest.mark.parametrize("model", ARCHS + ("deepseek-v2-236b",
+                                           "whisper-base"))
 def test_lm_cli_prints_the_reference_numbers(model, ref_cli,
                                              tmp_path_factory, capsys):
     """--model <arch> --seq-len 33, 2 rounds of 4 clients: the port's
     losses and holdout evals (-loss) within 1e-4 of the reference CLI's,
     and the printed numbers the reference's to their last digit (a VLM
     trains on text alone, as the reference CLI's batches carry no patch
-    embeddings)."""
+    embeddings; DeepSeek-V2 with MLA and MoE, its aux in the loss;
+    whisper-base as the reference's CLI builds it, a decoder-only stack
+    of its widths)."""
     d = tmp_path_factory.mktemp("cli")
     want, want_printed = ref_cli(model)
     assert train.main(["--device", "cpu", "--model", model, *CLI,

@@ -130,7 +130,7 @@ def test_serve_lm_on_a_vlm():
 
 def test_embeddings_need_a_vlm():
     cfg = get_config("starcoder2-3b", smoke=True)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="VLM's patch embeddings only"):
         tf.lm_forward(cfg, {}, torch.zeros(1, 2, dtype=torch.int64),
                       embeds=torch.zeros(1, 1, cfg.d_model))
     with pytest.raises(NotImplementedError, match="modality='text'"):
