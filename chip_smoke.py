@@ -114,6 +114,25 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               falls back to the step before with a RuntimeWarning and goes
               on); the health monitor stopping a NaN run with the reference's
               alarm, one log row a round.
+ 4c. multirank  the client axis across processes at full width:
+              ResNet18-GN FedDPC (lam 1), 10 of 100 clients a round (12
+              on 4 ranks, mr_cohort), 4 rounds, on cuDNN's deterministic
+              algorithms, split over R
+              ranks (launch/distributed.spawn_local re-running this script
+              with --multirank-worker): R = min(4, cards) on NCCL with two
+              cards or more, else R = 2 on the one card through gloo. Runs
+              (a) shard_clients, (b) shard_clients with edges=2, (c) (b)
+              with edge 1 dropped in round 2, (d) (b) cut at round 2 and
+              rank 0's checkpoint resumed in this process to round 4; each
+              held against this process's single-process run of the same
+              ExecConfig: every round's loss and the final params within
+              MR_RTOL relative, edge_dropped = 1 and one edge summary on
+              the server uplink in (c)'s round 2, (d) against (b)'s end.
+              Each rank prints its rows, its feddpc_dots and
+              feddpc_batched_epilogue launches against what its rows and
+              edges imply (one dots a round, one epilogue per edge piece a
+              round), the ms of its collectives a round, its seconds a
+              round and its peak memory.
   5. parity   LeNet5 at quickstart size on the card and on the CPU from
               the same initial params (the reference's draws,
               core/jax_prng.py) — 2 sync FedDPC rounds (prefetched, the
@@ -319,6 +338,7 @@ from repro_torch.kernels.int8_sr import ops as sr_ops  # noqa: E402
 from repro_torch.kernels.int8_sr import ref as sr_ref  # noqa: E402
 from repro_torch.kernels.ssm_scan import ops as ss_ops  # noqa: E402
 from repro_torch.kernels.ssm_scan import ref as ss_ref  # noqa: E402
+from repro_torch.launch import distributed  # noqa: E402
 from repro_torch.launch import steps as lm_steps  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.serve import serve_encdec, serve_lm  # noqa: E402
@@ -328,6 +348,7 @@ from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.models.layers import linear  # noqa: E402
 from repro_torch.models.vision import (init_vision,  # noqa: E402
                                        vision_accuracy, vision_loss_fn)
+from repro_torch.sharding.rules import edge_pieces  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 FLOP/s outside
 # the tensor cores
@@ -2149,6 +2170,208 @@ def phase_checkpoint():
           "seconds": time.perf_counter() - tic})
 
 
+MR_CLIENTS = 100
+MR_COHORT = 10     # a round's clients (see mr_cohort)
+MR_ROUNDS = 4
+MR_CUT = 2
+MR_RTOL = 1e-4     # losses and params: ranks against one process
+MR_EDGE_PLAN = {"edge_drop_rounds": (2,), "edge_drop_edges": (1,)}
+# run -> (ExecConfig overrides, edge-drop plan?)
+MR_RUNS = {"a": ({"shard_clients": True}, False),
+           "b": ({"shard_clients": True, "edges": 2}, False),
+           "c": ({"shard_clients": True, "edges": 2}, True)}
+MR_WORKER = "--multirank-worker"
+
+
+def _mr_task():
+    cfg = paper_resnet18.CONFIG
+    data = build_federated_image_data(
+        num_classes=100, num_clients=MR_CLIENTS, alpha=0.2,
+        samples_per_class=50, test_per_class=10, seed=0)
+    return (cfg, data, StreamingImageSource(data, batch_size=64),
+            functools.partial(vision_loss_fn, cfg), _init(cfg))
+
+
+def mr_cohort(ranks: int) -> int:
+    """MR_COHORT, rounded up to a multiple of the ranks: the edges split
+    the cohort padded to the ranks, so with padding an edge's rows (and
+    the clients an edge drop loses) would differ from one process's."""
+    return -(-MR_COHORT // ranks) * ranks
+
+
+def _mr_trainer(task, run, k, resume_from=None):
+    exec_kw, drop = MR_RUNS[run]
+    return _trainer(*task, "feddpc", MR_ROUNDS, "cuda",
+                    {**NO_EVAL, "clients_per_round": k, **exec_kw},
+                    sampler=UniformSampler(MR_CLIENTS, k),
+                    fault_plan=(FaultPlan.seeded(PLAN_SEED, **MR_EDGE_PLAN)
+                                if drop else None),
+                    resume_from=resume_from)
+
+
+def _multirank_worker(out: str) -> int:
+    """One rank of the multirank phase: runs (a)-(c) and (b) cut at round
+    2 (rank 0 writes the checkpoint), and writes what each left under
+    ``out``: its JSON line per run and rank 0's final params."""
+    ctx = distributed.maybe_initialize()
+    torch.backends.cudnn.deterministic = True
+    task = _mr_task()
+    k = mr_cohort(ctx.num_processes)
+    lines = []
+    for run in MR_RUNS:
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with _mr_trainer(task, run, k) as tr:
+            tr.run()
+        launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
+        peak = torch.cuda.max_memory_allocated()
+        if ctx.process_id == 0:
+            torch.save(tr.flat.cpu(), os.path.join(out, f"{run}.pt"))
+        lo, hi = tr._rows
+        coll = collections.defaultdict(list)
+        for rnd in tr.collective_log:
+            for name, ms in rnd:
+                coll[name].append(ms)
+        lines.append({
+            "phase": "multirank", "run": run, "rank": ctx.process_id,
+            "backend": ctx.backend, "ranks": ctx.num_processes,
+            "cards": torch.cuda.device_count(),
+            "device": str(tr.device), "rows": [lo, hi],
+            "pieces": len(edge_pieces(lo, hi, tr._pad_to,
+                                      MR_RUNS[run][0].get("edges"))),
+            "launches": launches,
+            "collective_ms": dict(coll),
+            "round_seconds": [r.seconds for r in tr.history],
+            "peak_gib": peak / 2 ** 30,
+            "losses": [r.train_loss for r in tr.history],
+            "edge_dropped": [r.edge_dropped for r in tr.history],
+            "comm_bytes_server_up": [r.comm_bytes_server_up
+                                     for r in tr.history],
+            "comm_bytes_edge_up": [r.comm_bytes_edge_up
+                                   for r in tr.history]})
+    with _mr_trainer(task, "b", k) as tr:
+        for t in range(MR_CUT):
+            tr.run_round(t)
+        tr.save(os.path.join(out, "ckpt"))
+    with open(os.path.join(out, f"rank{ctx.process_id}.json"), "w") as fh:
+        json.dump(lines, fh)
+    return 0
+
+
+def _mr_check_params(label, got, want):
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if not err <= MR_RTOL * scale:
+        raise AssertionError(f"multirank {label}: params {err} from the "
+                             f"single-process run's (max |w| {scale})")
+    return err / scale
+
+
+def _mr_check_losses(label, got, want):
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    if len(got) != len(want) or not max(rel) <= MR_RTOL:
+        raise AssertionError(f"multirank {label}: losses {got}, single "
+                             f"process {want}")
+    return max(rel)
+
+
+def phase_multirank():
+    cards = torch.cuda.device_count()
+    ranks, backend = (min(4, cards), "nccl") if cards >= 2 else (2, "gloo")
+    k = mr_cohort(ranks)
+    tic = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        task = _mr_task()
+        single = {}
+        for run in MR_RUNS:
+            with _mr_trainer(task, run, k) as tr:
+                tr.run()
+            single[run] = (tr.history, tr.flat.clone())
+            del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mr_") as out:
+            env = {}
+            if backend == "nccl":
+                env["NCCL_SOCKET_IFNAME"] = os.environ.get(
+                    "NCCL_SOCKET_IFNAME", "lo")
+            job_tic = time.perf_counter()
+            distributed.spawn_local(
+                [sys.executable, os.path.abspath(__file__), MR_WORKER, out],
+                ranks, backend=backend,
+                local_devices=1 if backend == "gloo" else None, env=env,
+                timeout_s=480)
+            job_s = time.perf_counter() - job_tic
+            lines = []
+            for r in range(ranks):
+                with open(os.path.join(out, f"rank{r}.json")) as fh:
+                    lines += json.load(fh)
+            params = {run: torch.load(os.path.join(out, f"{run}.pt"))
+                      for run in MR_RUNS}
+            with _mr_trainer(task, "b", k,
+                             resume_from=os.path.join(out, "ckpt")) as res:
+                if res.start_round != MR_CUT:
+                    raise AssertionError(f"multirank d: resumed at "
+                                         f"{res.start_round}")
+                res.run()
+            resumed = (res.history, res.flat.cpu())
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    for line in lines:
+        run = line["run"]
+        per_round = {"feddpc_dots": 1,
+                     "feddpc_batched_epilogue": line["pieces"]}
+        line["expected_launches"] = {k: MR_ROUNDS * v
+                                     for k, v in per_round.items()}
+        emit(line)
+        got = {k: line["launches"][k] for k in per_round}
+        if got != line["expected_launches"]:
+            raise AssertionError(f"multirank {run} rank {line['rank']}: "
+                                 f"launches {got}, expected "
+                                 f"{line['expected_launches']}")
+        if line["losses"] != [x["losses"] for x in lines
+                              if x["run"] == run][0]:
+            raise AssertionError(f"multirank {run}: the ranks' losses "
+                                 "differ")
+    summary = {"phase": "multirank", "backend": backend, "ranks": ranks,
+               "cards": cards, "clients_per_round": k, "job_seconds": job_s}
+    for run in MR_RUNS:
+        hist, flat = single[run]
+        line = next(x for x in lines if x["run"] == run)
+        summary[run] = {
+            "loss_single": [r.train_loss for r in hist],
+            "loss_ranks": line["losses"],
+            "loss_max_rel": _mr_check_losses(run, line["losses"],
+                                             [r.train_loss for r in hist]),
+            "params_max_rel": _mr_check_params(run, params[run],
+                                               flat.cpu()),
+            "single_round_seconds": [r.seconds for r in hist]}
+        if line["edge_dropped"] != [r.edge_dropped for r in hist]:
+            raise AssertionError(f"multirank {run}: edge_dropped "
+                                 f"{line['edge_dropped']}")
+    c = next(x for x in lines if x["run"] == "c")
+    if (c["edge_dropped"] != [0, 0, 1, 0]
+            or 2 * c["comm_bytes_server_up"][2] != c["comm_bytes_server_up"][0]
+            or c["comm_bytes_edge_up"][2] != c["comm_bytes_edge_up"][0]
+            or c["losses"][:2] != next(x for x in lines
+                                       if x["run"] == "b")["losses"][:2]):
+        raise AssertionError(f"multirank c: the dropped edge's rows were "
+                             f"not masked as planned: {c}")
+    summary["d"] = {
+        "loss_resumed": [r.train_loss for r in resumed[0][MR_CUT:]],
+        "loss_max_rel": _mr_check_losses(
+            "d", [r.train_loss for r in resumed[0][MR_CUT:]],
+            [r.train_loss for r in single["b"][0][MR_CUT:]]),
+        "params_max_rel_vs_single": _mr_check_params(
+            "d", resumed[1], single["b"][1].cpu()),
+        "params_max_rel_vs_ranks": _mr_check_params(
+            "d", resumed[1], params["b"])}
+    summary["seconds"] = time.perf_counter() - tic
+    emit(summary)
+
+
 def _parity_checkpoint(task):
     """LeNet5: a checkpoint written on the card resumes on the CPU and one
     written on the CPU resumes on the card; each resumed run continues
@@ -3384,6 +3607,8 @@ def phase_serve_batched():
 
 
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == MR_WORKER:
+        return _multirank_worker(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs a card",
               file=sys.stderr)
@@ -3395,6 +3620,7 @@ def main() -> int:
     launches = phase_trainer()
     phase_ingest()
     phase_checkpoint()
+    phase_multirank()
     # the one-client epilogue's path is project_and_scale, not a round
     launches["feddpc_fused_epilogue"] = \
         project_launches["feddpc_fused_epilogue"]

@@ -126,13 +126,20 @@ def _npz_headers(path: str) -> List[Tuple[Tuple[int, ...], np.dtype]]:
     return [out[f"a{i}"] for i in range(len(out))]
 
 
+def step_dir(ckpt_dir: str, step: int) -> str:
+    """The directory of step ``step`` under ``ckpt_dir``: what ``save``
+    returns, composed alike on every rank of a multi-process job, whose
+    rank 0 alone writes it."""
+    return os.path.join(ckpt_dir, f"step_{step:08d}")
+
+
 def save(ckpt_dir: str, step: int, state: PyTree, keep: int = 3,
          aux_arrays: Optional[dict] = None, aux_json: Any = None) -> str:
     """Atomic: everything lands in ``step_<n>.tmp`` first and is renamed
     into place only after the last byte is written, so a crash mid-save
     leaves the previous intact steps selectable by ``latest_step`` (the
     ``step_(\\d+)`` pattern never matches a torn .tmp dir)."""
-    path = os.path.join(ckpt_dir, f"step_{step:08d}")
+    path = step_dir(ckpt_dir, step)
     tmp = path + ".tmp"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)

@@ -65,16 +65,32 @@ fault kind injects its failures). ``async_eval`` runs ``eval_fn`` on a
 params snapshot in a worker thread on its own stream; the accuracy lands
 in its RoundRecord at the next eval boundary, ``finalize()`` or the end
 of ``run()``. The trainer is a context manager: ``close()`` releases the
-producer and the eval worker. Edges and the multi-process cohort are not
-ported yet (ROADMAP Queue 1 item 13), nor the fault kind that needs them.
+producer and the eval worker.
+
+Hierarchical edges (``ExecConfig.edges``) fold the padded cohort in E
+equal contiguous row groups, as the reference's two-level server fold
+does; a ``FaultPlan``'s ``edge_drop`` loses an edge's summary, and its
+rows fold out through the same live mask as the round deadline's.
+
+The client axis across processes: in a job joined by
+launch/distributed.maybe_initialize(), ``ExecConfig.shard_clients``
+makes every rank (one process each, on its own device) hold the
+replicated params and server state and train, stage and read only its
+contiguous slice of the cohort, padded to the ranks with masked dummy
+rows; core/round.py's two collectives a round combine the slices. Rank
+0 writes checkpoints and the health log. Without ``shard_clients`` a
+trainer in such a job stays process-local, as the reference's does. The
+model axis (``shard_model > 1``) is not ported (ROADMAP Queue 1 item
+13).
 """
 from __future__ import annotations
 
+import itertools
 import json
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import asdict, dataclass, field, fields
+from dataclasses import asdict, dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
@@ -99,15 +115,17 @@ from repro_torch.core.samplers import (ClientSampler, UniformSampler,
 from repro_torch.health.monitor import (HealthConfig, HealthMonitor,
                                         JsonlHealthSink)
 from repro_torch.ingest.pipeline import CohortIngestPipeline
-from repro_torch.ingest.placement import CohortPlacer
+from repro_torch.ingest.placement import CohortPlacer, put_global
 from repro_torch.ingest.sources import DataSource, as_data_source
 from repro_torch.ingest.stack import stack_batches
+from repro_torch.launch import distributed
+from repro_torch.launch.mesh import make_cohort_mesh, refuse_model_axis
 from repro_torch.optim.server import make_server_optimizer
+from repro_torch.sharding.rules import local_row_range, padded_rows
 
-# fault kinds with no consumer in the port yet: kind -> what brings it
-UNCONSUMED_FAULTS = {
-    "edge_drop": "hierarchical edge folds (ROADMAP Queue 1 item 13)",
-}
+# multi-process trainers of one job, numbered in construction order (the
+# same on every rank): their store keys never collide
+_MP_SEQ = itertools.count()
 
 
 @dataclass
@@ -135,6 +153,11 @@ class ExecConfig:
     seed: int = 0
     eval_every: int = 5
     vectorize: bool = True           # cohort-vectorized round (default)
+    # the cohort over every rank of a multi-process job (each rank trains
+    # its contiguous slice); a no-op in a single process
+    shard_clients: bool = False
+    # model-axis shards per client slice: not ported, > 1 raises
+    shard_model: int = 1
     # ---- staged ingest (ingest/pipeline.py) ----
     prefetch: bool = True            # staging ring on a producer thread
     # staging slots: the producer stages up to prefetch_depth rounds past
@@ -194,6 +217,12 @@ class ExecConfig:
     # stream every verdict to a JSONL tracker file (JsonlHealthSink);
     # None = receipts only
     health_log: Optional[str] = None
+    # ---- hierarchical edge aggregation ----
+    # two-level server fold: the padded cohort splits into `edges` equal
+    # contiguous row groups, each folds its rows into one partial summary
+    # and the server combines the E summaries. None / 1 = flat fold. Must
+    # divide the padded cohort; synchronous rounds only.
+    edges: Optional[int] = None
     # the data source's settings, read by the training CLI when it builds
     # the source (launch/train.py build_vision_task), never by the
     # trainer: the decode pool of path-indexed datasets (0 = serial),
@@ -201,6 +230,42 @@ class ExecConfig:
     decode_workers: int = 0
     batch_size: int = 256
     local_epochs: int = 1
+
+
+# Execution regimes of the reference's cross-regime matrix (its
+# tests/test_regime_matrix.py): name -> ExecConfig overrides relative to
+# the serial reference, the reference's keys and values. The five with
+# shard_model > 1 ("*2d") need the model axis, which raises here (ROADMAP
+# Queue 1 item 13); "multihost" is the single-process anchor of the
+# multi-process cohort.
+EXEC_REGIMES = {
+    "serial": {"vectorize": False},
+    "vectorized": {},
+    "sharded1d": {"shard_clients": True},
+    "sharded2d": {"shard_clients": True, "shard_model": 4},
+    "staged": {"prefetch_depth": 4},
+    "staged1d": {"shard_clients": True, "prefetch_depth": 4},
+    "staged2d": {"shard_clients": True, "shard_model": 4,
+                 "prefetch_depth": 4},
+    "hoststaged": {"device_stage": False, "prefetch_depth": 1},
+    "async_buffer": {"async_buffer": True},
+    "guarded": {"guard": True},
+    "codec_identity": {"codec": "identity"},
+    "codec_bf16": {"codec": "bf16"},
+    "codec_int8": {"codec": "int8"},
+    "codec_int8_2d": {"codec": "int8", "shard_clients": True,
+                      "shard_model": 4},
+    "codec_int8_async": {"codec": "int8", "async_buffer": True},
+    "server_fedadam": {"server_opt": "fedadam"},
+    "server_fedyogi": {"server_opt": "fedyogi"},
+    "server_fedadam_2d": {"server_opt": "fedadam", "shard_clients": True,
+                          "shard_model": 4},
+    "server_fedyogi_2d": {"server_opt": "fedyogi", "shard_clients": True,
+                          "shard_model": 4},
+    "server_fedadam_async": {"server_opt": "fedadam", "async_buffer": True},
+    "server_fedyogi_async": {"server_opt": "fedyogi", "async_buffer": True},
+    "multihost": {"shard_clients": True, "edges": 2},
+}
 
 
 @dataclass
@@ -230,6 +295,12 @@ class RoundRecord:
     deadline_fired: int = 0        # 1 if the round hit round_deadline
     deadline_dropped: int = 0      # clients dropped by the deadline
     ingest_restarts: int = 0       # staging-producer restarts this round
+    # the uplink split by round shape: client->edge bytes (the clients'
+    # deltas) and edge->server bytes (one raw-f32 summary per LIVE edge).
+    # A flat round reports edge_up = 0 and server_up = comm_bytes_up
+    comm_bytes_edge_up: int = 0
+    comm_bytes_server_up: int = 0
+    edge_dropped: int = 0          # edge summaries lost (edge_drop faults)
 
 
 @dataclass
@@ -261,7 +332,6 @@ class TrainerState:
 # hyper fields of the reference that pick the kernel route, which the
 # port's device decides: written as the reference's default, not compared
 _ROUTE_FIELDS = {"FedDPCHyper": {"use_kernel": False}}
-_RECORD_FIELDS = {f.name for f in fields(RoundRecord)}
 
 
 def _without_route(echo: Optional[dict]) -> Optional[dict]:
@@ -302,6 +372,7 @@ class FederatedTrainer:
                  fault_plan=None, health_sink=None, device=None):
         self.cfg = cfg if cfg is not None else ExecConfig()
         self.algo_cfg = algo if algo is not None else AlgoConfig()
+        refuse_model_axis(self.cfg.shard_model)
         deadline = self.cfg.round_deadline
         if (runtime is not None and not self.cfg.async_buffer
                 and deadline is None):
@@ -312,12 +383,6 @@ class FederatedTrainer:
         if deadline is not None and deadline <= 0:
             raise ValueError(f"round_deadline must be positive, got "
                              f"{deadline}")
-        if fault_plan is not None:
-            for kind, needs in UNCONSUMED_FAULTS.items():
-                if any(i.kind == kind for i in fault_plan.injectors):
-                    raise ValueError(
-                        f"fault plan holds a {kind!r} injector, which the "
-                        f"port cannot apply yet: it needs {needs}")
         if self.cfg.async_buffer and not self.cfg.vectorize:
             raise ValueError("async_buffer dispatches whole waves through "
                              "the cohort-vectorized update; it cannot "
@@ -328,6 +393,23 @@ class FederatedTrainer:
                    else self.algo_cfg.codec_ef)
         self._codec = make_codec(codec_name)
         lossy = self._codec is not None and self._codec.lossy
+        # ---- the client axis across processes ----
+        # maybe_initialize() has joined the job before construction, so
+        # the process count is final here. shard_clients is the switch:
+        # with it the cohort spans every rank; without it the trainer
+        # stays process-local (no cross-process traffic)
+        self._mp = (distributed.process_count() > 1
+                    and self.cfg.shard_clients)
+        self._mp_seq = next(_MP_SEQ) if self._mp else 0
+        self._save_seq = 0
+        if self._mp and not self.cfg.vectorize:
+            raise ValueError(
+                "multi-process execution drives the fused cohort round; it "
+                "cannot combine with vectorize=False")
+        if self._mp and self.cfg.async_buffer:
+            raise ValueError(
+                "the buffered-async engine is single-process; "
+                "multi-process runs use the synchronous cohort round")
         if want_ef and not lossy:
             raise ValueError(
                 "codec_ef=True needs a LOSSY codec (bf16/int8 family): "
@@ -391,7 +473,10 @@ class FederatedTrainer:
                              "health_sink=..., not both")
         if self.cfg.health:
             sink = health_sink
-            if sink is None and self.cfg.health_log:
+            # one log a run: rank 0's (every rank observes the same
+            # records)
+            if (sink is None and self.cfg.health_log
+                    and distributed.is_coordinator()):
                 sink = JsonlHealthSink(self.cfg.health_log)
             self._health = HealthMonitor(HealthConfig(
                 window=self.cfg.health_window,
@@ -403,6 +488,39 @@ class FederatedTrainer:
         # stops collecting arrivals at the deadline
         self._deadline_mask = (deadline is not None
                                and not self.cfg.async_buffer)
+        # the cohort pads to a multiple of the ranks with masked dummy
+        # rows; rank r trains rows [lo, hi) of it
+        self.mesh = make_cohort_mesh() if self._mp else None
+        world = distributed.process_count() if self._mp else 1
+        k = self.cfg.clients_per_round
+        self._pad_to = padded_rows(k, world)
+        self._rows = local_row_range(
+            distributed.process_index() if self._mp else 0, world,
+            self._pad_to)
+        # ---- hierarchical edge aggregation ----
+        self._edges = (int(self.cfg.edges)
+                       if (self.cfg.edges or 0) > 1 else None)
+        if self._edges is not None:
+            if self.cfg.async_buffer:
+                raise ValueError(
+                    "edges reshapes the synchronous server fold; it cannot "
+                    "combine with async_buffer")
+            if self._pad_to % self._edges:
+                raise ValueError(
+                    f"edges={self._edges} must divide the padded cohort "
+                    f"size {self._pad_to} (clients_per_round={k} padded "
+                    "to the client axis)")
+        # one edge's summary on the edge->server uplink: raw f32 params
+        self._summary_bytes_up = 4 * self.layout.size
+        # a lost edge's rows fold out through the live-mask input the
+        # deadline uses; a plan with edge drops and no edges changes
+        # nothing, as in the reference
+        self._edge_faults = (fault_plan is not None
+                             and fault_plan.injects_edges
+                             and self._edges is not None)
+        self._live_mask_input = self._deadline_mask or self._edge_faults
+        # [(collective, ms)] of each multi-process round, in round order
+        self.collective_log: List[List[tuple]] = []
         self._cohort_round = make_cohort_round(
             loss_fn, self.layout, self.algo, self.algo_cfg.eta_l,
             self.algo_cfg.eta_g, optimizer=self.algo_cfg.local_optimizer,
@@ -410,8 +528,11 @@ class FederatedTrainer:
             guard=self._guard is not None,
             guard_cfg=None if self._guard is None else self._guard.config,
             inject_faults=self._inject_deltas,
-            deadline_mask=self._deadline_mask,
-            fault_magnitude=self._magnitude, server_opt=self._server_opt)
+            deadline_mask=self._live_mask_input,
+            fault_magnitude=self._magnitude, server_opt=self._server_opt,
+            edges=self._edges,
+            group=self.mesh.get_group() if self._mp else None,
+            real_clients=k if self._pad_to > k else None)
         self.local_update = client_mod.make_local_update(
             loss_fn, self.layout, self.algo_cfg.eta_l,
             optimizer=self.algo_cfg.local_optimizer,
@@ -421,11 +542,21 @@ class FederatedTrainer:
         self.schedule: List[np.ndarray] = []     # sampled cohort per round
         # the staged ingest path; the async engine dispatches a dynamic
         # number of waves, so its horizon is open (the ring backpressures
-        # on its depth)
+        # on its depth). A rank reads, stacks and copies only its rows;
+        # the ranks agree on the minibatch bucket through the job's store
+        # (from the producer thread: never a collective there)
+        local_rows = sync_mb = None
+        if self._mp:
+            local_rows, seq = self._rows, self._mp_seq
+            sync_mb = (lambda tag, m:
+                       distributed.kv_allmax(f"t{seq}/maxb/{tag}", m))
         self._pipeline = CohortIngestPipeline(
             self.source, self._sample_clients, num_clients=num_clients,
             rounds=None if self.cfg.async_buffer else self.cfg.rounds,
-            placer=CohortPlacer(self.device), depth=self.cfg.prefetch_depth,
+            placer=CohortPlacer(self.device, local_rows=local_rows),
+            pad_to=self._pad_to if self._mp else None,
+            local_rows=local_rows, sync_max_batches=sync_mb,
+            depth=self.cfg.prefetch_depth,
             device_stage=self.cfg.device_stage,
             stall_timeout=self.cfg.ingest_stall_s,
             max_restarts=self.cfg.ingest_max_restarts,
@@ -610,24 +741,55 @@ class FederatedTrainer:
                 self._wave_runtime[t] = (lat, np.asarray(dropped, bool))
             return clients
 
-    def _deadline_live(self, t: int, extra: Dict[str, Any]):
-        """(live, shipped) masks of round t's clients under the deadline.
-        A late client shipped its update (it pays its uplink) but arrived
-        too late for the fold; a runtime dropout shipped nothing."""
-        lat, dropped = self._runtime_take(t)
-        live = ~dropped & (lat <= self.cfg.round_deadline)
-        extra["deadline_dropped"] = int((~live).sum())
-        extra["deadline_fired"] = int((~live).any())
-        return live, ~dropped
+    def _live_rows(self, t: int, n: int, kp: int, extra: Dict[str, Any]):
+        """(lv (kp,), live (n,), shipped (n,), edges down) of round t's
+        n clients padded to kp rows. Under the deadline a late client
+        shipped its update (it pays its uplink) but arrived too late for
+        the fold, and a runtime dropout shipped nothing. A dropped edge
+        loses its summary: every row of it folds out, though its clients
+        still shipped to it. Padded rows are never live."""
+        lv = np.zeros(kp, bool)
+        lv[:n] = True
+        live = shipped = np.ones(n, bool)
+        if self._deadline_mask:
+            lat, dropped = self._runtime_take(t)
+            live = ~dropped & (lat <= self.cfg.round_deadline)
+            shipped = ~dropped
+            lv[:n] = live
+            extra["deadline_dropped"] = int((~live).sum())
+            extra["deadline_fired"] = int((~live).any())
+        edge_down = 0
+        if self._edge_faults:
+            edrop = self.fault_plan.edge_drops(t, self._edges)
+            edge_live = np.repeat(~edrop, kp // self._edges)
+            lv &= edge_live
+            live = live & edge_live[:n]
+            edge_down = int(edrop.sum())
+            extra["edge_dropped"] = edge_down
+        return lv, live, shipped, edge_down
+
+    def _comm_fields(self, shipped: int, edge_down: int = 0
+                     ) -> Dict[str, int]:
+        """The uplink by round shape: a flat round pays everything on the
+        server uplink; a hierarchical one pays the clients' deltas to the
+        edges and one raw-f32 summary per live edge to the server."""
+        up = self._client_bytes_up * int(shipped)
+        if self._edges is None:
+            return {"comm_bytes_up": up, "comm_bytes_edge_up": 0,
+                    "comm_bytes_server_up": up}
+        return {"comm_bytes_up": up, "comm_bytes_edge_up": up,
+                "comm_bytes_server_up": ((self._edges - edge_down)
+                                         * self._summary_bytes_up)}
 
     def _observe_guard(self, gstats, live: np.ndarray,
                        extra: Dict[str, Any]):
         """Count the round's quarantined and clipped rows among the live
         ones (a row both dropped and bad counts as dropped) and feed the
         accepted norms to the guard's window, in round order."""
-        q = gstats["quarantined"].cpu().numpy()
-        c = gstats["clipped"].cpu().numpy()
-        norms = gstats["norm"].cpu().numpy()
+        n = len(live)
+        q = gstats["quarantined"].cpu().numpy()[:n]
+        c = gstats["clipped"].cpu().numpy()[:n]
+        norms = gstats["norm"].cpu().numpy()[:n]
         extra["quarantined"] = int((q & live).sum())
         extra["clipped"] = int((c & live).sum())
         self._guard.observe(norms[live & ~q],
@@ -640,17 +802,28 @@ class FederatedTrainer:
         try:
             staged.wait()
             n = len(staged.clients)
+            kp = self._pad_to
+            ids = staged.ids
+            if self._mp:
+                # the rules see the whole padded cohort's ids; the dummy
+                # rows' id is num_clients (out of range), as the
+                # reference's
+                ids = put_global(np.concatenate(
+                    [staged.clients, np.full(kp - n, self.num_clients)]
+                ).astype(np.int32), self.device)
             args = [self.server_state, self.flat, staged.batches,
-                    staged.masks, staged.ids]
+                    staged.masks, ids]
             extra: Dict[str, Any] = {}
             live = shipped = np.ones(n, bool)
+            edge_down = 0
             if self._inject_deltas:
-                args.append(torch.as_tensor(
-                    self.fault_plan.delta_codes(t, staged.clients),
-                    device=self.device))
-            if self._deadline_mask:
-                live, shipped = self._deadline_live(t, extra)
-                args.append(torch.as_tensor(live, device=self.device))
+                codes = np.zeros(kp, np.int32)
+                codes[:n] = self.fault_plan.delta_codes(t, staged.clients)
+                args.append(put_global(codes, self.device))
+            if self._live_mask_input:
+                lv, live, shipped, edge_down = self._live_rows(t, n, kp,
+                                                               extra)
+                args.append(put_global(lv, self.device))
             if self._guard is not None:
                 args.append(self._guard.threshold())
             if self._codec_key is not None:
@@ -668,12 +841,14 @@ class FederatedTrainer:
             self.flat, self.server_state, losses, diag = outs
             if gstats is not None:
                 self._observe_guard(gstats, live, extra)
-            extra["comm_bytes_up"] = self._client_bytes_up * int(
-                shipped.sum())
+            extra.update(self._comm_fields(int(shipped.sum()), edge_down))
             # the loss over the clients whose update arrived; the host
             # read waits for the round, after which the slot is free
-            losses_h = losses.cpu().numpy()
+            losses_h = losses.cpu().numpy()[:n]
             loss = float(losses_h[live].mean()) if live.any() else 0.0
+            shard = self._cohort_round.shard
+            if shard is not None:
+                self.collective_log.append(shard.timings_ms())
         finally:
             # on error too: a leaked slot would deadlock the next round
             staged.release()
@@ -705,6 +880,7 @@ class FederatedTrainer:
         extra: Dict[str, Any] = {}
         cm = resid = None
         live = shipped = np.ones(n, bool)
+        edge_down = 0
         if self._inject_deltas:
             deltas = apply_fault_codes(
                 deltas, torch.as_tensor(self.fault_plan.delta_codes(
@@ -714,9 +890,9 @@ class FederatedTrainer:
                    else jax_prng.fold_in(self._codec_key, t))
             deltas, _, resid = codec_stage(self._codec, deltas, self._ef,
                                            self.layout.leaf_offsets, key)
-        if self._deadline_mask:
-            live, shipped = self._deadline_live(t, extra)
-            cm = torch.as_tensor(live, device=self.device)
+        if self._live_mask_input:
+            lv, live, shipped, edge_down = self._live_rows(t, n, n, extra)
+            cm = torch.as_tensor(lv, device=self.device)
             ids = torch.where(cm, ids, torch.full_like(ids, ID_SENTINEL))
         if self._guard is not None:
             deltas, ids, cm, gstats = apply_guard(
@@ -726,12 +902,12 @@ class FederatedTrainer:
             self._ef = proj.masked_client_mean(resid, cm)
         new_flat, self.server_state, diag = self.algo.step(
             self.server_state, self.flat, deltas, ids, self.algo_cfg.eta_g,
-            0, client_mask=cm)
+            0, client_mask=cm, edges=self._edges)
         if self._server_opt is not None:
             new_flat, self._opt_state = self._server_opt.apply(
                 self.flat, new_flat, self._opt_state)
         self.flat = new_flat
-        extra["comm_bytes_up"] = self._client_bytes_up * int(shipped.sum())
+        extra.update(self._comm_fields(int(shipped.sum()), edge_down))
         losses_h = np.asarray(losses)
         return (float(losses_h[live].mean()) if live.any() else 0.0), \
             diag, ingest, 0.0, extra
@@ -746,8 +922,8 @@ class FederatedTrainer:
         extra = {"staleness_mean": m["staleness_mean"],
                  "staleness_max": m["staleness_max"],
                  # bytes are paid when an update ships, whichever fold
-                 # takes it
-                 "comm_bytes_up": self._client_bytes_up * int(m["n_shipped"])}
+                 # takes it (async rounds are flat: edges refuse them)
+                 **self._comm_fields(int(m["n_shipped"]))}
         # restarts charged to the waves staged during this round's
         # collection (keyed by the staged wave, final once handed out)
         restarts = sum(self._pipeline.restarts_for(w)
@@ -1051,10 +1227,11 @@ class FederatedTrainer:
             "format": 1,
             "algorithm": self.algo.name,
             "algo_config": self._algo_echo(),
-            # informational, never compared: the reference's values for
-            # an unsharded run
-            "exec_mesh": {"shard_clients": False, "shard_model": 1,
-                          "devices": 0},
+            # informational, never compared
+            "exec_mesh": {"shard_clients": self.cfg.shard_clients,
+                          "shard_model": self.cfg.shard_model,
+                          "devices": (0 if self.mesh is None
+                                      else distributed.process_count())},
             "num_clients": self.num_clients,
             "clients_per_round": k,
             "sampler": {"class": type(self.sampler).__name__,
@@ -1097,11 +1274,23 @@ class FederatedTrainer:
                           {"config": chaos["guard_config"],
                            "state": self._guard.state_dict()}),
             }
-        return ckpt.save(ckpt_dir, st.round,
-                         {"params": st.params,
-                          "server_state": bridge.server_state_to_reference(
-                              st.server_state, layout)},
-                         keep=keep, aux_arrays=aux_arrays, aux_json=aux_json)
+        state = {"params": st.params,
+                 "server_state": bridge.server_state_to_reference(
+                     st.server_state, layout)}
+        if not self._mp:
+            return ckpt.save(ckpt_dir, st.round, state, keep=keep,
+                             aux_arrays=aux_arrays, aux_json=aux_json)
+        # rank 0 writes (every rank holds the same replicated state); the
+        # barrier keeps the others from reading or rotating past a save
+        # still in flight
+        if distributed.is_coordinator():
+            path = ckpt.save(ckpt_dir, st.round, state, keep=keep,
+                             aux_arrays=aux_arrays, aux_json=aux_json)
+        else:
+            path = ckpt.step_dir(ckpt_dir, st.round)
+        self._save_seq += 1
+        distributed.barrier(f"t{self._mp_seq}/save/{self._save_seq}")
+        return path
 
     def _check_echoes(self, meta: dict) -> None:
         """Every configuration echo of a checkpoint against this trainer,
@@ -1313,11 +1502,7 @@ class FederatedTrainer:
         self._pipeline.max_batches = None if mb < 0 else mb
         self._start_round = int(arrays["round"])
         self.schedule = [row for row in np.asarray(arrays["schedule"])]
-        # the reference's records carry the edge accounting, which the
-        # port does not keep yet (item 13): dropped here
-        self.history = [RoundRecord(**{k: v for k, v in r.items()
-                                       if k in _RECORD_FIELDS})
-                        for r in meta["history"]]
+        self.history = [RoundRecord(**r) for r in meta["history"]]
         if meta["sampler"].get("state"):
             self.sampler.load_state_dict(meta["sampler"]["state"])
         if meta.get("sync_runtime", {}).get("state"):

@@ -17,7 +17,8 @@ Unified interface so the trainer can swap algorithms:
 
   algo.init(params, num_clients)                         -> server_state
   algo.step(state, params, deltas, client_ids, eta_g, t,
-            client_mask=None) -> (params', state', diag)
+            client_mask=None, edges=None, shard=None)
+                                                -> (params', state', diag)
   algo.client_variant in {"plain","prox","cm","ga"}      local-training flavour
   algo.client_extra(state)    what clients get from the server (Δ_{t-1})
   algo.client_hparams         kwargs the local update needs
@@ -29,6 +30,18 @@ other rule the trainer pre-scales the buffered deltas by the weights
 (FedBuff mean semantics). FedDPC's step also takes the codec payload
 (``encoded``, ``leaf_offsets``) for its dequant folds. Steps accept
 unknown kwargs (**_).
+
+``edges=E`` aggregates in two levels, as the reference's rules do: each
+of E equal contiguous row groups reduces to a partial summary and the
+server combines the E summaries (FedExP's Σ‖Δ_j‖² as a sum of edge sums,
+FedVARP's correction mean and the FedDPC family's fold included). In a
+multi-process round ``shard`` (core/round.RankShard) gives this rank's
+rows: ``deltas`` hold them, while ``client_ids`` and ``client_mask``
+cover the whole padded cohort, so every rank forms the same scalars; the
+means sum their partials over the ranks (``shard.all_sum``), FedVARP
+gathers the cohort's rows (its table is replicated state), and the rules
+whose ``row_scalars`` are "dots" (the FedDPC family) or "sqnorm"
+(FedExP) read the gathered per-row scalars from ``shard.dots``.
 
 params and every state vector are flat (N,) f32 buffers
 (repro_torch.bridge); deltas are the (K, N) client stack, client_ids
@@ -73,6 +86,10 @@ class ServerAlgo:
     client_hparams: Dict[str, float] = field(default_factory=dict)
     hyper: Any = None
     staleness_aware: bool = False
+    # per-row scalars the step reads in a multi-process round, gathered
+    # by the round into shard.dots: "dots" (<Δ_j,Δ_prev>, ||Δ_j||²,
+    # ||Δ_prev||²), "sqnorm" (||Δ_j||² only) or None
+    row_scalars: Optional[str] = None
 
 
 def _apply(params: torch.Tensor, delta: torch.Tensor, eta_g
@@ -198,8 +215,9 @@ def _delta_prev(state):
 # ---------------- FedAvg family ----------------
 
 def _fedavg_step(state, params, deltas, client_ids, eta_g, t,
-                 client_mask=None, **_):
-    delta_t = proj.masked_client_mean(deltas, client_mask)
+                 client_mask=None, edges=None, shard=None, **_):
+    delta_t = proj.masked_client_mean(deltas, client_mask, edges=edges,
+                                      shard=shard)
     return _apply(params, delta_t, eta_g), {"delta_prev": delta_t}, {
         "norm_global_update": proj.tree_norm(delta_t)}
 
@@ -219,11 +237,14 @@ def _build_fedprox(h):
 # ---------------- FedExP ----------------
 
 def _fedexp_step(state, params, deltas, client_ids, eta_g, t, eps=1e-3,
-                 client_mask=None, **_):
+                 client_mask=None, edges=None, shard=None, **_):
     """eta_g_t = max(1, sum_j||Δ_j||² / (2 k' (||Δ̄||² + eps))) — the POCS
-    extrapolation rule; then w ← w − eta_g · eta_g_t · Δ̄."""
-    delta_t = proj.masked_client_mean(deltas, client_mask)
-    sq_each = proj.tree_sqnorm(deltas)                         # (K,)
+    extrapolation rule; then w ← w − eta_g · eta_g_t · Δ̄. Under edges
+    the sum is the sum of the E edge sums."""
+    delta_t = proj.masked_client_mean(deltas, client_mask, edges=edges,
+                                      shard=shard)
+    sq_each = (proj.tree_sqnorm(deltas) if shard is None
+               else shard.dots[:, 1])                          # (K,)
     if client_mask is None:
         kprime = sq_each.shape[0]
     else:
@@ -231,7 +252,9 @@ def _fedexp_step(state, params, deltas, client_ids, eta_g, t, eps=1e-3,
         sq_each = sq_each * mf
         kprime = torch.clamp(mf.sum(), min=1.0)
     sq_mean = proj.tree_sqnorm(delta_t)
-    extrap = torch.clamp(sq_each.sum() / (2 * kprime * (sq_mean + eps)),
+    sq_total = (sq_each.reshape(int(edges), -1).sum(dim=1).sum()
+                if edges and edges > 1 else sq_each.sum())
+    extrap = torch.clamp(sq_total / (2 * kprime * (sq_mean + eps)),
                          min=1.0)
     return _apply(params, delta_t, eta_g * extrap), {
         "delta_prev": delta_t}, {
@@ -241,7 +264,8 @@ def _fedexp_step(state, params, deltas, client_ids, eta_g, t, eps=1e-3,
 @register_algorithm("fedexp", FedExPHyper)
 def _build_fedexp(h):
     return ServerAlgo("fedexp", _init,
-                      functools.partial(_fedexp_step, eps=h.eps))
+                      functools.partial(_fedexp_step, eps=h.eps),
+                      row_scalars="sqnorm")
 
 
 # ---------------- FedGA / FedCM ----------------
@@ -269,14 +293,19 @@ def _fedvarp_init(params, num_clients):
 
 
 def _fedvarp_step(state, params, deltas, client_ids, eta_g, t,
-                  client_mask=None, **_):
+                  client_mask=None, edges=None, shard=None, **_):
     """Δ_t = (1/n)Σ_i y_i + (1/k')Σ_{j∈S}(Δ_j − y_j);  y_j ← Δ_j for j∈S.
 
     A row counts when its id is in [0, num_clients) and its mask bit is
     set; the others (``ID_SENTINEL`` from the deadline or the guard)
     gather zeros and leave the table untouched. The table is updated IN
     PLACE (``index_copy_`` of the counted rows): the returned state holds
-    the same (num_clients, N) tensor, so it is never double-buffered."""
+    the same (num_clients, N) tensor, so it is never double-buffered.
+    The correction mean goes two-level under ``edges``; in a
+    multi-process round the rank gathers the cohort's rows first, so
+    every rank updates its replica of the table alike."""
+    if shard is not None:
+        deltas = shard.gather(deltas)
     y = state["y"]
     ids = client_ids.to(device=y.device, dtype=torch.int64)
     valid = (ids >= 0) & (ids < y.shape[0])
@@ -284,7 +313,8 @@ def _fedvarp_step(state, params, deltas, client_ids, eta_g, t,
         valid = valid & client_mask.to(y.device)
     y_sel = y.index_select(0, torch.where(valid, ids, torch.zeros_like(ids)))
     y_sel.masked_fill_(~valid[:, None], 0.0)
-    corr = proj.masked_client_mean(deltas.float() - y_sel, client_mask)
+    corr = proj.masked_client_mean(deltas.float() - y_sel, client_mask,
+                                   edges=edges)
     delta_t = y.mean(dim=0) + corr
     keep = torch.nonzero(valid).squeeze(1)
     y.index_copy_(0, ids[keep], deltas.float()[keep])
@@ -305,24 +335,27 @@ def _build_fedvarp(h):
 def _build_feddpc(h):
     def step(state, params, deltas, client_ids, eta_g, t,
              client_mask=None, staleness_weights=None, encoded=None,
-             leaf_offsets=None, **_):
+             leaf_offsets=None, edges=None, shard=None, **_):
         return feddpc_mod.server_step(
             state, params, deltas, eta_g, h.lam, client_mask=client_mask,
             staleness_weights=staleness_weights, encoded=encoded,
-            leaf_offsets=leaf_offsets)
+            leaf_offsets=leaf_offsets, edges=edges, shard=shard)
 
-    return ServerAlgo("feddpc", _init, step, staleness_aware=True)
+    return ServerAlgo("feddpc", _init, step, staleness_aware=True,
+                      row_scalars="dots")
 
 
 def _feddpc_noscale_step(state, params, deltas, client_ids, eta_g, t,
-                         client_mask=None, **_):
+                         client_mask=None, edges=None, shard=None, **_):
     return feddpc_mod.server_step_projection_only(
-        state, params, deltas, eta_g, client_mask=client_mask)
+        state, params, deltas, eta_g, client_mask=client_mask, edges=edges,
+        shard=shard)
 
 
 @register_algorithm("feddpc_noscale")
 def _build_feddpc_noscale(h):
-    return ServerAlgo("feddpc_noscale", _init, _feddpc_noscale_step)
+    return ServerAlgo("feddpc_noscale", _init, _feddpc_noscale_step,
+                      row_scalars="dots")
 
 
 # ---------------- adaptive server optimizers (Reddi et al.) ----------
@@ -339,8 +372,9 @@ def _make_adaptive(kind: str, h: AdaptiveHyper) -> ServerAlgo:
     b1, b2, eps = h.b1, h.b2, h.eps
 
     def step(state, params, deltas, client_ids, eta_g, t_unused,
-             client_mask=None, **_):
-        delta_t = proj.masked_client_mean(deltas, client_mask)
+             client_mask=None, edges=None, shard=None, **_):
+        delta_t = proj.masked_client_mean(deltas, client_mask, edges=edges,
+                                          shard=shard)
         t = state["t"] + 1.0
         m = b1 * state["m"] + (1 - b1) * delta_t
         if kind == "adam":
@@ -384,16 +418,19 @@ def _build_feddpc_m(h):
         return s
 
     def step(state, params, deltas, client_ids, eta_g, t,
-             client_mask=None, staleness_weights=None, **_):
+             client_mask=None, staleness_weights=None, edges=None,
+             shard=None, **_):
         _, new_state, diag = feddpc_mod.server_step(
             {"delta_prev": state["delta_prev"]}, params, deltas, 0.0, lam,
-            client_mask=client_mask, staleness_weights=staleness_weights)
+            client_mask=client_mask, staleness_weights=staleness_weights,
+            edges=edges, shard=shard)
         delta_t = new_state["delta_prev"]
         m = beta * state["m"] + delta_t
         return _apply(params, m, eta_g), {"delta_prev": delta_t,
                                           "m": m}, diag
 
-    return ServerAlgo("feddpc_m", init, step, staleness_aware=True)
+    return ServerAlgo("feddpc_m", init, step, staleness_aware=True,
+                      row_scalars="dots")
 
 
 # ---------------- legacy shim ----------------

@@ -21,9 +21,11 @@ Injector classes (the registry, ``FAULT_KINDS``):
 The first two surface as ``delta_codes`` consumed by the round
 (core/round.py ``apply_fault_codes``, a (K,) int32 input); hangs surface
 as a ``latency_boost`` added to the runtime model's draw at sampling
-time. The port's trainer has no consumer yet for ingest crashes (no
-supervised prefetcher), corrupted checkpoints (no checkpoints) or edge
-drops (no edges), and refuses a plan that holds them (core/api.py).
+time; ingest crashes through the staging producer's supervision
+(ingest/pipeline.py), corrupted checkpoints through the checkpoint's
+digest fallback, and edge drops as ``edge_drops`` — a dropped edge's
+rows fold out through the round's live mask (core/api.py); a plan with
+edge drops and no edges changes nothing, as in the reference.
 """
 from __future__ import annotations
 

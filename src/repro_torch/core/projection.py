@@ -37,10 +37,46 @@ def tree_nonfinite_count(a: torch.Tensor) -> torch.Tensor:
 
 
 def masked_client_mean(x: torch.Tensor,
-                       client_mask: Optional[torch.Tensor] = None
+                       client_mask: Optional[torch.Tensor] = None, *,
+                       edges: Optional[int] = None, shard=None
                        ) -> torch.Tensor:
     """f32 mean over the leading (client) axis of a (K, N) stack; with
-    ``client_mask`` (K,) bool the mean runs over the True rows only."""
+    ``client_mask`` (K,) bool the mean runs over the True rows only.
+
+    ``edges=E`` computes the same mean as the reference's two-level fold:
+    the K rows split into E equal contiguous groups, each edge reduces
+    its group to a partial sum (and a live count), and the server
+    combines the E partials — equal to the flat mean up to summation
+    order, because the mask is a per-row weight.
+
+    ``shard`` (core/round.RankShard) makes it the multi-process mean: x
+    holds this rank's rows of the padded cohort, ``client_mask`` the
+    whole cohort's, and the rank's partial sum over its rows is summed
+    over the ranks (one all-reduce). Equal groups make the mean of the
+    edge means the flat mean, so the edges change only the order of the
+    sums there."""
+    if shard is not None:
+        if client_mask is None:
+            part = torch.sum(x.float(), dim=0) / shard.rows
+        else:
+            mf = client_mask.float()
+            nvalid = torch.clamp(mf.sum(), min=1.0)
+            part = torch.sum(x.float() * mf[shard.lo:shard.hi, None],
+                             dim=0) / nvalid
+        return shard.all_sum(part)
+    if edges is not None and int(edges) > 1:
+        e = int(edges)
+        k = x.shape[0]
+        if k % e:
+            raise ValueError(f"edges={e} must divide the client axis ({k})")
+        xs = x.float().reshape(e, k // e, -1)
+        if client_mask is None:
+            return torch.mean(torch.mean(xs, dim=1), dim=0)
+        w = client_mask.float().reshape(e, k // e)
+        part = torch.sum(xs * w[:, :, None], dim=1)         # edge sums
+        live = torch.sum(w, dim=1)                           # edge counts
+        return torch.sum(part, dim=0) / torch.clamp(torch.sum(live),
+                                                    min=1.0)
     if client_mask is None:
         return torch.mean(x.float(), dim=0)
     mf = client_mask.float()

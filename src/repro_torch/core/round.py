@@ -1,6 +1,7 @@
 """One FL round over a cohort: K local trainings, the chaos and codec
 stages, then the server rule; counterpart of repro/core/round.py
-``make_cohort_round`` (without mesh or edges).
+(``make_cohort_round``, ``make_fl_round_step``, ``fl_round_input_specs``)
+on the client axis.
 
 The K clients' deltas land in one (K, N) f32 stack — the layout the
 FedDPC kernels read. The stack is allocated once and reused for every
@@ -16,21 +17,47 @@ deadline mask, then the codec's encode and decode, then the update guard
 on the decoded rows, then the error-feedback mean over the rows that
 survived. The guard's reduction pass is the ``feddpc_guard_dots`` kernel
 on the card.
+
+``edges=E`` runs the server rule as the reference's two-level fold over
+E equal contiguous row groups (core/baselines.py).
+
+``group`` (a ``torch.distributed`` process group: the client axis of
+launch/mesh.make_cohort_mesh) makes it the multi-process round. Each
+rank holds the replicated params and server state and trains only its
+contiguous slice of the padded cohort (sharding/rules.local_row_range);
+a synchronous round then makes TWO collectives, both on the calling
+(main) thread:
+
+  1. one all-gather of the per-row scalars: each rank's reduction pass
+     (``feddpc_dots``, or ``feddpc_guard_dots`` under the guard, over its
+     rows) — <Δ_j,Δ_prev>, ||Δ_j||², ||Δ_prev||², the non-finite count —
+     and its rows' losses. From them every rank forms the same guard
+     decisions, coefs, scales, mask folding and diagnostics;
+  2. one all-reduce (sum) of the rank's share of Δ_t (``RankShard``),
+     after which every rank applies w' = w − η_g·Δ_t.
+
+FedVARP gathers the cohort's rows instead of 2 (its table is replicated
+state) and the error-feedback mean adds one all-reduce. The collectives
+are timed on the round's stream (``cohort_round.shard``).
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+import time
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.bridge import FlatLayout, tree_leaves
 from repro_torch.codec.base import DeltaCodec, sanitized_residual
 from repro_torch.core import client as client_mod
 from repro_torch.core import faults as faults_mod
 from repro_torch.core import projection as proj
-from repro_torch.core.baselines import ServerAlgo, client_kwargs
+from repro_torch.core.baselines import (ServerAlgo, client_kwargs,
+                                        make_algorithm)
 from repro_torch.kernels.feddpc_project import ops as k_ops
+from repro_torch.sharding.rules import edge_pieces, local_row_range
 
 # out-of-range id for quarantined / deadline-dropped rows: FedVARP's table
 # never writes a row for an id outside [0, num_clients)
@@ -77,25 +104,105 @@ def apply_guard(deltas: torch.Tensor, client_ids: torch.Tensor,
     NaN or inf. Such a row is quarantined either way, and the trainer
     reads the norms of the rows that were not."""
     g = k_ops.feddpc_guard_dots(deltas)
-    norm = torch.sqrt(g[:, 1])
+    bad, cs, stats = guard_decisions(g[:, 1], g[:, 3], guard_thresh,
+                                     guard_cfg)
+    client_ids, client_mask = _quarantine(bad, client_ids, client_mask)
+    return _clip_rows(deltas, cs, bad), client_ids, client_mask, stats
+
+
+def guard_decisions(sqnorm: torch.Tensor, nonfinite: torch.Tensor,
+                    guard_thresh: float, guard_cfg):
+    """The guard's verdict on K rows from their ||Δ||² and non-finite
+    counts: (bad (K,) bool, clip scales (K,) f32, stats)."""
+    norm = torch.sqrt(sqnorm)
     # the limits in f32, as the reference multiplies f32 scalars
     q_lim = float(np.float32(guard_cfg.quarantine_mult)
                   * np.float32(guard_thresh))
     c_lim = float(np.float32(guard_cfg.clip_mult)
                   * np.float32(guard_thresh))
-    bad = (g[:, 3] > 0) | (norm > q_lim)
+    bad = (nonfinite > 0) | (norm > q_lim)
     over = norm > c_lim
     cs = torch.where(over, c_lim / torch.clamp(norm, min=proj.EPS),
                      torch.ones_like(norm))
-    clipped = ~bad & over
-    out = (deltas.float() * cs[:, None]).masked_fill_(bad[:, None], 0.0)
+    stats = {"quarantined": bad, "clipped": ~bad & over,
+             "norm": torch.clamp(norm, max=c_lim)}
+    return bad, cs, stats
+
+
+def _clip_rows(deltas, cs, bad):
+    """The rows clipped by ``cs``, the bad ones zeroed (a new stack)."""
+    return (deltas.float() * cs[:, None]).masked_fill_(bad[:, None], 0.0)
+
+
+def _quarantine(bad, client_ids, client_mask):
+    """Sentinel the bad rows' ids and fold them out of the mask."""
     client_ids = torch.where(
         bad, torch.full_like(client_ids, ID_SENTINEL, dtype=torch.int32),
         client_ids.to(torch.int32))
     client_mask = ~bad if client_mask is None else client_mask & ~bad
-    stats = {"quarantined": bad, "clipped": clipped,
-             "norm": torch.clamp(norm, max=c_lim)}
-    return out, client_ids, client_mask, stats
+    return client_ids, client_mask
+
+
+class RankShard:
+    """This rank's rows of the padded cohort in a multi-process round and
+    the round's collectives over the client axis's process ``group``.
+
+    The rank holds rows [lo, hi) of ``rows`` (``local`` rows each rank);
+    ``pieces`` are its rows cut at the ``edges`` boundaries
+    (sharding/rules.edge_pieces), one fold launch each. ``dots`` is the
+    gathered (rows, 3) reduction-pass scalars the rules read. Each
+    collective is timed on the calling stream (CUDA events on the card,
+    the host clock on the CPU) into ``timings``."""
+
+    def __init__(self, group, local: int, edges: Optional[int] = None):
+        self.group = group
+        self.world = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+        self.rows = local * self.world
+        self.lo, self.hi = local_row_range(self.rank, self.world, self.rows)
+        self.pieces = edge_pieces(self.lo, self.hi, self.rows, edges)
+        self.dots: Optional[torch.Tensor] = None
+        self.timings: List[tuple] = []
+
+    def _run(self, name: str, x: torch.Tensor, op):
+        if x.is_cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            op()
+            end.record()
+            self.timings.append((name, start, end))
+        else:
+            tic = time.perf_counter()
+            op()
+            self.timings.append((name, tic, time.perf_counter()))
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """All-gather of this rank's (local, ...) rows -> (rows, ...) in
+        rank order."""
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.world)]
+        self._run("all_gather", x,
+                  lambda: dist.all_gather(parts, x, group=self.group))
+        return torch.cat(parts)
+
+    def all_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """All-reduce (sum) of ``x`` over the ranks, in place."""
+        self._run("all_reduce", x,
+                  lambda: dist.all_reduce(x, group=self.group))
+        return x
+
+    def timings_ms(self) -> List[tuple]:
+        """[(name, ms)] of the collectives so far; on the card this waits
+        for their end events."""
+        out = []
+        for name, a, b in self.timings:
+            if isinstance(a, float):
+                out.append((name, 1e3 * (b - a)))
+            else:
+                b.synchronize()
+                out.append((name, a.elapsed_time(b)))
+        return out
 
 
 def codec_stage(codec: DeltaCodec, deltas: torch.Tensor,
@@ -124,10 +231,19 @@ def make_cohort_round(loss_fn: Callable, layout: FlatLayout,
                       guard: bool = False, guard_cfg=None,
                       inject_faults: bool = False,
                       deadline_mask: bool = False,
-                      fault_magnitude: float = 1e12, server_opt=None):
+                      fault_magnitude: float = 1e12, server_opt=None,
+                      edges: Optional[int] = None, group=None,
+                      real_clients: Optional[int] = None):
     """Returns cohort_round(server_state, params, batches, masks,
     client_ids, *extras) -> (new_params, new_server_state, losses (K,),
     diag[, guard_stats][, new_ef][, new_opt_state]).
+
+    ``edges`` folds in two levels (core/baselines.py). With ``group`` the
+    round is this rank's part of a multi-process round (module
+    docstring): ``batches`` and ``masks`` hold the rank's rows only,
+    while ``client_ids``, the extras' (K,) inputs, the losses and the
+    guard stats cover the whole padded cohort. ``real_clients`` < K marks
+    the rows from it on as padding, masked out of every mean.
 
     batches: a tree with leading axes (K, M, ...) on the params' device;
     masks (K, M) bool marks the valid minibatches (None = all valid).
@@ -152,6 +268,11 @@ def make_cohort_round(loss_fn: Callable, layout: FlatLayout,
     stochastic = lossy and codec.stochastic
     offsets = layout.leaf_offsets
     stack: Optional[torch.Tensor] = None
+    if group is not None and stochastic:
+        raise NotImplementedError(
+            f"codec {codec.name!r} draws its noise over the whole cohort "
+            "stack; a multi-process round encodes each rank's rows, which "
+            "would draw other noise (ROADMAP Queue 1 item 13)")
 
     def cohort_round(server_state, params: torch.Tensor, batches,
                      masks: Optional[torch.Tensor], client_ids, *extras):
@@ -170,20 +291,31 @@ def make_cohort_round(loss_fn: Callable, layout: FlatLayout,
                                 device=params.device)
         deltas, losses = local(params, batches, masks,
                                algo.client_extra(server_state), out=stack)
+        shard = None if group is None else RankShard(group, k, edges)
+        cohort_round.shard = shard
+        rows = slice(None) if shard is None else slice(shard.lo, shard.hi)
         if inject_faults:
-            deltas = apply_fault_codes(deltas, fault_codes, fault_magnitude)
+            deltas = apply_fault_codes(deltas, fault_codes[rows],
+                                       fault_magnitude)
         cm = None
+        if real_clients is not None:
+            cm = torch.arange(client_ids.shape[0],
+                              device=client_ids.device) < real_clients
         if deadline_mask:
             client_ids = torch.where(
                 live_mask, client_ids.to(torch.int32),
                 torch.full_like(client_ids, ID_SENTINEL, dtype=torch.int32))
-            cm = live_mask
+            cm = live_mask if cm is None else cm & live_mask
         payload = resid = None
         if lossy:
             deltas, payload, resid = codec_stage(codec, deltas, ef,
                                                  offsets, codec_key)
         gstats = None
-        if guard:
+        if shard is not None:
+            deltas, client_ids, cm, losses, gstats = _gather_rows(
+                shard, algo, server_state, deltas, losses, client_ids, cm,
+                guard_thresh if guard else None, guard_cfg)
+        elif guard:
             # quarantine and clip read the DECODED rows: the values the
             # server would aggregate
             deltas, client_ids, cm, gstats = apply_guard(
@@ -191,16 +323,105 @@ def make_cohort_round(loss_fn: Callable, layout: FlatLayout,
         new_params, new_state, diag = algo.step(
             server_state, params, deltas, client_ids, eta_g, 0,
             client_mask=cm, encoded=None if guard else payload,
-            leaf_offsets=offsets)
+            leaf_offsets=offsets, edges=edges, shard=shard)
         outs = [new_params, new_state, losses, diag]
         if guard:
             outs.append(gstats)
         if ef_active:
-            outs.append(proj.masked_client_mean(resid, cm))
+            outs.append(proj.masked_client_mean(resid, cm, shard=shard))
         if server_opt is not None:
             outs[0], new_opt = server_opt.apply(params, new_params,
                                                 opt_state)
             outs.append(new_opt)
         return tuple(outs)
 
+    cohort_round.shard = None
     return cohort_round
+
+
+def _gather_rows(shard: RankShard, algo: ServerAlgo, server_state, deltas,
+                 losses, client_ids, cm, guard_thresh, guard_cfg):
+    """The multi-process round's all-gather: this rank's reduction pass
+    over its rows (what the guard and ``algo.row_scalars`` need) and its
+    rows' losses, gathered in one collective as (rows, 5) f32 =
+    [<Δ_j,Δ_prev>, ||Δ_j||², ||Δ_prev||², non-finite count, loss]. The
+    guard then decides on every row alike and acts on this rank's; the
+    dots of a clipped row are scaled with it (cs·<Δ_j,Δ_prev>,
+    cs²·||Δ_j||²) and a quarantined row's are 0. Returns (deltas,
+    client_ids, client_mask, losses (rows,), guard stats or None) and sets
+    ``shard.dots``."""
+    need = algo.row_scalars
+    local = deltas.shape[0]
+    prev = server_state["delta_prev"] if need == "dots" else None
+    cols = torch.zeros((local, 5), dtype=torch.float32,
+                       device=deltas.device)
+    if guard_thresh is not None:
+        cols[:, :4] = k_ops.feddpc_guard_dots(deltas, prev)
+    elif need == "dots":
+        cols[:, :3] = k_ops.feddpc_dots(deltas, prev)
+    elif need == "sqnorm":
+        cols[:, 1] = proj.tree_sqnorm(deltas)
+    cols[:, 4] = losses
+    g = shard.gather(cols)
+    dp, dd = g[:, 0], g[:, 1]
+    stats = None
+    if guard_thresh is not None:
+        bad, cs, stats = guard_decisions(g[:, 1], g[:, 3], guard_thresh,
+                                         guard_cfg)
+        rows = slice(shard.lo, shard.hi)
+        deltas = _clip_rows(deltas, cs[rows], bad[rows])
+        client_ids, cm = _quarantine(bad, client_ids, cm)
+        zero = torch.zeros_like(dp)
+        dp = torch.where(bad, zero, dp * cs)
+        dd = torch.where(bad, zero, dd * cs * cs)
+    shard.dots = torch.stack([dp, dd, g[:, 2]], dim=1)
+    return deltas, client_ids, cm, g[:, 4].contiguous(), stats
+
+
+def make_fl_round_step(loss_fn: Callable, layout: FlatLayout, eta_l: float,
+                       eta_g: float, lam: float = 1.0,
+                       algorithm: str = "feddpc", *, group=None):
+    """The cross-silo round: round_step(params (N,), delta_prev (N,),
+    batches) -> (new_params, new_delta_prev, metrics), batches a tree
+    with leading (K, M, ...) axes, all valid (fixed-shape silo streams:
+    no mask). Takes any rule whose server state is exactly
+    {"delta_prev"} (feddpc, fedavg, fedexp, ...); FedVARP and the other
+    stateful rules need ``make_cohort_round``'s whole interface. With
+    ``group`` the batches are this rank's K/world silos of a
+    multi-process round (``make_cohort_round``'s). FedAvg's metrics hold
+    the train loss alone, as the reference's (its FedAvg is the
+    collective-volume baseline)."""
+    hyper = {"lam": lam} if algorithm in ("feddpc", "feddpc_m") else None
+    algo = make_algorithm(algorithm, hyper)
+    probe = algo.init(torch.zeros(1), 1)
+    if set(probe) != {"delta_prev"}:
+        raise ValueError(
+            f"make_fl_round_step supports algorithms whose server state is "
+            f"exactly {{'delta_prev'}}; {algorithm!r} keeps {sorted(probe)} "
+            f"— use make_cohort_round for stateful server rules")
+    cohort = make_cohort_round(loss_fn, layout, algo, eta_l, eta_g,
+                               group=group)
+
+    def round_step(params, delta_prev, batches):
+        k = tree_leaves(batches)[0].shape[0]
+        world = 1 if group is None else dist.get_world_size(group)
+        ids = torch.arange(k * world, dtype=torch.int32,
+                           device=params.device)
+        new_params, new_state, losses, diag = cohort(
+            {"delta_prev": delta_prev}, params, batches, None, ids)
+        if algorithm == "fedavg":
+            diag = {}
+        metrics = {"train_loss": losses.mean(), **diag}
+        return new_params, new_state["delta_prev"], metrics
+
+    return round_step
+
+
+def fl_round_input_specs(cfg, *, clients: int, local_steps: int,
+                         local_batch: int, seq_len: int):
+    """The round's batch stack for LM training, as meta tensors of its
+    shapes and dtypes (launch/steps.py's specs)."""
+    shape = (clients, local_steps, local_batch, seq_len)
+    meta = torch.device("meta")
+    return {"tokens": torch.empty(shape, dtype=torch.int32, device=meta),
+            "labels": torch.empty(shape, dtype=torch.int32, device=meta)}

@@ -1,5 +1,5 @@
 """Staged cohort ingest pipeline — ``CohortIngestPipeline`` and
-``StagedCohort`` of repro/ingest/pipeline.py, single process.
+``StagedCohort`` of repro/ingest/pipeline.py.
 
 One object owns the whole host->device feed path of the cohort round as
 four stages:
@@ -24,13 +24,22 @@ Client SAMPLING stays inside ``sample_fn`` (the trainer's, which
 snapshots pre-draw RNG and sampler state for checkpointing): the pipeline
 calls it in round order from whichever thread stages the round, so a
 prefetched run draws exactly what a blocking one draws.
+
+In a multi-process job every rank draws the whole cohort alike, and
+``local_rows=(lo, hi)`` makes a rank read, stack and place only its rows
+of the cohort padded to ``pad_to`` (masked dummy rows past the real
+clients). ``sync_max_batches(tag, m)`` (launch/distributed.kv_allmax,
+through the job's store: it runs on the producer thread) makes every
+rank stage the same minibatch bucket M. The results do not depend on M —
+masked steps are no-ops — but equal M keeps the ranks' shapes and
+launches alike.
 """
 from __future__ import annotations
 
 import time
 import weakref
 from dataclasses import dataclass, field
-from typing import Any, Callable, Optional, Sequence
+from typing import Any, Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -94,9 +103,20 @@ class CohortIngestPipeline:
                  device_stage: bool = True,
                  stall_timeout: Optional[float] = None,
                  max_restarts: int = 0, restart_backoff: float = 0.05,
-                 crash_hook: Optional[Callable[[int, int], bool]] = None):
+                 crash_hook: Optional[Callable[[int, int], bool]] = None,
+                 pad_to: Optional[int] = None,
+                 local_rows: Optional[Tuple[int, int]] = None,
+                 sync_max_batches: Optional[Callable[[str, int], int]]
+                 = None):
         if depth < 1:
             raise ValueError(f"prefetch depth must be >= 1, got {depth}")
+        if local_rows is not None and pad_to is None:
+            raise ValueError("local_rows staging needs pad_to (the padded "
+                             "cohort size)")
+        self.pad_to = pad_to
+        self.local_rows = local_rows
+        self.sync_max_batches = sync_max_batches
+        self._sync_calls: dict = {}     # round -> bucket syncs so far
         self.source = source
         self.sample_fn = sample_fn
         self.num_clients = num_clients
@@ -140,18 +160,39 @@ class CohortIngestPipeline:
         else:
             clients = self.sample_fn(t)
             self._sampled[t] = clients
-        lists = self.client_lists(clients, t)
+        rows = np.asarray(clients, np.int32)
+        pad_to = self.pad_to
+        if self.local_rows is not None:
+            # the whole cohort was drawn (alike on every rank); read this
+            # rank's rows of it
+            lo, hi = self.local_rows
+            rows = rows[lo:hi]
+            if rows.size == 0:
+                raise ValueError(
+                    f"rank rows [{lo}, {hi}) hold no real client of the "
+                    f"{len(clients)}-client cohort — every rank needs at "
+                    "least one; use fewer ranks or a larger cohort")
+            pad_to = hi - lo
+        lists = self.client_lists(rows, t)
+        if self.sync_max_batches is not None:
+            n = self._sync_calls.get(t, 0)
+            self._sync_calls[t] = n + 1
+            self.max_batches = int(self.sync_max_batches(
+                f"{t}.{n}", int(self.max_batches)))
         self.placer.bind_thread()
         # the slot's last copy must have read its pinned buffers
         CohortPlacer.settle(slot.pop("event", None))
         pin = self.placer.on_card
         batches, masks = stack_cohort_into(lists, self.max_batches, slot,
-                                           pin=pin)
+                                           pad_to=pad_to, pin=pin)
+        kp = len(rows) if pad_to is None else max(pad_to, len(rows))
         ids = slot.get("ids")
-        if ids is None or ids.shape[0] != len(clients):
-            ids = slot["ids"] = torch.empty(len(clients), dtype=torch.int32,
+        if ids is None or ids.shape[0] != kp:
+            ids = slot["ids"] = torch.empty(kp, dtype=torch.int32,
                                             pin_memory=pin)
-        ids.numpy()[:] = clients
+        # dummy rows carry num_clients: out of range, as the reference's
+        ids.numpy()[:] = self.num_clients
+        ids.numpy()[:len(rows)] = rows
         return clients, batches, masks, ids
 
     def _place(self, slot: dict, batches, masks, ids, blocking: bool):

@@ -1,5 +1,5 @@
-"""Device-place stage of the ingest pipeline — the single-process part of
-repro/ingest/placement.py's ``CohortPlacer``.
+"""Device-place stage of the ingest pipeline — ``CohortPlacer`` and
+``put_global`` of repro/ingest/placement.py.
 
 The cohort round consumes a (K, M, ...) batch stack, a (K, M) mask and
 (K,) client ids on the trainer's device. ``CohortPlacer.place`` moves a
@@ -20,28 +20,49 @@ staging slot's host tensors there:
     the reference's CPU ``device_put`` may alias the host buffer: the
     pipeline never refills a slot before its round has released it.
 
-``put_global`` and the multi-process assembly of the reference wait for
-multi-device execution (ROADMAP Queue 1 item 13).
+In a multi-process job each rank places only its own rows of the padded
+cohort (``local_rows``): the reference's placer assembles a global array
+from the hosts' shards, while in the port no tensor spans the ranks — a
+rank holds its rows, and the round's collectives combine what the rows
+give (core/round.py).
 """
 from __future__ import annotations
 
 from typing import Any, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.bridge import tree_leaves, tree_map
 
 
+def put_global(x, device, local_rows: Optional[Tuple[int, int]] = None
+               ) -> torch.Tensor:
+    """The port's counterpart of the reference's ``put_global``: a host
+    array onto this rank's device. A replicated value (``local_rows``
+    None) lands whole on every rank; a cohort array lands as this rank's
+    rows ``x[lo:hi]``. No tensor spanning the ranks exists in the port,
+    so there is nothing to assemble."""
+    a = np.asarray(x)
+    if local_rows is not None:
+        a = a[local_rows[0]:local_rows[1]]
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
 class CohortPlacer:
     """Places (batches, masks, ids) on ``device``; see the module
-    docstring for the streams and events on the card."""
+    docstring for the streams and events on the card. ``local_rows``
+    (lo, hi) is a rank's slice of a multi-process cohort: what it is
+    handed must hold exactly hi - lo rows."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device,
+                 local_rows: Optional[Tuple[int, int]] = None):
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
             # the staging thread sets the device by index
             device = torch.device("cuda", torch.cuda.current_device())
         self.device = device
+        self.local_rows = local_rows
         self._stream: Optional[torch.cuda.Stream] = None
 
     @property
@@ -64,6 +85,12 @@ class CohortPlacer:
               ) -> Tuple[Any, Any, Any, Optional[torch.cuda.Event]]:
         """Host tensors -> (batches, masks, ids, event) on the device; the
         event (None off the card) marks the end of the copies."""
+        if self.local_rows is not None:
+            want = self.local_rows[1] - self.local_rows[0]
+            got = tree_leaves(batches)[0].shape[0]
+            if got != want:
+                raise ValueError(f"placer of rows {self.local_rows} was "
+                                 f"handed {got} rows")
         if not self.on_card:
             return batches, masks, ids, None
         self.bind_thread()

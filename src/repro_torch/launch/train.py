@@ -57,6 +57,17 @@ reference's init, data and holdout eval (``-loss``):
       --model starcoder2-3b --seq-len 33 --rounds 2 --clients 4 \\
       --participation 0.5 --batch-size 4 --eval-every 1
 
+The cohort over two processes on the CPU (gloo), each rank training its
+slice of the cohort, with two edge aggregators (the script joins the job
+that ``launch/distributed.spawn_local`` sets up; ``--shard-clients``
+without a job is a single-process run):
+
+  PYTHONPATH=src python -c "import sys; from repro_torch.launch import \
+      distributed as d; d.spawn_local([sys.executable, '-m', \
+      'repro_torch.launch.train', '--device', 'cpu', '--model', 'lenet5', \
+      '--rounds', '2', '--clients', '6', '--participation', '0.5', \
+      '--shard-clients', '--edges', '2'], 2, capture=False)"
+
 Checkpoint every round with the run-health monitor on, then pick the run
 up where it stopped (the checkpoints are the reference's format: either
 package's driver resumes the other's):
@@ -79,6 +90,7 @@ import torch
 from repro_torch.configs.base import get_config
 from repro_torch.core.api import (AlgoConfig, ExecConfig, FederatedTrainer,
                                   resolve_device)
+from repro_torch.launch.distributed import is_coordinator, maybe_initialize
 from repro_torch.codec import codec_names
 from repro_torch.core.baselines import ALGORITHM_NAMES, default_hyper
 from repro_torch.core import jax_prng
@@ -280,6 +292,17 @@ def main(argv=None):
     ap.add_argument("--num-classes", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--eval-every", type=int, default=5)
+    ap.add_argument("--shard-clients", action="store_true",
+                    help="in a multi-process job, spread the cohort over "
+                         "the ranks (each trains its slice); without a "
+                         "job a no-op")
+    ap.add_argument("--model-shards", type=int, default=1,
+                    help="model-axis shards per client slice: not ported, "
+                         "> 1 raises")
+    ap.add_argument("--edges", type=int, default=None,
+                    help="hierarchical aggregation: E edge aggregators, "
+                         "each folding an equal contiguous slice of the "
+                         "padded cohort; must divide it")
     ap.add_argument("--serial", action="store_true",
                     help="one client at a time instead of the "
                          "cohort-vectorized round (reference path)")
@@ -356,6 +379,9 @@ def main(argv=None):
     if args.resume and not args.ckpt_dir:
         raise SystemExit("--resume needs --ckpt-dir")
 
+    # join the job (if spawned into one) before the first device query:
+    # a rank's card becomes the current device
+    maybe_initialize()
     device = resolve_device(args.device)
     cohort = max(1, int(round(args.clients * args.participation)))
     algo = AlgoConfig(name=args.algorithm, eta_l=args.eta_l,
@@ -365,6 +391,8 @@ def main(argv=None):
     cfg = ExecConfig(rounds=args.rounds, clients_per_round=cohort,
                      seed=args.seed, eval_every=args.eval_every,
                      vectorize=not args.serial,
+                     shard_clients=args.shard_clients,
+                     shard_model=args.model_shards, edges=args.edges,
                      prefetch_depth=args.prefetch_depth,
                      device_stage=not args.host_staged,
                      ingest_stall_s=args.ingest_stall_s,
@@ -432,7 +460,7 @@ def main(argv=None):
                   f"nonfinite {hr.nonfinite_rounds})"
                   + (" — EARLY STOP" if hr.should_stop else ""))
     print(f"best eval {best} @ round {at}")
-    if args.out:
+    if args.out and is_coordinator():
         with open(args.out, "w") as f:
             json.dump([r.__dict__ for r in hist], f, indent=1, default=float)
     return 0

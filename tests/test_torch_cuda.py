@@ -234,6 +234,39 @@ def test_server_step_on_card_matches_cpu(cuda, masked):
                                    atol=1e-5)
 
 
+@pytest.mark.parametrize("codec", [None, "int8"])
+@pytest.mark.parametrize("edges", [2, 3])
+def test_edge_folds_read_row_slices_on_card(cuda, edges, codec):
+    """edges=E folds each edge's rows with one launch on a row slice of
+    the (K, N) stack (or of the int8 payload): views at a storage offset
+    (N odd, so rows start off 16-byte boundaries) the wrappers take in
+    place; one dots and E folds a step, as on the CPU."""
+    from repro_torch.codec import make_codec
+    d, p, w, _, _ = _case(6, 50_001, False, seed=2)
+    offsets = torch.tensor([0, 7, 20_000, 50_001])
+    mask = torch.tensor([True, False, True, True, True, False])
+    outs = {}
+    for dev in ("cpu", cuda):
+        payload = None
+        dd = d.to(dev)
+        if codec is not None:
+            c = make_codec(codec)
+            payload = c.encode_cohort(dd, offsets)
+            dd = c.decode_cohort(payload, offsets)
+        ops.reset_launches()
+        outs[str(dev)] = feddpc.server_step(
+            {"delta_prev": p.to(dev)}, w.to(dev), dd, 0.1, 0.7,
+            client_mask=mask.to(dev), encoded=payload,
+            leaf_offsets=offsets, edges=edges)
+    fold = (ops.feddpc_batched_epilogue if codec is None
+            else ops.feddpc_dequant_batched_epilogue)
+    assert (ops.feddpc_dots.launches, fold.launches) == (1, edges)
+    (cw, cs, _), (gw, gs, _) = outs["cpu"], outs["cuda"]
+    torch.testing.assert_close(gw.cpu(), cw, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(gs["delta_prev"].cpu(), cs["delta_prev"],
+                               rtol=1e-5, atol=1e-6)
+
+
 # FedDPC kernel launches of one step of each rule on the card, in
 # ops.KERNELS order (dots, batched epilogue, buffer fold, ...)
 RULE_LAUNCHES = {"feddpc_noscale": [1, 1, 0, 0, 0, 0, 0],

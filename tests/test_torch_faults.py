@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import port_trainer
+from _torch_parity import port_trainer, run_reference
 from repro.core import faults as ref_faults
 from repro.core import guards as ref_guards
 from repro.core import round as ref_round
@@ -192,19 +192,34 @@ def test_apply_guard_matches_reference(thresh, masked):
         assert abs(float(np.linalg.norm(g_d.numpy()[5])) - 20.0) < 1e-4
 
 
-# ---- the trainer: chaos configurations it refuses, and the zero-fault
-# guarded run ----
+# ---- the trainer: edge drops without edges, the deadline's validation,
+# and the zero-fault guarded run ----
 
 @pytest.mark.parametrize("kw,match", [
     (dict(edge_drop_rounds=(1,)), "item 13"),
 ])
 def test_plans_without_a_consumer_raise(kw, match):
-    plan = faults.FaultPlan.seeded(0, nan_rate=0.1, **kw)
-    from repro_torch.core import api
-    with pytest.raises(ValueError, match=match):
-        api.FederatedTrainer(lambda p, b: 0.0, {"w": np.zeros(3)}, 4,
-                             lambda c, t: [], api.ExecConfig(),
-                             fault_plan=plan, device="cpu")
+    """A plan with edge drops and no ``edges`` is accepted, as the
+    reference accepts it, and its edge drops change nothing: the run is
+    the plan's run without them, as in the reference. (The case's id
+    keeps the item that brought the consumer.)"""
+    del match
+    plan = (("nan_rate", 0.1), *((k, tuple(v)) for k, v in kw.items()))
+    without = (("nan_rate", 0.1),)
+    guard = (("guard", True),)
+    ref_hist, _, ref_flat = run_reference("feddpc", 2, guard, faults=(
+        ("seed", 0), *plan))
+    tr = port_trainer("feddpc", 2, guard, faults=(("seed", 0), *plan))
+    base = port_trainer("feddpc", 2, guard, faults=(("seed", 0), *without))
+    with tr, base:
+        tr.run()
+        base.run()
+    assert torch.equal(tr.flat, base.flat)
+    assert [r.edge_dropped for r in tr.history] == [0, 0]
+    assert [r.quarantined for r in tr.history] == \
+        [r.quarantined for r in ref_hist]
+    np.testing.assert_allclose(tr.flat.numpy(), ref_flat, rtol=1e-4,
+                               atol=1e-4)
 
 
 def test_trainer_validates_the_deadline():

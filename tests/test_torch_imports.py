@@ -50,7 +50,10 @@ for must in ("repro_torch.optim.server", "repro_torch.core.samplers",
              "repro_torch.configs.deepseek_v2_236b",
              "repro_torch.configs.jamba_1_5_large_398b",
              "repro_torch.configs.kimi_k2_1t_a32b",
-             "repro_torch.examples.serve_batched"):
+             "repro_torch.examples.serve_batched",
+             "repro_torch.launch.distributed",
+             "repro_torch.launch.mesh",
+             "repro_torch.sharding.rules"):
     assert must in names, (must, names)
 print("chip_smoke.main() ->", chip_smoke.main())   # CUDA is hidden
 """
