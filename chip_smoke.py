@@ -133,6 +133,18 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               edges imply (one dots a round, one epilogue per edge piece a
               round), the ms of its collectives a round, its seconds a
               round and its peak memory.
+ 4d. model_axis  the model axis at full width (--model-axis-worker):
+              4 NCCL ranks as (2 clients x 2 model) on four cards or
+              more, (1 x 2) on two or three, 2 gloo ranks on one card.
+              First each rank's int8 and int8_sr encode of its block of a
+              (K, N) stack, bitwise the one-process encode (and a control
+              that must differ); then multirank's task as (a) sharded2d,
+              (b) codec_int8_2d, (c) server_fedadam_2d, (d) int8_sr, (e)
+              (a) cut at round 2 and resumed here, (f) the ~101M LM on
+              (1 x ranks); each against this process's one-process run.
+              Each rank prints N_m against N/M, its bytes at rest, its
+              peak memory (one process's beside it), its launches against
+              its rows, the ms of the five collectives and its round s.
   5. parity   LeNet5 at quickstart size on the card and on the CPU from
               the same initial params (the reference's draws,
               core/jax_prng.py) — 2 sync FedDPC rounds (prefetched, the
@@ -1161,10 +1173,11 @@ def _sr_inputs(gen, k, offsets, t):
     return x, scale, offsets, keys
 
 
-def _sr_plain(x, scale, offsets, keys, partitionable=True):
+def _sr_plain(x, scale, offsets, keys, partitionable=True, row0=0,
+              rows_total=None, leaf_blocks=None):
     return sr_ref.int8_sr_quantize_ref(
         x, scale, offsets, torch.from_numpy(keys.astype(np.int64)),
-        partitionable)
+        partitionable, row0, rows_total, leaf_blocks)
 
 
 def _sr_bytes_ops(k, n, nleaves):
@@ -1201,6 +1214,39 @@ def phase_int8_sr():
             raise AssertionError(f"int8_sr_quantize {lname} K={k} "
                                  f"partitionable={part}: {bad} codes differ "
                                  "from the plain version")
+        del x, scale, got, want
+    # a rank's block: rows 5-9 of a 10-row stack, and model rank
+    # 1's shard of ResNet18-GN's leaves on a (2 x 2) mesh (whole-leaf
+    # counters through the leaves' slice descriptors), both counter
+    # layouts
+    # imported here: tools/*_report.py --src load older trees' packages
+    from repro_torch.sharding.layout import ShardLayout
+    shards = ShardLayout.from_sizes(layout_of(_init(paper_resnet18.CONFIG)),
+                                    {"clients": 2, "model": 2})
+    whole = layouts["resnet18"]
+    for model, part in itertools.product((False, True), (True, False)):
+        m = 1
+        offsets = shards.offsets(m) if model else whole
+        x, scale, _, keys = _sr_inputs(gen, 5, offsets, 7)
+        block = {"row0": 5, "rows_total": 10}
+        if model:
+            keys = jax_prng.fold_in_many(
+                jax_prng.fold_in(jax_prng.PRNGKey(0), 7), shards.leaf_ids(m))
+            block["leaf_blocks"] = shards.leaf_blocks(m)
+        got = sr_ops.int8_sr_quantize(x, scale, offsets, keys, part,
+                                      **block)
+        want = _sr_plain(x, scale, offsets, keys, part, **block)
+        torch.cuda.synchronize()
+        bad = int((got != want).sum())
+        emit({"phase": "kernels", "kernel": "int8_sr_quantize",
+              "block": "model shard 1 of 2" if model else "rows 5-9 of 10",
+              "K": 5, "N": int(offsets[-1]), "leaves": offsets.numel() - 1,
+              "partitionable": part, "mismatches": bad,
+              "bitwise_equal": bad == 0})
+        if bad:
+            raise AssertionError(f"int8_sr_quantize block (model={model}, "
+                                 f"partitionable={part}): {bad} codes "
+                                 "differ from the plain version")
         del x, scale, got, want
     # the plain version's noise is the reference's: its uniforms on the
     # largest ResNet18-GN leaf (two rows) against the numpy draw
@@ -2368,6 +2414,337 @@ def phase_multirank():
             "d", resumed[1], single["b"][1].cpu()),
         "params_max_rel_vs_ranks": _mr_check_params(
             "d", resumed[1], params["b"])}
+    summary["seconds"] = time.perf_counter() - tic
+    emit(summary)
+
+
+MA_ROUNDS = 4
+MA_CUT = 2
+MA_LM_ROUNDS = 2
+MA_CODEC_RTOL = 1e-3   # codec runs: int8 codes may flip on rounding
+MA_WORKER = "--model-axis-worker"
+# run -> (ExecConfig overrides besides the mesh's, rounds)
+MA_RUNS = {"a": ({}, MA_ROUNDS),                           # sharded2d
+           "b": ({"codec": "int8"}, MA_ROUNDS),            # codec_int8_2d
+           "c": ({"server_opt": "fedadam"}, MA_ROUNDS),    # fedadam_2d
+           "d": ({"codec": "int8_sr"}, MA_ROUNDS)}
+MA_COLLECTIVES = ("param_all_gather", "all_to_all", "model_sum",
+                  "all_gather", "all_reduce")
+
+
+MA_MODEL = 2          # model shards of the ResNet18-GN runs
+
+
+def ma_layout(cards: int):
+    """(ranks, backend) of the model_axis job: 4 NCCL ranks as (2 clients
+    x 2 model) on four cards or more, (1 x 2) on two or three, 2 gloo
+    ranks on one card."""
+    if cards >= 4:
+        return 4, "nccl"
+    return 2, ("nccl" if cards >= 2 else "gloo")
+
+
+def _ma_expected(run, rounds):
+    """Launches a rank's run implies: one reduction pass and one fold
+    over its client slice's rows (no edges: one piece) a round; with a
+    codec the dequant fold, int8_sr's encode once."""
+    codec = MA_RUNS.get(run, ({}, 0))[0].get("codec")
+    per = {"feddpc_dots": 1,
+           "feddpc_dequant_batched_epilogue" if codec
+           else "feddpc_batched_epilogue": 1}
+    if codec == "int8_sr":
+        per["int8_sr_quantize"] = 1
+    return {k: rounds * v for k, v in per.items()}
+
+
+def _ma_launches():
+    out = {fn.__name__: fn.launches for fn in ops.KERNELS}
+    out["int8_sr_quantize"] = sr_ops.int8_sr_quantize.launches
+    return {k: v for k, v in out.items() if v}
+
+
+def _ma_reset():
+    ops.reset_launches()
+    sr_ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _ma_line(run, tr, ctx, rounds):
+    """One rank's line of a run: its place, what it holds at rest, its
+    peak memory, launches, collectives and round seconds."""
+    info = tr.shard_info()
+    n, n_m = info["N"], info["N_m"]
+    lo, hi = info["slice_rows"]
+    a, b = info["train_rows"]
+    coll = collections.defaultdict(lambda: [0.0] * len(tr.collective_log))
+    for i, rnd in enumerate(tr.collective_log):
+        for name, ms in rnd:
+            coll[name][i] += ms
+    model = info["mesh"][1]
+    return {
+        "phase": "model_axis", "run": run, "rank": ctx.process_id,
+        "backend": ctx.backend, "mesh": info["mesh"],
+        "coords": info["coords"], "N": n, "N_m": n_m,
+        "N_over_M": n / model, "slice_rows": [lo, hi],
+        "train_rows": [a, b], "bytes_at_rest": {
+            **info["bytes"],
+            "delta_stack": 4 * ((b - a) * n + (hi - lo) * n_m)},
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "launches": _ma_launches(),
+        "expected_launches": _ma_expected(run, rounds),
+        "collective_ms_per_round": dict(coll),
+        "round_seconds": [r.seconds for r in tr.history],
+        "losses": [r.train_loss for r in tr.history]}
+
+
+def _ma_lm_trainer(rounds, exec_kw):
+    task = llm_example.build(tiny=False, rounds=rounds, device="cuda")
+    return FederatedTrainer(
+        task.loss_fn, task.params, task.clients, task.batch_fn,
+        ExecConfig(rounds=rounds, clients_per_round=task.cohort,
+                   eval_every=10 ** 9, **exec_kw), None,
+        algo=AlgoConfig(name="feddpc", eta_l=task.eta, eta_g=task.eta,
+                        hyper=FedDPCHyper(lam=1.0)), device="cuda")
+
+
+def _model_axis_worker(out: str) -> int:
+    """One rank of the model_axis phase: runs (a)-(d) on the mesh, (a)
+    cut at round 2 (rank 0 writes the checkpoint) and (f), the ~101M LM
+    on a (1 x ranks) mesh; writes its lines and rank 0's gathered
+    params."""
+    ctx = distributed.maybe_initialize()
+    torch.backends.cudnn.deterministic = True
+    ranks, model = ctx.num_processes, MA_MODEL
+    task = _mr_task()
+    lines = [_ma_codec_check(ctx, task[-1], model)]
+    for run, (kw, rounds) in MA_RUNS.items():
+        _ma_reset()
+        with _ma_trainer(task, kw, model) as tr:
+            tr.run()
+            full = tr.full_params()
+        lines.append(_ma_line(run, tr, ctx, rounds))
+        if ctx.process_id == 0:
+            torch.save(full.cpu(), os.path.join(out, f"{run}.pt"))
+        del tr, full
+    _ma_reset()
+    with _ma_trainer(task, MA_RUNS["a"][0], model) as tr:
+        for t in range(MA_CUT):
+            tr.run_round(t)
+        tr.save(os.path.join(out, "ckpt"))
+    lines.append(_ma_line("e", tr, ctx, MA_CUT))
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    _ma_reset()
+    with _ma_lm_trainer(MA_LM_ROUNDS, {"shard_clients": True,
+                                       "shard_model": ranks}) as tr:
+        tr.run()
+        full = tr.full_params()
+    lines.append(_ma_line("f", tr, ctx, MA_LM_ROUNDS))
+    if ctx.process_id == 0:
+        torch.save(full.cpu(), os.path.join(out, "f.pt"))
+    with open(os.path.join(out, f"rank{ctx.process_id}.json"), "w") as fh:
+        json.dump(lines, fh)
+    return 0
+
+
+def _ma_codec_check(ctx, params, model):
+    """Each rank's uplink encode of its block of one round's deltas —
+    the client slice's rows, its model shard's columns, through the
+    codec with the rank's RankShard — bitwise the one-process encode of
+    the whole (K, N) stack restricted to the block: int8's codes, scales
+    and zeros (whole-leaf extrema over the model group) and int8_sr's
+    codes (the whole stack's noise). Controls, read on the same block:
+    int8 with the shard's own extrema, int8_sr drawn as if the block
+    were the whole stack (no row0, rows_total or leaf blocks); the
+    parent requires them to differ somewhere."""
+    from repro_torch.core.round import RankShard
+    from repro_torch.launch.mesh import make_cohort_mesh
+    from repro_torch.sharding.layout import ShardLayout
+    from repro_torch.sharding.rules import padded_rows
+    mesh = make_cohort_mesh(model=model)
+    layout = layout_of(params)
+    shards = ShardLayout.from_mesh(layout, mesh)
+    clients = ctx.num_processes // model
+    rows = padded_rows(MR_COHORT, clients)
+    rs = RankShard(mesh["clients"].get_group(), rows,
+                   model_group=mesh["model"].get_group(), shards=shards)
+    m, lo, hi = rs.mrank, rs.lo, rs.hi
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    whole = torch.randn((rows, layout.size), generator=gen,
+                        device="cuda") * 0.01
+    block = shards.scatter(whole[lo:hi], m)
+    offs, ids = shards.offsets(m), torch.from_numpy(shards.leaf_ids(m))
+    key = jax_prng.fold_in(jax_prng.PRNGKey(0), 3)
+    out = {"phase": "model_axis", "run": "codec_check",
+           "rank": ctx.process_id, "coords": [rs.rank, m],
+           "rows": [lo, hi], "rows_total": rows, "N_m": shards.sizes[m]}
+    for name in ("int8", "int8_sr"):
+        codec = make_codec(name)
+        kw = {"key": key} if codec.stochastic else {}
+        want = codec.encode_cohort(whole, layout.leaf_offsets, **kw)
+        got = codec.encode_cohort(block, offs, shard=rs, **kw)
+        if name == "int8":
+            control = codec.encode_cohort(block, offs)["q"]
+        else:
+            control = sr_ops.int8_sr_quantize(
+                block, got["scale"], offs,
+                jax_prng.fold_in_many(key, shards.leaf_ids(m)))
+        want_q = shards.scatter(want["q"][lo:hi], m)
+        diff = {"q": int((got["q"] != want_q).sum())}
+        for f in ("scale", "zero"):
+            w = want[f][lo:hi][:, ids.to(whole.device)]
+            diff[f] = int((got[f] != w).sum())
+        out[name] = {"mismatches": diff, "bitwise_equal":
+                     not any(diff.values()),
+                     "control_mismatches": int((control != want_q).sum()),
+                     "codes": int(want_q.numel())}
+        del want, got, control, want_q
+    del whole, block
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ma_trainer(task, kw, model, resume_from=None):
+    mesh = {} if model is None else {"shard_clients": True,
+                                     "shard_model": model}
+    return _trainer(*task, "feddpc", MA_ROUNDS, "cuda",
+                    {**NO_EVAL, "clients_per_round": MR_COHORT, **kw,
+                     **mesh},
+                    sampler=UniformSampler(MR_CLIENTS, MR_COHORT),
+                    resume_from=resume_from)
+
+
+def _ma_check(label, got_losses, want_losses, got, want, rtol):
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got_losses, want_losses))
+    err = float((got - want).abs().max()) / float(want.abs().max())
+    if len(got_losses) != len(want_losses) or not (rel <= rtol
+                                                   and err <= rtol):
+        raise AssertionError(
+            f"model_axis {label}: losses {got_losses} against one "
+            f"process's {want_losses}; params {err} of max |w| (gate "
+            f"{rtol})")
+    return {"loss_max_rel": rel, "params_max_rel": err}
+
+
+def phase_model_axis():
+    """The model axis at full width: ResNet18-GN FedDPC (multirank's
+    task, K = 10 of 100, 4 rounds, deterministic cuDNN) on a (clients,
+    model) mesh of ranks (ma_layout) in four runs — (a) sharded2d, (b)
+    codec_int8_2d, (c) server_fedadam_2d, (d) int8_sr — (e) (a) cut at
+    round 2 and resumed in this process, and (f) the ~101M federated LM
+    (the example's configuration, 2 rounds) on a (1 x ranks) mesh, so
+    the Megatron name rules shard a real LM tree. Each run is held
+    against this process's one-process run of the same ExecConfig
+    (losses and params within MR_RTOL, the codec runs within
+    MA_CODEC_RTOL), each rank's launches against its rows and its peak
+    memory beside one process's; before the runs, each rank's int8 and
+    int8_sr encode of its block bitwise the one-process encode
+    (_ma_codec_check)."""
+    cards = torch.cuda.device_count()
+    (ranks, backend), model = ma_layout(cards), MA_MODEL
+    tic = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    single = {}
+    try:
+        task = _mr_task()
+        for run, (kw, _) in MA_RUNS.items():
+            torch.cuda.reset_peak_memory_stats()
+            with _ma_trainer(task, kw, None) as tr:
+                tr.run()
+            single[run] = ([r.train_loss for r in tr.history],
+                           tr.flat.cpu(), [r.seconds for r in tr.history],
+                           torch.cuda.max_memory_allocated() / 2 ** 30)
+            del tr
+        torch.cuda.reset_peak_memory_stats()
+        with _ma_lm_trainer(MA_LM_ROUNDS, {}) as tr:
+            tr.run()
+        single["f"] = ([r.train_loss for r in tr.history], tr.flat.cpu(),
+                       [r.seconds for r in tr.history],
+                       torch.cuda.max_memory_allocated() / 2 ** 30)
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ma_") as out:
+            env = {}
+            if backend == "nccl":
+                env["NCCL_SOCKET_IFNAME"] = os.environ.get(
+                    "NCCL_SOCKET_IFNAME", "lo")
+            job_tic = time.perf_counter()
+            distributed.spawn_local(
+                [sys.executable, os.path.abspath(__file__), MA_WORKER, out],
+                ranks, backend=backend,
+                local_devices=1 if backend == "gloo" else None, env=env,
+                timeout_s=600)
+            job_s = time.perf_counter() - job_tic
+            lines = []
+            for r in range(ranks):
+                with open(os.path.join(out, f"rank{r}.json")) as fh:
+                    lines += json.load(fh)
+            for line in lines:
+                emit(line)
+            params = {run: torch.load(os.path.join(out, f"{run}.pt"))
+                      for run in (*MA_RUNS, "f")}
+            with _ma_trainer(task, MA_RUNS["a"][0], None,
+                             resume_from=os.path.join(out, "ckpt")) as res:
+                if res.start_round != MA_CUT:
+                    raise AssertionError(f"model_axis e: resumed at "
+                                         f"{res.start_round}")
+                res.run()
+            resumed = ([r.train_loss for r in res.history[MA_CUT:]],
+                       res.flat.cpu())
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    checks = [x for x in lines if x["run"] == "codec_check"]
+    lines = [x for x in lines if x["run"] != "codec_check"]
+    for name in ("int8", "int8_sr"):
+        if not all(x[name]["bitwise_equal"] for x in checks):
+            raise AssertionError(
+                f"model_axis codec_check {name}: a rank's encode of its "
+                "block differs from the one-process encode: "
+                f"{[x[name]['mismatches'] for x in checks]}")
+        if not sum(x[name]["control_mismatches"] for x in checks):
+            raise AssertionError(f"model_axis codec_check {name}: the "
+                                 "control matched; the check sees nothing")
+    for line in lines:
+        if line["launches"] != line["expected_launches"]:
+            raise AssertionError(
+                f"model_axis {line['run']} rank {line['rank']}: launches "
+                f"{line['launches']}, expected "
+                f"{line['expected_launches']}")
+        same = [x for x in lines if x["run"] == line["run"]]
+        if any(x["losses"] != line["losses"] for x in same):
+            raise AssertionError(f"model_axis {line['run']}: the ranks' "
+                                 "losses differ")
+        if sum(x["N_m"] for x in same
+               if x["coords"][0] == 0) != line["N"]:
+            raise AssertionError(f"model_axis {line['run']}: the shards "
+                                 "do not add up to N")
+    summary = {"phase": "model_axis", "backend": backend, "ranks": ranks,
+               "cards": cards, "model": model, "job_seconds": job_s,
+               "codec_check": {name: {
+                   "bitwise_equal": True, "control_mismatch_frac": sum(
+                       x[name]["control_mismatches"] for x in checks)
+                   / sum(x[name]["codes"] for x in checks)}
+                   for name in ("int8", "int8_sr")}}
+    for run in (*MA_RUNS, "f"):
+        line = next(x for x in lines if x["run"] == run)
+        rtol = (MA_CODEC_RTOL if MA_RUNS.get(run, ({},))[0].get("codec")
+                else MR_RTOL)
+        summary[run] = {
+            "loss_single": single[run][0], "loss_ranks": line["losses"],
+            **_ma_check(run, line["losses"], single[run][0], params[run],
+                        single[run][1], rtol),
+            "single_round_seconds": single[run][2],
+            "single_peak_gib": single[run][3],
+            "rank_peak_gib": [x["peak_gib"] for x in lines
+                              if x["run"] == run]}
+    summary["e"] = {"loss_resumed": resumed[0], **_ma_check(
+        "e", resumed[0], single["a"][0][MA_CUT:], resumed[1],
+        single["a"][1], MR_RTOL), "params_max_rel_vs_ranks": _ma_check(
+        "e vs ranks", resumed[0], single["a"][0][MA_CUT:], resumed[1],
+        params["a"], MR_RTOL)["params_max_rel"]}
     summary["seconds"] = time.perf_counter() - tic
     emit(summary)
 
@@ -3609,6 +3986,8 @@ def phase_serve_batched():
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == MR_WORKER:
         return _multirank_worker(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == MA_WORKER:
+        return _model_axis_worker(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs a card",
               file=sys.stderr)
@@ -3621,6 +4000,7 @@ def main() -> int:
     phase_ingest()
     phase_checkpoint()
     phase_multirank()
+    phase_model_axis()
     # the one-client epilogue's path is project_and_scale, not a round
     launches["feddpc_fused_epilogue"] = \
         project_launches["feddpc_fused_epilogue"]

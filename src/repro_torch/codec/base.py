@@ -19,7 +19,9 @@ non-finite after decode, so quantizers keep non-finite scales; only
 exact-zero ranges flatten to a unit scale.
 
 A stochastic codec (int8_sr) takes the round's PRNG key
-(core/jax_prng.py) in ``encode_cohort(..., key=)``.
+(core/jax_prng.py) in ``encode_cohort(..., key=)``; ``shard=`` (a
+multi-process round's core/round.RankShard) makes the stack a rank's
+block of the cohort (codec/codecs.py).
 """
 from __future__ import annotations
 
@@ -76,7 +78,7 @@ class DeltaCodec:
 
     def encode_cohort(self, stacked: torch.Tensor,
                       leaf_offsets: torch.Tensor,
-                      key: Optional[np.ndarray] = None):
+                      key: Optional[np.ndarray] = None, shard=None):
         raise NotImplementedError
 
     def decode_cohort(self, payload, leaf_offsets: torch.Tensor

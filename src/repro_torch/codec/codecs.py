@@ -18,6 +18,15 @@ noise: the caller passes the round's PRNG key
 ``fold_in(key, i)``, and the quantize step runs as one kernel over the
 whole stack on the card (``kernels/int8_sr``; its plain version on the
 CPU), so the codes are the reference's bit for bit.
+
+A multi-process round encodes each rank's block of the stack
+(``shard``, core/round.RankShard): int8_sr draws the whole padded
+cohort's noise for the block's rows, and on the model axis, where a
+rank holds a shard of each leaf's columns, every leaf's min/max (or
+max|x|) is taken over the whole leaf across the model ranks
+(``RankShard.leaf_extrema``), so each shard quantizes with the whole
+leaf's scale and the codes are those of the whole stack, restricted to
+the block.
 """
 from __future__ import annotations
 
@@ -40,7 +49,7 @@ class IdentityCodec(DeltaCodec):
     name = "identity"
     lossy = False
 
-    def encode_cohort(self, stacked, leaf_offsets, key=None):
+    def encode_cohort(self, stacked, leaf_offsets, key=None, shard=None):
         return stacked
 
     def decode_cohort(self, payload, leaf_offsets):
@@ -66,16 +75,16 @@ class _QuantCodec(DeltaCodec):
 
     _itemsize = 1
 
-    def _leaf_scalars(self, x, leaf_offsets):
+    def _leaf_scalars(self, x, leaf_offsets, shard=None):
         raise NotImplementedError
 
     def _quantize(self, y):
         raise NotImplementedError
 
-    def encode_cohort(self, stacked, leaf_offsets, key=None):
+    def encode_cohort(self, stacked, leaf_offsets, key=None, shard=None):
         x = stacked.float()
         n = x.shape[1]
-        scale, zero = self._leaf_scalars(x, leaf_offsets)
+        scale, zero = self._leaf_scalars(x, leaf_offsets, shard)
         y = ((x - _per_column(zero, leaf_offsets, n))
              / _per_column(scale, leaf_offsets, n))
         return {"q": self._quantize(y), "scale": scale, "zero": zero}
@@ -97,7 +106,7 @@ class BF16Codec(_QuantCodec):
     lossy = True
     _itemsize = 2
 
-    def encode_cohort(self, stacked, leaf_offsets, key=None):
+    def encode_cohort(self, stacked, leaf_offsets, key=None, shard=None):
         k, nleaves = stacked.shape[0], leaf_offsets.numel() - 1
         ones = torch.ones((k, nleaves), dtype=torch.float32,
                           device=stacked.device)
@@ -127,17 +136,22 @@ class Int8Codec(_QuantCodec):
         self.name = ("int8_sr" if stochastic
                      else "int8_sym" if symmetric else "int8")
 
-    def _leaf_scalars(self, x, leaf_offsets):
+    def _leaf_scalars(self, x, leaf_offsets, shard=None):
         sizes = (leaf_offsets[1:] - leaf_offsets[:-1]).tolist()
+        model = shard is not None and shard.model > 1
         if self.symmetric:
             amax = torch.stack([torch.amax(seg, dim=1) for seg in
                                 torch.split(torch.abs(x), sizes, dim=1)], 1)
+            if model:
+                amax = shard.leaf_extrema(amax, amax)[1]
             scale = amax / 127.0
             zero = torch.zeros_like(scale)
         else:
             segs = torch.split(x, sizes, dim=1)
             mn = torch.stack([torch.amin(seg, dim=1) for seg in segs], 1)
             mx = torch.stack([torch.amax(seg, dim=1) for seg in segs], 1)
+            if model:
+                mn, mx = shard.leaf_extrema(mn, mx)
             scale = (mx - mn) / 254.0
             zero = mn + 127.0 * scale
         # zero ranges -> unit scale (codes all 0, decode exact); NaN and
@@ -150,19 +164,28 @@ class Int8Codec(_QuantCodec):
         return torch.where(torch.isnan(y), torch.zeros_like(y), y
                            ).to(torch.int8)
 
-    def encode_cohort(self, stacked, leaf_offsets, key=None):
+    def encode_cohort(self, stacked, leaf_offsets, key=None, shard=None):
         if not self.stochastic:
-            return super().encode_cohort(stacked, leaf_offsets)
+            return super().encode_cohort(stacked, leaf_offsets, shard=shard)
         if key is None:
             raise ValueError(f"codec {self.name!r} rounds stochastically "
                              "and needs an explicit PRNG key per encode "
                              "(pass key=)")
         x = stacked.float()
-        scale, zero = self._leaf_scalars(x, leaf_offsets)
-        leaf_keys = jax_prng.fold_in_many(
-            key, np.arange(leaf_offsets.numel() - 1))
-        q = sr_ops.int8_sr_quantize(x.contiguous(), scale, leaf_offsets,
-                                    leaf_keys)
+        scale, zero = self._leaf_scalars(x, leaf_offsets, shard)
+        leaves = np.arange(leaf_offsets.numel() - 1)
+        block = {}
+        if shard is not None:
+            # the rank's rows of the padded cohort draw the whole stack's
+            # noise; a model shard's leaves keep their own keys
+            block = {"row0": shard.lo, "rows_total": shard.rows}
+            if shard.model > 1:
+                sh, m = shard.shards, shard.mrank
+                leaves = sh.leaf_ids(m)
+                block["leaf_blocks"] = sh.leaf_blocks(m)
+        q = sr_ops.int8_sr_quantize(
+            x.contiguous(), scale, leaf_offsets,
+            jax_prng.fold_in_many(key, leaves), **block)
         return {"q": q, "scale": scale, "zero": zero}
 
     def config_dict(self):

@@ -79,9 +79,20 @@ replicated params and server state and train, stage and read only its
 contiguous slice of the cohort, padded to the ranks with masked dummy
 rows; core/round.py's two collectives a round combine the slices. Rank
 0 writes checkpoints and the health log. Without ``shard_clients`` a
-trainer in such a job stays process-local, as the reference's does. The
-model axis (``shard_model > 1``) is not ported (ROADMAP Queue 1 item
-13).
+trainer in such a job stays process-local, as the reference's does.
+
+The model axis: ``shard_model = M > 1`` (with ``shard_clients``, in a job
+whose ranks M divides) lays the ranks out as a (ranks // M, M)
+``(clients, model)`` mesh. Each rank holds at rest only its shard of the
+params, the server state, the optimizer's moments and the
+error-feedback accumulator (sharding/layout.ShardLayout under
+sharding/rules.cohort_param_specs): N_m of the N columns. A round
+gathers the params within the model group, each model rank trains its
+share of the client slice's rows at full width, and an all-to-all hands
+every delta's shards to their owners; the server step then runs on
+shards (core/round.py). ``full_params``, ``full_state`` and ``params``
+gather (every rank calls them alike); checkpoints hold whole vectors, so
+they resume across process counts and in either package.
 """
 from __future__ import annotations
 
@@ -119,9 +130,12 @@ from repro_torch.ingest.placement import CohortPlacer, put_global
 from repro_torch.ingest.sources import DataSource, as_data_source
 from repro_torch.ingest.stack import stack_batches
 from repro_torch.launch import distributed
-from repro_torch.launch.mesh import make_cohort_mesh, refuse_model_axis
+from repro_torch.core.round import model_all_gather
+from repro_torch.launch.mesh import make_cohort_mesh
 from repro_torch.optim.server import make_server_optimizer
-from repro_torch.sharding.rules import local_row_range, padded_rows
+from repro_torch.sharding.layout import ShardLayout
+from repro_torch.sharding.rules import (local_row_range, model_row_split,
+                                        padded_rows)
 
 # multi-process trainers of one job, numbered in construction order (the
 # same on every rank): their store keys never collide
@@ -156,7 +170,8 @@ class ExecConfig:
     # the cohort over every rank of a multi-process job (each rank trains
     # its contiguous slice); a no-op in a single process
     shard_clients: bool = False
-    # model-axis shards per client slice: not ported, > 1 raises
+    # model-axis shards per client slice: with shard_clients in a job whose
+    # ranks it divides, a (ranks // shard_model, shard_model) mesh
     shard_model: int = 1
     # ---- staged ingest (ingest/pipeline.py) ----
     prefetch: bool = True            # staging ring on a producer thread
@@ -235,9 +250,9 @@ class ExecConfig:
 # Execution regimes of the reference's cross-regime matrix (its
 # tests/test_regime_matrix.py): name -> ExecConfig overrides relative to
 # the serial reference, the reference's keys and values. The five with
-# shard_model > 1 ("*2d") need the model axis, which raises here (ROADMAP
-# Queue 1 item 13); "multihost" is the single-process anchor of the
-# multi-process cohort.
+# shard_model > 1 ("*2d") run on a job of shard_model ranks or a multiple
+# of it (the port's model axis spans ranks); "multihost" is the
+# single-process anchor of the multi-process cohort.
 EXEC_REGIMES = {
     "serial": {"vectorize": False},
     "vectorized": {},
@@ -372,7 +387,6 @@ class FederatedTrainer:
                  fault_plan=None, health_sink=None, device=None):
         self.cfg = cfg if cfg is not None else ExecConfig()
         self.algo_cfg = algo if algo is not None else AlgoConfig()
-        refuse_model_axis(self.cfg.shard_model)
         deadline = self.cfg.round_deadline
         if (runtime is not None and not self.cfg.async_buffer
                 and deadline is None):
@@ -406,6 +420,20 @@ class FederatedTrainer:
             raise ValueError(
                 "multi-process execution drives the fused cohort round; it "
                 "cannot combine with vectorize=False")
+        model = int(self.cfg.shard_model)
+        if model > 1 and self.cfg.async_buffer:
+            raise NotImplementedError(
+                f"shard_model={model} with async_buffer: the buffered-async "
+                "engine is single-process and the port's model axis spans "
+                "ranks (ROADMAP Queue 1 item 13d, async on the model axis)")
+        if model > 1 and not (self._mp and distributed.process_count()
+                              % model == 0):
+            raise ValueError(
+                f"shard_model={model} needs shard_clients=True in a "
+                "multi-process job whose ranks it divides: the port's model "
+                "axis spans ranks, one process a device "
+                f"(this process: {distributed.process_count()} ranks, "
+                f"shard_clients={self.cfg.shard_clients})")
         if self._mp and self.cfg.async_buffer:
             raise ValueError(
                 "the buffered-async engine is single-process; "
@@ -427,6 +455,16 @@ class FederatedTrainer:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.flat, self.layout = bridge.load_params(params, self.device)
+        # ---- the model axis: params and state at rest are shards ----
+        self.mesh = (make_cohort_mesh(model=model) if self._mp else None)
+        self._shards: Optional[ShardLayout] = None
+        self._model_group = None
+        self._m = 0
+        if model > 1:
+            self._shards = ShardLayout.from_mesh(self.layout, self.mesh)
+            self._model_group = self.mesh["model"].get_group()
+            self._m = distributed.process_index() % model
+            self.flat = self._shards.scatter(self.flat, self._m)
         self.num_clients = num_clients
         self.source: DataSource = as_data_source(data)
         self.eval_fn = eval_fn
@@ -488,15 +526,16 @@ class FederatedTrainer:
         # stops collecting arrivals at the deadline
         self._deadline_mask = (deadline is not None
                                and not self.cfg.async_buffer)
-        # the cohort pads to a multiple of the ranks with masked dummy
-        # rows; rank r trains rows [lo, hi) of it
-        self.mesh = make_cohort_mesh() if self._mp else None
-        world = distributed.process_count() if self._mp else 1
+        # the cohort pads to a multiple of the client axis with masked
+        # dummy rows; client slice c holds rows [lo, hi) of it, and on the
+        # model axis model rank m trains its share of them
+        world = (distributed.process_count() // model if self._mp else 1)
         k = self.cfg.clients_per_round
         self._pad_to = padded_rows(k, world)
-        self._rows = local_row_range(
-            distributed.process_index() if self._mp else 0, world,
+        self._slice_rows = local_row_range(
+            distributed.process_index() // model if self._mp else 0, world,
             self._pad_to)
+        self._rows = model_row_split(*self._slice_rows, model)[self._m]
         # ---- hierarchical edge aggregation ----
         self._edges = (int(self.cfg.edges)
                        if (self.cfg.edges or 0) > 1 else None)
@@ -530,8 +569,8 @@ class FederatedTrainer:
             inject_faults=self._inject_deltas,
             deadline_mask=self._live_mask_input,
             fault_magnitude=self._magnitude, server_opt=self._server_opt,
-            edges=self._edges,
-            group=self.mesh.get_group() if self._mp else None,
+            edges=self._edges, group=self._client_group(),
+            model_group=self._model_group, shards=self._shards,
             real_clients=k if self._pad_to > k else None)
         self.local_update = client_mod.make_local_update(
             loss_fn, self.layout, self.algo_cfg.eta_l,
@@ -594,8 +633,65 @@ class FederatedTrainer:
 
     @property
     def params(self):
-        """The parameter tree: views into the flat buffer."""
-        return self.layout.unflatten(self.flat)
+        """The parameter tree: views into the flat buffer (on the model
+        axis, into the gathered full vector: a collective, which every
+        rank of the job calls alike)."""
+        return self.layout.unflatten(self.full_params())
+
+    def _client_group(self):
+        """The client axis's process group of a multi-process trainer."""
+        if not self._mp:
+            return None
+        if self._shards is None:
+            return self.mesh.get_group()
+        return self.mesh["clients"].get_group()
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., N_m) shard -> the (..., N) tensor, over the model ranks;
+        ``x`` itself without the model axis."""
+        if self._shards is None:
+            return x
+        return model_all_gather(x, self._model_group, self._shards)
+
+    def full_params(self) -> torch.Tensor:
+        """The (N,) parameter vector; on the model axis gathered from the
+        shards (every rank of the job calls it alike)."""
+        return self._gather(self.flat)
+
+    def full_state(self):
+        """The server state with every params-shaped vector whole: a
+        shard's (..., N_m) vectors gathered on the model axis; scalars as
+        they are."""
+        return self._gather_state(self.server_state)
+
+    def _gather_state(self, state):
+        if state is None:
+            return None
+        return {k: v if v.dim() == 0 else self._gather(v)
+                for k, v in state.items()}
+
+    def shard_info(self) -> dict:
+        """This rank's place on the mesh and what it holds at rest:
+        coordinates, the client slice's and trained rows, N_m against
+        N, and the bytes of the params, server state, optimizer moments
+        and error feedback (the round's delta stacks are allocated per
+        round)."""
+        nbytes = lambda t: 0 if t is None else t.numel() * t.element_size()
+        model = self._shards.model if self._shards is not None else 1
+        return {
+            "mesh": (None if self.mesh is None else
+                     [int(d) for d in self.mesh.mesh.shape]),
+            "coords": ([distributed.process_index() // model, self._m]
+                       if self._mp else [0, 0]),
+            "slice_rows": list(self._slice_rows), "train_rows":
+            list(self._rows), "N": self.layout.size,
+            "N_m": int(self.flat.numel()),
+            "bytes": {"params": nbytes(self.flat),
+                      "server_state": {k: nbytes(v) for k, v in
+                                       self.server_state.items()},
+                      "opt_state": sum(nbytes(v) for v in
+                                       (self._opt_state or {}).values()),
+                      "ef": nbytes(self._ef)}}
 
     # ---- internals ----
 
@@ -944,7 +1040,7 @@ class FederatedTrainer:
         clone is taken on the round's stream and an event recorded after
         it; the worker's stream waits on the event. The accuracy lands in
         ``rec`` when the future is resolved."""
-        snap = self.flat.clone()
+        snap = self.full_params().clone()
         event = stream = None
         if snap.is_cuda:
             if self._eval_stream is None:
@@ -1117,11 +1213,12 @@ class FederatedTrainer:
                 cap = self._capture()
             schedule = [np.asarray(c) for c in self.schedule[:frontier]]
         return TrainerState(
-            params=self.params, server_state=self.server_state,
+            params=self.params, server_state=self.full_state(),
             round=next_round, max_batches=cap["max_batches"],
             rng_state=cap["rng"], sampler_state=cap["sampler"],
             schedule=schedule, history=list(self.history),
-            runtime_state=cap.get("runtime"), opt_state=self._opt_state)
+            runtime_state=cap.get("runtime"),
+            opt_state=self._gather_state(self._opt_state))
 
     def _codec_echo(self) -> Optional[dict]:
         """JSON echo of the LOSSY codec configuration (identity is the
@@ -1182,7 +1279,7 @@ class FederatedTrainer:
         if self._ef is not None:
             # error-feedback accumulator: params-shaped f32 leaves
             for i, leaf in enumerate(bridge.tree_leaves(
-                    layout.unflatten(self._ef))):
+                    layout.unflatten(self._gather(self._ef)))):
                 aux_arrays[f"codec_ef_{i}"] = leaf
         if st.opt_state is not None:
             # server-optimizer moments {"m", "v"}: params mirrors, the m
@@ -1480,19 +1577,30 @@ class FederatedTrainer:
                              "was it written by FederatedTrainer.save()?")
         self._check_echoes(meta)
         layout = self.layout
-        # straight into the trainer's buffers, leaf by leaf
+        # straight into the trainer's buffers, leaf by leaf; on the model
+        # axis into whole temporaries, whose shards are then kept
+        flat, state = self._gather(self.flat), self.full_state()
+        ef = None if self._ef is None else self._gather(self._ef)
+        opt = self._gather_state(self._opt_state)
         ckpt.restore_into(ckpt_dir, {
-            "params": self.params,
+            "params": layout.unflatten(flat),
             "server_state": bridge.server_state_to_reference(
-                self.server_state, layout)}, step=step)
-        if self._ef is not None:
-            self._load_leaves(layout.unflatten(self._ef),
-                              arrays, "codec_ef_",
+                state, layout)}, step=step)
+        if ef is not None:
+            self._load_leaves(layout.unflatten(ef), arrays, "codec_ef_",
                               "an error-feedback accumulator")
-        if self._opt_state is not None:
+        if opt is not None:
             self._load_leaves(bridge.server_state_to_reference(
-                self._opt_state, layout), arrays, "server_opt_",
+                opt, layout), arrays, "server_opt_",
                 "server-optimizer moment state")
+        if self._shards is not None:
+            keep = lambda v: (v if v.dim() == 0
+                              else self._shards.scatter(v, self._m))
+            self.flat = keep(flat)
+            self.server_state = {k: keep(v) for k, v in state.items()}
+            self._ef = None if ef is None else keep(ef)
+            self._opt_state = (None if opt is None else
+                               {k: keep(v) for k, v in opt.items()})
         self.rng.set_state(("MT19937",
                             np.asarray(arrays["rng_keys"], np.uint32),
                             int(arrays["rng_pos"]),

@@ -41,7 +41,11 @@ cover the whole padded cohort, so every rank forms the same scalars; the
 means sum their partials over the ranks (``shard.all_sum``), FedVARP
 gathers the cohort's rows (its table is replicated state), and the rules
 whose ``row_scalars`` are "dots" (the FedDPC family) or "sqnorm"
-(FedExP) read the gathered per-row scalars from ``shard.dots``.
+(FedExP) read the gathered per-row scalars from ``shard.dots``. On the
+model axis (``shard.model > 1``) params, deltas and every state vector
+are the rank's shards of N_m columns (FedVARP's table (num_clients,
+N_m), its leading dim whole); the rules are element-wise there, and
+their norms are model-summed (``projection.global_norm``).
 
 params and every state vector are flat (N,) f32 buffers
 (repro_torch.bridge); deltas are the (K, N) client stack, client_ids
@@ -219,7 +223,7 @@ def _fedavg_step(state, params, deltas, client_ids, eta_g, t,
     delta_t = proj.masked_client_mean(deltas, client_mask, edges=edges,
                                       shard=shard)
     return _apply(params, delta_t, eta_g), {"delta_prev": delta_t}, {
-        "norm_global_update": proj.tree_norm(delta_t)}
+        "norm_global_update": proj.global_norm(delta_t, shard)}
 
 
 @register_algorithm("fedavg")
@@ -251,14 +255,14 @@ def _fedexp_step(state, params, deltas, client_ids, eta_g, t, eps=1e-3,
         mf = client_mask.float()
         sq_each = sq_each * mf
         kprime = torch.clamp(mf.sum(), min=1.0)
-    sq_mean = proj.tree_sqnorm(delta_t)
+    sq_mean = proj.model_summed(proj.tree_sqnorm(delta_t), shard)
     sq_total = (sq_each.reshape(int(edges), -1).sum(dim=1).sum()
                 if edges and edges > 1 else sq_each.sum())
     extrap = torch.clamp(sq_total / (2 * kprime * (sq_mean + eps)),
                          min=1.0)
     return _apply(params, delta_t, eta_g * extrap), {
         "delta_prev": delta_t}, {
-        "norm_global_update": proj.tree_norm(delta_t), "extrap": extrap}
+        "norm_global_update": torch.sqrt(sq_mean), "extrap": extrap}
 
 
 @register_algorithm("fedexp", FedExPHyper)
@@ -320,7 +324,7 @@ def _fedvarp_step(state, params, deltas, client_ids, eta_g, t,
     y.index_copy_(0, ids[keep], deltas.float()[keep])
     return _apply(params, delta_t, eta_g), {
         "y": y, "delta_prev": delta_t}, {
-        "norm_global_update": proj.tree_norm(delta_t)}
+        "norm_global_update": proj.global_norm(delta_t, shard)}
 
 
 @register_algorithm("fedvarp")
@@ -385,7 +389,7 @@ def _make_adaptive(kind: str, h: AdaptiveHyper) -> ServerAlgo:
         upd = m / (torch.sqrt(v) + eps)
         return _apply(params, upd, eta_g), {
             "delta_prev": delta_t, "m": m, "v": v, "t": t}, {
-            "norm_global_update": proj.tree_norm(upd)}
+            "norm_global_update": proj.global_norm(upd, shard)}
 
     return ServerAlgo(f"fed{kind}", _adaptive_init, step)
 

@@ -26,6 +26,11 @@ The device decides the route: CUDA tensors always go through the
 kernels, CPU tensors through their plain versions. Server state is one
 vector, ``delta_prev``.
 
+On the model axis (``shard.model > 1``) every vector here is the rank's
+shard of N_m columns: the gathered dots were summed over the model
+ranks first, each fold runs on the shard, and the diagnostics' norm and
+dot are model-summed (one collective).
+
 Hierarchical edges (``edges=E``) and the multi-process round
 (``shard``, core/round.RankShard) reshape only the fold, as the
 reference's ``feddpc.py`` does on its edge path: the reduction-pass
@@ -164,14 +169,17 @@ def server_step(state: Dict[str, torch.Tensor], params: torch.Tensor,
 
     new_params, delta_t = _folds(kernel_fold, params, deltas.shape[0],
                                  eta_g, edges, shard)
+    sq, gdp = proj.model_summed(torch.stack(
+        [proj.tree_sqnorm(delta_t), proj.tree_vdot(delta_t, delta_prev)]),
+        shard)
     diagnostics = {
         "mean_coef": diag_mean(diag["coef"]),
         "mean_cos_angle": diag_mean(diag["cos_angle"]),
         "mean_scale": diag_mean(diag["scale"]),
         "mean_norm_delta": diag_mean(diag["norm_delta"]),
-        "norm_global_update": proj.tree_norm(delta_t),
+        "norm_global_update": torch.sqrt(sq),
         # orthogonality invariant: <Delta_t, Delta_{t-1}> ~ 0 after round 1
-        "global_dot_prev": proj.tree_vdot(delta_t, delta_prev),
+        "global_dot_prev": gdp,
     }
     return new_params, {"delta_prev": delta_t}, diagnostics
 
@@ -207,4 +215,4 @@ def server_step_projection_only(state: Dict[str, torch.Tensor],
     new_params, delta_t = _folds(kernel_fold, params, deltas.shape[0],
                                  eta_g, edges, shard)
     return new_params, {"delta_prev": delta_t}, {
-        "norm_global_update": proj.tree_norm(delta_t)}
+        "norm_global_update": proj.global_norm(delta_t, shard)}

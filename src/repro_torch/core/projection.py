@@ -29,6 +29,19 @@ def tree_norm(a: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(tree_sqnorm(a))
 
 
+def model_summed(x: torch.Tensor, shard=None) -> torch.Tensor:
+    """A shard's partial sums over the model axis (core/round.RankShard:
+    each model rank holds N_m of the N columns); ``x`` itself without
+    it."""
+    return x if shard is None else shard.model_sum(x)
+
+
+def global_norm(a: torch.Tensor, shard=None) -> torch.Tensor:
+    """||a|| over the whole flat vector, ``a`` one rank's shard of it on
+    the model axis."""
+    return torch.sqrt(model_summed(tree_sqnorm(a), shard))
+
+
 def tree_nonfinite_count(a: torch.Tensor) -> torch.Tensor:
     """Number of NaN/Inf entries over the flat vector (last axis), as f32
     — the update guard's validity reduction; on the card the guard takes

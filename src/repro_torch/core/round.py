@@ -39,6 +39,28 @@ a synchronous round then makes TWO collectives, both on the calling
 FedVARP gathers the cohort's rows instead of 2 (its table is replicated
 state) and the error-feedback mean adds one all-reduce. The collectives
 are timed on the round's stream (``cohort_round.shard``).
+
+``model_group`` and ``shards`` (the model axis of a two-axis
+(clients, model) mesh, launch/mesh.make_cohort_mesh(model=M);
+sharding/layout.ShardLayout) make params, server state, the optimizer's
+moments and the error-feedback accumulator the rank's SHARDS at rest
+(N_m of the N columns). The round then makes five kinds of collective:
+
+  3. ``param_all_gather``: the params (and a cm/ga rule's Δ_prev) are
+     gathered within the model group; each model rank trains its share
+     of the client slice's rows at full width
+     (sharding/rules.model_row_split; the padding stays the client
+     axis's, so edges and masks do not move);
+  4. ``all_to_all``: each delta's shards go to their owners, from
+     isend/irecv pairs (uneven splits), after which every tensor is the
+     rank's shard of its slice's rows;
+  5. ``model_sum``: the reduction pass's partial scalars (and the rows'
+     losses) are summed over the model group before 1. gathers them,
+     and the diagnostics' norms and dots after the fold;
+
+plus 1. and 2. as above, on the client group. A codec's per-leaf
+extrema add one all-gather over the model group (``leaf_extrema``), so
+each shard quantizes with the whole leaf's scale.
 """
 from __future__ import annotations
 
@@ -57,7 +79,10 @@ from repro_torch.core import projection as proj
 from repro_torch.core.baselines import (ServerAlgo, client_kwargs,
                                         make_algorithm)
 from repro_torch.kernels.feddpc_project import ops as k_ops
-from repro_torch.sharding.rules import edge_pieces, local_row_range
+from repro_torch.sharding.layout import ShardLayout
+from repro_torch.sharding.rules import (cohort_param_specs, edge_pieces,
+                                        local_row_range, mesh_axes,
+                                        model_row_split, spec_leaves)
 
 # out-of-range id for quarantined / deadline-dropped rows: FedVARP's table
 # never writes a row for an id outside [0, num_clients)
@@ -143,24 +168,78 @@ def _quarantine(bad, client_ids, client_mask):
     return client_ids, client_mask
 
 
-class RankShard:
-    """This rank's rows of the padded cohort in a multi-process round and
-    the round's collectives over the client axis's process ``group``.
+def _p2p_exchange(sends, recvs, group) -> None:
+    """Send ``sends[peer]`` to and receive into ``recvs[peer]`` from each
+    peer (global ranks) at once, as isend/irecv pairs. Gloo moves host
+    memory only, so under gloo CUDA tensors travel through host copies."""
+    host = dist.get_backend(group) == "gloo"
 
-    The rank holds rows [lo, hi) of ``rows`` (``local`` rows each rank);
-    ``pieces`` are its rows cut at the ``edges`` boundaries
-    (sharding/rules.edge_pieces), one fold launch each. ``dots`` is the
-    gathered (rows, 3) reduction-pass scalars the rules read. Each
+    def wire(t, send):
+        if not (host and t.is_cuda):
+            return t
+        return t.cpu() if send else torch.empty(t.shape, dtype=t.dtype)
+    bufs = {p: wire(t, False) for p, t in recvs.items()}
+    ops = [dist.P2POp(dist.isend, wire(t.contiguous(), True), p, group)
+           for p, t in sends.items()]
+    ops += [dist.P2POp(dist.irecv, b, p, group) for p, b in bufs.items()]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    for p, t in recvs.items():
+        if bufs[p] is not t:
+            t.copy_(bufs[p])
+
+
+def model_all_gather(x: torch.Tensor, group, shards) -> torch.Tensor:
+    """The (..., N) tensor from each model rank's (..., N_m) shard:
+    one all-gather over the model ``group``, every shard padded to the
+    widest (sharding/layout.ShardLayout.unpad)."""
+    m = dist.get_rank(group)
+    lead = tuple(x.shape[:-1])
+    pad = x.new_zeros(lead + (shards.max_size,))
+    pad[..., :shards.sizes[m]] = x
+    parts = [torch.empty_like(pad) for _ in range(shards.model)]
+    dist.all_gather(parts, pad, group=group)
+    return shards.unpad(torch.stack(parts, dim=-2))
+
+
+class RankShard:
+    """This rank's part of a multi-process round and the round's
+    collectives: the client axis's process ``group`` and, on a two-axis
+    mesh, the ``model_group`` with the params' ``shards``
+    (sharding/layout.ShardLayout).
+
+    The rank's client slice is rows [lo, hi) of the ``rows`` padded
+    cohort rows (``local`` each); ``pieces`` are those rows cut at the
+    ``edges`` boundaries (sharding/rules.edge_pieces), one fold launch
+    each. Without the model axis the rank trains its whole slice; with
+    it, model rank ``mrank`` of ``model`` trains rows ``train`` of the
+    slice at full width (sharding/rules.model_row_split), and from the
+    all-to-all on every tensor is the rank's shard of N_m columns.
+    ``dots`` is the (rows, 3) reduction-pass scalars the rules read,
+    summed over the model ranks and gathered over the client axis. Each
     collective is timed on the calling stream (CUDA events on the card,
     the host clock on the CPU) into ``timings``."""
 
-    def __init__(self, group, local: int, edges: Optional[int] = None):
+    def __init__(self, group, rows: int, edges: Optional[int] = None, *,
+                 model_group=None, shards=None):
         self.group = group
         self.world = dist.get_world_size(group)
         self.rank = dist.get_rank(group)
-        self.rows = local * self.world
+        self.rows = int(rows)
+        self.local = self.rows // self.world
         self.lo, self.hi = local_row_range(self.rank, self.world, self.rows)
         self.pieces = edge_pieces(self.lo, self.hi, self.rows, edges)
+        self.model_group = model_group
+        self.shards = shards
+        if model_group is None:
+            self.model, self.mrank = 1, 0
+            self.train = (self.lo, self.hi)
+        else:
+            self.model = dist.get_world_size(model_group)
+            self.mrank = dist.get_rank(model_group)
+            self.peers = dist.get_process_group_ranks(model_group)
+            self.splits = model_row_split(self.lo, self.hi, self.model)
+            self.train = self.splits[self.mrank]
         self.dots: Optional[torch.Tensor] = None
         self.timings: List[tuple] = []
 
@@ -178,8 +257,8 @@ class RankShard:
             self.timings.append((name, tic, time.perf_counter()))
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
-        """All-gather of this rank's (local, ...) rows -> (rows, ...) in
-        rank order."""
+        """All-gather of this client slice's (local, ...) rows ->
+        (rows, ...) in row order."""
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(self.world)]
         self._run("all_gather", x,
@@ -187,10 +266,72 @@ class RankShard:
         return torch.cat(parts)
 
     def all_sum(self, x: torch.Tensor) -> torch.Tensor:
-        """All-reduce (sum) of ``x`` over the ranks, in place."""
+        """All-reduce (sum) of ``x`` over the client axis, in place."""
         self._run("all_reduce", x,
                   lambda: dist.all_reduce(x, group=self.group))
         return x
+
+    # ---- the model axis ----
+
+    def model_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """All-reduce (sum) of a shard's partial scalars over the model
+        axis, in place; ``x`` itself without the model axis."""
+        if self.model == 1:
+            return x
+        x = x.contiguous()
+        self._run("model_sum", x,
+                  lambda: dist.all_reduce(x, group=self.model_group))
+        return x
+
+    def gather_params(self, x: torch.Tensor) -> torch.Tensor:
+        """The full (N,) vector from the model ranks' shards."""
+        out = []
+        self._run("param_all_gather", x, lambda: out.append(
+            model_all_gather(x, self.model_group, self.shards)))
+        return out[0]
+
+    def exchange(self, trained: torch.Tensor) -> torch.Tensor:
+        """The all-to-all: this rank's (trained rows, N) deltas at full
+        width -> the client slice's (local, N_m) deltas of its own shard,
+        each model rank's rows sent the columns it owns. Built from
+        isend/irecv pairs (uneven splits; gloo takes no all-to-all of
+        CUDA tensors)."""
+        m, sh = self.mrank, self.shards
+        out = trained.new_empty((self.local, sh.sizes[m]))
+        off = lambda r: self.splits[r][0] - self.lo
+        sends, recvs = {}, {}
+        for r, peer in enumerate(self.peers):
+            a, b = self.splits[r]
+            if r == m:
+                sh.scatter(trained, r, out=out[off(r):off(r) + b - a])
+            else:
+                sends[peer] = sh.scatter(trained, r)
+                recvs[peer] = out[off(r):off(r) + b - a]
+        self._run("all_to_all", trained,
+                  lambda: _p2p_exchange(sends, recvs, self.model_group))
+        return out
+
+    def leaf_extrema(self, mn: torch.Tensor, mx: torch.Tensor):
+        """Per (row, held leaf) min and max of the shard -> those of the
+        whole leaf: the model ranks' (2, local, L) partials, filled with
+        +inf / -inf where a rank holds none of a leaf, are all-gathered
+        and reduced on every rank (amin/amax keep a NaN, as the
+        reference's jnp.min does; a MIN/MAX all-reduce need not)."""
+        ids = torch.from_numpy(self.shards.leaf_ids(self.mrank)
+                               ).to(mn.device)
+        nleaves = len(self.shards.layout.shapes)
+        part = torch.empty((2, mn.shape[0], nleaves), dtype=torch.float32,
+                           device=mn.device)
+        part[0].fill_(float("inf"))
+        part[1].fill_(float("-inf"))
+        part[0][:, ids] = mn
+        part[1][:, ids] = mx
+        parts = [torch.empty_like(part) for _ in range(self.model)]
+        self._run("leaf_extrema", part, lambda: dist.all_gather(
+            parts, part, group=self.model_group))
+        g = torch.stack(parts)
+        return (torch.amin(g[:, 0], dim=0)[:, ids].contiguous(),
+                torch.amax(g[:, 1], dim=0)[:, ids].contiguous())
 
     def timings_ms(self) -> List[tuple]:
         """[(name, ms)] of the collectives so far; on the card this waits
@@ -207,7 +348,7 @@ class RankShard:
 
 def codec_stage(codec: DeltaCodec, deltas: torch.Tensor,
                 ef: Optional[torch.Tensor], leaf_offsets: torch.Tensor,
-                key=None):
+                key=None, shard: Optional[RankShard] = None):
     """The uplink, in the reference's order: every client ships Δ_j + ef
     (the server-held error-feedback accumulator, broadcast to every row),
     and the payload is encoded (a stochastic codec draws from ``key``,
@@ -215,9 +356,13 @@ def codec_stage(codec: DeltaCodec, deltas: torch.Tensor,
     payload, resid or None): with error feedback, ``resid`` is the
     sanitized quantization residual of this (pre-guard) decode, and the
     next accumulator is ``masked_client_mean(resid, client_mask)`` over
-    the rows the round's deadline and guard leave."""
+    the rows the round's deadline and guard leave. With ``shard`` the
+    rows are a rank's block of the cohort (and, on the model axis, its
+    shard's columns): the codec takes the whole leaves' scales and the
+    whole stack's noise (codec/codecs.py)."""
     shipped = deltas if ef is None else deltas + ef[None]
-    payload = codec.encode_cohort(shipped, leaf_offsets, key=key)
+    kw = {} if shard is None else {"shard": shard}
+    payload = codec.encode_cohort(shipped, leaf_offsets, key=key, **kw)
     decoded = codec.decode_cohort(payload, leaf_offsets)
     resid = None if ef is None else sanitized_residual(shipped, decoded)
     return decoded, payload, resid
@@ -233,6 +378,7 @@ def make_cohort_round(loss_fn: Callable, layout: FlatLayout,
                       deadline_mask: bool = False,
                       fault_magnitude: float = 1e12, server_opt=None,
                       edges: Optional[int] = None, group=None,
+                      model_group=None, shards=None,
                       real_clients: Optional[int] = None):
     """Returns cohort_round(server_state, params, batches, masks,
     client_ids, *extras) -> (new_params, new_server_state, losses (K,),
@@ -240,10 +386,13 @@ def make_cohort_round(loss_fn: Callable, layout: FlatLayout,
 
     ``edges`` folds in two levels (core/baselines.py). With ``group`` the
     round is this rank's part of a multi-process round (module
-    docstring): ``batches`` and ``masks`` hold the rank's rows only,
+    docstring): ``batches`` and ``masks`` hold the rows the rank trains,
     while ``client_ids``, the extras' (K,) inputs, the losses and the
-    guard stats cover the whole padded cohort. ``real_clients`` < K marks
-    the rows from it on as padding, masked out of every mean.
+    guard stats cover the whole padded cohort. ``model_group`` and
+    ``shards`` (sharding/layout.ShardLayout) add the model axis: params,
+    server state, the error-feedback accumulator and the optimizer's
+    moments are then this rank's shards. ``real_clients`` < K marks the
+    rows from it on as padding, masked out of every mean.
 
     batches: a tree with leading axes (K, M, ...) on the params' device;
     masks (K, M) bool marks the valid minibatches (None = all valid).
@@ -266,13 +415,10 @@ def make_cohort_round(loss_fn: Callable, layout: FlatLayout,
     lossy = codec is not None and codec.lossy
     ef_active = lossy and codec_ef
     stochastic = lossy and codec.stochastic
-    offsets = layout.leaf_offsets
+    sharded = model_group is not None
+    offsets = (shards.offsets(dist.get_rank(model_group)) if sharded
+               else layout.leaf_offsets)
     stack: Optional[torch.Tensor] = None
-    if group is not None and stochastic:
-        raise NotImplementedError(
-            f"codec {codec.name!r} draws its noise over the whole cohort "
-            "stack; a multi-process round encodes each rank's rows, which "
-            "would draw other noise (ROADMAP Queue 1 item 13)")
 
     def cohort_round(server_state, params: torch.Tensor, batches,
                      masks: Optional[torch.Tensor], client_ids, *extras):
@@ -284,15 +430,33 @@ def make_cohort_round(loss_fn: Callable, layout: FlatLayout,
         codec_key = next(it) if stochastic else None
         ef = next(it) if ef_active else None
         opt_state = next(it) if server_opt is not None else None
+        shard = None if group is None else RankShard(
+            group, client_ids.shape[0], edges, model_group=model_group,
+            shards=shards)
+        cohort_round.shard = shard
+        extra = algo.client_extra(server_state)
+        if sharded:
+            # local training runs at full width: gather what it reads
+            params_full = shard.gather_params(params)
+            if extra is not None:
+                extra = shard.gather_params(extra)
+        else:
+            params_full = params
         k = tree_leaves(batches)[0].shape[0]
         if stack is None or stack.shape[0] != k or \
                 stack.device != params.device:
-            stack = torch.empty((k, params.shape[0]), dtype=torch.float32,
+            stack = torch.empty((k, layout.size), dtype=torch.float32,
                                 device=params.device)
-        deltas, losses = local(params, batches, masks,
-                               algo.client_extra(server_state), out=stack)
-        shard = None if group is None else RankShard(group, k, edges)
-        cohort_round.shard = shard
+        deltas, losses = local(params_full, batches, masks, extra, out=stack)
+        if sharded:
+            # from here on every tensor is this rank's shard
+            del params_full
+            deltas = shard.exchange(deltas)
+            placed = torch.zeros(shard.local, dtype=losses.dtype,
+                                 device=losses.device)
+            a = shard.train[0] - shard.lo
+            placed[a:a + losses.shape[0]] = losses
+            losses = placed
         rows = slice(None) if shard is None else slice(shard.lo, shard.hi)
         if inject_faults:
             deltas = apply_fault_codes(deltas, fault_codes[rows],
@@ -309,7 +473,7 @@ def make_cohort_round(loss_fn: Callable, layout: FlatLayout,
         payload = resid = None
         if lossy:
             deltas, payload, resid = codec_stage(codec, deltas, ef,
-                                                 offsets, codec_key)
+                                                 offsets, codec_key, shard)
         gstats = None
         if shard is not None:
             deltas, client_ids, cm, losses, gstats = _gather_rows(
@@ -341,15 +505,16 @@ def make_cohort_round(loss_fn: Callable, layout: FlatLayout,
 
 def _gather_rows(shard: RankShard, algo: ServerAlgo, server_state, deltas,
                  losses, client_ids, cm, guard_thresh, guard_cfg):
-    """The multi-process round's all-gather: this rank's reduction pass
-    over its rows (what the guard and ``algo.row_scalars`` need) and its
-    rows' losses, gathered in one collective as (rows, 5) f32 =
-    [<Δ_j,Δ_prev>, ||Δ_j||², ||Δ_prev||², non-finite count, loss]. The
-    guard then decides on every row alike and acts on this rank's; the
-    dots of a clipped row are scaled with it (cs·<Δ_j,Δ_prev>,
-    cs²·||Δ_j||²) and a quarantined row's are 0. Returns (deltas,
-    client_ids, client_mask, losses (rows,), guard stats or None) and sets
-    ``shard.dots``."""
+    """The multi-process round's row scalars: this rank's reduction pass
+    over its slice's rows (what the guard and ``algo.row_scalars`` need)
+    and the rows' losses as (local, 5) f32 = [<Δ_j,Δ_prev>, ||Δ_j||²,
+    ||Δ_prev||², non-finite count, loss]; on the model axis summed over
+    the model ranks (each holds a shard's partials, and the losses of the
+    rows it trained), then gathered over the client axis. The guard then
+    decides on every row alike and acts on this rank's; the dots of a
+    clipped row are scaled with it (cs·<Δ_j,Δ_prev>, cs²·||Δ_j||²) and a
+    quarantined row's are 0. Returns (deltas, client_ids, client_mask,
+    losses (rows,), guard stats or None) and sets ``shard.dots``."""
     need = algo.row_scalars
     local = deltas.shape[0]
     prev = server_state["delta_prev"] if need == "dots" else None
@@ -362,7 +527,7 @@ def _gather_rows(shard: RankShard, algo: ServerAlgo, server_state, deltas,
     elif need == "sqnorm":
         cols[:, 1] = proj.tree_sqnorm(deltas)
     cols[:, 4] = losses
-    g = shard.gather(cols)
+    g = shard.gather(shard.model_sum(cols))
     dp, dd = g[:, 0], g[:, 1]
     stats = None
     if guard_thresh is not None:
@@ -380,17 +545,24 @@ def _gather_rows(shard: RankShard, algo: ServerAlgo, server_state, deltas,
 
 def make_fl_round_step(loss_fn: Callable, layout: FlatLayout, eta_l: float,
                        eta_g: float, lam: float = 1.0,
-                       algorithm: str = "feddpc", *, group=None):
+                       algorithm: str = "feddpc", *, group=None, mesh=None,
+                       params_template=None):
     """The cross-silo round: round_step(params (N,), delta_prev (N,),
     batches) -> (new_params, new_delta_prev, metrics), batches a tree
     with leading (K, M, ...) axes, all valid (fixed-shape silo streams:
     no mask). Takes any rule whose server state is exactly
     {"delta_prev"} (feddpc, fedavg, fedexp, ...); FedVARP and the other
     stateful rules need ``make_cohort_round``'s whole interface. With
-    ``group`` the batches are this rank's K/world silos of a
-    multi-process round (``make_cohort_round``'s). FedAvg's metrics hold
-    the train loss alone, as the reference's (its FedAvg is the
-    collective-volume baseline)."""
+    ``group`` (or a 1-D cohort ``mesh``) the batches are this rank's
+    K/world silos of a multi-process round (``make_cohort_round``'s).
+
+    On a two-axis (clients, model) ``mesh`` params and delta_prev are
+    this rank's shards under ``cohort_param_specs(params_template,
+    mesh)`` (the reference's tree of the params; shapes only) and the
+    batches the silos this rank trains (the round's silo count K is
+    their sum over the ranks, taken once); it raises without
+    ``params_template``, as the reference does. FedAvg's metrics hold the train loss alone, as the
+    reference's (its FedAvg is the collective-volume baseline)."""
     hyper = {"lam": lam} if algorithm in ("feddpc", "feddpc_m") else None
     algo = make_algorithm(algorithm, hyper)
     probe = algo.init(torch.zeros(1), 1)
@@ -399,14 +571,42 @@ def make_fl_round_step(loss_fn: Callable, layout: FlatLayout, eta_l: float,
             f"make_fl_round_step supports algorithms whose server state is "
             f"exactly {{'delta_prev'}}; {algorithm!r} keeps {sorted(probe)} "
             f"— use make_cohort_round for stateful server rules")
+    model_group = shards = None
+    if mesh is not None:
+        sizes = mesh_axes(mesh)
+        if sizes.get("model", 1) > 1:
+            if params_template is None:
+                raise ValueError(
+                    f"mesh carries a 'model' axis of size "
+                    f"{sizes['model']}: make_fl_round_step needs "
+                    "params_template= for the per-leaf model specs")
+            specs = spec_leaves(cohort_param_specs(params_template, mesh))
+            shards = ShardLayout(layout, specs, sizes["model"])
+            model_group = mesh["model"].get_group()
+            group = mesh["clients"].get_group()
+        else:
+            group = mesh.get_group()
     cohort = make_cohort_round(loss_fn, layout, algo, eta_l, eta_g,
-                               group=group)
+                               group=group, model_group=model_group,
+                               shards=shards)
+
+    silos: Optional[int] = None
 
     def round_step(params, delta_prev, batches):
-        k = tree_leaves(batches)[0].shape[0]
-        world = 1 if group is None else dist.get_world_size(group)
-        ids = torch.arange(k * world, dtype=torch.int32,
-                           device=params.device)
+        nonlocal silos
+        if silos is None:
+            k = tree_leaves(batches)[0].shape[0]
+            if model_group is not None:
+                # the model ranks' trained shares partition each client
+                # slice's rows: K is every rank's share summed
+                t = torch.tensor([k], device=params.device)
+                dist.all_reduce(t, group=model_group)
+                dist.all_reduce(t, group=group)
+                silos = int(t)
+            else:
+                silos = k * (1 if group is None
+                             else dist.get_world_size(group))
+        ids = torch.arange(silos, dtype=torch.int32, device=params.device)
         new_params, new_state, losses, diag = cohort(
             {"delta_prev": delta_prev}, params, batches, None, ids)
         if algorithm == "fedavg":

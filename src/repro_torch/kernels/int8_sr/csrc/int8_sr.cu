@@ -20,6 +20,21 @@
 //         NaN -> 0 (as XLA converts NaN to an integer)
 //   key_i = fold_in(fold_in(PRNGKey(seed), round), i) is computed on the
 //   host (repro_torch/core/jax_prng.py) and read as (L, 2) words.
+//
+//   A rank's block of the stack: the rank holds rows row0..row0+K-1 of
+//   the padded cohort's rows_total rows and, on a model-sharded leaf,
+//   only a strided slice of the leaf's elements. It draws the whole
+//   stack's noise for its own (row, element) pairs: the counter is
+//   n = (row0 + k) * numel_i + j and the split-counter layout's size is
+//   rows_total * numel_i, where numel_i is the WHOLE leaf's element count
+//   and j the shard element's row-major index within the whole leaf.
+//   Both come from the leaf's block descriptor (blocks[i] = numel_i,
+//   inner, stride, base; null: the block's own leaf width and
+//   j = c - off[i]): the shard's p-th element of the leaf
+//   (p = c - off[i]) is j = (p / inner) * stride + base + p % inner,
+//   the leaf viewed as (pre, D, post) and the shard its rows lo..lo+per
+//   of D (inner = per * post, stride = D * post, base = lo * post).
+//   With row0 = 0, rows_total = K and no blocks this is the draw above.
 //   Division and add round to nearest (__fdiv_rn, __fadd_rn), as the
 //   reference's f32 ops do: the codes are bitwise the reference's.
 //
@@ -30,8 +45,10 @@
 // ~0.5 ms, so it is bound by issue, not bytes. The design does only
 // what the draw needs: one thread an element, rotates as one funnel
 // shift (SHF), the leaf found once by binary search and then walked
-// forward, since a thread's columns only grow; x read and q written
-// coalesced, 32 threads on 32 neighbouring columns.
+// forward, since a thread's columns only grow (the leaf's bounds, key,
+// scale and counter base are reloaded only when a column crosses into
+// the next leaf); x read and q written coalesced, 32 threads on 32
+// neighbouring columns.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -88,11 +105,19 @@ __device__ __forceinline__ uint32_t draw_bits(uint32_t k0, uint32_t k1,
   return first ? x0 : x1;
 }
 
+// kShard: a model shard's block, whose leaves' whole element counts and
+// elements' within-leaf indices come from the leaves' block descriptors;
+// otherwise both follow from off, and the element loop is the one-stack
+// draw's
+template <bool kShard>
 __global__ void __launch_bounds__(kThreads)
 int8_sr_kernel(const float* __restrict__ x, const float* __restrict__ scale,
                const int64_t* __restrict__ off,
-               const uint32_t* __restrict__ keys, int8_t* __restrict__ q,
-               int64_t n, int nleaves, int partitionable) {
+               const uint32_t* __restrict__ keys,
+               const int64_t* __restrict__ blocks,
+               int8_t* __restrict__ q,
+               int64_t n, int nleaves, int partitionable, int64_t row0,
+               int64_t rows_total) {
   const int64_t row = blockIdx.y;
   const int64_t stride = (int64_t)gridDim.x * kThreads;
   int64_t c = (int64_t)blockIdx.x * kThreads + threadIdx.x;
@@ -107,18 +132,49 @@ int8_sr_kernel(const float* __restrict__ x, const float* __restrict__ scale,
   const float* xr = x + row * n;
   int8_t* qr = q + row * n;
   const float* sr = scale + row * nleaves;
-  const uint64_t rows = gridDim.y;
+  const uint64_t grow = (uint64_t)(row0 + row);
+  // the walked leaf's bounds, counter base, draw size, key, scale and
+  // (kShard) slice descriptor, reloaded only when a thread's column
+  // crosses into the next leaf
+  int64_t start = -1, end = 0;
+  uint64_t base = 0, size = 0, inner = 1, jstride = 0, jbase = 0;
+  uint32_t k0 = 0, k1 = 0;
+  float s = 1.0f;
   for (; c < n; c += stride) {
-    while (__ldg(off + leaf + 1) <= c) ++leaf;
-    const int64_t start = __ldg(off + leaf);
-    const uint64_t numel = (uint64_t)(__ldg(off + leaf + 1) - start);
-    const uint64_t idx = (uint64_t)row * numel + (uint64_t)(c - start);
-    const uint32_t bits = draw_bits(__ldg(keys + 2 * leaf),
-                                    __ldg(keys + 2 * leaf + 1), idx,
-                                    rows * numel, partitionable);
+    if (c >= end) {
+      while (__ldg(off + leaf + 1) <= c) ++leaf;
+      start = __ldg(off + leaf);
+      end = __ldg(off + leaf + 1);
+      const uint64_t numel = kShard ? (uint64_t)__ldg(blocks + 4 * leaf)
+                                    : (uint64_t)(end - start);
+      if (kShard) {
+        inner = (uint64_t)__ldg(blocks + 4 * leaf + 1);
+        jstride = (uint64_t)__ldg(blocks + 4 * leaf + 2);
+        jbase = (uint64_t)__ldg(blocks + 4 * leaf + 3);
+      }
+      base = grow * numel;
+      size = (uint64_t)rows_total * numel;
+      k0 = __ldg(keys + 2 * leaf);
+      k1 = __ldg(keys + 2 * leaf + 1);
+      s = __ldg(sr + leaf);
+    }
+    uint64_t j = (uint64_t)(c - start);
+    if (kShard) {
+      // 32-bit division where the leaf's slice allows it (almost always)
+      uint64_t a, r;
+      if (((j | inner) >> 32) == 0) {
+        a = (uint32_t)j / (uint32_t)inner;
+        r = (uint32_t)j - (uint32_t)a * (uint32_t)inner;
+      } else {
+        a = j / inner;
+        r = j - a * inner;
+      }
+      j = a * jstride + jbase + r;
+    }
+    const uint32_t bits = draw_bits(k0, k1, base + j, size, partitionable);
     const float u = __fsub_rn(__uint_as_float((bits >> 9) | 0x3F800000u),
                               1.0f);
-    const float v = floorf(__fadd_rn(__fdiv_rn(xr[c], __ldg(sr + leaf)), u));
+    const float v = floorf(__fadd_rn(__fdiv_rn(xr[c], s), u));
     qr[c] = isnan(v) ? (int8_t)0
                      : (int8_t)fminf(fmaxf(v, -127.0f), 127.0f);
   }
@@ -129,18 +185,26 @@ int8_sr_kernel(const float* __restrict__ x, const float* __restrict__ scale,
 extern "C" {
 
 // x (k, n) f32, scale (k, nleaves) f32, off (nleaves + 1,) int64 on the
-// device, keys (nleaves, 2) uint32 -> q (k, n) int8
+// device, keys (nleaves, 2) uint32, blocks (nleaves, 4) int64 (numel,
+// inner, stride, base) or null -> q (k, n) int8; the block is rows
+// row0..row0+k-1 of rows_total
 int int8_sr_quantize(const void* x, const void* scale, const void* off,
-                     const void* keys, void* q, int64_t k, int64_t n,
-                     int nleaves, int partitionable, void* stream) {
-  if (k < 1 || k > 65535 || n < 1 || nleaves < 1)
+                     const void* keys, const void* blocks, void* q,
+                     int64_t k, int64_t n,
+                     int nleaves, int partitionable, int64_t row0,
+                     int64_t rows_total, void* stream) {
+  if (k < 1 || k > 65535 || n < 1 || nleaves < 1 || row0 < 0 ||
+      row0 + k > rows_total)
     return (int)cudaErrorInvalidValue;
   int64_t bx = (n + kThreads - 1) / kThreads;
   if (bx > kMaxBlocksX) bx = kMaxBlocksX;
   const dim3 grid((unsigned)bx, (unsigned)k);
-  int8_sr_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  auto kernel = blocks ? int8_sr_kernel<true> : int8_sr_kernel<false>;
+  kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)scale, (const int64_t*)off,
-      (const uint32_t*)keys, (int8_t*)q, n, nleaves, partitionable);
+      (const uint32_t*)keys, (const int64_t*)blocks, (int8_t*)q, n,
+      nleaves, partitionable, row0,
+      rows_total);
   return (int)cudaGetLastError();
 }
 

@@ -52,23 +52,36 @@ def bits_to_unit_ref(bits: torch.Tensor) -> torch.Tensor:
 
 def int8_sr_quantize_ref(x: torch.Tensor, scale: torch.Tensor,
                          leaf_offsets: torch.Tensor, keys: torch.Tensor,
-                         partitionable: bool = True) -> torch.Tensor:
+                         partitionable: bool = True, row0: int = 0,
+                         rows_total: int = None,
+                         leaf_blocks: torch.Tensor = None) -> torch.Tensor:
     """x (K, N) f32, scale (K, L) f32, leaf_offsets (L+1,) int64, keys
     (L, 2) int64 uint32 words, on x's device -> q (K, N) int8:
     int8(clip(floor(x / scale_leaf + u), -127, 127)) with NaN -> 0, u the
-    uniform of the leaf's key at counter k * numel_leaf + j."""
+    uniform of the leaf's key at counter (row0 + k) * numel_leaf + j of a
+    draw of rows_total * numel_leaf elements (the kernel's block
+    arguments: ``leaf_blocks`` (L, 4) per leaf (numel, inner, stride,
+    base), the whole leaf's element count and j = (p // inner) * stride
+    + base + p % inner for the leaf's p-th column; None: the block's own
+    leaves, j = p)."""
     k, n = x.shape
     dev = x.device
     offsets = leaf_offsets.to(dev)
     counts = offsets[1:] - offsets[:-1]
     leaf = torch.repeat_interleave(
         torch.arange(counts.numel(), device=dev), counts, output_size=n)
-    numel = counts[leaf]
     j = torch.arange(n, device=dev) - offsets[leaf]
-    idx = torch.arange(k, device=dev)[:, None] * numel + j
+    if leaf_blocks is None:
+        numel = counts[leaf]
+    else:
+        numel, inner, stride, base = leaf_blocks.to(dev)[leaf].unbind(1)
+        j = torch.div(j, inner, rounding_mode="floor") * stride + base \
+            + j % inner
+    rows_total = k if rows_total is None else int(rows_total)
+    idx = (int(row0) + torch.arange(k, device=dev))[:, None] * numel + j
     keys = keys.to(dev)
-    bits = draw_bits_ref(keys[leaf, 0], keys[leaf, 1], idx, k * numel,
-                         partitionable)
+    bits = draw_bits_ref(keys[leaf, 0], keys[leaf, 1], idx,
+                         rows_total * numel, partitionable)
     u = bits_to_unit_ref(bits)
     del bits, idx
     y = x.float() / scale[:, leaf]

@@ -33,7 +33,9 @@ Importing this module starts nothing. The pieces:
 """
 from __future__ import annotations
 
+import atexit
 import datetime
+import gc
 import os
 import socket
 import subprocess
@@ -147,8 +149,22 @@ def maybe_initialize(timeout_s: float = DEFAULT_TIMEOUT_S
                                 timeout=timeout)
         _job = _Job(host, int(port), timeout_s)
         _job._local.store = store
+        atexit.register(_leave)
     return DistContext(ctx.coordinator, ctx.num_processes, ctx.process_id,
                        ctx.local_devices, dist.get_backend())
+
+
+def _leave() -> None:
+    """Tear the job down before the interpreter does. Left to the
+    interpreter's exit, the groups and the store clients can be
+    destroyed with a thread still joinable, which aborts the rank
+    (SIGABRT) after its work is done; so can a group that the program
+    still holds a reference to at exit."""
+    global _job
+    gc.collect()          # groups held only by unreachable cycles
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    _job = None
 
 
 def process_count() -> int:

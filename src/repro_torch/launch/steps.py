@@ -16,8 +16,8 @@ the reference's trees (``params_spec``: ``init_lm``'s or
 ``init_states`` or ``init_decoder_states``). The steps run the port's
 decoders (transformer.py) and the encoder-decoder (encdec.py). MoE
 layers route their tokens in ``moe_groups`` groups on one device;
-``moe_impl="ep"`` and ``shard_fn`` need the multi-device layer and
-raise, citing ROADMAP Queue 1 item 13.
+``moe_impl="ep"`` (the expert-parallel MoE, ROADMAP Queue 1 item 13c)
+and ``shard_fn`` (tensor-parallel steps, item 13b) raise.
 """
 from __future__ import annotations
 
@@ -49,8 +49,9 @@ def _refuse(moe_impl, shard_fn):
     tf._check_moe_impl(moe_impl)
     if shard_fn is not None:
         raise NotImplementedError(
-            "shard_fn: sharded steps need the multi-device layer, ROADMAP "
-            "Queue 1 item 13")
+            "shard_fn: tensor-parallel steps (hand-written collectives in "
+            "the forward and backward) are not ported, ROADMAP Queue 1 "
+            "item 13b")
 
 
 def effective_window(cfg: ArchConfig, shape: InputShape) -> int:

@@ -68,6 +68,10 @@ without a job is a single-process run):
       '--rounds', '2', '--clients', '6', '--participation', '0.5', \
       '--shard-clients', '--edges', '2'], 2, capture=False)"
 
+The model axis on four processes: a (2 clients x 2 model) mesh, each
+rank holding a shard of the params and server state (add
+``'--model-shards', '2'`` to the list above and spawn 4).
+
 Checkpoint every round with the run-health monitor on, then pick the run
 up where it stopped (the checkpoints are the reference's format: either
 package's driver resumes the other's):
@@ -297,8 +301,10 @@ def main(argv=None):
                          "the ranks (each trains its slice); without a "
                          "job a no-op")
     ap.add_argument("--model-shards", type=int, default=1,
-                    help="model-axis shards per client slice: not ported, "
-                         "> 1 raises")
+                    help="model-axis shards per client slice: with "
+                         "--shard-clients in a job whose ranks it divides, "
+                         "each rank holds a shard of the params and server "
+                         "state (a (ranks // M, M) clients x model mesh)")
     ap.add_argument("--edges", type=int, default=None,
                     help="hierarchical aggregation: E edge aggregators, "
                          "each folding an equal contiguous slice of the "

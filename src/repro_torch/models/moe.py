@@ -2,7 +2,7 @@
 router and capacity-slotted gather/scatter dispatch.
 
 Tokens are routed in G groups of T_g tokens (``groups``; single-device
-here: the reference sets G to the mesh's token shards, which item 13
+here: the reference sets G to the mesh's token shards, which item 13c
 brings). Each (group, expert) has C slots, C = ceil(T_g * k / E * cf)
 floored at MIN_CAPACITY and rounded up to a multiple of 8 (of 128 from
 128 on). An assignment's slot is its rank among the group's assignments

@@ -41,8 +41,7 @@ blocked forms (``attention.sdpa(impl="plain")``) and the Mamba mixer
 through its plain scan, on every device — neither hand-written kernel
 has a backward, nor has the reference's (attention.py's docstring). The
 MoE layers group their tokens on one device (``moe_groups``); the
-expert-parallel form (``moe_impl="ep"``) waits for the multi-device
-layer, ROADMAP Queue 1 item 13.
+expert-parallel form (``moe_impl="ep"``) is ROADMAP Queue 1 item 13c.
 """
 from __future__ import annotations
 
@@ -110,8 +109,9 @@ def _check_moe_impl(moe_impl: str):
     if moe_impl != "gshard":
         raise NotImplementedError(
             f"moe_impl={moe_impl!r}: the port routes MoE tokens on one "
-            "device ('gshard'); the expert-parallel MoE (moe_ep) needs the "
-            "multi-device layer, ROADMAP Queue 1 item 13")
+            "device ('gshard'); the expert-parallel MoE (moe_ep, its "
+            "all-to-all over the expert axis) is not ported, ROADMAP Queue "
+            "1 item 13c")
 
 
 # ---------------- single layer ----------------
@@ -291,7 +291,7 @@ def lm_forward(cfg, params, tokens, positions=None, *, embeds=None,
     backward (``_remat``); it needs plain autograd, not torch.func.
     ``moe_groups`` token groups route each MoE layer (moe.moe_forward);
     ``moe_impl`` "gshard" (the single-device dispatch) — "ep" raises,
-    citing item 13."""
+    citing item 13c."""
     _check_config(cfg)
     _check_moe_impl(moe_impl)
     if remat not in REMATS:

@@ -79,3 +79,64 @@ def port_trainer(cell, **exec_kw):
         algo=api.AlgoConfig(name=name, eta_l=ETA_L, eta_g=ETA_G),
         fault_plan=None if plan is None else FaultPlan.seeded(0, **plan),
         device="cpu")
+
+
+# the model axis's four-rank job (tests/test_torch_model_axis.py): cell
+# -> (rule, EXEC_REGIMES name, model shards, more ExecConfig overrides,
+# FaultPlan.seeded(0, ...) arguments). shard_model 4 is the regime
+# table's (1 x 4) mesh; 2 is a (2 x 2) mesh
+MODEL_REGIMES = ("sharded2d", "staged2d", "codec_int8_2d",
+                 "server_fedadam_2d", "server_fedyogi_2d")
+MODEL_CELLS = {
+    **{f"feddpc:{reg}:{m}": ("feddpc", reg, m, {}, None)
+       for m in (4, 2) for reg in MODEL_REGIMES},
+    **{f"{name}:sharded2d:{m}": (name, "sharded2d", m, {}, None)
+       for name in ("fedavg", "fedvarp") for m in (4, 2)},
+    "feddpc:guard:2": ("feddpc", "sharded2d", 2, {"guard": True},
+                       {"nan_rate": 0.3}),
+    "feddpc:int8_sr:2": ("feddpc", "sharded2d", 2, {"codec": "int8_sr"},
+                         None),
+}
+MODEL_CLI_ARGS = CLI_ARGS + ["--shard-clients", "--model-shards", "2"]
+
+
+def model_cell_kw(cell, sharded=True):
+    """A model cell's rule, ExecConfig overrides and fault plan; with
+    ``sharded=False`` the same run in one process (no mesh keys)."""
+    from repro_torch.core.api import EXEC_REGIMES
+    name, regime, m, more, plan = MODEL_CELLS[cell]
+    kw = {**EXEC_REGIMES[regime], **more}
+    if sharded:
+        kw["shard_model"] = m
+    else:
+        kw.pop("shard_clients")
+        kw.pop("shard_model")
+    return name, kw, plan
+
+
+def model_trainer(cell, sharded=True, **exec_kw):
+    """The port's trainer of a model cell on the CPU, K clients a round."""
+    from repro_torch.core import api
+    from repro_torch.core.faults import FaultPlan
+    name, kw, plan = model_cell_kw(cell, sharded)
+    cfg = api.ExecConfig(**{"rounds": ROUNDS, "clients_per_round": K,
+                            "seed": SEED, "eval_every": 10 ** 9, **kw,
+                            **exec_kw})
+    return api.FederatedTrainer(
+        loss_fn, make_params(), NUM_CLIENTS, batch_fn, cfg,
+        algo=api.AlgoConfig(name=name, eta_l=ETA_L, eta_g=ETA_G),
+        fault_plan=None if plan is None else FaultPlan.seeded(0, **plan),
+        device="cpu")
+
+
+# the cross-silo round's batches (round.make_fl_round_step): FL_SILOS
+# silos, 2 all-valid minibatches each
+FL_SILOS = 4
+
+
+def fl_batches():
+    rng = np.random.RandomState(3)
+    return {"x": torch.from_numpy(rng.randn(FL_SILOS, 2, 8, 8)
+                                  .astype(np.float32)),
+            "y": torch.from_numpy(rng.randn(FL_SILOS, 2, 8, 4)
+                                  .astype(np.float32))}

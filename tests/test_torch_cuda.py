@@ -362,6 +362,41 @@ def test_int8_sr_kernel_matches_plain_version(cuda, layout, k,
     assert got.dtype == torch.int8 and torch.equal(got, want)
 
 
+@pytest.mark.parametrize("model_rank", [None, 0, 1])
+@pytest.mark.parametrize("partitionable", [True, False])
+def test_int8_sr_kernel_blocks_match_plain_version(cuda, model_rank,
+                                                   partitionable):
+    """A rank's block, bit for bit against ref.py: rows 3-5 of a 6-row
+    stack (row0, rows_total), and on a (2 x 2) mesh model rank 0's or 1's
+    shard of the leaves (leaf_blocks; a (7, 9) leaf that no dim of
+    2 divides is rank 0's alone)."""
+    from repro_torch.sharding.layout import ShardLayout
+    tree = {"conv": np.zeros((3, 3, 16, 32), np.float32),
+            "b": np.zeros(32, np.float32), "odd": np.zeros((7, 9), np.float32),
+            "w": np.zeros((64, 48), np.float32)}
+    layout = layout_of(tree)
+    offsets, block = layout.leaf_offsets, {}
+    n = layout.size
+    if model_rank is not None:
+        shards = ShardLayout.from_sizes(layout, {"clients": 2, "model": 2})
+        offsets = shards.offsets(model_rank)
+        n = shards.sizes[model_rank]
+        block = {"leaf_blocks": shards.leaf_blocks(model_rank)}
+    nleaves = offsets.numel() - 1
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((3, n), generator=gen, device=cuda) * 0.01
+    scale = torch.rand((3, nleaves), generator=gen, device=cuda) * 1e-4
+    keys = np.random.default_rng(5).integers(0, 2 ** 32, (nleaves, 2),
+                                             dtype=np.uint32)
+    got = sr_ops.int8_sr_quantize(x, scale, offsets, keys, partitionable,
+                                  row0=3, rows_total=6, **block)
+    want = sr_ref.int8_sr_quantize_ref(
+        x, scale, offsets, torch.from_numpy(keys.astype(np.int64)),
+        partitionable, 3, 6, block.get("leaf_blocks"))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 def test_int8_sr_trainer_on_card_matches_cpu(cuda):
     """Sync FedDPC with int8_sr: one int8_sr launch and one dequant fold a
     round on the card; losses within the card-vs-CPU gate."""

@@ -118,8 +118,43 @@ def test_rows_and_edge_pieces():
         edge_pieces(0, 4, 4, 3)
 
 
+MESH2D = r"""
+import torch
+import torch.distributed as dist
+from repro_torch.launch import distributed, mesh
+ctx = distributed.maybe_initialize(timeout_s=60)
+m = mesh.make_cohort_mesh(model=2)
+assert mesh.mesh_info(m) == {"axis_names": ("clients", "model"),
+                             "shape": (1, 2), "num_devices": 2}, \
+    mesh.mesh_info(m)
+g = m["model"].get_group()
+assert dist.get_world_size(g) == 2 and dist.get_rank(g) == ctx.process_id
+assert dist.get_world_size(m["clients"].get_group()) == 1
+x = torch.tensor([float(ctx.process_id + 1)])
+dist.all_reduce(x, group=g)
+assert x.item() == 3.0, x
+for bad in (3, 0):
+    try:
+        mesh.make_cohort_mesh(model=bad)
+    except ValueError as e:
+        assert "does not divide" in str(e), e
+    else:
+        raise AssertionError(bad)
+print("MESH2D_OK", ctx.process_id, flush=True)
+del g, m      # the exit teardown (distributed._leave) frees the groups
+"""
+
+
 def test_the_mesh_refuses_the_model_axis_and_needs_a_job():
-    with pytest.raises(NotImplementedError, match="item 13"):
+    """The model axis no longer raises: make_cohort_mesh(model=2) on two
+    ranks is the (1 x 2) ("clients", "model") mesh with its two process
+    groups; a model size that does not divide the ranks raises the
+    reference's "does not divide", and any mesh needs the job."""
+    res = distributed.spawn_local([sys.executable, "-c", MESH2D], 2,
+                                  env=ENV, timeout_s=120)
+    assert [r[1].split() for r in res] == [["MESH2D_OK", "0"],
+                                           ["MESH2D_OK", "1"]]
+    with pytest.raises(RuntimeError, match="maybe_initialize"):
         mesh.make_cohort_mesh(model=2)
     with pytest.raises(RuntimeError, match="maybe_initialize"):
         mesh.make_cohort_mesh()

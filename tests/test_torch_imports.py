@@ -53,7 +53,8 @@ for must in ("repro_torch.optim.server", "repro_torch.core.samplers",
              "repro_torch.examples.serve_batched",
              "repro_torch.launch.distributed",
              "repro_torch.launch.mesh",
-             "repro_torch.sharding.rules"):
+             "repro_torch.sharding.rules",
+             "repro_torch.sharding.layout"):
     assert must in names, (must, names)
 print("chip_smoke.main() ->", chip_smoke.main())   # CUDA is hidden
 """
