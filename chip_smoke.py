@@ -145,6 +145,19 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               Each rank prints N_m against N/M, its bytes at rest, its
               peak memory (one process's beside it), its launches against
               its rows, the ms of the five collectives and its round s.
+ 4e. async_ranks  buffered-async rounds across ranks at full width
+              (--async-ranks-worker, on model_axis's ranks): multirank's
+              task with K a multiple of the ranks, B = K / 2, 2 waves in
+              flight, ExponentialRuntime, 4 rounds: (a) int8 + EF and (b)
+              int8_sr + EF on the client axis, (c), (d) the same on the
+              (ranks / 2 x 2) mesh, (e) guarded f32 arrivals on the mesh
+              cut at round 2 and resumed here; each against this
+              process's one-process run, every fold's arrivals equal to
+              its. Each rank prints its round s, the ms of its
+              collectives a round, its peak memory, its in-flight bytes
+              after each round and its launches against the folds it held
+              arrivals in; the kernels line gets the ranks' launches
+              (rank_launches).
   5. parity   LeNet5 at quickstart size on the card and on the CPU from
               the same initial params (the reference's draws,
               core/jax_prng.py) — 2 sync FedDPC rounds (prefetched, the
@@ -283,11 +296,15 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
  21. serve batched  repro_torch.examples.serve_batched on the card, its
               launches counted.
 
-Every profile opens with PROFILE_PAD spin kernels, finished before the
-profiled work and left out of its counts and times: late in a long process
-the profiler loses a profile's first device events.
+Every profile opens and closes with PROFILE_PAD spin kernels (and closes
+with a wait on the host), finished outside the profiled work and left out
+of its counts and times: the profiler drops a profile's first device
+events, more of them late in a long process, and now and then its last.
+The pads seen at each end say whether the window held the work whole.
 
-The last lines are the kernels' JSON summary, the nvidia-smi line and
+The last lines are the kernels' JSON summary (each row's launches on the
+main path and, as rank_launches, on the async_ranks phase's ranks), the
+nvidia-smi line and
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
 prints no result. It imports torch and the port, nothing of JAX.
 """
@@ -329,6 +346,7 @@ from repro_torch.core import projection as proj  # noqa: E402
 from repro_torch.core.api import (AlgoConfig, ExecConfig,  # noqa: E402
                                   FederatedTrainer)
 from repro_torch.core.baselines import FedDPCHyper  # noqa: E402
+from repro_torch.core import async_engine  # noqa: E402
 from repro_torch.core import jax_prng  # noqa: E402
 from repro_torch.core.faults import (FaultPlan,  # noqa: E402
                                      corrupt_checkpoint)
@@ -489,14 +507,22 @@ SS_KERNEL_NAMES = ("ssm_scan_kernel", "ssm_step_kernel")
 # SMs (NVIDIA's arithmetic instruction throughput table, compute 9.0)
 SFU_PER_CLOCK_PER_SM = 16
 NUM_SMS = 132
-# torch.profiler loses the first device events of a profile, more of them
-# the more profiles the process has taken (a Falcon-Mamba decode step lost
-# its first 16 kernels, layer 0's silu among them, late in a full smoke;
-# a fresh process lost none; now and then a profile loses ~90): each
-# profile opens with this many tiny spin kernels, synchronized before the
-# profiled work starts, which absorb the loss and are left out of every
-# count and time
-PROFILE_PAD = 256
+# torch.profiler drops a profile's first device events, a count that grows
+# with the profiles the process has taken (0 in a fresh process, ~45 late
+# in a full smoke, whatever the wait before the first launch; now and then
+# hundreds: a Jamba decode step lost 256 pads and half its kernels, then
+# every kernel when profiled again), and now and then its last (a FedDPC
+# round lost its last ~2,400 kernels, the fold's among them, and showed
+# more busy time than its window). Each profile therefore opens with
+# PROFILE_PAD tiny spin kernels and closes with PROFILE_PAD more and a
+# wait of PROFILE_TAIL_S or PROFILE_STRETCH of the window, whichever is
+# longer; all of it is synchronized apart from the profiled work and left
+# out of every count and time. A step profiled once more waits and pads
+# as PROFILE_RETRY says (seconds, spin kernels at each end).
+PROFILE_PAD = 1024
+PROFILE_TAIL_S = 0.02
+PROFILE_STRETCH = 0.1
+PROFILE_RETRY = (1.0, 8192)
 PAD_KERNEL = "spin_kernel"
 
 # ---- the int8_sr encode kernel (not a TPU kernel: XLA draws the noise in
@@ -1361,17 +1387,36 @@ def _annotate_codec(trainer):
         setattr(codec, meth, wrapped)
 
 
-def _pad_profile():
-    """PROFILE_PAD spin kernels at a profile's start, finished before the
+def _profile_lead(pads=PROFILE_PAD):
+    """A profile's lead: ``pads`` spin kernels, finished before the
     profiled work is launched."""
-    for _ in range(PROFILE_PAD):
+    for _ in range(pads):
         torch.cuda._sleep(1)
     torch.cuda.synchronize()
 
 
-def _pads_seen(events) -> int:
-    return sum(1 for e in events if e.device_type == DeviceType.CUDA
-               and PAD_KERNEL in e.key)
+def _profile_tail(window_s, wait_s=PROFILE_TAIL_S, pads=PROFILE_PAD):
+    """A profile's tail, once its work of window_s has finished: ``pads``
+    spin kernels, then a wait of wait_s or PROFILE_STRETCH of the window,
+    whichever is longer."""
+    for _ in range(pads):
+        torch.cuda._sleep(1)
+    torch.cuda.synchronize()
+    time.sleep(max(wait_s, PROFILE_STRETCH * window_s))
+
+
+def _pads_seen(events) -> dict:
+    """The spin kernels a profile shows before its first other device
+    event ("lead") and after its last ("tail"), in the card's order; with
+    no other device event, every pad seen counts as lead."""
+    pads = [PAD_KERNEL in key for _, key in sorted(
+        (e.time_range.start, e.key) for e in events
+        if e.device_type == DeviceType.CUDA
+        and not e.key.startswith("codec."))]
+    if all(pads):
+        return {"lead": len(pads), "tail": 0}
+    return {"lead": pads.index(False),
+            "tail": pads[::-1].index(False)}
 
 
 def _kernel_time(events, category):
@@ -1407,13 +1452,15 @@ def profile_round(trainer, t, category=_category):
             torch.profiler.ProfilerActivity.CUDA]
     trainer.finalize()
     with torch.profiler.profile(activities=acts) as prof:
-        _pad_profile()
+        _profile_lead()
         tic = time.perf_counter()
         rec = trainer.run_round(t)
         trainer.finalize()
         torch.cuda.synchronize()
         window_s = time.perf_counter() - tic
+        _profile_tail(window_s)
     events = prof.events()
+    pads = _pads_seen(events)
     spans, busy_us, by_name, by_cat = _kernel_time(events, category)
     # codec kernels: those launched by CPU ops inside a codec range
     ranges = [(e.time_range.start, e.time_range.end) for e in events
@@ -1436,7 +1483,7 @@ def profile_round(trainer, t, category=_category):
     top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:10]
     line = {"phase": "profile", "round": t, "round_seconds": rec.seconds,
             "window_seconds": window_s, "kernels": len(spans),
-            "pad_kernels_seen": _pads_seen(events),
+            "lead_pads_seen": pads["lead"], "tail_pads_seen": pads["tail"],
             "kernel_sum_ms": sum(by_name.values()),
             "device_busy_ms": busy_us / 1e3,
             "device_idle_share": 1.0 - busy_us / 1e6 / window_s,
@@ -2749,6 +2796,250 @@ def phase_model_axis():
     emit(summary)
 
 
+AR_ROUNDS = 4
+AR_CUT = 2
+AR_WORKER = "--async-ranks-worker"
+# run -> (codec with error feedback or None, on the (clients, model)
+# mesh?, guard?): int8 and int8_sr on the client axis (a, b) and on the
+# mesh (c, d); (e) f32 arrivals under the guard on the mesh, cut
+# mid-buffer at round 2
+AR_RUNS = {"a": ("int8", False, False), "b": ("int8_sr", False, False),
+           "c": ("int8", True, False), "d": ("int8_sr", True, False),
+           "e": (None, True, True)}
+
+
+def _ar_trainer(task, run, k, model, resume_from=None):
+    """An async_ranks run: ResNet18-GN FedDPC under ExponentialRuntime,
+    two waves in flight, B = K / 2; ``model`` None is one process, else
+    the ranks as (ranks // model, model)."""
+    codec, _, guard = AR_RUNS[run]
+    kw = {**NO_EVAL, "clients_per_round": k, "async_buffer": True,
+          "buffer_size": k // 2, "async_concurrency": 2, "guard": guard}
+    if codec is not None:
+        kw.update(codec=codec, codec_ef=True)
+    if model is not None:
+        kw.update(shard_clients=True, shard_model=model)
+    return _trainer(*task, "feddpc", AR_ROUNDS, "cuda", kw,
+                    runtime=ExponentialRuntime(mean=1.0),
+                    sampler=UniformSampler(MR_CLIENTS, k),
+                    resume_from=resume_from)
+
+
+class _PopLog:
+    """The async engine module's ``heapq`` with every pop logged: the
+    arrivals' (client, wave, version), in arrival order."""
+
+    def __init__(self, heapq_module):
+        self._heapq = heapq_module
+        self.log = []
+
+    def __getattr__(self, name):
+        return getattr(self._heapq, name)
+
+    def heappop(self, heap):
+        item = self._heapq.heappop(heap)
+        e = item[2]
+        self.log.append([int(e.client), int(e.wave), int(e.version)])
+        return item
+
+
+def _record_folds(tr):
+    """Each fold of ``tr``'s engine: its arrivals and, across ranks, the
+    buffer positions this rank held (the list the folds land in)."""
+    if not isinstance(async_engine.heapq, _PopLog):
+        async_engine.heapq = _PopLog(async_engine.heapq)
+    log, eng = async_engine.heapq.log, tr._engine
+    run, fold = eng.run_server_round, eng.fold
+    folds = []
+
+    def recorded(t, params, server_state):
+        mark = len(log)
+        out = run(t, params, server_state)
+        folds[-1]["arrivals"] = log[mark:]
+        return out
+
+    def held_fold(*a, held=None, **kw):
+        folds.append({"held": None if held is None else len(held)})
+        return fold(*a, held=held, **kw)
+    eng.run_server_round, eng.fold = recorded, held_fold
+    return folds
+
+
+def _ar_expected(run, folds, waves):
+    """Launches a rank's run implies: a reduction pass (the guard's under
+    the guard) and a buffer fold (the dequant fold with a codec) a fold
+    in which it held arrivals; int8_sr's encode once a wave."""
+    codec, _, guard = AR_RUNS[run]
+    held = sum(1 for f in folds if f["held"])
+    out = {"feddpc_guard_dots" if guard else "feddpc_dots": held,
+           "feddpc_dequant_buffer_fold" if codec else "feddpc_buffer_fold":
+           held}
+    if codec == "int8_sr":
+        out["int8_sr_quantize"] = waves
+    return {k: v for k, v in out.items() if v}
+
+
+def _async_ranks_worker(out: str) -> int:
+    """One rank of the async_ranks phase: runs (a)-(e), (e) saved at
+    round 2 (rank 0 writes the checkpoint) and run on to its end; writes
+    its lines and rank 0's gathered params."""
+    ctx = distributed.maybe_initialize()
+    torch.backends.cudnn.deterministic = True
+    task = _mr_task()
+    k = mr_cohort(ctx.num_processes)
+    lines = []
+    for run, (_, on_mesh, _) in AR_RUNS.items():
+        _ma_reset()
+        inflight = []
+        with _ar_trainer(task, run, k, MA_MODEL if on_mesh else 1) as tr:
+            folds = _record_folds(tr)
+            for t in range(AR_ROUNDS):
+                if run == "e" and t == AR_CUT:
+                    tr.save(os.path.join(out, "ckpt"))
+                tr.run_round(t)
+                inflight.append(tr.shard_info()["bytes"]["inflight"])
+            tr.finalize()
+            full = tr.full_params()
+        info = tr.shard_info()
+        coll = collections.defaultdict(
+            lambda: [0.0] * len(tr.collective_log))
+        for i, rnd in enumerate(tr.collective_log):
+            for name, ms in rnd:
+                coll[name][i] += ms
+        lines.append({
+            "phase": "async_ranks", "run": run, "rank": ctx.process_id,
+            "backend": ctx.backend, "mesh": info["mesh"],
+            "coords": info["coords"], "N": info["N"], "N_m": info["N_m"],
+            "slice_rows": info["slice_rows"],
+            "bytes_at_rest": info["bytes"], "inflight_bytes": inflight,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": _ma_launches(),
+            "expected_launches": _ar_expected(run, folds,
+                                              tr._engine.wave_frontier),
+            "held_per_fold": [f["held"] for f in folds],
+            "collective_ms_per_round": dict(coll),
+            "round_seconds": [r.seconds for r in tr.history],
+            "losses": [r.train_loss for r in tr.history],
+            "arrivals": [f["arrivals"] for f in folds]})
+        if ctx.process_id == 0:
+            torch.save(full.cpu(), os.path.join(out, f"{run}.pt"))
+        del tr, full
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(os.path.join(out, f"rank{ctx.process_id}.json"), "w") as fh:
+        json.dump(lines, fh)
+    return 0
+
+
+def phase_async_ranks():
+    """Buffered-async rounds across ranks at full width: multirank's
+    ResNet18-GN task (K = mr_cohort(ranks): no wave is padded, so int8_sr
+    draws one process's noise), ExponentialRuntime, two waves in flight,
+    B = K / 2, 4 rounds, deterministic cuDNN, on ma_layout's ranks: async
+    int8 + EF and int8_sr + EF on the client axis (ranks x 1) and on the
+    (ranks / 2 x 2) mesh, guarded f32 arrivals on the mesh cut at round 2
+    and resumed in this process. Each run is held against this process's
+    one-process run (losses and params within MR_RTOL, the codec runs
+    within MA_CODEC_RTOL), every fold's arrivals equal to one process's,
+    each rank's launches against the arrivals it held. Returns the
+    launches each kernel made on the ranks."""
+    cards = torch.cuda.device_count()
+    ranks, backend = ma_layout(cards)
+    k = mr_cohort(ranks)
+    tic = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    single = {}
+    try:
+        task = _mr_task()
+        for run in ("a", "b", "e"):
+            torch.cuda.reset_peak_memory_stats()
+            with _ar_trainer(task, run, k, None) as tr:
+                folds = _record_folds(tr)
+                tr.run()
+            single[run] = ([r.train_loss for r in tr.history],
+                           tr.flat.cpu(), [r.seconds for r in tr.history],
+                           torch.cuda.max_memory_allocated() / 2 ** 30,
+                           [f["arrivals"] for f in folds])
+            del tr
+        single["c"], single["d"] = single["a"], single["b"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ar_") as out:
+            env = {}
+            if backend == "nccl":
+                env["NCCL_SOCKET_IFNAME"] = os.environ.get(
+                    "NCCL_SOCKET_IFNAME", "lo")
+            job_tic = time.perf_counter()
+            distributed.spawn_local(
+                [sys.executable, os.path.abspath(__file__), AR_WORKER, out],
+                ranks, backend=backend,
+                local_devices=1 if backend == "gloo" else None, env=env,
+                timeout_s=480)
+            job_s = time.perf_counter() - job_tic
+            lines = []
+            for r in range(ranks):
+                with open(os.path.join(out, f"rank{r}.json")) as fh:
+                    lines += json.load(fh)
+            params = {run: torch.load(os.path.join(out, f"{run}.pt"))
+                      for run in AR_RUNS}
+            with _ar_trainer(task, "e", k, None,
+                             resume_from=os.path.join(out, "ckpt")) as res:
+                if (res.start_round != AR_CUT
+                        or not res._engine.inflight()):
+                    raise AssertionError(
+                        f"async_ranks e: resumed at {res.start_round} "
+                        f"with {len(res._engine.inflight())} in flight")
+                res.run()
+            resumed = ([r.train_loss for r in res.history[AR_CUT:]],
+                       res.flat.cpu())
+            del res
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    launches = collections.Counter()
+    for line in lines:
+        run = line["run"]
+        arrivals = line.pop("arrivals")
+        emit(line)
+        if arrivals != single[run][4]:
+            raise AssertionError(f"async_ranks {run} rank {line['rank']}: "
+                                 "the folds' arrivals differ from one "
+                                 "process's")
+        if line["launches"] != line["expected_launches"]:
+            raise AssertionError(
+                f"async_ranks {run} rank {line['rank']}: launches "
+                f"{line['launches']}, expected {line['expected_launches']}")
+        if any(x["losses"] != line["losses"] for x in lines
+               if x["run"] == run):
+            raise AssertionError(f"async_ranks {run}: the ranks' losses "
+                                 "differ")
+        launches.update(line["launches"])
+    summary = {"phase": "async_ranks", "backend": backend, "ranks": ranks,
+               "cards": cards, "clients_per_round": k,
+               "buffer_size": k // 2, "job_seconds": job_s}
+    for run, (codec, _, _) in AR_RUNS.items():
+        line = next(x for x in lines if x["run"] == run)
+        summary[run] = {
+            "mesh": line["mesh"], "loss_single": single[run][0],
+            "loss_ranks": line["losses"],
+            **_ma_check(f"async_ranks {run}", line["losses"],
+                        single[run][0], params[run], single[run][1],
+                        MA_CODEC_RTOL if codec else MR_RTOL),
+            "single_round_seconds": single[run][2],
+            "single_peak_gib": single[run][3],
+            "rank_peak_gib": [x["peak_gib"] for x in lines
+                              if x["run"] == run],
+            "rank_inflight_bytes": [x["inflight_bytes"][-1] for x in lines
+                                    if x["run"] == run]}
+    summary["e_resumed"] = {"loss_resumed": resumed[0], **_ma_check(
+        "async_ranks e resumed", resumed[0], single["e"][0][AR_CUT:],
+        resumed[1], single["e"][1], MR_RTOL)}
+    summary["rank_launches"] = dict(launches)
+    summary["seconds"] = time.perf_counter() - tic
+    emit(summary)
+    return dict(launches)
+
+
 def _parity_checkpoint(task):
     """LeNet5: a checkpoint written on the card resumes on the CPU and one
     written on the CPU resumes on the card; each resumed run continues
@@ -3123,25 +3414,28 @@ def _serve_category(kernel: str) -> str:
     return "other"
 
 
-def _profiled(fn):
-    """fn() under torch.profiler, inference mode, its work synchronized:
-    (profile, window seconds, fn's result, the flash wrapper's launches
-    in it)."""
+def _profiled(fn, retry=False):
+    """fn() under torch.profiler, inference mode, its work synchronized,
+    between a lead and a tail (PROFILE_RETRY's when ``retry``): (profile,
+    window seconds, fn's result, the flash wrapper's launches in it)."""
+    wait_s, pads = PROFILE_RETRY if retry else (PROFILE_TAIL_S,
+                                                PROFILE_PAD)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     launched = fa_ops.flash_attention.launches
     with torch.inference_mode(), torch.profiler.profile(
             activities=acts) as prof:
-        _pad_profile()
+        _profile_lead(pads)
         tic = time.perf_counter()
         result = fn()
         torch.cuda.synchronize()
         window_s = time.perf_counter() - tic
+        _profile_tail(window_s, wait_s, pads)
     return prof, window_s, result, fa_ops.flash_attention.launches - launched
 
 
-def _profile_step(cfg, params, tok, pos, states, embeds=None):
+def _profile_step(cfg, params, tok, pos, states, embeds=None, retry=False):
     """One forward step under torch.profiler (``_profiled``), its result
     (next token, new states). The step can be run again on the same
     arguments: the attention caches are written in place at the same
@@ -3151,7 +3445,7 @@ def _profile_step(cfg, params, tok, pos, states, embeds=None):
             cfg, params, tok, positions=pos, embeds=embeds, states=states,
             logits_slice_last=True)
         return torch.argmax(logits[:, -1], dim=-1)[:, None], new_states
-    return _profiled(step)
+    return _profiled(step, retry)
 
 
 def _step_launches(cfg, step: str) -> dict:
@@ -3188,14 +3482,15 @@ def _silu_ops(cfg) -> int:
 
 
 def _check_profiled_step(label, step, profiled, want_flash, want_mixer):
-    """``profiled()`` -> (profile, window s, result, flash launches): run
-    it, then once more on the same inputs if the device count is off
-    (the profiler can miss a step's first device events). Host counts
-    must be exact on every read. Returns the exact read's numbers, its
-    ``result`` and every read's device counts (``reads``)."""
+    """``profiled(retry)`` -> (profile, window s, result, flash launches):
+    run it, then once more on the same inputs, with PROFILE_RETRY's lead
+    and tail, if the device count is off (the profiler can drop device
+    events at either end of its window). Host counts must be exact on
+    every read. Returns the exact read's numbers, its ``result`` and every
+    read's device counts and pads seen (``reads``)."""
     reads = []
-    for _ in range(2):
-        prof, window_s, result, launched = profiled()
+    for retry in (False, True):
+        prof, window_s, result, launched = profiled(retry)
         spans, busy_us, by_name, by_cat = _kernel_time(prof.events(),
                                                        _serve_category)
         flash = sum(1 for *_, name in spans
@@ -3213,8 +3508,12 @@ def _check_profiled_step(label, step, profiled, want_flash, want_mixer):
         if want_mixer is not None and ops != want_mixer:
             raise AssertionError(f"{label} profile {step}: mixer ops "
                                  f"{ops}, expected {want_mixer}")
+        pads = _pads_seen(prof.events())
         reads.append({"kernels": len(spans),
-                      "pad_kernels_seen": _pads_seen(prof.events()),
+                      "lead_pads_seen": pads["lead"],
+                      "tail_pads_seen": pads["tail"],
+                      "pads_each_end": PROFILE_RETRY[1] if retry
+                      else PROFILE_PAD,
                       "flash_attention_kernels": flash,
                       **{f"{key}_kernels": n for key, n in mixer.items()}})
         if flash == want_flash and (want_mixer is None
@@ -3735,7 +4034,8 @@ def profile_serve_encdec(cfg, params, frames):
                                         "cuda")
     read = _check_profiled_step(
         cfg.name, "prefill",
-        lambda: _profiled(lambda: encdec.encode(cfg, params, frames)),
+        lambda retry: _profiled(lambda: encdec.encode(cfg, params, frames),
+                                retry),
         cfg.encoder_layers, None)
     _emit_profile(cfg.name, dtype, "prefill", read)
     enc_out = read["result"]
@@ -3747,7 +4047,7 @@ def profile_serve_encdec(cfg, params, frames):
                                   states=states)
         return logits
     read = _check_profiled_step(cfg.name, "decode",
-                                lambda: _profiled(step),
+                                lambda retry: _profiled(step, retry),
                                 2 * cfg.num_layers, None)
     _emit_profile(cfg.name, dtype, "decode", read)
 
@@ -3988,6 +4288,8 @@ def main() -> int:
         return _multirank_worker(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == MA_WORKER:
         return _model_axis_worker(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == AR_WORKER:
+        return _async_ranks_worker(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs a card",
               file=sys.stderr)
@@ -4001,6 +4303,7 @@ def main() -> int:
     phase_checkpoint()
     phase_multirank()
     phase_model_axis()
+    rank_launches = phase_async_ranks()
     # the one-client epilogue's path is project_and_scale, not a round
     launches["feddpc_fused_epilogue"] = \
         project_launches["feddpc_fused_epilogue"]
@@ -4010,13 +4313,22 @@ def main() -> int:
         if row["launches"] < 1:
             raise AssertionError(f"{row['name']} never launched on the "
                                  "main path")
+        # launches the async_ranks phase's ranks made, summed over them
+        row["rank_launches"] = rank_launches.get(row["name"], 0)
+    for name in ("feddpc_guard_dots", "feddpc_buffer_fold",
+                 "feddpc_dequant_buffer_fold", "int8_sr_quantize"):
+        if not rank_launches.get(name):
+            raise AssertionError(f"{name} never launched on the ranks of "
+                                 "the async_ranks phase")
     phase_parity()
     fa_row = phase_attention()
     fa_row["launches"] = phase_serve(SERVE_ARCH, "flash_attention")
+    fa_row["rank_launches"] = 0
     rows.append(fa_row)
     phase_serve_parity(SERVE_ARCH)
     ss_row = phase_ssm_kernels()
     ss_row["launches"] = phase_serve(SSM_ARCH, "ssm_scan")
+    ss_row["rank_launches"] = 0
     rows.append(ss_row)
     phase_serve_parity(SSM_ARCH)
     phase_lm_train()
@@ -4030,8 +4342,9 @@ def main() -> int:
     phase_whisper_train()
     phase_moe_parity()
     phase_serve_batched()
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("name", "route", "source", "replaces", "launches",
+            "rank_launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     emit({"kernels": [{k: row[k] for k in keys} for row in rows]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -93,6 +93,15 @@ every delta's shards to their owners; the server step then runs on
 shards (core/round.py). ``full_params``, ``full_state`` and ``params``
 gather (every rank calls them alike); checkpoints hold whole vectors, so
 they resume across process counts and in either package.
+
+Buffered-async rounds run across the ranks on either axis: every rank
+runs the same engine over the same arrival heap, a wave trains each
+rank's rows as a sync round does, and only the client slice that trained
+an update holds its delta (core/async_engine.py). A fold is a
+core/round.BufferShard over the arrivals the rank holds; a mid-buffer
+checkpoint gathers each in-flight entry whole from its slice, and a
+restore on any process count hands entry j to client slice j mod the
+slices.
 """
 from __future__ import annotations
 
@@ -117,9 +126,10 @@ from repro_torch.core.baselines import (ServerAlgo, client_kwargs,
 from repro_torch.core import jax_prng
 from repro_torch.core import projection as proj
 from repro_torch.core.guards import GuardConfig, UpdateGuard
-from repro_torch.core.round import (ID_SENTINEL, apply_fault_codes,
-                                    apply_guard, codec_stage,
-                                    make_cohort_round)
+from repro_torch.core.round import (ID_SENTINEL, BufferShard, RankShard,
+                                    apply_fault_codes, apply_guard,
+                                    codec_stage, make_cohort_round,
+                                    shard_row_scalars)
 from repro_torch.core.runtime import ClientRuntimeModel, DeterministicRuntime
 from repro_torch.core.samplers import (ClientSampler, UniformSampler,
                                        normalize_sampler_config)
@@ -421,11 +431,6 @@ class FederatedTrainer:
                 "multi-process execution drives the fused cohort round; it "
                 "cannot combine with vectorize=False")
         model = int(self.cfg.shard_model)
-        if model > 1 and self.cfg.async_buffer:
-            raise NotImplementedError(
-                f"shard_model={model} with async_buffer: the buffered-async "
-                "engine is single-process and the port's model axis spans "
-                "ranks (ROADMAP Queue 1 item 13d, async on the model axis)")
         if model > 1 and not (self._mp and distributed.process_count()
                               % model == 0):
             raise ValueError(
@@ -434,16 +439,15 @@ class FederatedTrainer:
                 "axis spans ranks, one process a device "
                 f"(this process: {distributed.process_count()} ranks, "
                 f"shard_clients={self.cfg.shard_clients})")
-        if self._mp and self.cfg.async_buffer:
-            raise ValueError(
-                "the buffered-async engine is single-process; "
-                "multi-process runs use the synchronous cohort round")
         if want_ef and not lossy:
             raise ValueError(
                 "codec_ef=True needs a LOSSY codec (bf16/int8 family): "
                 f"codec={codec_name!r} has no quantization residual to "
                 "feed back")
         self._codec_lossy = lossy
+        # the wire codes' dtype: bf16's, else the int8 family's
+        self._codec_dtype = (torch.bfloat16 if codec_name == "bf16"
+                             else torch.int8)
         # int8_sr's noise: the round's key is fold_in(key, round) (the
         # async wave frontier for a wave), as the reference draws it
         self._codec_key = (jax_prng.PRNGKey(self.cfg.seed)
@@ -465,6 +469,9 @@ class FederatedTrainer:
             self._model_group = self.mesh["model"].get_group()
             self._m = distributed.process_index() % model
             self.flat = self._shards.scatter(self.flat, self._m)
+        # where each leaf the rank holds starts in its vector
+        self._offsets = (self.layout.leaf_offsets if self._shards is None
+                         else self._shards.offsets(self._m))
         self.num_clients = num_clients
         self.source: DataSource = as_data_source(data)
         self.eval_fn = eval_fn
@@ -560,6 +567,9 @@ class FederatedTrainer:
         self._live_mask_input = self._deadline_mask or self._edge_faults
         # [(collective, ms)] of each multi-process round, in round order
         self.collective_log: List[List[tuple]] = []
+        # the RankShards of an async round's waves and the BufferShard of
+        # its fold, whose collectives make its collective_log entry
+        self._async_shards: List[Any] = []
         self._cohort_round = make_cohort_round(
             loss_fn, self.layout, self.algo, self.algo_cfg.eta_l,
             self.algo_cfg.eta_g, optimizer=self.algo_cfg.local_optimizer,
@@ -673,11 +683,17 @@ class FederatedTrainer:
     def shard_info(self) -> dict:
         """This rank's place on the mesh and what it holds at rest:
         coordinates, the client slice's and trained rows, N_m against
-        N, and the bytes of the params, server state, optimizer moments
-        and error feedback (the round's delta stacks are allocated per
-        round)."""
+        N, and the bytes of the params, server state, optimizer moments,
+        error feedback and the async entries in flight whose deltas it
+        holds (a sync round's delta stacks are allocated per round)."""
         nbytes = lambda t: 0 if t is None else t.numel() * t.element_size()
         model = self._shards.model if self._shards is not None else 1
+        inflight = 0
+        if self._engine is not None:
+            for e in self._engine.inflight():
+                if e.delta is not None:
+                    inflight += sum(nbytes(t) for t in
+                                    bridge.tree_leaves(e.delta))
         return {
             "mesh": (None if self.mesh is None else
                      [int(d) for d in self.mesh.mesh.shape]),
@@ -691,7 +707,7 @@ class FederatedTrainer:
                                        self.server_state.items()},
                       "opt_state": sum(nbytes(v) for v in
                                        (self._opt_state or {}).values()),
-                      "ef": nbytes(self._ef)}}
+                      "ef": nbytes(self._ef), "inflight": inflight}}
 
     # ---- internals ----
 
@@ -704,7 +720,16 @@ class FederatedTrainer:
         A staleness-aware rule (the FedDPC family) takes the discounts into
         its own scalars; any other rule gets the deltas pre-scaled by them.
         A wave's clients get ``algo.client_extra`` of the dispatch-time
-        server state; a server optimizer re-steps each fold's proposal."""
+        server state; a server optimizer re-steps each fold's proposal.
+
+        Across ranks (``shard_clients`` in a job) a wave is this rank's
+        part of the padded cohort, as a sync round's (core/round.RankShard:
+        the model group's params gathered, the rank's rows trained at full
+        width, the all-to-all, the codec's whole-leaf extrema and
+        whole-stack noise), its losses summed over the job (one
+        collective a wave) and error feedback averaged over the wave's
+        real rows. A fold is a core/round.BufferShard over the arrivals
+        the rank's client slice holds."""
         local = client_mod.make_cohort_local_update(
             loss_fn, self.layout, self.algo_cfg.eta_l,
             optimizer=self.algo_cfg.local_optimizer,
@@ -712,14 +737,34 @@ class FederatedTrainer:
         algo, eta_g = self.algo, self.algo_cfg.eta_g
         sopt = self._server_opt
         codec = self._codec if self._codec_lossy else None
-        offsets = self.layout.leaf_offsets
+        offsets = self._offsets
         inject, guard = self._inject_deltas, self._guard is not None
+        guard_cfg = None if self._guard is None else self._guard.config
+        ranks = self._mp
+        k, kp = self.cfg.clients_per_round, self._pad_to
+        # the wave's real rows: the error-feedback mean leaves the padded
+        # ones out, as the reference's does
+        real = (None if kp == k else
+                torch.arange(kp, device=self.device) < k)
+        shard_kw = {"model_group": self._model_group,
+                    "shards": self._shards}
 
         def wave_update(params, server_state, batches, masks):
             # a fresh stack per wave: the arrival heap keeps rows of it
             # until their fold, past later waves' training
-            deltas, losses = local(params, batches, masks,
-                                   algo.client_extra(server_state))
+            extra = algo.client_extra(server_state)
+            shard = None
+            if not ranks:
+                deltas, losses = local(params, batches, masks, extra)
+            else:
+                shard = RankShard(self._client_group(), kp, **shard_kw)
+                self._async_shards.append(shard)
+                deltas, part = shard.local_training(local, params, batches,
+                                                    masks, extra)
+                losses = torch.zeros(kp, dtype=part.dtype,
+                                     device=part.device)
+                losses[shard.lo:shard.hi] = part
+                losses = shard.job_sum(losses, "wave_losses")
             if codec is None:
                 return deltas, losses
             # entries carry the wire payload; EF advances here, in
@@ -727,35 +772,55 @@ class FederatedTrainer:
             key = (None if self._codec_key is None else jax_prng.fold_in(
                 self._codec_key, self._engine.wave_frontier))
             _, payload, resid = codec_stage(codec, deltas, self._ef, offsets,
-                                            key)
+                                            key, shard)
             if resid is not None:
-                self._ef = proj.masked_client_mean(resid)
+                self._ef = proj.masked_client_mean(resid, real, shard=shard)
             return payload, losses
 
-        def fold(server_state, params, deltas, ids, weights, *chaos):
+        def fold(server_state, params, deltas, ids, weights, *chaos,
+                 held=None):
             ids = torch.as_tensor(ids, device=self.device)
             weights = torch.as_tensor(weights, device=self.device)
+            shard = None
+            if held is not None:
+                shard = BufferShard(self._client_group(), len(ids), held,
+                                    device=self.device, **shard_kw)
+                self._async_shards.append(shard)
             encoded = None
-            if codec is not None:
+            if deltas is None:
+                # this rank holds none of the fold's arrivals
+                deltas = torch.zeros((0, self.flat.numel()),
+                                     dtype=torch.float32, device=self.device)
+            elif codec is not None:
                 encoded = deltas
                 deltas = codec.decode_cohort(encoded, offsets)
             it = iter(chaos)
             cm = gstats = None
             if inject:
-                deltas = apply_fault_codes(deltas, next(it), self._magnitude)
+                codes = next(it)
+                if shard is not None:
+                    codes = shard.local_rows(codes)
+                deltas = apply_fault_codes(deltas, codes, self._magnitude)
                 encoded = None       # the payload no longer holds the rows
-            if guard:
+            if shard is not None:
+                deltas, ids, cm, _, gstats = shard_row_scalars(
+                    shard, algo, server_state, deltas, ids, cm,
+                    next(it) if guard else None, guard_cfg,
+                    row_weights=None if algo.staleness_aware else weights)
+            elif guard:
                 deltas, ids, cm, gstats = apply_guard(
-                    deltas, ids, cm, next(it), self._guard.config)
+                    deltas, ids, cm, next(it), guard_cfg)
+            if guard:
                 encoded = None
             if algo.staleness_aware:
                 out = algo.step(server_state, params, deltas, ids, eta_g, 0,
                                 client_mask=cm, staleness_weights=weights,
-                                encoded=encoded, leaf_offsets=offsets)
+                                encoded=encoded, leaf_offsets=offsets,
+                                shard=shard)
             else:
-                out = algo.step(server_state, params,
-                                weights[:, None] * deltas, ids, eta_g, 0,
-                                client_mask=cm)
+                w = weights if shard is None else shard.local_rows(weights)
+                out = algo.step(server_state, params, w[:, None] * deltas,
+                                ids, eta_g, 0, client_mask=cm, shard=shard)
             if sopt is not None:
                 # the optimizer advances at folds only (server rounds)
                 new_p, self._opt_state = sopt.apply(params, out[0],
@@ -786,7 +851,8 @@ class FederatedTrainer:
             alpha=self.cfg.staleness_alpha,
             concurrency=self.cfg.async_concurrency,
             deadline=self.cfg.round_deadline, fold_extras=fold_extras,
-            fold_returns_stats=guard)
+            fold_returns_stats=guard,
+            held_rows=self._slice_rows if ranks else None)
 
     def _capture(self) -> dict:
         """The state a round's sampling starts from: RNG, sampler, shape
@@ -1013,8 +1079,13 @@ class FederatedTrainer:
         buffer_size arrivals (dispatching waves as concurrency allows,
         stopping at the round deadline) and folds them with their
         staleness discounts."""
+        self._async_shards = []
         self.flat, self.server_state, m = self._engine.run_server_round(
             t, self.flat, self.server_state)
+        if self._mp:
+            self.collective_log.append(
+                [x for shard in self._async_shards
+                 for x in shard.timings_ms()])
         extra = {"staleness_mean": m["staleness_mean"],
                  "staleness_max": m["staleness_max"],
                  # bytes are paid when an update ships, whichever fold
@@ -1251,11 +1322,102 @@ class FederatedTrainer:
                                  else self._guard.config.config_dict())}
 
     def _entry_to_reference(self, delta):
-        """One async entry's delta -> the reference's tree: the params
-        tree, or the codec's {"q", "scale", "zero"} trees."""
+        """One async entry's whole delta -> the reference's tree: the
+        params tree, or the codec's {"q", "scale", "zero"} trees (codes in
+        the codec's dtype)."""
         if self._codec_lossy:
+            delta = {**delta, "q": delta["q"].to(self._codec_dtype)}
             return bridge.payload_to_reference(delta, self.layout)
         return self.layout.unflatten(delta)
+
+    def _inflight_rows(self, entries: List[BufferEntry]):
+        """The in-flight entries' deltas at full width, in heap order: on
+        one process the entries' own; across ranks, on the coordinator,
+        each gathered from the client slice that holds it — within the
+        slice's model group first (wide vectors all-gathered, a payload's
+        per-leaf scalars taken from a model rank that holds the leaf),
+        then broadcast over the client axis (exact). None on the other
+        ranks. Every rank calls it alike."""
+        if not self._mp:
+            return [e.delta for e in entries]
+        n = len(entries)
+        if not n:
+            return [] if distributed.is_coordinator() else None
+        model = 1 if self._shards is None else self._shards.model
+        c = distributed.process_index() // model
+        # which client slice holds each entry: model rank 0 of the slice
+        # counts it, one sum over the job
+        owner = torch.zeros(n, dtype=torch.int64, device=self.device)
+        if self._m == 0:
+            for i, e in enumerate(entries):
+                if e.delta is not None:
+                    owner[i] = c + 1
+        torch.distributed.all_reduce(owner)
+        owner = (owner - 1).tolist()
+        held = [i for i, e in enumerate(entries) if e.delta is not None]
+        full = {}
+        if held:
+            parts = self._entry_parts([entries[i].delta for i in held])
+            full = {k: self._widen(k, v) for k, v in parts.items()}
+        if self._m != 0:
+            return None
+        # model rank 0 of each slice holds whole rows now; the client
+        # axis of model rank 0 takes them to the coordinator
+        group = self._client_group()
+        rows = []
+        for i in range(n):
+            mine = owner[i] == c
+            row = {}
+            for key, shape, dtype in self._part_specs():
+                buf = (full[key][held.index(i)].contiguous() if mine else
+                       torch.empty(shape, dtype=dtype, device=self.device))
+                torch.distributed.broadcast(buf, owner[i] * model,
+                                            group=group)
+                row[key] = buf
+            rows.append(row if self._codec_lossy else row["delta"])
+        return rows if distributed.is_coordinator() else None
+
+    def _entry_parts(self, deltas) -> Dict[str, torch.Tensor]:
+        """Held entries' deltas stacked per part: {"delta": (h, N_m)}, or
+        a payload's {"q", "scale", "zero"}."""
+        if not self._codec_lossy:
+            return {"delta": torch.stack(deltas)}
+        return {k: torch.stack([d[k] for d in deltas]) for k in deltas[0]}
+
+    def _part_specs(self):
+        """(part, whole row shape, dtype) of an entry's delta, as the
+        broadcast carries it (codes in f32: exact)."""
+        n, nleaves = self.layout.size, len(self.layout.shapes)
+        if not self._codec_lossy:
+            return [("delta", (n,), torch.float32)]
+        return [("q", (n,), torch.float32),
+                ("scale", (nleaves,), torch.float32),
+                ("zero", (nleaves,), torch.float32)]
+
+    def _widen(self, key: str, x: torch.Tensor) -> torch.Tensor:
+        """(h, N_m) held rows -> (h, N), (h, L_m) per-leaf scalars -> (h,
+        L), over the model group (collectives of the slice's model ranks
+        alone); f32 throughout."""
+        x = x.float()
+        if self._shards is None:
+            return x
+        if key in ("delta", "q"):
+            return model_all_gather(x, self._model_group, self._shards)
+        sh = self._shards
+        nleaves = len(self.layout.shapes)
+        ids = torch.from_numpy(sh.leaf_ids(self._m)).to(x.device)
+        part = x.new_zeros((x.shape[0], nleaves))
+        part[:, ids] = x
+        parts = [torch.empty_like(part) for _ in range(sh.model)]
+        torch.distributed.all_gather(parts, part, group=self._model_group)
+        # each leaf from the first model rank that holds it
+        first = {}
+        for m in reversed(range(sh.model)):
+            first.update({int(i): m for i in sh.leaf_ids(m)})
+        pick = torch.tensor([first[i] for i in range(nleaves)],
+                            device=x.device)
+        g = torch.stack(parts)                        # (M, h, L)
+        return g.gather(0, pick[None, None].expand(1, *part.shape))[0]
 
     def save(self, ckpt_dir: str, keep: int = 3) -> str:
         """Write the full TrainerState in the reference's format;
@@ -1314,9 +1476,10 @@ class FederatedTrainer:
                 "async_entry_loss": np.asarray(
                     [e.loss for e in entries], np.float32),
             })
-            if entries:
+            rows = self._inflight_rows(entries)
+            if entries and rows is not None:
                 per_entry = [bridge.tree_leaves(
-                    self._entry_to_reference(e.delta)) for e in entries]
+                    self._entry_to_reference(d)) for d in rows]
                 for i in range(len(per_entry[0])):
                     aux_arrays[f"async_delta_{i}"] = (
                         lambda i=i: torch.stack([p[i] for p in per_entry]))
@@ -1527,25 +1690,47 @@ class FederatedTrainer:
             t.copy_(ckpt.from_host(a, t.dtype))
 
     def _restore_inflight(self, arrays: dict) -> List[BufferEntry]:
+        """The checkpoint's in-flight entries, in heap order. Across ranks
+        entry j goes to client slice j mod (client slices) — a rule every
+        rank computes alike, whatever process count wrote the checkpoint
+        — whose ranks keep its delta (on the model axis their shard's
+        columns); the other ranks keep the entry without it."""
         n = int(arrays["async_n_inflight"])
         if not n:
             return []
+        keep = list(range(n))
+        if self._mp:
+            model = 1 if self._shards is None else self._shards.model
+            slices = distributed.process_count() // model
+            c = distributed.process_index() // model
+            keep = [j for j in range(n) if j % slices == c]
         layout, skel = self.layout, self.layout.skeleton
         nleaves = len(layout.shapes)
-        stacked = [ckpt.from_host(arrays[f"async_delta_{i}"])
+        rows = torch.as_tensor(keep, dtype=torch.int64)
+        stacked = [ckpt.from_host(arrays[f"async_delta_{i}"])[rows]
                    for i in range(nleaves * (3 if self._codec_lossy
                                              else 1))]
 
         def tree(base):
             return bridge.tree_map(lambda i: stacked[base + i], skel)
+        sh, m = self._shards, self._m
         if self._codec_lossy:
-            rows = bridge.payload_from_reference(
+            held = bridge.payload_from_reference(
                 {"q": tree(0), "scale": tree(nleaves),
                  "zero": tree(2 * nleaves)}, layout, self.device)
-            deltas = [{k: v[j] for k, v in rows.items()} for j in range(n)]
+            if sh is not None:
+                ids = torch.from_numpy(sh.leaf_ids(m)).to(self.device)
+                held = {"q": sh.scatter(held["q"], m),
+                        "scale": held["scale"][:, ids].contiguous(),
+                        "zero": held["zero"][:, ids].contiguous()}
+            deltas = [{k: v[i] for k, v in held.items()}
+                      for i in range(len(keep))]
         else:
-            rows = bridge.flat_from_reference(tree(0), layout, self.device)
-            deltas = [rows[j] for j in range(n)]
+            held = bridge.flat_from_reference(tree(0), layout, self.device)
+            if sh is not None:
+                held = sh.scatter(held, m)
+            deltas = list(held)
+        by_row = dict(zip(keep, deltas))
         return [BufferEntry(
             client=int(arrays["async_entry_client"][j]),
             wave=int(arrays["async_entry_wave"][j]),
@@ -1553,7 +1738,7 @@ class FederatedTrainer:
             seq=int(arrays["async_entry_seq"][j]),
             finish=float(arrays["async_entry_finish"][j]),
             loss=float(arrays["async_entry_loss"][j]),
-            delta=deltas[j]) for j in range(n)]
+            delta=by_row.get(j)) for j in range(n)]
 
     def restore(self, ckpt_dir: str, step: Optional[int] = None
                 ) -> "FederatedTrainer":

@@ -35,6 +35,15 @@ Entries keep ROWS of their wave's output (a view of the delta stack, or
 the codec payload's row), so ``wave_update`` must hand each wave fresh
 tensors: a stack reused by a later wave would overwrite buffered updates
 that are still in flight.
+
+Across the ranks of a multi-process job (``held_rows``) every rank runs
+the same engine — the heap is a pure function of the seed, the sampler
+and the runtime model, whose draws every rank makes alike — and keeps
+every entry, but only the ranks whose client slice trained an update
+hold its delta (rows [lo, hi) of each wave's padded stack, as
+``wave_update`` returns them; the losses it returns cover the whole
+wave). The fold gets the held arrivals and their buffer positions
+(``held=``) instead of all B stacked.
 """
 from __future__ import annotations
 
@@ -62,7 +71,8 @@ class BufferEntry:
     finish: float          # virtual arrival time
     loss: float
     delta: Any             # one client's row: an (N,) tensor, or the
-                           # codec payload's row {"q", "scale", "zero"}
+                           # codec payload's row {"q", "scale", "zero"};
+                           # None on a rank that does not hold it
 
 
 class BufferedAsyncEngine:
@@ -79,7 +89,9 @@ class BufferedAsyncEngine:
                      update against the CURRENT snapshot, in new tensors
       fold           (server_state, params, deltas (B, ...), ids (B,)
                      int32, weights (B,) f32, both numpy, *extras) ->
-                     (new_params, new_state, diag[, guard_stats])
+                     (new_params, new_state, diag[, guard_stats]); with
+                     ``held_rows`` deltas are the held arrivals' rows
+                     (None without any) and ``held=`` their positions
       runtime_take   wave -> (latencies (k,), dropped (k,)) — the
                      latency draws made at sampling time
       fold_extras    optional: the arrival list -> extra fold inputs
@@ -92,7 +104,8 @@ class BufferedAsyncEngine:
                  concurrency: int = 1, prefetch: bool = True,
                  deadline: float = None,
                  fold_extras: Callable = None,
-                 fold_returns_stats: bool = False):
+                 fold_returns_stats: bool = False,
+                 held_rows: Tuple[int, int] = None):
         if buffer_size < 1:
             raise ValueError(f"buffer_size must be >= 1, got {buffer_size}")
         if concurrency < 1:
@@ -120,6 +133,9 @@ class BufferedAsyncEngine:
         # the guard's stats as a 4th element, surfaced in the metrics
         self.fold_extras = fold_extras
         self.fold_returns_stats = fold_returns_stats
+        # a rank's rows [lo, hi) of every wave's padded stack (None: one
+        # process, every row)
+        self.held_rows = held_rows
         self.clock = 0.0               # virtual time of the last arrival
         self.seq = 0                   # global dispatch counter (tiebreak)
         self.wave_frontier = 0         # next wave to dispatch
@@ -145,6 +161,7 @@ class BufferedAsyncEngine:
             # host read of the losses: waits for the wave's training
             losses_h = losses.detach().cpu().numpy().astype(np.float32)
             lat, dropped = self.runtime_take(w)
+            lo, hi = self.held_rows or (0, len(staged.clients))
             pushed = 0
             for j in range(len(staged.clients)):
                 if dropped[j]:
@@ -154,7 +171,8 @@ class BufferedAsyncEngine:
                     version=self.version, seq=self.seq,
                     finish=self.clock + float(lat[j]),
                     loss=float(losses_h[j]),
-                    delta=tree_map(lambda x, j=j: x[j], deltas))
+                    delta=(tree_map(lambda x, r=j - lo: x[r], deltas)
+                           if lo <= j < hi else None))
                 heapq.heappush(self._heap,
                                (entry.finish, entry.seq, entry))
                 self.seq += 1
@@ -210,11 +228,15 @@ class BufferedAsyncEngine:
         # (1+s)^(-alpha) in float64, then f32: exactly 1.0 at s = 0
         weights = ((1.0 + stale) ** (-self.alpha)).astype(np.float32)
         ids = np.asarray([e.client for e in arrivals], np.int32)
-        stacked = tree_map(lambda *xs: torch.stack(xs),
-                           *[e.delta for e in arrivals])
         extras = self.fold_extras(arrivals) if self.fold_extras else ()
+        held = [i for i, e in enumerate(arrivals) if e.delta is not None]
+        stacked = (tree_map(lambda *xs: torch.stack(xs),
+                            *[arrivals[i].delta for i in held])
+                   if held else None)
+        kw = ({} if self.held_rows is None
+              else {"held": np.asarray(held, np.int64)})
         out = self.fold(server_state, params, stacked, ids, weights,
-                        *extras)
+                        *extras, **kw)
         gstats = None
         if self.fold_returns_stats:
             params, server_state, diag, gstats = out

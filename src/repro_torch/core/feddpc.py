@@ -81,20 +81,30 @@ def _fold_mask(coefs: torch.Tensor, scales: torch.Tensor,
 
 def _folds(kernel_fold, params: torch.Tensor, k: int, eta_g: float,
            edges: Optional[int], shard):
-    """(new_params, Δ_t) from ``kernel_fold(lo, hi, glo)`` -> (w', Δ) of
-    the local rows [lo, hi) (global rows from glo): one launch over all
-    K rows of a flat single-process round, else one launch per edge
-    piece, the pieces' Δ weighted by their rows over the padded cohort,
-    summed (over the ranks too, with ``shard``), and w' from the sum."""
+    """(new_params, Δ_t) from ``kernel_fold(loc, glob)`` -> (w', Δ) of
+    the local rows ``loc`` (a slice), whose rows of the global scalars
+    are ``glob`` (a slice, or an index tensor for an async buffer's held
+    rows): one launch over all K rows of a flat single-process round,
+    else one launch per piece (``shard.fold_pieces()``, or the edge
+    pieces), the pieces' Δ weighted by their rows over the padded cohort
+    (or the buffer), summed (over the ranks too, with ``shard``), and w'
+    from the sum. A rank with no piece contributes zeros to the sum and
+    launches nothing."""
     if shard is None and not (edges and edges > 1):
-        return kernel_fold(0, k, 0)
-    lo, rows = (0, k) if shard is None else (shard.lo, shard.rows)
-    pieces = (edge_pieces(0, k, k, edges) if shard is None
-              else shard.pieces)
+        return kernel_fold(slice(0, k), slice(0, k))
+    if shard is None:
+        rows = k
+        pieces = [(slice(a, b), slice(a, b), b - a)
+                  for a, b in edge_pieces(0, k, k, edges)]
+    else:
+        rows, pieces = shard.rows, shard.fold_pieces()
     delta_t = None
-    for a, b in pieces:
-        part = kernel_fold(a - lo, b - lo, a)[1].mul_((b - a) / rows)
+    for loc, glob, n in pieces:
+        part = kernel_fold(loc, glob)[1].mul_(n / rows)
         delta_t = part if delta_t is None else delta_t.add_(part)
+    if delta_t is None:
+        delta_t = torch.zeros(params.shape, dtype=torch.float32,
+                              device=params.device)
     if shard is not None:
         shard.all_sum(delta_t)
     new_params = (params.float() - eta_g * delta_t).to(params.dtype)
@@ -149,19 +159,18 @@ def server_step(state: Dict[str, torch.Tensor], params: torch.Tensor,
            else staleness_weights.to(device=deltas.device,
                                      dtype=torch.float32).contiguous())
 
-    def kernel_fold(lo, hi, glo):
-        """The fold of local rows [lo, hi), global rows from glo."""
-        gsl = slice(glo, glo + hi - lo)
-        c, s = coefs[gsl], scales[gsl]
-        w = None if wgt is None else wgt[gsl]
+    def kernel_fold(loc, glob):
+        """The fold of local rows ``loc``, global rows ``glob``."""
+        c, s = coefs[glob], scales[glob]
+        w = None if wgt is None else wgt[glob]
         if encoded is None and w is None:
             return k_ops.feddpc_batched_epilogue(
-                deltas[lo:hi], delta_prev, params, c, s, eta_g)
+                deltas[loc], delta_prev, params, c, s, eta_g)
         if encoded is None:
             return k_ops.feddpc_buffer_fold(
-                deltas[lo:hi], delta_prev, params, c, s, w, eta_g)
-        payload = (encoded["q"][lo:hi], encoded["scale"][lo:hi],
-                   encoded["zero"][lo:hi], leaf_offsets, delta_prev, params,
+                deltas[loc], delta_prev, params, c, s, w, eta_g)
+        payload = (encoded["q"][loc], encoded["scale"][loc],
+                   encoded["zero"][loc], leaf_offsets, delta_prev, params,
                    c, s)
         if w is None:
             return k_ops.feddpc_dequant_batched_epilogue(*payload, eta_g)
@@ -206,10 +215,9 @@ def server_step_projection_only(state: Dict[str, torch.Tensor],
     coefs, scales, _ = _fold_mask(coefs, torch.ones_like(coefs),
                                   client_mask)
 
-    def kernel_fold(lo, hi, glo):
-        gsl = slice(glo, glo + hi - lo)
+    def kernel_fold(loc, glob):
         return k_ops.feddpc_batched_epilogue(
-            deltas[lo:hi], delta_prev, params, coefs[gsl], scales[gsl],
+            deltas[loc], delta_prev, params, coefs[glob], scales[glob],
             eta_g)
 
     new_params, delta_t = _folds(kernel_fold, params, deltas.shape[0],

@@ -62,10 +62,11 @@ def masked_client_mean(x: torch.Tensor,
     combines the E partials — equal to the flat mean up to summation
     order, because the mask is a per-row weight.
 
-    ``shard`` (core/round.RankShard) makes it the multi-process mean: x
-    holds this rank's rows of the padded cohort, ``client_mask`` the
-    whole cohort's, and the rank's partial sum over its rows is summed
-    over the ranks (one all-reduce). Equal groups make the mean of the
+    ``shard`` (core/round.RankShard, or a BufferShard of an async fold)
+    makes it the multi-process mean: x holds this rank's rows of the
+    padded cohort (or its held arrivals of the buffer, none at all
+    maybe), ``client_mask`` the whole cohort's, and the rank's partial
+    sum over its rows is summed over the ranks (one all-reduce). Equal groups make the mean of the
     edge means the flat mean, so the edges change only the order of the
     sums there."""
     if shard is not None:
@@ -74,7 +75,7 @@ def masked_client_mean(x: torch.Tensor,
         else:
             mf = client_mask.float()
             nvalid = torch.clamp(mf.sum(), min=1.0)
-            part = torch.sum(x.float() * mf[shard.lo:shard.hi, None],
+            part = torch.sum(x.float() * shard.local_rows(mf)[:, None],
                              dim=0) / nvalid
         return shard.all_sum(part)
     if edges is not None and int(edges) > 1:

@@ -61,6 +61,14 @@ moments and the error-feedback accumulator the rank's SHARDS at rest
 plus 1. and 2. as above, on the client group. A codec's per-leaf
 extrema add one all-gather over the model group (``leaf_extrema``), so
 each shard quantizes with the whole leaf's scale.
+
+A buffered-async wave across ranks is a RankShard's local training,
+exchange and encode, its losses summed over the job; its fold is a
+``BufferShard``: the rank holds an index set of the buffer's arrivals,
+whose row scalars are summed over the job in one all-reduce
+(``buffer_scalars``) before the fold's one launch over the held rows and
+the all-reduce of Δ_t; FedVARP's table takes the buffer's rows from the
+client slices (``buffer_rows``).
 """
 from __future__ import annotations
 
@@ -202,44 +210,28 @@ def model_all_gather(x: torch.Tensor, group, shards) -> torch.Tensor:
     return shards.unpad(torch.stack(parts, dim=-2))
 
 
-class RankShard:
-    """This rank's part of a multi-process round and the round's
-    collectives: the client axis's process ``group`` and, on a two-axis
-    mesh, the ``model_group`` with the params' ``shards``
-    (sharding/layout.ShardLayout).
+class _Collectives:
+    """The collectives a rank's part of a multi-process round makes, each
+    timed on the calling stream (CUDA events on the card, the host clock
+    on the CPU) into ``timings``: over the client axis's process
+    ``group``, over the job, and, on a two-axis mesh, over the
+    ``model_group`` with the params' ``shards``
+    (sharding/layout.ShardLayout). ``dots`` is the (rows, 3)
+    reduction-pass scalars the rules read, summed over the model ranks
+    and combined over the client axis."""
 
-    The rank's client slice is rows [lo, hi) of the ``rows`` padded
-    cohort rows (``local`` each); ``pieces`` are those rows cut at the
-    ``edges`` boundaries (sharding/rules.edge_pieces), one fold launch
-    each. Without the model axis the rank trains its whole slice; with
-    it, model rank ``mrank`` of ``model`` trains rows ``train`` of the
-    slice at full width (sharding/rules.model_row_split), and from the
-    all-to-all on every tensor is the rank's shard of N_m columns.
-    ``dots`` is the (rows, 3) reduction-pass scalars the rules read,
-    summed over the model ranks and gathered over the client axis. Each
-    collective is timed on the calling stream (CUDA events on the card,
-    the host clock on the CPU) into ``timings``."""
-
-    def __init__(self, group, rows: int, edges: Optional[int] = None, *,
-                 model_group=None, shards=None):
+    def __init__(self, group, model_group=None, shards=None):
         self.group = group
         self.world = dist.get_world_size(group)
         self.rank = dist.get_rank(group)
-        self.rows = int(rows)
-        self.local = self.rows // self.world
-        self.lo, self.hi = local_row_range(self.rank, self.world, self.rows)
-        self.pieces = edge_pieces(self.lo, self.hi, self.rows, edges)
         self.model_group = model_group
         self.shards = shards
         if model_group is None:
             self.model, self.mrank = 1, 0
-            self.train = (self.lo, self.hi)
         else:
             self.model = dist.get_world_size(model_group)
             self.mrank = dist.get_rank(model_group)
             self.peers = dist.get_process_group_ranks(model_group)
-            self.splits = model_row_split(self.lo, self.hi, self.model)
-            self.train = self.splits[self.mrank]
         self.dots: Optional[torch.Tensor] = None
         self.timings: List[tuple] = []
 
@@ -256,19 +248,19 @@ class RankShard:
             op()
             self.timings.append((name, tic, time.perf_counter()))
 
-    def gather(self, x: torch.Tensor) -> torch.Tensor:
-        """All-gather of this client slice's (local, ...) rows ->
-        (rows, ...) in row order."""
-        x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(self.world)]
-        self._run("all_gather", x,
-                  lambda: dist.all_gather(parts, x, group=self.group))
-        return torch.cat(parts)
-
     def all_sum(self, x: torch.Tensor) -> torch.Tensor:
         """All-reduce (sum) of ``x`` over the client axis, in place."""
         self._run("all_reduce", x,
                   lambda: dist.all_reduce(x, group=self.group))
+        return x
+
+    def job_sum(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        """All-reduce (sum) of ``x`` over every rank of the job, in place:
+        the client axis's and the model axis's partials in one
+        collective (the client axis itself without the model axis)."""
+        x = x.contiguous()
+        group = self.group if self.model == 1 else None
+        self._run(name, x, lambda: dist.all_reduce(x, group=group))
         return x
 
     # ---- the model axis ----
@@ -289,27 +281,6 @@ class RankShard:
         self._run("param_all_gather", x, lambda: out.append(
             model_all_gather(x, self.model_group, self.shards)))
         return out[0]
-
-    def exchange(self, trained: torch.Tensor) -> torch.Tensor:
-        """The all-to-all: this rank's (trained rows, N) deltas at full
-        width -> the client slice's (local, N_m) deltas of its own shard,
-        each model rank's rows sent the columns it owns. Built from
-        isend/irecv pairs (uneven splits; gloo takes no all-to-all of
-        CUDA tensors)."""
-        m, sh = self.mrank, self.shards
-        out = trained.new_empty((self.local, sh.sizes[m]))
-        off = lambda r: self.splits[r][0] - self.lo
-        sends, recvs = {}, {}
-        for r, peer in enumerate(self.peers):
-            a, b = self.splits[r]
-            if r == m:
-                sh.scatter(trained, r, out=out[off(r):off(r) + b - a])
-            else:
-                sends[peer] = sh.scatter(trained, r)
-                recvs[peer] = out[off(r):off(r) + b - a]
-        self._run("all_to_all", trained,
-                  lambda: _p2p_exchange(sends, recvs, self.model_group))
-        return out
 
     def leaf_extrema(self, mn: torch.Tensor, mx: torch.Tensor):
         """Per (row, held leaf) min and max of the shard -> those of the
@@ -344,6 +315,158 @@ class RankShard:
                 b.synchronize()
                 out.append((name, a.elapsed_time(b)))
         return out
+
+
+class RankShard(_Collectives):
+    """This rank's part of a multi-process round (or of an async wave) and
+    its collectives (``_Collectives``).
+
+    The rank's client slice is rows [lo, hi) of the ``rows`` padded
+    cohort rows (``local`` each); ``pieces`` are those rows cut at the
+    ``edges`` boundaries (sharding/rules.edge_pieces), one fold launch
+    each. Without the model axis the rank trains its whole slice; with
+    it, model rank ``mrank`` of ``model`` trains rows ``train`` of the
+    slice at full width (sharding/rules.model_row_split), and from the
+    all-to-all on every tensor is the rank's shard of N_m columns."""
+
+    def __init__(self, group, rows: int, edges: Optional[int] = None, *,
+                 model_group=None, shards=None):
+        super().__init__(group, model_group, shards)
+        self.rows = int(rows)
+        self.local = self.rows // self.world
+        self.lo, self.hi = local_row_range(self.rank, self.world, self.rows)
+        self.pieces = edge_pieces(self.lo, self.hi, self.rows, edges)
+        if model_group is None:
+            self.train = (self.lo, self.hi)
+        else:
+            self.splits = model_row_split(self.lo, self.hi, self.model)
+            self.train = self.splits[self.mrank]
+
+    def local_rows(self, v: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a (rows, ...) tensor."""
+        return v[self.lo:self.hi]
+
+    def fold_pieces(self) -> List[tuple]:
+        """[(local rows, global rows, row count)] of the fold's launches:
+        one per edge piece."""
+        return [(slice(a - self.lo, b - self.lo), slice(a, b), b - a)
+                for a, b in self.pieces]
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """All-gather of this client slice's (local, ...) rows ->
+        (rows, ...) in row order."""
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.world)]
+        self._run("all_gather", x,
+                  lambda: dist.all_gather(parts, x, group=self.group))
+        return torch.cat(parts)
+
+    def row_scalars(self, cols: torch.Tensor) -> torch.Tensor:
+        """The slice's (local, c) row scalars, model-summed, gathered
+        over the client axis -> (rows, c)."""
+        return self.gather(self.model_sum(cols))
+
+    def local_training(self, local, params: torch.Tensor, batches, masks,
+                       extra, out: Optional[torch.Tensor] = None):
+        """Local training of the rows this rank trains, at full width. On
+        the model axis the params (and a cm/ga rule's Δ_prev) are
+        gathered within the model group first, and the all-to-all then
+        hands each delta's shards to their owners. Returns (the client
+        slice's (local, N_m) deltas, its (local,) losses: the rows this
+        rank trained, 0 at the others)."""
+        if self.model_group is not None:
+            params = self.gather_params(params)
+            if extra is not None:
+                extra = self.gather_params(extra)
+        deltas, losses = local(params, batches, masks, extra, out=out)
+        if self.model_group is None:
+            return deltas, losses
+        del params
+        deltas = self.exchange(deltas)
+        placed = torch.zeros(self.local, dtype=losses.dtype,
+                             device=losses.device)
+        a = self.train[0] - self.lo
+        placed[a:a + losses.shape[0]] = losses
+        return deltas, placed
+
+    # ---- the model axis ----
+
+    def exchange(self, trained: torch.Tensor) -> torch.Tensor:
+        """The all-to-all: this rank's (trained rows, N) deltas at full
+        width -> the client slice's (local, N_m) deltas of its own shard,
+        each model rank's rows sent the columns it owns. Built from
+        isend/irecv pairs (uneven splits; gloo takes no all-to-all of
+        CUDA tensors)."""
+        m, sh = self.mrank, self.shards
+        out = trained.new_empty((self.local, sh.sizes[m]))
+        off = lambda r: self.splits[r][0] - self.lo
+        sends, recvs = {}, {}
+        for r, peer in enumerate(self.peers):
+            a, b = self.splits[r]
+            if r == m:
+                sh.scatter(trained, r, out=out[off(r):off(r) + b - a])
+            else:
+                sends[peer] = sh.scatter(trained, r)
+                recvs[peer] = out[off(r):off(r) + b - a]
+        self._run("all_to_all", trained,
+                  lambda: _p2p_exchange(sends, recvs, self.model_group))
+        return out
+
+
+class BufferShard(_Collectives):
+    """This rank's part of a buffered-async fold across ranks
+    (core/api.py): every rank folds the same ``rows`` arrivals, in the
+    same order, and holds the deltas of those at buffer positions
+    ``held`` — the arrivals its client slice trained (or was given at a
+    restore), on the model axis as its shard's N_m columns. The held
+    rows are an index set of the buffer, not a contiguous range: a
+    fold's arrivals come from several waves, in arrival order.
+
+    The rows' scalars are placed at their positions and summed over the
+    job (``row_scalars``): the model ranks' partials and the client
+    slices' disjoint rows in one all-reduce, so every rank forms the
+    same guard decisions, coefs, scales and diagnostics. The fold is one
+    launch over the held rows (none without any), its mean rescaled to
+    the held share of the buffer and summed over the client axis."""
+
+    def __init__(self, group, rows: int, held, *, model_group=None,
+                 shards=None, device=None):
+        super().__init__(group, model_group, shards)
+        self.rows = int(rows)
+        self.held = torch.as_tensor(np.asarray(held, np.int64),
+                                    device=device)
+        self.local = int(self.held.numel())
+
+    def local_rows(self, v: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a (rows, ...) tensor, in buffer order."""
+        return v.index_select(0, self.held.to(v.device))
+
+    def fold_pieces(self) -> List[tuple]:
+        """One launch over the held rows; none when the rank holds no
+        arrival of the fold (it still joins the sums)."""
+        if not self.local:
+            return []
+        return [(slice(0, self.local), self.held, self.local)]
+
+    def _placed(self, x: torch.Tensor) -> torch.Tensor:
+        out = x.new_zeros((self.rows,) + tuple(x.shape[1:]))
+        out[self.held.to(x.device)] = x
+        return out
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The buffer's (rows, ...) rows from each client slice's held
+        (local, ...) ones: each placed at its positions, zeros elsewhere,
+        and summed over the client axis (exact: one slice holds each
+        row)."""
+        placed = self._placed(x)
+        self._run("buffer_rows", placed,
+                  lambda: dist.all_reduce(placed, group=self.group))
+        return placed
+
+    def row_scalars(self, cols: torch.Tensor) -> torch.Tensor:
+        """The held rows' (local, c) scalars -> the buffer's (rows, c):
+        one all-reduce over the job."""
+        return self.job_sum(self._placed(cols), "buffer_scalars")
 
 
 def codec_stage(codec: DeltaCodec, deltas: torch.Tensor,
@@ -435,28 +558,18 @@ def make_cohort_round(loss_fn: Callable, layout: FlatLayout,
             shards=shards)
         cohort_round.shard = shard
         extra = algo.client_extra(server_state)
-        if sharded:
-            # local training runs at full width: gather what it reads
-            params_full = shard.gather_params(params)
-            if extra is not None:
-                extra = shard.gather_params(extra)
-        else:
-            params_full = params
         k = tree_leaves(batches)[0].shape[0]
         if stack is None or stack.shape[0] != k or \
                 stack.device != params.device:
             stack = torch.empty((k, layout.size), dtype=torch.float32,
                                 device=params.device)
-        deltas, losses = local(params_full, batches, masks, extra, out=stack)
-        if sharded:
+        if shard is None:
+            deltas, losses = local(params, batches, masks, extra, out=stack)
+        else:
+            # on the model axis local training runs at full width, and
             # from here on every tensor is this rank's shard
-            del params_full
-            deltas = shard.exchange(deltas)
-            placed = torch.zeros(shard.local, dtype=losses.dtype,
-                                 device=losses.device)
-            a = shard.train[0] - shard.lo
-            placed[a:a + losses.shape[0]] = losses
-            losses = placed
+            deltas, losses = shard.local_training(local, params, batches,
+                                                  masks, extra, out=stack)
         rows = slice(None) if shard is None else slice(shard.lo, shard.hi)
         if inject_faults:
             deltas = apply_fault_codes(deltas, fault_codes[rows],
@@ -476,9 +589,9 @@ def make_cohort_round(loss_fn: Callable, layout: FlatLayout,
                                                  offsets, codec_key, shard)
         gstats = None
         if shard is not None:
-            deltas, client_ids, cm, losses, gstats = _gather_rows(
-                shard, algo, server_state, deltas, losses, client_ids, cm,
-                guard_thresh if guard else None, guard_cfg)
+            deltas, client_ids, cm, losses, gstats = shard_row_scalars(
+                shard, algo, server_state, deltas, client_ids, cm,
+                guard_thresh if guard else None, guard_cfg, losses=losses)
         elif guard:
             # quarantine and clip read the DECODED rows: the values the
             # server would aggregate
@@ -503,44 +616,58 @@ def make_cohort_round(loss_fn: Callable, layout: FlatLayout,
     return cohort_round
 
 
-def _gather_rows(shard: RankShard, algo: ServerAlgo, server_state, deltas,
-                 losses, client_ids, cm, guard_thresh, guard_cfg):
-    """The multi-process round's row scalars: this rank's reduction pass
-    over its slice's rows (what the guard and ``algo.row_scalars`` need)
-    and the rows' losses as (local, 5) f32 = [<Δ_j,Δ_prev>, ||Δ_j||²,
-    ||Δ_prev||², non-finite count, loss]; on the model axis summed over
-    the model ranks (each holds a shard's partials, and the losses of the
-    rows it trained), then gathered over the client axis. The guard then
-    decides on every row alike and acts on this rank's; the dots of a
-    clipped row are scaled with it (cs·<Δ_j,Δ_prev>, cs²·||Δ_j||²) and a
-    quarantined row's are 0. Returns (deltas, client_ids, client_mask,
-    losses (rows,), guard stats or None) and sets ``shard.dots``."""
+def shard_row_scalars(shard, algo: ServerAlgo, server_state, deltas,
+                      client_ids, cm, guard_thresh, guard_cfg, losses=None,
+                      row_weights=None):
+    """The multi-process step's row scalars: this rank's reduction pass
+    over its rows (what the guard and ``algo.row_scalars`` need), as
+    (local, 4) f32 = [<Δ_j,Δ_prev>, ||Δ_j||², ||Δ_prev||², non-finite
+    count], with the rows' ``losses`` as a fifth column when given,
+    combined into the (rows, c) scalars of every row by
+    ``shard.row_scalars`` (a RankShard's model sum and client gather, a
+    BufferShard's one sum over the job). The guard then decides on every
+    row alike and acts on this rank's; the dots of a clipped row are
+    scaled with it (cs·<Δ_j,Δ_prev>, cs²·||Δ_j||²) and a quarantined
+    row's are 0. ``row_weights`` (rows,) are the async discounts a rule
+    that is not staleness-aware gets pre-scaled into its rows: its dots
+    scale with them (w·<Δ_j,Δ_prev>, w²·||Δ_j||²). A rank without rows
+    launches no reduction and still joins the sum; with nothing to read
+    (no guard, no row scalars, no losses) nothing is combined. Returns
+    (deltas, client_ids, client_mask, losses (rows,) or None, guard stats
+    or None) and sets ``shard.dots``."""
     need = algo.row_scalars
+    if guard_thresh is None and need is None and losses is None:
+        return deltas, client_ids, cm, None, None
     local = deltas.shape[0]
     prev = server_state["delta_prev"] if need == "dots" else None
-    cols = torch.zeros((local, 5), dtype=torch.float32,
-                       device=deltas.device)
-    if guard_thresh is not None:
+    cols = torch.zeros((local, 4 if losses is None else 5),
+                       dtype=torch.float32, device=deltas.device)
+    if local and guard_thresh is not None:
         cols[:, :4] = k_ops.feddpc_guard_dots(deltas, prev)
-    elif need == "dots":
+    elif local and need == "dots":
         cols[:, :3] = k_ops.feddpc_dots(deltas, prev)
     elif need == "sqnorm":
         cols[:, 1] = proj.tree_sqnorm(deltas)
-    cols[:, 4] = losses
-    g = shard.gather(shard.model_sum(cols))
+    if losses is not None:
+        cols[:, 4] = losses
+    g = shard.row_scalars(cols)
     dp, dd = g[:, 0], g[:, 1]
     stats = None
     if guard_thresh is not None:
         bad, cs, stats = guard_decisions(g[:, 1], g[:, 3], guard_thresh,
                                          guard_cfg)
-        rows = slice(shard.lo, shard.hi)
-        deltas = _clip_rows(deltas, cs[rows], bad[rows])
+        deltas = _clip_rows(deltas, shard.local_rows(cs),
+                            shard.local_rows(bad))
         client_ids, cm = _quarantine(bad, client_ids, cm)
         zero = torch.zeros_like(dp)
         dp = torch.where(bad, zero, dp * cs)
         dd = torch.where(bad, zero, dd * cs * cs)
+    if row_weights is not None:
+        dp = dp * row_weights
+        dd = dd * row_weights * row_weights
     shard.dots = torch.stack([dp, dd, g[:, 2]], dim=1)
-    return deltas, client_ids, cm, g[:, 4].contiguous(), stats
+    return (deltas, client_ids, cm,
+            None if losses is None else g[:, 4].contiguous(), stats)
 
 
 def make_fl_round_step(loss_fn: Callable, layout: FlatLayout, eta_l: float,

@@ -140,3 +140,111 @@ def fl_batches():
                                   .astype(np.float32)),
             "y": torch.from_numpy(rng.randn(FL_SILOS, 2, 8, 4)
                                   .astype(np.float32))}
+
+
+# the async job's cells (tests/test_torch_async_ranks.py): cell -> (rule,
+# ExecConfig overrides — an EXEC_REGIMES name or a dict —, model shards
+# (1: a (4 x 1) mesh, 2: (2 x 2)), runtime model ("exponential" or None:
+# deterministic), sampler, FaultPlan.seeded(0, ...) arguments). K = 4 is a
+# multiple of both meshes' client slices, so no wave is padded and
+# int8_sr draws the one-process noise
+ASYNC_ROUNDS = 4
+ASYNC_CUT = 2
+ASYNC_REGIMES = ("async_buffer", "codec_int8_async", "server_fedadam_async")
+STRAGGLERS = {"async_buffer": True, "buffer_size": 2,
+              "async_concurrency": 3}
+ASYNC_CELLS = {
+    **{f"feddpc:{reg}:{m}": ("feddpc", reg, m, None, "uniform", None)
+       for m in (1, 2) for reg in ASYNC_REGIMES},
+    **{f"feddpc:stragglers:{m}": ("feddpc", STRAGGLERS, m, "exponential",
+                                  "uniform", None) for m in (1, 2)},
+    "fedvarp:markov:2": ("fedvarp", STRAGGLERS, 2, "exponential", "markov",
+                         None),
+    "feddpc:int8_sr_ef:2": ("feddpc", {**STRAGGLERS, "codec": "int8_sr",
+                                       "codec_ef": True}, 2, "exponential",
+                            "uniform", None),
+    "feddpc:guard_int8:2": ("feddpc", {**STRAGGLERS, "codec": "int8",
+                                       "guard": True, "round_deadline": 0.1},
+                            2, "exponential", "uniform", {"nan_rate": 0.3}),
+}
+# run again with prefetch off; cut mid-buffer at ASYNC_CUT (tag -> cell)
+ASYNC_NOPREFETCH = ("feddpc:stragglers:1", "feddpc:int8_sr_ef:2")
+ASYNC_CUTS = {"cut": "feddpc:stragglers:2", "cut_sr": "feddpc:int8_sr_ef:2"}
+# the training CLI's async run: the ranks add --shard-clients
+# --model-shards 2
+ASYNC_CLI_ARGS = ["--model", "lenet5", "--rounds", "2", "--clients", "8",
+                  "--participation", "0.5", "--samples-per-class", "20",
+                  "--batch-size", "16", "--eval-every", "1",
+                  "--async-buffer", "--runtime", "exponential",
+                  "--buffer-size", "2", "--async-concurrency", "3"]
+
+
+def async_cell_kw(cell, sharded=True):
+    """An async cell's rule, ExecConfig overrides, runtime name, sampler
+    name and fault plan; ``sharded=False`` is the same run in one
+    process."""
+    from repro_torch.core.api import EXEC_REGIMES
+    name, regime, m, rt, sampler, plan = ASYNC_CELLS[cell]
+    kw = dict(EXEC_REGIMES[regime] if isinstance(regime, str) else regime)
+    if sharded:
+        kw.update(shard_clients=True, shard_model=m)
+    return name, kw, rt, sampler, plan
+
+
+def async_trainer(cell, sharded=True, **exec_kw):
+    """The port's trainer of an async cell on the CPU."""
+    from repro_torch.core import api
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.core.runtime import ExponentialRuntime
+    from repro_torch.core.samplers import MarkovSampler, UniformSampler
+    name, kw, rt, sampler, plan = async_cell_kw(cell, sharded)
+    cfg = api.ExecConfig(**{"rounds": ASYNC_ROUNDS, "clients_per_round": K,
+                            "seed": SEED, "eval_every": 10 ** 9, **kw,
+                            **exec_kw})
+    return api.FederatedTrainer(
+        loss_fn, make_params(), NUM_CLIENTS, batch_fn, cfg,
+        algo=api.AlgoConfig(name=name, eta_l=ETA_L, eta_g=ETA_G),
+        sampler=(MarkovSampler(NUM_CLIENTS, K) if sampler == "markov"
+                 else UniformSampler(NUM_CLIENTS, K)),
+        runtime=ExponentialRuntime(mean=1.0) if rt else None,
+        fault_plan=None if plan is None else FaultPlan.seeded(0, **plan),
+        device="cpu")
+
+
+class _PopLog:
+    """An async engine module's ``heapq`` with every pop logged: the
+    arrivals' [client, wave, version], in arrival order."""
+
+    def __init__(self, heapq_module):
+        self._heapq = heapq_module
+        self.log = []
+
+    def __getattr__(self, name):
+        return getattr(self._heapq, name)
+
+    def heappop(self, heap):
+        item = self._heapq.heappop(heap)
+        e = item[2]
+        self.log.append([int(e.client), int(e.wave), int(e.version)])
+        return item
+
+
+def record_arrivals(trainer, engine_module):
+    """Record each fold of ``trainer``'s async engine (an engine of
+    ``engine_module``, either package's): the version it folds at and
+    its arrivals' [client, wave, version], in arrival order. Returns the
+    list the folds land in."""
+    if not isinstance(engine_module.heapq, _PopLog):
+        engine_module.heapq = _PopLog(engine_module.heapq)
+    log = engine_module.heapq.log
+    engine = trainer._engine
+    run = engine.run_server_round
+    folds = []
+
+    def recorded(t, params, server_state):
+        mark, version = len(log), engine.version
+        out = run(t, params, server_state)
+        folds.append({"version": int(version), "arrivals": log[mark:]})
+        return out
+    engine.run_server_round = recorded
+    return folds

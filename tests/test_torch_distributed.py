@@ -145,7 +145,7 @@ del g, m      # the exit teardown (distributed._leave) frees the groups
 """
 
 
-def test_the_mesh_refuses_the_model_axis_and_needs_a_job():
+def test_the_mesh_accepts_the_model_axis_and_needs_a_job():
     """The model axis no longer raises: make_cohort_mesh(model=2) on two
     ranks is the (1 x 2) ("clients", "model") mesh with its two process
     groups; a model size that does not divide the ranks raises the

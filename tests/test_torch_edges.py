@@ -233,11 +233,12 @@ def test_exec_regimes_are_the_reference_table():
     ({"edges": 3}, ValueError, "must divide the padded cohort"),
     ({"edges": 2, "async_buffer": True}, ValueError,
      "cannot combine with async_buffer"),
-    # the model axis runs (tests/test_torch_model_axis.py); what is left
-    # refused: async on it (ROADMAP item 13d), and the axis outside a job
-    # or without shard_clients (the port's model axis spans ranks)
-    ({"shard_model": 4, "async_buffer": True}, NotImplementedError,
-     "item 13"),
+    # the model axis runs, async on it too (tests/test_torch_model_axis.py,
+    # tests/test_torch_async_ranks.py); what is left refused: the axis
+    # outside a job or without shard_clients (the port's model axis spans
+    # ranks), with async_buffer or without
+    ({"shard_model": 4, "async_buffer": True}, ValueError,
+     "needs shard_clients=True"),
     ({"shard_model": 4}, ValueError, "needs shard_clients=True"),
     ({"shard_model": 2, "shard_clients": True}, ValueError,
      "in a multi-process job"),
