@@ -141,7 +141,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               that must differ); then multirank's task as (a) sharded2d,
               (b) codec_int8_2d, (c) server_fedadam_2d, (d) int8_sr, (e)
               (a) cut at round 2 and resumed here, (f) the ~101M LM on
-              (1 x ranks); each against this process's one-process run.
+              (1 x ranks), trained tensor-parallel (every model rank
+              every row, on its shard; no param_all_gather or
+              all_to_all on any rank); each against this process's
+              one-process run.
               Each rank prints N_m against N/M, its bytes at rest, its
               peak memory (one process's beside it), its launches against
               its rows, the ms of the five collectives and its round s.
@@ -248,6 +251,17 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               kernel has a backward) must launch no flash_attention or
               ssm_scan kernel. Seconds a step, tokens/s, peak memory and
               the bound (8·N·tokens f32 FLOP at the f32 peak).
+ 12b. tp train  the same step tensor-parallel (--tp-worker): StarCoder2-3B
+              at full width and depth, make_train_step(model_group=...)
+              over 2 gloo ranks on one card (tp_layout: NCCL ranks on
+              more), each rank stepping its shard; losses within 1e-4
+              relative of lm train's steps (handed to the ranks, not
+              run again) and every leaf within 1e-4 of its max |w| and
+              within 1/100 of how far those steps moved it (its
+              movement printed beside it); a rank's peak memory,
+              bytes at rest, step seconds and its Megatron collectives'
+              count and ms a step. On four cards also federated
+              StarCoder2-3B at full width, K = 5 on (1 x 4), 2 rounds.
  13. lm fl    the reference example's federated LM run at its own size
               (repro_torch.examples.federated_llm_pretraining without
               --tiny: ~101M params, 20 clients, 5 a round, FedDPC) for 4
@@ -2528,14 +2542,17 @@ def _ma_line(run, tr, ctx, rounds):
         for name, ms in rnd:
             coll[name][i] += ms
     model = info["mesh"][1]
+    # the row split trains its rows at full width, then holds the
+    # slice's shards; the tensor-parallel route trains the shards
+    stack = (hi - lo) * n_m if info["route"] == "tensor_parallel" else \
+        (b - a) * n + (hi - lo) * n_m
     return {
         "phase": "model_axis", "run": run, "rank": ctx.process_id,
         "backend": ctx.backend, "mesh": info["mesh"],
-        "coords": info["coords"], "N": n, "N_m": n_m,
-        "N_over_M": n / model, "slice_rows": [lo, hi],
+        "route": info["route"], "coords": info["coords"], "N": n,
+        "N_m": n_m, "N_over_M": n / model, "slice_rows": [lo, hi],
         "train_rows": [a, b], "bytes_at_rest": {
-            **info["bytes"],
-            "delta_stack": 4 * ((b - a) * n + (hi - lo) * n_m)},
+            **info["bytes"], "delta_stack": 4 * stack},
         "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "launches": _ma_launches(),
         "expected_launches": _ma_expected(run, rounds),
@@ -2681,7 +2698,9 @@ def phase_model_axis():
     codec_int8_2d, (c) server_fedadam_2d, (d) int8_sr — (e) (a) cut at
     round 2 and resumed in this process, and (f) the ~101M federated LM
     (the example's configuration, 2 rounds) on a (1 x ranks) mesh, so
-    the Megatron name rules shard a real LM tree. Each run is held
+    the Megatron name rules shard a real LM tree, trained
+    tensor-parallel (its route checked on every rank, with no
+    param_all_gather or all_to_all in its collectives). Each run is held
     against this process's one-process run of the same ExecConfig
     (losses and params within MR_RTOL, the codec runs within
     MA_CODEC_RTOL), each rank's launches against its rows and its peak
@@ -2787,6 +2806,14 @@ def phase_model_axis():
             "single_peak_gib": single[run][3],
             "rank_peak_gib": [x["peak_gib"] for x in lines
                               if x["run"] == run]}
+    # (f) trains tensor-parallel: no whole-model exchange on any rank
+    for line in (x for x in lines if x["run"] == "f"):
+        if (line["route"] != "tensor_parallel"
+                or set(line["collective_ms_per_round"])
+                & {"param_all_gather", "all_to_all"}):
+            raise AssertionError(
+                f"model_axis f rank {line['rank']}: route {line['route']}, "
+                f"collectives {sorted(line['collective_ms_per_round'])}")
     summary["e"] = {"loss_resumed": resumed[0], **_ma_check(
         "e", resumed[0], single["a"][0][MA_CUT:], resumed[1],
         single["a"][1], MR_RTOL), "params_max_rel_vs_ranks": _ma_check(
@@ -3809,7 +3836,9 @@ def phase_lm_train():
     layer recomputed in the backward. The loss must be finite and fall,
     and the training route must launch no serving kernel (no backward in
     either package). Bound: 6·N·tokens (forward and backward) plus
-    2·N·tokens (the recomputed forward) f32 FLOP at the f32 peak."""
+    2·N·tokens (the recomputed forward) f32 FLOP at the f32 peak.
+    Returns {"losses", "params" the steps end on} (tp_train holds its
+    ranks against them)."""
     cfg = get_config(LM_TRAIN_ARCH)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3849,8 +3878,331 @@ def phase_lm_train():
     if any(launches.values()):
         raise AssertionError(f"lm_train: the training route launched "
                              f"serving kernels {launches}")
-    del params, step
+    del step
     torch.cuda.empty_cache()
+    return {"losses": losses, "params": params}
+
+
+TP_WORKER = "--tp-worker"
+TP_RTOL = 1e-4          # losses, and each leaf against its max |w|
+TP_MOVE_FRAC = 1e-2     # each leaf's error against how far it moved
+TP_ONE_PROCESS = "one_process"      # lm_train's run, handed to the ranks
+TP_FL_CLIENTS, TP_FL_COHORT, TP_FL_ROUNDS = 10, 5, 2
+TP_FL_B, TP_FL_S = 2, 256
+TP_FL_ETA = 0.01
+
+
+def tp_layout(cards: int):
+    """(ranks, backend) of the tp_train job: 2 gloo ranks on one card, 2
+    NCCL ranks on two or three, 4 NCCL ranks on four or more."""
+    if cards >= 4:
+        return 4, "nccl"
+    return 2, ("nccl" if cards >= 2 else "gloo")
+
+
+def _tally(timings) -> dict:
+    """[(collective, ms)] -> {collective: {"count", "ms"}}."""
+    out = collections.defaultdict(lambda: {"count": 0, "ms": 0.0})
+    for name, ms in timings:
+        out[name]["count"] += 1
+        out[name]["ms"] += ms
+    return dict(out)
+
+
+def _tp_lm_params(cfg, gen):
+    """StarCoder2-3B's serving tree from ``gen`` (seed 0) and the batch
+    drawn after it: the lm_train phase's params and tokens."""
+    params = tf.init_lm(cfg, gen, torch.float32)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_TRAIN_B, LM_TRAIN_S + 1),
+                           generator=gen, device="cuda")
+    return params, {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+
+
+def reference_pieces(cfg, params):
+    """The serving tree ``params`` (init_lm from a torch.Generator) in
+    the order of the reference's tree (launch/steps.params_spec), whose
+    flat vector make_train_step's shards cut: each leaf's tensors, a
+    stacked leaf as its groups' layers one after another (views, no
+    copy). Their concatenation is that flat vector."""
+    prefix, period, groups = tf.stack_plan(cfg)
+    layers = params["layers"]
+
+    def at(tree, keys):
+        for k in keys:
+            tree = tree[k]
+        return tree
+
+    layout = layout_of(lm_steps.params_spec(cfg))
+    pieces = []
+    for path, shape in zip(layout.paths, layout.shapes):
+        if path[0] == "stack":
+            parts = [at(layers[prefix + g * period + path[1]], path[2:])
+                     for g in range(groups)]
+            want = shape[1:]
+        elif path[0] == "prefix_layers":
+            parts, want = [at(layers[path[1]], path[2:])], shape
+        else:
+            parts, want = [at(params, path)], shape
+        if any(tuple(p.shape) != tuple(want) for p in parts):
+            raise ValueError(f"serving leaves of {path} do not lay out as "
+                             f"the reference's {shape}")
+        pieces += parts
+    return pieces
+
+
+def _tp_hand_on(one_process, out: str) -> None:
+    """Writes lm_train's run for the ranks into ``out``: its losses
+    (json) and the params it ended on as the reference's flat vector
+    (raw f32, one piece at a time off the card); then empties
+    ``one_process``, so that the card holds the params no more."""
+    cfg = get_config(LM_TRAIN_ARCH)
+    with open(os.path.join(out, TP_ONE_PROCESS + ".json"), "w") as fh:
+        json.dump(one_process["losses"], fh)
+    with open(os.path.join(out, TP_ONE_PROCESS + ".f32"), "wb") as fh:
+        for piece in reference_pieces(cfg, one_process["params"]):
+            piece.detach().float().cpu().numpy().tofile(fh)
+    one_process.clear()
+
+
+def _tp_start(cfg, shards, m):
+    """Model rank m's shard of the seed-0 params and the batch, each rank
+    in its turn (one whole model on the card at a time)."""
+    shard = batch = None
+    for r in range(shards.model):
+        if r == m:
+            params, batch = _tp_lm_params(cfg, torch.Generator(
+                device="cuda").manual_seed(0))
+            flat = torch.cat([p.reshape(-1)
+                              for p in reference_pieces(cfg, params)])
+            shard = shards.scatter(flat, m)
+            del flat
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+        distributed.barrier(f"tp_start_{r}")
+    return shard, batch
+
+
+def _tp_step_line(ctx, out: str):
+    """(a): LM_TRAIN_STEPS steps of make_train_step(remat="full") over the
+    job's ranks as one model group, against lm_train's one-process run
+    (its losses and this rank's shard of the params it ended on, from
+    ``out``); the tensor-parallel collectives timed by a
+    core/round._Collectives on the calling stream. Each leaf's error is
+    taken against its max |w| and against how far one process's steps
+    moved it (max |w_3 - w_0|)."""
+    import torch.distributed as dist
+    from repro_torch.core.round import _Collectives
+    cfg = get_config(LM_TRAIN_ARCH)
+    m = ctx.process_id
+    step = lm_steps.make_train_step(cfg, lr=LM_TRAIN_LR, remat="full",
+                                    model_group=dist.group.WORLD)
+    shards = step.shards
+    with open(os.path.join(out, TP_ONE_PROCESS + ".json")) as fh:
+        want_losses = json.load(fh)
+    full = np.memmap(os.path.join(out, TP_ONE_PROCESS + ".f32"),
+                     dtype=np.float32, mode="c")
+    if full.shape != (shards.layout.size,):
+        raise AssertionError(f"tp_train: one process's params hold "
+                             f"{full.shape}, the layout {shards.layout.size}")
+    want = shards.scatter(torch.from_numpy(full), m)
+    del full
+    shard, batch = _tp_start(cfg, shards, m)
+    # per leaf: max |w| and max |w_3 - w_0| of one process's run, then
+    # the error; each rank's pieces reduced over the group
+    nleaves = len(shards.layout.shapes)
+    top, move, err = (torch.zeros(nleaves, device="cuda") for _ in range(3))
+    for x in shards._blocks[m]:
+        ref = want[x.at:x.at + x.size].to("cuda")
+        top[x.leaf] = ref.abs().max()
+        move[x.leaf] = (ref - shard[x.at:x.at + x.size]).abs().max()
+    torch.cuda.reset_peak_memory_stats()
+    timer = _Collectives(dist.group.WORLD)
+    step.tp.timer = timer._run
+    losses, seconds, coll = [], [], []
+    for _ in range(LM_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        shard, loss = step(shard, batch)
+        losses.append(float(loss))          # a sync
+        seconds.append(time.perf_counter() - tic)
+        coll.append(_tally(timer.timings_ms()))
+        timer.timings = []
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for x in shards._blocks[m]:
+        ref = want[x.at:x.at + x.size].to("cuda")
+        err[x.leaf] = (shard[x.at:x.at + x.size] - ref).abs().max()
+    for t in (err, top, move):
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    rel = err / top.clamp(min=1e-30)
+    of_move = err / move.clamp(min=1e-30)
+    worst, worst_move = int(torch.argmax(rel)), int(torch.argmax(of_move))
+    name = lambda i: "/".join(map(str, shards.layout.paths[i]))
+    # the leaf classes a mix-up would hit (sharding/layout.tp_classes):
+    # each class's least movement and worst error over it
+    classes = {}
+    for c in sorted(set(step.view.classes)):
+        ids = [i for i, k in enumerate(step.view.classes) if k == c]
+        classes[c] = {"leaves": len(ids),
+                      "min_move_rel": min(float(move[i] / top[i])
+                                          for i in ids),
+                      "max_err_over_move": max(float(of_move[i])
+                                               for i in ids)}
+    n, n_m = shards.layout.size, shards.sizes[m]
+    ntok = LM_TRAIN_B * LM_TRAIN_S
+    return {"phase": "tp_train", "run": "a", "rank": ctx.process_id,
+            "backend": ctx.backend, "model": shards.model, "arch": cfg.name,
+            "layers": cfg.num_layers, "N": n, "N_m": n_m,
+            "bytes_at_rest": 4 * n_m, "batch": LM_TRAIN_B,
+            "seq_len": LM_TRAIN_S, "remat": "full", "losses": losses,
+            "losses_one_process": want_losses,
+            "loss_max_rel": max(abs(a - b) / abs(b)
+                                for a, b in zip(losses, want_losses)),
+            "leaf_max_rel": float(rel[worst]), "worst_leaf": name(worst),
+            "leaf_max_err_over_move": float(of_move[worst_move]),
+            "worst_leaf_of_move": name(worst_move),
+            "its_move_rel": float(move[worst_move] / top[worst_move]),
+            "classes": classes, "step_seconds": seconds,
+            "tokens_per_s": ntok / statistics.median(seconds[1:]
+                                                     or seconds),
+            "peak_gib": peak, "tp_collectives_per_step": coll}
+
+
+def _tp_fl_task(cfg):
+    """Federated StarCoder2-3B at full width: TP_FL_CLIENTS clients of
+    Zipf documents (Dirichlet(0.3) over topics), TP_FL_B sequences of
+    TP_FL_S tokens a client a round, random weights from a seed."""
+    from repro_torch.data.dirichlet import dirichlet_partition
+    from repro_torch.data.synthetic import make_lm_dataset
+    from repro_torch.ingest.sources import ListDataSource
+    tokens, topics = make_lm_dataset(TP_FL_CLIENTS * 8, TP_FL_S + 1,
+                                     cfg.vocab_size, seed=0)
+    parts = dirichlet_partition(topics, TP_FL_CLIENTS, 0.3, seed=0,
+                                min_size=1)
+
+    def batch_fn(c, t):
+        idx = parts[c]
+        rng = np.random.RandomState(hash((c, t)) % (2 ** 31))
+        sel = np.concatenate([idx[rng.permutation(len(idx))]] * TP_FL_B
+                             )[:TP_FL_B]
+        tk = tokens[sel]
+        return [{"tokens": tk[:, :-1], "labels": tk[:, 1:]}]
+    return ListDataSource(batch_fn)
+
+
+def _tp_fl_line(ctx):
+    """(c), four ranks or more: federated StarCoder2-3B at full width, K =
+    TP_FL_COHORT on (1 x ranks), TP_FL_ROUNDS FedDPC rounds — the run
+    the row split cannot hold (each model rank trains every row on its
+    shard; at M = 4 the 2 KV heads are whole on every rank). The line
+    is model_axis's (_ma_line)."""
+    cfg = get_config(LM_TRAIN_ARCH)
+    _ma_reset()
+    params = tf.init_lm(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        torch.float32)
+    tr = FederatedTrainer(
+        tf.LMLoss(cfg), params, TP_FL_CLIENTS, _tp_fl_task(cfg),
+        ExecConfig(rounds=TP_FL_ROUNDS, clients_per_round=TP_FL_COHORT,
+                   eval_every=10 ** 9, shard_clients=True,
+                   shard_model=ctx.num_processes),
+        algo=AlgoConfig(name="feddpc", eta_l=TP_FL_ETA, eta_g=TP_FL_ETA,
+                        hyper=FedDPCHyper(lam=1.0)), device="cuda")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tr:
+        tr.run()
+    line = _ma_line("f", tr, ctx, TP_FL_ROUNDS)
+    line.update(phase="tp_train", run="c")
+    return line
+
+
+def _tp_worker(out: str) -> int:
+    """One rank of the tp_train phase: (a) on every job, (c) on four ranks
+    or more; writes its lines."""
+    ctx = distributed.maybe_initialize()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lines = [_tp_step_line(ctx, out)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    if ctx.num_processes >= 4:
+        lines.append(_tp_fl_line(ctx))
+    with open(os.path.join(out, f"rank{ctx.process_id}.json"), "w") as fh:
+        json.dump(lines, fh)
+    return 0
+
+
+def phase_tp_train(one_process):
+    """Tensor-parallel local training at full width (--tp-worker):
+    (a) StarCoder2-3B, all 30 layers, f32, B = 2 x 1,024, LM_TRAIN_STEPS
+    SGD steps of make_train_step(remat="full") over a model group of the
+    job's ranks (tp_layout: 2 gloo ranks on one card), each rank stepping
+    its shard, held against ``one_process`` (phase_lm_train's losses and
+    the params its steps ended on, at the same seed): losses within
+    TP_RTOL relative, every leaf within TP_RTOL of its max |w| and
+    within TP_MOVE_FRAC of how far one process's steps moved it (a
+    norm's gradient summed over the ranks, or a K/V gradient left
+    partial, is off by about its whole movement). Each rank prints its
+    peak memory, its bytes at rest, the step's seconds, its
+    tensor-parallel collectives' count and ms a step, and each leaf
+    class's least movement and worst error over it. With four cards or
+    more (c): federated StarCoder2-3B at full width, K = 5 on (1 x 4)
+    over NCCL, 2 FedDPC rounds: finite losses equal on every rank, one
+    feddpc_dots and one feddpc_batched_epilogue a round, no
+    param_all_gather or all_to_all."""
+    cards = torch.cuda.device_count()
+    ranks, backend = tp_layout(cards)
+    tic = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as out:
+        _tp_hand_on(one_process, out)
+        hand_on_s = time.perf_counter() - tic
+        gc.collect()
+        torch.cuda.empty_cache()
+        # what this process still holds on the card beside the ranks
+        emit({"phase": "tp_train", "hand_on_seconds": hand_on_s,
+              "parent_allocated_gib":
+              torch.cuda.memory_allocated() / 2 ** 30,
+              "parent_reserved_gib": torch.cuda.memory_reserved() / 2 ** 30})
+        env = {}
+        if backend == "nccl":
+            env["NCCL_SOCKET_IFNAME"] = os.environ.get("NCCL_SOCKET_IFNAME",
+                                                       "lo")
+        distributed.spawn_local(
+            [sys.executable, os.path.abspath(__file__), TP_WORKER, out],
+            ranks, backend=backend,
+            local_devices=1 if backend == "gloo" else None, env=env,
+            timeout_s=600)
+        lines = []
+        for r in range(ranks):
+            with open(os.path.join(out, f"rank{r}.json")) as fh:
+                lines += json.load(fh)
+    for line in lines:
+        emit(line)
+    for line in (x for x in lines if x["run"] == "a"):
+        if not (line["loss_max_rel"] <= TP_RTOL
+                and line["leaf_max_rel"] <= TP_RTOL
+                and line["leaf_max_err_over_move"] <= TP_MOVE_FRAC):
+            raise AssertionError(
+                f"tp_train a rank {line['rank']}: losses {line['losses']} "
+                f"against one process's {line['losses_one_process']}, "
+                f"{line['worst_leaf']} {line['leaf_max_rel']} of its max "
+                f"|w| (gate {TP_RTOL}), {line['worst_leaf_of_move']} "
+                f"{line['leaf_max_err_over_move']} of its movement (gate "
+                f"{TP_MOVE_FRAC})")
+    for run in ("a", "c"):
+        same = [x for x in lines if x["run"] == run]
+        if any(x["losses"] != same[0]["losses"] for x in same):
+            raise AssertionError(f"tp_train {run}: the ranks' losses differ")
+    for line in (x for x in lines if x["run"] == "c"):
+        if (line["launches"] != line["expected_launches"]
+                or not all(math.isfinite(v) for v in line["losses"])
+                or set(line["collective_ms_per_round"])
+                & {"param_all_gather", "all_to_all"}
+                or line["route"] != "tensor_parallel"):
+            raise AssertionError(f"tp_train c rank {line['rank']}: {line}")
+    emit({"phase": "tp_train", "backend": backend, "ranks": ranks,
+          "cards": cards, "runs": sorted({x["run"] for x in lines}),
+          "seconds": time.perf_counter() - tic})
 
 
 def phase_lm_fl():
@@ -4290,6 +4642,8 @@ def main() -> int:
         return _model_axis_worker(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == AR_WORKER:
         return _async_ranks_worker(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == TP_WORKER:
+        return _tp_worker(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs a card",
               file=sys.stderr)
@@ -4331,7 +4685,7 @@ def main() -> int:
     ss_row["rank_launches"] = 0
     rows.append(ss_row)
     phase_serve_parity(SSM_ARCH)
-    phase_lm_train()
+    phase_tp_train(phase_lm_train())
     phase_lm_fl()
     phase_serve(VLM_ARCH, "flash_attention")
     phase_quickstart()

@@ -86,12 +86,17 @@ whose ranks M divides) lays the ranks out as a (ranks // M, M)
 ``(clients, model)`` mesh. Each rank holds at rest only its shard of the
 params, the server state, the optimizer's moments and the
 error-feedback accumulator (sharding/layout.ShardLayout under
-sharding/rules.cohort_param_specs): N_m of the N columns. A round
-gathers the params within the model group, each model rank trains its
-share of the client slice's rows at full width, and an all-to-all hands
-every delta's shards to their owners; the server step then runs on
-shards (core/round.py). ``full_params``, ``full_state`` and ``params``
-gather (every rank calls them alike); checkpoints hold whole vectors, so
+sharding/rules.cohort_param_specs): N_m of the N columns. The route of
+local training is chosen at construction from the task's model family
+(core/round.cohort_local_update): a dense decoder's LM task
+(transformer.LMLoss) trains tensor-parallel — every model rank trains
+every row of the client slice on its shard, so a slice with fewer rows
+than M trains too; any other task (the vision models) gathers the params
+within the model group, each model rank trains its share of the slice's
+rows at full width, and an all-to-all hands every delta's shards to
+their owners. The server step then runs on shards (core/round.py).
+``full_params``, ``full_state`` and ``params`` gather (every rank calls
+them alike); checkpoints hold whole vectors, so
 they resume across process counts and in either package.
 
 Buffered-async rounds run across the ranks on either axis: every rank
@@ -128,8 +133,8 @@ from repro_torch.core import projection as proj
 from repro_torch.core.guards import GuardConfig, UpdateGuard
 from repro_torch.core.round import (ID_SENTINEL, BufferShard, RankShard,
                                     apply_fault_codes, apply_guard,
-                                    codec_stage, make_cohort_round,
-                                    shard_row_scalars)
+                                    codec_stage, cohort_local_update,
+                                    make_cohort_round, shard_row_scalars)
 from repro_torch.core.runtime import ClientRuntimeModel, DeterministicRuntime
 from repro_torch.core.samplers import (ClientSampler, UniformSampler,
                                        normalize_sampler_config)
@@ -542,7 +547,6 @@ class FederatedTrainer:
         self._slice_rows = local_row_range(
             distributed.process_index() // model if self._mp else 0, world,
             self._pad_to)
-        self._rows = model_row_split(*self._slice_rows, model)[self._m]
         # ---- hierarchical edge aggregation ----
         self._edges = (int(self.cfg.edges)
                        if (self.cfg.edges or 0) > 1 else None)
@@ -582,6 +586,13 @@ class FederatedTrainer:
             edges=self._edges, group=self._client_group(),
             model_group=self._model_group, shards=self._shards,
             real_clients=k if self._pad_to > k else None)
+        # the route of local training on the model axis, chosen once by
+        # the round (core/round.cohort_local_update): tensor-parallel
+        # trains the whole slice on every model rank, the row split its
+        # share at full width
+        self._tensor_parallel = self._cohort_round.tp is not None
+        self._rows = (self._slice_rows if self._tensor_parallel else
+                      model_row_split(*self._slice_rows, model)[self._m])
         self.local_update = client_mod.make_local_update(
             loss_fn, self.layout, self.algo_cfg.eta_l,
             optimizer=self.algo_cfg.local_optimizer,
@@ -699,6 +710,8 @@ class FederatedTrainer:
                      [int(d) for d in self.mesh.mesh.shape]),
             "coords": ([distributed.process_index() // model, self._m]
                        if self._mp else [0, 0]),
+            "route": ("tensor_parallel" if self._tensor_parallel else
+                      "rows" if self._shards is not None else None),
             "slice_rows": list(self._slice_rows), "train_rows":
             list(self._rows), "N": self.layout.size,
             "N_m": int(self.flat.numel()),
@@ -730,10 +743,9 @@ class FederatedTrainer:
         collective a wave) and error feedback averaged over the wave's
         real rows. A fold is a core/round.BufferShard over the arrivals
         the rank's client slice holds."""
-        local = client_mod.make_cohort_local_update(
-            loss_fn, self.layout, self.algo_cfg.eta_l,
-            optimizer=self.algo_cfg.local_optimizer,
-            variant=self.algo.client_variant, **client_kwargs(self.algo))
+        local, tp = cohort_local_update(
+            loss_fn, self.layout, self.algo, self.algo_cfg.eta_l,
+            self.algo_cfg.local_optimizer, self._model_group, self._shards)
         algo, eta_g = self.algo, self.algo_cfg.eta_g
         sopt = self._server_opt
         codec = self._codec if self._codec_lossy else None
@@ -757,7 +769,8 @@ class FederatedTrainer:
             if not ranks:
                 deltas, losses = local(params, batches, masks, extra)
             else:
-                shard = RankShard(self._client_group(), kp, **shard_kw)
+                shard = RankShard(self._client_group(), kp, tp=tp,
+                                  **shard_kw)
                 self._async_shards.append(shard)
                 deltas, part = shard.local_training(local, params, batches,
                                                     masks, extra)

@@ -11,7 +11,11 @@ and its mean loss over the valid batches.
 
 Parameters are flat f32 buffers (repro_torch.bridge): the model sees
 per-leaf views of them, and autograd returns the gradient as one flat
-vector. ``make_cohort_local_update`` runs K clients at once — their
+vector. The ``layout`` is anything with ``unflatten``: on the model
+axis's tensor-parallel route, sharding/layout.TPView, so a cohort
+trains (K, N_m) working copies of the rank's shard with the loss's
+collectives inside; the optimizers are elementwise, and Δ_{t-1} is the
+rank's shard too. ``make_cohort_local_update`` runs K clients at once — their
 params a (K, N) stack, the per-step gradient ``torch.func.vmap`` of the
 one-client gradient, as the reference vmaps its scan over clients.
 ``make_local_update`` is the one-client form it is held against.
@@ -58,7 +62,8 @@ def _build_local_update(loss_fn: Callable, layout: FlatLayout, eta_l: float,
         (cohort) or (M,) (one client); mask (K, M) / (M,) bool, or None
         for all valid; extra the (N,) Δ_{t-1} of the cm/ga variants (or
         None). Returns (delta, mean_loss): (K, N) and (K,) for a cohort
-        — written into ``out`` when given — or (N,) and ()."""
+        — written into ``out`` when given, else into the working copies'
+        own buffer — or (N,) and ()."""
         leaf = tree_leaves(batches)[0]
         lead = tuple(leaf.shape[:1]) if cohort else ()
         m = leaf.shape[len(lead)]
@@ -79,7 +84,9 @@ def _build_local_update(loss_fn: Callable, layout: FlatLayout, eta_l: float,
             if variant == "cm" and extra is not None:
                 grads = cm_alpha * grads + (1.0 - cm_alpha) * extra
             updates, new_opt_state = opt.update(grads, opt_state, w, i)
+            del grads       # a (K, N) stack each: drop them as they go
             new_w = w - updates
+            del updates
             if mask is None:
                 w, opt_state = new_w, new_opt_state
                 loss_sum = loss_sum + loss
@@ -88,13 +95,18 @@ def _build_local_update(loss_fn: Callable, layout: FlatLayout, eta_l: float,
                 # masked batches are no-ops
                 valid = mask[..., i]
                 keep = valid[..., None]
-                w = torch.where(keep, new_w, w)
+                w = torch.where(keep, new_w, w, out=new_w)
                 opt_state = tree_map(lambda a, b: torch.where(keep, a, b),
                                      new_opt_state, opt_state)
                 loss_sum = loss_sum + torch.where(valid, loss,
                                                   torch.zeros_like(loss))
                 nvalid = nvalid + valid.float()
-        delta = torch.sub(global_params, w, out=out)
+        if out is None:
+            # w is this update's own buffer: the deltas take its place
+            # (w_{t-1} - w as -w + w_{t-1}, the same rounding)
+            delta = w.neg_().add_(global_params)
+        else:
+            delta = torch.sub(global_params, w, out=out)
         delta.div_(eta_l)
         return delta, loss_sum / torch.clamp(nvalid, min=1.0)
 

@@ -9,7 +9,9 @@ round with the same K (its shape does not depend on the minibatch
 bucket M); the reference gets the same effect by donating its buffers
 to the jit'd round. Nothing keeps a row of it past the round: the
 buffered-async waves, whose entries outlive their wave, train into
-fresh stacks instead (core/api.py).
+fresh stacks instead (core/api.py). So does the tensor-parallel route
+(below): its deltas take the working copies' own buffer, one (K, N_m)
+buffer less at the backward's peak.
 
 The chaos layer (core/faults.py, core/guards.py) enters the round in the
 reference's order: injected faults right after local training, then the
@@ -62,6 +64,21 @@ plus 1. and 2. as above, on the client group. A codec's per-leaf
 extrema add one all-gather over the model group (``leaf_extrema``), so
 each shard quantizes with the whole leaf's scale.
 
+That is the row split, the route of the vision models (their
+convolutions have no Megatron form in the reference's rules). A task
+whose loss trains tensor-parallel — transformer.LMLoss of a dense
+decoder — takes the reference's own route instead, chosen once when the
+round is built (``cohort_local_update``): every model rank trains all of
+the slice's rows on its shard, Megatron-parallel
+(sharding/tensor_parallel.py, sharding/layout.TPView), so 3. and 4. go
+away. Its collectives run inside the local update's forward and
+backward, over the model group: ``tp_all_reduce`` (the activations
+after each row-parallel layer, their gradients before each
+column-parallel one, the vocab-parallel embedding and cross entropy)
+and ``tp_leaf_gather`` (the leaves that need whole values, once a local
+step). The rows' losses, the same on every model rank, are placed on
+model rank 0 alone before 5.
+
 A buffered-async wave across ranks is a RankShard's local training,
 exchange and encode, its losses summed over the job; its fold is a
 ``BufferShard``: the rank holds an index set of the buffer's arrivals,
@@ -72,6 +89,7 @@ client slices (``buffer_rows``).
 """
 from __future__ import annotations
 
+import functools
 import time
 from typing import Callable, List, Optional
 
@@ -87,7 +105,8 @@ from repro_torch.core import projection as proj
 from repro_torch.core.baselines import (ServerAlgo, client_kwargs,
                                         make_algorithm)
 from repro_torch.kernels.feddpc_project import ops as k_ops
-from repro_torch.sharding.layout import ShardLayout
+from repro_torch.sharding import tensor_parallel as tpm
+from repro_torch.sharding.layout import ShardLayout, TPView
 from repro_torch.sharding.rules import (cohort_param_specs, edge_pieces,
                                         local_row_range, mesh_axes,
                                         model_row_split, spec_leaves)
@@ -324,19 +343,23 @@ class RankShard(_Collectives):
     The rank's client slice is rows [lo, hi) of the ``rows`` padded
     cohort rows (``local`` each); ``pieces`` are those rows cut at the
     ``edges`` boundaries (sharding/rules.edge_pieces), one fold launch
-    each. Without the model axis the rank trains its whole slice; with
-    it, model rank ``mrank`` of ``model`` trains rows ``train`` of the
-    slice at full width (sharding/rules.model_row_split), and from the
-    all-to-all on every tensor is the rank's shard of N_m columns."""
+    each. Without the model axis the rank trains its whole slice. With
+    it, on the tensor-parallel route (``tp``, the model group's
+    sharding/tensor_parallel.TPContext) every model rank trains all of
+    the slice's rows on its own shard; otherwise model rank ``mrank`` of
+    ``model`` trains rows ``train`` of the slice at full width
+    (sharding/rules.model_row_split), and from the all-to-all on every
+    tensor is the rank's shard of N_m columns."""
 
     def __init__(self, group, rows: int, edges: Optional[int] = None, *,
-                 model_group=None, shards=None):
+                 model_group=None, shards=None, tp=None):
         super().__init__(group, model_group, shards)
         self.rows = int(rows)
         self.local = self.rows // self.world
         self.lo, self.hi = local_row_range(self.rank, self.world, self.rows)
         self.pieces = edge_pieces(self.lo, self.hi, self.rows, edges)
-        if model_group is None:
+        self.tp = tp
+        if model_group is None or tp is not None:
             self.train = (self.lo, self.hi)
         else:
             self.splits = model_row_split(self.lo, self.hi, self.model)
@@ -368,12 +391,23 @@ class RankShard(_Collectives):
 
     def local_training(self, local, params: torch.Tensor, batches, masks,
                        extra, out: Optional[torch.Tensor] = None):
-        """Local training of the rows this rank trains, at full width. On
-        the model axis the params (and a cm/ga rule's Δ_prev) are
-        gathered within the model group first, and the all-to-all then
-        hands each delta's shards to their owners. Returns (the client
-        slice's (local, N_m) deltas, its (local,) losses: the rows this
-        rank trained, 0 at the others)."""
+        """Local training of the rows this rank trains. On the
+        tensor-parallel route every model rank trains the slice's rows on
+        its shard (the model group's collectives inside the loss, timed
+        here as "tp_all_reduce" and "tp_leaf_gather"); the rows' losses,
+        the same on every model rank, are placed on model rank 0 alone,
+        so a sum over the model group counts them once. Otherwise, on the
+        model axis, the params (and a cm/ga rule's Δ_prev) are gathered
+        within the model group first, the rank trains its rows at full
+        width, and the all-to-all then hands each delta's shards to their
+        owners. Returns (the client slice's (local, N_m) deltas, its
+        (local,) losses: the rows this rank trained, 0 at the others)."""
+        if self.tp is not None:
+            self.tp.timer = self._run
+            deltas, losses = local(params, batches, masks, extra, out=out)
+            if self.mrank:
+                losses = torch.zeros_like(losses)
+            return deltas, losses
         if self.model_group is not None:
             params = self.gather_params(params)
             if extra is not None:
@@ -532,9 +566,8 @@ def make_cohort_round(loss_fn: Callable, layout: FlatLayout,
     With a lossy codec the round aggregates the DECODED deltas; FedDPC's
     fold reads the payload itself only while no guard rewrites rows
     between decode and aggregation. Identity never enters the round."""
-    local = client_mod.make_cohort_local_update(
-        loss_fn, layout, eta_l, optimizer=optimizer,
-        variant=algo.client_variant, **client_kwargs(algo))
+    local, tp = cohort_local_update(loss_fn, layout, algo, eta_l, optimizer,
+                                    model_group, shards)
     lossy = codec is not None and codec.lossy
     ef_active = lossy and codec_ef
     stochastic = lossy and codec.stochastic
@@ -555,18 +588,19 @@ def make_cohort_round(loss_fn: Callable, layout: FlatLayout,
         opt_state = next(it) if server_opt is not None else None
         shard = None if group is None else RankShard(
             group, client_ids.shape[0], edges, model_group=model_group,
-            shards=shards)
+            shards=shards, tp=tp)
         cohort_round.shard = shard
         extra = algo.client_extra(server_state)
         k = tree_leaves(batches)[0].shape[0]
-        if stack is None or stack.shape[0] != k or \
+        if tp is not None:
+            stack = None    # the deltas take the working copies' buffer
+        elif stack is None or stack.shape[0] != k or \
                 stack.device != params.device:
             stack = torch.empty((k, layout.size), dtype=torch.float32,
                                 device=params.device)
         if shard is None:
             deltas, losses = local(params, batches, masks, extra, out=stack)
         else:
-            # on the model axis local training runs at full width, and
             # from here on every tensor is this rank's shard
             deltas, losses = shard.local_training(local, params, batches,
                                                   masks, extra, out=stack)
@@ -613,7 +647,31 @@ def make_cohort_round(loss_fn: Callable, layout: FlatLayout,
         return tuple(outs)
 
     cohort_round.shard = None
+    cohort_round.tp = tp        # the route: None trains full-width rows
     return cohort_round
+
+
+def cohort_local_update(loss_fn: Callable, layout: FlatLayout,
+                        algo: ServerAlgo, eta_l: float, optimizer: str = "sgd",
+                        model_group=None, shards=None):
+    """The cohort local update of ``algo``'s client variant and its
+    sharding/tensor_parallel.TPContext, or None. The route is chosen
+    here, once, from the task's model family: on the model axis a loss
+    that trains tensor-parallel (``tensor_parallel.trains_tensor_parallel``:
+    transformer.LMLoss of a dense decoder) trains (K, N_m) working
+    copies of the rank's shard through sharding/layout.TPView; any other
+    (the vision models, whose convolutions have no Megatron form in the
+    reference's rules) trains full-width rows of the gathered params
+    (RankShard)."""
+    tp = None
+    if model_group is not None and tpm.trains_tensor_parallel(loss_fn):
+        tp = tpm.TPContext.of(model_group)
+        layout = TPView(shards, tp.rank, loss_fn.head_dim, tp)
+        loss_fn = functools.partial(loss_fn, tp=tp)
+    local = client_mod.make_cohort_local_update(
+        loss_fn, layout, eta_l, optimizer=optimizer,
+        variant=algo.client_variant, **client_kwargs(algo))
+    return local, tp
 
 
 def shard_row_scalars(shard, algo: ServerAlgo, server_state, deltas,
@@ -685,11 +743,16 @@ def make_fl_round_step(loss_fn: Callable, layout: FlatLayout, eta_l: float,
 
     On a two-axis (clients, model) ``mesh`` params and delta_prev are
     this rank's shards under ``cohort_param_specs(params_template,
-    mesh)`` (the reference's tree of the params; shapes only) and the
-    batches the silos this rank trains (the round's silo count K is
-    their sum over the ranks, taken once); it raises without
-    ``params_template``, as the reference does. FedAvg's metrics hold the train loss alone, as the
-    reference's (its FedAvg is the collective-volume baseline)."""
+    mesh)`` (the reference's tree of the params; shapes only); it raises
+    without ``params_template``, as the reference does. A ``loss_fn``
+    that trains tensor-parallel (transformer.LMLoss of a dense decoder)
+    takes the reference's route — each silo a model-parallel replica,
+    Megatron-sharded over ``model``: the batches are the client slice's
+    silos, the same on each of its model ranks. Any other loss trains
+    full-width rows: the batches are the silos this rank trains, and
+    the round's silo count K is their sum over the ranks, taken once.
+    FedAvg's metrics hold the train loss alone, as the reference's (its
+    FedAvg is the collective-volume baseline)."""
     hyper = {"lam": lam} if algorithm in ("feddpc", "feddpc_m") else None
     algo = make_algorithm(algorithm, hyper)
     probe = algo.init(torch.zeros(1), 1)
@@ -716,6 +779,7 @@ def make_fl_round_step(loss_fn: Callable, layout: FlatLayout, eta_l: float,
     cohort = make_cohort_round(loss_fn, layout, algo, eta_l, eta_g,
                                group=group, model_group=model_group,
                                shards=shards)
+    row_split = model_group is not None and cohort.tp is None
 
     silos: Optional[int] = None
 
@@ -723,7 +787,7 @@ def make_fl_round_step(loss_fn: Callable, layout: FlatLayout, eta_l: float,
         nonlocal silos
         if silos is None:
             k = tree_leaves(batches)[0].shape[0]
-            if model_group is not None:
+            if row_split:
                 # the model ranks' trained shares partition each client
                 # slice's rows: K is every rank's share summed
                 t = torch.tensor([k], device=params.device)

@@ -75,8 +75,9 @@ def build(tiny: bool, rounds=None, device="cuda") -> Task:
     parts = dirichlet_partition(topics, clients, alpha=0.3, seed=0,
                                 min_size=1)
 
-    def loss_fn(p, batch):
-        return tf.loss_fn(cfg, p, batch)
+    # a dense decoder's loss: on a (clients, model) mesh it trains
+    # tensor-parallel (transformer.LMLoss)
+    loss_fn = tf.LMLoss(cfg)
 
     def batch_fn(c, t):
         idx = parts[c]

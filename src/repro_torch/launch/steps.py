@@ -15,15 +15,23 @@ the reference's trees (``params_spec``: ``init_lm``'s or
 ``init_encdec``'s key tree; ``states_spec``: the stacked caches of
 ``init_states`` or ``init_decoder_states``). The steps run the port's
 decoders (transformer.py) and the encoder-decoder (encdec.py). MoE
-layers route their tokens in ``moe_groups`` groups on one device;
-``moe_impl="ep"`` (the expert-parallel MoE, ROADMAP Queue 1 item 13c)
-and ``shard_fn`` (tensor-parallel steps, item 13b) raise.
+layers route their tokens in ``moe_groups`` groups on one device and
+call ``shard_fn(tensor, role)``, the reference's placement hook, at its
+three points (models/moe.py); ``moe_impl="ep"`` (the expert-parallel
+MoE, ROADMAP Queue 1 item 13c) raises.
+
+``make_train_step(cfg, model_group=...)`` is the reference's train step
+jit'd with ``param_specs`` in-shardings, written out by hand: Megatron
+tensor parallelism over the model group for the dense decoder family
+(sharding/tensor_parallel.py), each rank stepping its shard of the
+flat parameter vector.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import bridge
 from repro_torch.configs.base import ArchConfig
@@ -33,6 +41,8 @@ from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import META
+from repro_torch.sharding import tensor_parallel as tpm
+from repro_torch.sharding.layout import ShardLayout, TPView
 
 WINDOW = 4096                 # sliding window for dense long-context decode
 
@@ -43,15 +53,6 @@ def _meta(shape, dtype) -> torch.Tensor:
 
 def _dtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
-
-
-def _refuse(moe_impl, shard_fn):
-    tf._check_moe_impl(moe_impl)
-    if shard_fn is not None:
-        raise NotImplementedError(
-            "shard_fn: tensor-parallel steps (hand-written collectives in "
-            "the forward and backward) are not ported, ROADMAP Queue 1 "
-            "item 13b")
 
 
 def effective_window(cfg: ArchConfig, shape: InputShape) -> int:
@@ -149,7 +150,7 @@ def states_spec(cfg: ArchConfig, shape: InputShape):
 def make_train_step(cfg: ArchConfig, lr: float = 1e-3, remat: str = "full",
                     attn_impl: str = "auto", moe_groups: int = 1,
                     shard_fn=None, moe_impl: str = "gshard",
-                    microbatches: int = 1):
+                    microbatches: int = 1, model_group=None):
     """(params, batch) -> (new_params, loss). Plain SGD, so a step is
     forward + backward + apply (the paper's local client step), under
     plain autograd: ``remat="full"`` checkpoints each layer
@@ -161,15 +162,31 @@ def make_train_step(cfg: ArchConfig, lr: float = 1e-3, remat: str = "full",
     and grads are the chunks' means. The params tree is not modified: the
     step returns new leaves, each written as its grad is dropped. An
     encoder-decoder's loss is ``encdec.encdec_loss_fn`` (no remat, as in
-    the reference)."""
-    _refuse(moe_impl, shard_fn)
+    the reference). ``shard_fn`` goes to the MoE layers
+    (moe.moe_forward).
+
+    ``model_group`` (a process group of M ranks, each on its device)
+    makes it the tensor-parallel step of this rank: (shard, batch) ->
+    (shard, loss), the shard updated in place (each block's gradient
+    applied as it is dropped); ``shard`` is this rank's (N_m,) f32 shard
+    of the flat parameter vector of ``params_spec(cfg)`` under
+    sharding/rules.cohort_param_specs on a (1 x M) mesh —
+    ``train_step.shards`` (a sharding/layout.ShardLayout) scatters and
+    gathers it. Every rank steps the same batch; the loss is
+    the same on each. The dense decoder family only: MoE, MLA, Mamba
+    and encoder-decoder stacks raise, each citing its ROADMAP item."""
+    tf._check_moe_impl(moe_impl)
+    if model_group is not None:
+        return _make_tp_train_step(cfg, lr, remat, attn_impl, microbatches,
+                                   model_group)
 
     def loss_of(tree, batch):
         if cfg.is_encoder_decoder:
             return encdec_mod.encdec_loss_fn(cfg, tree, batch,
                                              attn_impl=attn_impl)
         return tf.loss_fn(cfg, tree, batch, remat=remat,
-                          attn_impl=attn_impl, moe_groups=moe_groups)
+                          attn_impl=attn_impl, moe_groups=moe_groups,
+                          shard_fn=shard_fn)
 
     def grads_of(leaves, skeleton, batch):
         loss = loss_of(bridge.tree_map(lambda i: leaves[i], skeleton), batch)
@@ -182,17 +199,11 @@ def make_train_step(cfg: ArchConfig, lr: float = 1e-3, remat: str = "full",
         if microbatches <= 1:
             loss, grads = grads_of(leaves, skeleton, batch)
         else:
-            chunks = {k: torch.chunk(v, microbatches) for k, v in
-                      batch.items()}
-            if any(len(c) != microbatches for c in chunks.values()):
-                raise ValueError(f"a batch of {len(batch['tokens'])} does "
-                                 f"not split into {microbatches} chunks")
             loss = torch.zeros((), dtype=torch.float32,
                                device=leaves[0].device)
             grads = [torch.zeros(p.shape, dtype=torch.float32,
                                  device=p.device) for p in leaves]
-            for m in range(microbatches):
-                mb = {k: c[m] for k, c in chunks.items()}
+            for mb in _microbatches(batch, microbatches):
                 l_m, g_m = grads_of(leaves, skeleton, mb)
                 loss = loss + l_m
                 for acc, g in zip(grads, g_m):
@@ -211,6 +222,60 @@ def make_train_step(cfg: ArchConfig, lr: float = 1e-3, remat: str = "full",
     return train_step
 
 
+def _microbatches(batch, n: int):
+    chunks = {k: torch.chunk(v, n) for k, v in batch.items()}
+    if any(len(c) != n for c in chunks.values()):
+        raise ValueError(f"a batch of {len(batch['tokens'])} does not "
+                         f"split into {n} chunks")
+    return [{k: c[m] for k, c in chunks.items()} for m in range(n)]
+
+
+def _make_tp_train_step(cfg, lr, remat, attn_impl, microbatches, group):
+    """make_train_step's tensor-parallel form (its docstring)."""
+    tf.check_tensor_parallel(cfg)
+    model = dist.get_world_size(group)
+    shards = ShardLayout.from_sizes(bridge.layout_of(params_spec(cfg)),
+                                    {"clients": 1, "model": model})
+    tp = tpm.TPContext.of(group)
+    view = TPView(shards, tp.rank, cfg.resolved_head_dim, tp)
+
+    def grads_of(blocks, batch):
+        loss = tf.loss_fn(cfg, view.tree(blocks), batch, remat=remat,
+                          attn_impl=attn_impl, tp=tp)
+        return loss.detach(), list(torch.autograd.grad(loss, blocks))
+
+    def train_step(shard, batch):
+        if shard.shape != (view.size,):
+            raise ValueError(f"rank {tp.rank}'s shard is ({view.size},), "
+                             f"got {tuple(shard.shape)}")
+        # each block a leaf of its own: its gradient is applied and
+        # dropped, never concatenated into an (N_m,) gradient
+        blocks = [b.detach().requires_grad_(True)
+                  for b in view.split(shard)]
+        if microbatches <= 1:
+            loss, grads = grads_of(blocks, batch)
+        else:
+            loss = torch.zeros((), dtype=torch.float32, device=shard.device)
+            grads = [torch.zeros_like(b) for b in blocks]
+            for mb in _microbatches(batch, microbatches):
+                l_m, g_m = grads_of(blocks, mb)
+                loss = loss + l_m
+                for acc, g in zip(grads, g_m):
+                    acc.add_(g)
+                del g_m
+            loss = loss / microbatches
+            for g in grads:
+                g.div_(microbatches)
+        with torch.no_grad():
+            for i, b in enumerate(blocks):
+                b.sub_(grads[i].mul_(lr))       # p - lr·g, in place
+                grads[i] = None
+        return shard, loss
+
+    train_step.shards, train_step.view, train_step.tp = shards, view, tp
+    return train_step
+
+
 def make_prefill_step(cfg: ArchConfig, shape: InputShape,
                       attn_impl: str = "auto", moe_groups: int = 1,
                       shard_fn=None, moe_impl: str = "gshard"):
@@ -220,7 +285,7 @@ def make_prefill_step(cfg: ArchConfig, shape: InputShape,
     frames, tokens) with states {"decoder": the per-layer caches
     (encdec.init_decoder_states), ...} -> ({"decoder", "enc_out"},
     last_token_logits)."""
-    _refuse(moe_impl, shard_fn)
+    tf._check_moe_impl(moe_impl)
     window = effective_window(cfg, shape)
 
     if cfg.is_encoder_decoder:
@@ -237,7 +302,7 @@ def make_prefill_step(cfg: ArchConfig, shape: InputShape,
         logits, new_states, _ = tf.lm_forward(
             cfg, params, tokens, embeds=patch_embeds, states=states,
             window=window, attn_impl=attn_impl, logits_slice_last=True,
-            moe_groups=moe_groups)
+            moe_groups=moe_groups, shard_fn=shard_fn)
         return new_states, logits
 
     return prefill
@@ -249,7 +314,7 @@ def make_decode_step(cfg: ArchConfig, shape: InputShape,
     """(params, states, tokens (B, 1), positions (B, 1)) -> (states,
     logits). An encoder-decoder's states are {"decoder", "enc_out"}: the
     step attends across to "enc_out" and carries it on."""
-    _refuse(moe_impl, shard_fn)
+    tf._check_moe_impl(moe_impl)
     window = effective_window(cfg, shape)
 
     if cfg.is_encoder_decoder:
@@ -265,7 +330,7 @@ def make_decode_step(cfg: ArchConfig, shape: InputShape,
         logits, new_states, _ = tf.lm_forward(
             cfg, params, tokens, positions=positions, states=states,
             window=window, attn_impl=attn_impl, logits_slice_last=True,
-            moe_groups=moe_groups)
+            moe_groups=moe_groups, shard_fn=shard_fn)
         return new_states, logits
 
     return decode

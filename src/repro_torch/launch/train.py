@@ -212,8 +212,9 @@ def build_lm_task(args, cfg: ExecConfig, device: torch.device):
     holdout = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
                for k, v in lm_batch(tokens[:LM_HOLDOUT]).items()}
 
-    def loss_fn(p, batch):
-        return tf.loss_fn(arch, p, batch)
+    # with --model-shards M a dense decoder trains tensor-parallel over
+    # the model group (transformer.LMLoss; core/round.cohort_local_update)
+    loss_fn = tf.LMLoss(arch)
 
     def eval_fn(p):    # negative perplexity proxy -> the "accuracy" slot
         with torch.no_grad():

@@ -52,8 +52,9 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.layers import (apply_rope, init_linear, linear,
-                                       rng_device, rope_frequencies,
-                                       split_rng)
+                                       rng_device, row_parallel,
+                                       rope_frequencies, split_rng)
+from repro_torch.sharding import tensor_parallel as tpm
 
 NEG_INF = -1e30
 BLOCKED_THRESHOLD = 2048  # the reference's rule on the CPU
@@ -198,18 +199,64 @@ def _cache_write(cache, k, v, positions):
     return _ring_write(cache, {"k": k, "v": v}, positions)
 
 
-def gqa_forward(cfg, p, x, positions, *, window=0, cache=None, impl="auto"):
+def _tp_kv(cfg, p, x, tp, heads):
+    """K and V (B, S, ·, HD) for this rank's ``heads`` query heads under
+    tensor parallelism. ``wk``/``wv`` split over the model group (M
+    divides the KV heads): the rank's own KV heads, whose groups are its
+    query heads'. Whole (sharding/layout.PARTIAL): the KV heads its query
+    heads read, computed from their columns — one a query head when the
+    rank's heads do not cover whole groups."""
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    if p["wk"]["w"].shape[-1] < cfg.num_kv_heads * hd:
+        return (linear(p["wk"], x).reshape(b, s, -1, hd),
+                linear(p["wv"], x).reshape(b, s, -1, hd))
+    group = cfg.num_heads // cfg.num_kv_heads
+    q0 = tp.rank * heads
+    lo, hi = q0 // group, (q0 + heads - 1) // group + 1
+    cols = slice(lo * hd, hi * hd)
+
+    def project(lin):
+        sel = {k: v[..., cols] for k, v in lin.items()}
+        return linear(sel, x).reshape(b, s, hi - lo, hd)
+    k, v = project(p["wk"]), project(p["wv"])
+    per = heads // (hi - lo)
+    if per * (hi - lo) == heads and all(
+            (q0 + j) // group - lo == j // per for j in range(heads)):
+        return k, v
+    idx = torch.tensor([(q0 + j) // group - lo for j in range(heads)],
+                       device=x.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def gqa_forward(cfg, p, x, positions, *, window=0, cache=None, impl="auto",
+                tp=None):
     """x (B, S, D), positions (B, S) int absolute positions.
 
     cache None  -> full-sequence self attention (prefill without a cache);
     cache given -> write the S tokens into it (prefill fills, decode S = 1)
                    and attend to the whole cache.
+    ``tp`` (sharding/tensor_parallel.TPContext; full-sequence forwards)
+    runs Megatron's attention on this rank's query heads: ``wq`` (and
+    ``wk``/``wv`` when split) column-parallel after a copy-to-region of
+    x, ``wo`` row-parallel, its bias added after the sum (_tp_kv).
     Returns (out, new_cache)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = linear(p["wq"], x).reshape(b, s, cfg.num_heads, hd)
-    k = linear(p["wk"], x).reshape(b, s, cfg.num_kv_heads, hd)
-    v = linear(p["wv"], x).reshape(b, s, cfg.num_kv_heads, hd)
+    if tp is not None and cache is not None:
+        raise NotImplementedError(
+            "tensor-parallel attention trains (full-sequence forwards); "
+            "tensor-parallel serving (KV caches over the model axis, "
+            "rules.state_specs) is ROADMAP Queue 1 item 13i")
+    x = tpm.copy_to_region(x, tp)
+    q = linear(p["wq"], x)
+    heads = q.shape[-1] // hd
+    q = q.reshape(b, s, heads, hd)
+    if tp is None:
+        k = linear(p["wk"], x).reshape(b, s, cfg.num_kv_heads, hd)
+        v = linear(p["wv"], x).reshape(b, s, cfg.num_kv_heads, hd)
+    else:
+        k, v = _tp_kv(cfg, p, x, tp, heads)
     if cfg.use_rope:
         cos, sin = rope_frequencies(hd, cfg.rope_theta, positions)
         q = apply_rope(q, cos, sin)
@@ -224,7 +271,8 @@ def gqa_forward(cfg, p, x, positions, *, window=0, cache=None, impl="auto"):
         out = sdpa(q, new_cache["k"], new_cache["v"], positions,
                    new_cache["pos"], window=window,
                    soft_cap=cfg.logit_soft_cap, impl=impl)
-    return linear(p["wo"], out.reshape(b, s, cfg.num_heads * hd)), new_cache
+    return row_parallel(p["wo"], out.reshape(b, s, heads * hd),
+                        tp), new_cache
 
 
 # =====================  MLA (DeepSeek-V2)  =====================
@@ -345,9 +393,16 @@ def init_attention(rng, cfg, dtype):
 
 
 def attention_forward(cfg, p, x, positions, *, window=0, cache=None,
-                      impl="auto"):
-    fwd = mla_forward if cfg.attention == "mla" else gqa_forward
-    return fwd(cfg, p, x, positions, window=window, cache=cache, impl=impl)
+                      impl="auto", tp=None):
+    if cfg.attention == "mla":
+        if tp is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: tensor-parallel MLA (q_up/k_up/v_up over the "
+                "model axis) is ROADMAP Queue 1 item 13f")
+        return mla_forward(cfg, p, x, positions, window=window, cache=cache,
+                           impl=impl)
+    return gqa_forward(cfg, p, x, positions, window=window, cache=cache,
+                       impl=impl, tp=tp)
 
 
 def init_cache(cfg, batch, capacity, dtype, device=None):

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import jax_prng
+from repro_torch.sharding import tensor_parallel as tpm
 
 META = "meta"         # the shapes-only rng
 
@@ -150,16 +151,31 @@ def init_mlp(rng, kind: str, d_model: int, d_ff: int, dtype,
             "down": init_linear(ks[1], d_ff, d_model, dtype, bias)}
 
 
-def apply_mlp(kind: str, p, x: torch.Tensor) -> torch.Tensor:
+def row_parallel(p, h: torch.Tensor, tp=None) -> torch.Tensor:
+    """``linear(p, h)`` of a row-parallel layer: with a tensor-parallel
+    context ``tp`` (sharding/tensor_parallel.py) ``p["w"]`` holds this
+    rank's rows and ``h`` its columns, the product is summed over the
+    model group, and the (whole) bias is added after the sum."""
+    y = tpm.reduce_from_region(h @ p["w"], tp)
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def apply_mlp(kind: str, p, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """The MLP; with ``tp`` Megatron's: ``gate``/``up`` column-parallel
+    (this rank's slice of d_ff, after a copy-to-region of x), ``down``
+    row-parallel (``row_parallel``)."""
+    x = tpm.copy_to_region(x, tp)
     if kind == "swiglu":
-        return linear(p["down"], F.silu(linear(p["gate"], x))
-                      * linear(p["up"], x))
+        return row_parallel(p["down"], F.silu(linear(p["gate"], x))
+                            * linear(p["up"], x), tp)
     h = linear(p["up"], x)
     if kind == "relu2":
         h = torch.square(F.relu(h))
     else:
         h = F.gelu(h, approximate="tanh")   # jax.nn.gelu's default
-    return linear(p["down"], h)
+    return row_parallel(p["down"], h, tp)
 
 
 # ---------------- RoPE ----------------

@@ -27,7 +27,7 @@ FL trainer's ``vmap(grad)`` over a cohort trains an MoE decoder.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -120,11 +120,17 @@ def _slot_tables(cfg, idx: torch.Tensor, gates: torch.Tensor, cap: int):
     return slot_token[:, :-1], slot_gate[:, :-1]
 
 
-def moe_forward(cfg, p, x: torch.Tensor, *, groups: int = 1
+def moe_forward(cfg, p, x: torch.Tensor, *, groups: int = 1,
+                shard_fn: Optional[Callable] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (out (B, S, D), router_aux_coef * aux). ``groups``
-    token groups (1 when B·S does not divide)."""
+    token groups (1 when B·S does not divide). ``shard_fn(tensor, role)``
+    is called where the reference calls it (its placement hook): on the
+    dispatched tokens (G, E, C, D), "dispatched"; the experts' hidden
+    (G, E, C, F), "expert_hidden"; and the gated outputs (G, E·C, D),
+    "combine"; its result is used in their place."""
     b, s, d = x.shape
+    shard_fn = shard_fn or (lambda z, role: z)
     t_total = b * s
     g = groups if t_total % groups == 0 else 1
     tg = t_total // g
@@ -138,11 +144,13 @@ def moe_forward(cfg, p, x: torch.Tensor, *, groups: int = 1
     # dispatch: a gather, the dummy token T reading a zero row
     xt_pad = torch.cat([xt, xt.new_zeros(g, 1, d)], dim=1)
     xe = torch.gather(xt_pad, 1, slot_token[..., None].expand(g, e * cap, d))
-    xe = xe.reshape(g, e, cap, d)
+    xe = shard_fn(xe.reshape(g, e, cap, d), "dispatched")
     h = F.silu(torch.einsum("gecd,edf->gecf", xe, p["gate"])) \
         * torch.einsum("gecd,edf->gecf", xe, p["up"])
+    h = shard_fn(h, "expert_hidden")
     ye = torch.einsum("gecf,efd->gecd", h, p["down"])           # (G,E,C,D)
     ye = ye * slot_gate.reshape(g, e, cap, 1).to(ye.dtype)
+    ye = shard_fn(ye.reshape(g, e * cap, d), "combine")
 
     # combine: a scatter-add to token order (row T of each group is the
     # dummy's, dropped)

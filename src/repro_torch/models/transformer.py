@@ -57,6 +57,7 @@ from repro_torch.models.layers import (apply_mlp, apply_norm, fold_rng,
                                        init_linear, init_mlp, init_norm,
                                        linear, normal, rng_device,
                                        split_rng)
+from repro_torch.sharding import tensor_parallel as tpm
 
 REMATS = ("none", "full")
 
@@ -105,6 +106,38 @@ def _check_config(cfg):
             "MoE")
 
 
+def tensor_parallel_refusal(cfg) -> Optional[str]:
+    """Why ``cfg`` has no tensor-parallel form in the port (the ROADMAP
+    Queue 1 item that queues it), or None for the dense decoder family:
+    GQA attention and dense MLP layers alone (StarCoder2, Phi-4-mini,
+    Minitron, Command-R, the LLaVA trunk and any stack of their
+    layers)."""
+    kinds = [kind for kind, _ in layer_specs(cfg)]
+    if cfg.is_encoder_decoder:
+        return (f"{cfg.name}: the tensor-parallel encoder-decoder is ROADMAP "
+                "Queue 1 item 13h")
+    if any(is_moe for _, is_moe in layer_specs(cfg)):
+        return (f"{cfg.name}: tensor-parallel MoE experts (each expert's "
+                "ffn dim over the model axis, the psum item 13c reuses) are "
+                "ROADMAP Queue 1 item 13e")
+    if cfg.attention == "mla" and "attn" in kinds:
+        return (f"{cfg.name}: tensor-parallel MLA is ROADMAP Queue 1 item "
+                "13f")
+    if "ssm" in kinds:
+        return (f"{cfg.name}: the tensor-parallel Mamba mixer (d_inner over "
+                "the model axis, x_proj's row-parallel reduction) is ROADMAP "
+                "Queue 1 item 13g")
+    return None
+
+
+def check_tensor_parallel(cfg):
+    """Raise NotImplementedError unless ``cfg`` trains tensor-parallel
+    (``tensor_parallel_refusal``)."""
+    why = tensor_parallel_refusal(cfg)
+    if why is not None:
+        raise NotImplementedError(why)
+
+
 def _check_moe_impl(moe_impl: str):
     if moe_impl != "gshard":
         raise NotImplementedError(
@@ -137,15 +170,17 @@ def _init_layer(rng, cfg, spec, dtype):
 
 
 def _layer_forward(cfg, spec, p, x, positions, state, *, window, attn_impl,
-                   ssm_impl, moe_groups):
+                   ssm_impl, moe_groups, shard_fn=None, tp=None):
     """-> (x, new_state, aux): aux is the MoE layer's scaled aux loss, or
-    None for a layer without MoE."""
+    None for a layer without MoE. ``tp``: the tensor-parallel layer (the
+    attention and MLP in Megatron's form; lm_forward admits the dense
+    family only)."""
     kind, is_moe = spec
     h = apply_norm(cfg.norm, p["norm1"], x)
     if kind == "attn":
         mixed, new_state = attn_mod.attention_forward(
             cfg, p["mixer"], h, positions, window=window, cache=state,
-            impl=attn_impl)
+            impl=attn_impl, tp=tp)
     else:
         mixed, new_state = ssm_mod.mamba_forward(cfg, p["mixer"], h,
                                                  state=state, impl=ssm_impl)
@@ -154,9 +189,10 @@ def _layer_forward(cfg, spec, p, x, positions, state, *, window, attn_impl,
         return x, new_state, None
     h2 = apply_norm(cfg.norm, p["norm2"], x)
     if is_moe:
-        out, aux = moe_mod.moe_forward(cfg, p["mlp"], h2, groups=moe_groups)
+        out, aux = moe_mod.moe_forward(cfg, p["mlp"], h2, groups=moe_groups,
+                                       shard_fn=shard_fn)
         return x + out, new_state, aux
-    return x + apply_mlp(cfg.mlp, p["mlp"], h2), new_state, None
+    return x + apply_mlp(cfg.mlp, p["mlp"], h2, tp), new_state, None
 
 
 # ---------------- parameter trees ----------------
@@ -249,13 +285,13 @@ def init_states(cfg, batch, capacity, dtype=None, device=None) -> List:
             for kind, _ in layer_specs(cfg)]
 
 
-def _embed_inputs(cfg, params, tokens, embeds):
+def _embed_inputs(cfg, params, tokens, embeds, tp=None):
     if embeds is not None and cfg.modality != "vision":
         raise ValueError(
             f"{cfg.name}: embeddings for modality {cfg.modality!r}: a "
             "decoder stack takes a VLM's patch embeddings only; audio "
             "frames go through the encoder, models/encdec.py")
-    x = params["embed"][tokens]
+    x = tpm.embed_lookup(params["embed"], tokens, tp, cfg.vocab_size)
     if embeds is not None:
         # VLM: the stubbed vision tower's pre-projected patch embeddings,
         # prepended to the text tokens (anyres tiles flattened)
@@ -277,7 +313,8 @@ def lm_forward(cfg, params, tokens, positions=None, *, embeds=None,
                states: Optional[List] = None, window: int = 0,
                attn_impl: str = "auto", ssm_impl: str = "auto",
                logits_slice_last: bool = False, remat: str = "none",
-               moe_groups: int = 1, moe_impl: str = "gshard"):
+               moe_groups: int = 1, moe_impl: str = "gshard",
+               shard_fn=None, tp=None):
     """Returns (logits, new_states, aux_loss): the MoE layers' scaled aux
     losses summed in f32 (0 without MoE).
 
@@ -291,16 +328,28 @@ def lm_forward(cfg, params, tokens, positions=None, *, embeds=None,
     backward (``_remat``); it needs plain autograd, not torch.func.
     ``moe_groups`` token groups route each MoE layer (moe.moe_forward);
     ``moe_impl`` "gshard" (the single-device dispatch) — "ep" raises,
-    citing item 13c."""
+    citing item 13c; ``shard_fn(tensor, role)`` is the reference's MoE
+    placement hook (moe.moe_forward).
+
+    ``tp`` (a sharding/tensor_parallel.TPContext, full-sequence forwards
+    of the dense decoder family) runs this model rank's part of a
+    Megatron tensor-parallel forward on the tree of
+    sharding/layout.TPView: the embedding looked up vocab-parallel when
+    it is split on V, each layer's attention and MLP on the rank's heads
+    and d_ff slice with one all-reduce after ``wo`` and one after
+    ``down``, and the logits of the rank's vocab slice when the head is
+    split (the whole logits otherwise). The rest is replicated."""
     _check_config(cfg)
     _check_moe_impl(moe_impl)
+    if tp is not None:
+        check_tensor_parallel(cfg)
     if remat not in REMATS:
         raise ValueError(f"lm_forward: remat must be one of {REMATS}, got "
                          f"{remat!r}")
     if remat != "none" and states is not None:
         raise ValueError("lm_forward: remat is for full-sequence forwards; "
                          "a prefill or decode with states keeps none")
-    x = _embed_inputs(cfg, params, tokens, embeds)
+    x = _embed_inputs(cfg, params, tokens, embeds, tp)
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
@@ -308,7 +357,7 @@ def lm_forward(cfg, params, tokens, positions=None, *, embeds=None,
     new_states = None if states is None else []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     kw = {"window": window, "attn_impl": attn_impl, "ssm_impl": ssm_impl,
-          "moe_groups": moe_groups}
+          "moe_groups": moe_groups, "shard_fn": shard_fn, "tp": tp}
     for i, (spec, p) in enumerate(zip(layer_specs(cfg),
                                       layer_params(cfg, params))):
         if states is None:
@@ -327,8 +376,12 @@ def lm_forward(cfg, params, tokens, positions=None, *, embeds=None,
     x = apply_norm(cfg.norm, params["final_norm"], x)
     if logits_slice_last:
         x = x[:, -1:, :]
+    head = (params["embed"].T if cfg.tie_embeddings
+            else params["lm_head"]["w"])
+    if head.shape[-1] < cfg.vocab_size:
+        x = tpm.copy_to_region(x, tp)      # the vocab-parallel head
     if cfg.tie_embeddings:
-        logits = x @ params["embed"].T
+        logits = x @ head
     else:
         logits = linear(params["lm_head"], x)
     return logits, new_states, aux_total
@@ -344,7 +397,10 @@ def loss_fn(cfg, params, batch, *, attn_impl: str = "auto",
     The training route (module docstring): "auto" attention is the
     reference's plain rule (``sdpa(impl="plain")``) and the "auto" mixer
     the plain scan, on every device. ``fw_kw`` go to ``lm_forward``
-    (``remat`` under plain autograd only)."""
+    (``remat`` under plain autograd only). With ``tp`` in them, logits
+    split over the vocab give the vocab-parallel cross entropy
+    (sharding/tensor_parallel.cross_entropy); the loss is the same on
+    every model rank."""
     tokens = batch["tokens"]
     labels = batch["labels"]
     embeds = batch.get("patch_embeds")
@@ -355,11 +411,30 @@ def loss_fn(cfg, params, batch, *, attn_impl: str = "auto",
     if embeds is not None:
         # logits cover [patches + text]; labels only the text part
         logits = logits[:, embeds.shape[1]:, :]
-    logits = logits.float()
-    valid = labels >= 0
-    safe = torch.where(valid, labels, 0).long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
-    ce = torch.where(valid, logz - gold, 0.0)
-    loss = ce.sum() / torch.clamp(valid.sum(), min=1)
+    ce = tpm.cross_entropy(logits, labels, fw_kw.get("tp"), cfg.vocab_size)
+    loss = ce.sum() / torch.clamp((labels >= 0).sum(), min=1)
     return loss + aux
+
+
+class LMLoss:
+    """A decoder's causal-LM task loss, ``loss(params, batch)`` =
+    ``loss_fn(cfg, params, batch, **kw)``, and its tensor-parallel form
+    ``loss(params, batch, tp=ctx)`` on a sharding/layout.TPView tree.
+    ``tensor_parallel`` says whether the family trains so
+    (``tensor_parallel_refusal``): a trainer or round step on a
+    (clients, model) mesh picks its route from it once, when it is
+    built (core/round.py)."""
+
+    def __init__(self, cfg, **kw):
+        self.cfg, self.kw = cfg, kw
+
+    @property
+    def tensor_parallel(self) -> bool:
+        return tensor_parallel_refusal(self.cfg) is None
+
+    @property
+    def head_dim(self) -> int:
+        return self.cfg.resolved_head_dim
+
+    def __call__(self, params, batch, tp=None):
+        return loss_fn(self.cfg, params, batch, tp=tp, **self.kw)

@@ -18,15 +18,21 @@ checks want). A held leaf is a strided slice of the full vector: the
 leaf viewed as (pre, D, post), the shard takes ``[:, lo:lo + per, :]``
 (a replicated leaf: pre = post = 1, the whole leaf). Scatter, gather
 and unpad copy those slices; nothing holds a map of N_m or N positions.
+
+On the tensor-parallel route a Megatron-split leaf's shard IS the rank's
+tensor-parallel weight: ``tp_classes`` sorts the leaves, ``TPView`` shows
+the shard to the model as its tree (sharding/tensor_parallel.py).
 """
 from __future__ import annotations
 
+import re
 from typing import Dict, List, NamedTuple, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.bridge import FlatLayout
+from repro_torch.bridge import FlatLayout, tree_map
+from repro_torch.sharding import tensor_parallel as tpm
 from repro_torch.sharding.rules import cohort_leaf_specs, mesh_axes, path_str
 
 
@@ -187,3 +193,152 @@ class ShardLayout:
         output) -> the (..., N) tensor."""
         return self.gather([padded[..., m, :self.sizes[m]]
                             for m in range(self.model)])
+
+
+# ---------------- the tensor-parallel view of a shard ----------------
+
+VIEW, WHOLE, PARTIAL = "view", "whole", "partial"
+
+# the leaves Megatron splits: regex over the "/"-joined path -> the
+# split dim, counted from the end (the rules' convention), and whether
+# the split must fall on attention-head boundaries
+MEGATRON = (
+    (r"(wq|wk|wv)/[wb]$", -1, True),         # column-parallel
+    (r"wo/w$", -2, True),                    # row-parallel
+    (r"(gate|up)/[wb]$", -1, False),         # column-parallel
+    (r"down/w$", -2, False),                 # row-parallel
+    (r"(^|/)embed$", -2, False),             # vocab-parallel
+    (r"lm_head/w$", -1, False),
+)
+_KV = r"(wk|wv)/[wb]$"
+# the leaves the route needs split: attention and MLP run in parallel
+_REQUIRED = (r"wq/w$", r"wo/w$", r"(gate|up)/w$", r"down/w$")
+
+
+def megatron_dim(path: str):
+    """(split dim from the end, head-aligned) of a Megatron-split leaf's
+    path, or None for a leaf Megatron replicates."""
+    for pat, dim, heads in MEGATRON:
+        if re.search(pat, path):
+            return dim, heads
+    return None
+
+
+def tp_classes(shards: ShardLayout, head_dim: int) -> List[str]:
+    """Each leaf's class on the tensor-parallel route over ``shards``:
+    VIEW where the layout splits the leaf on its Megatron dim (on head
+    boundaries for the attention projections): the rank's shard is its
+    tensor-parallel weight, viewed in place. PARTIAL for ``wk``/``wv``
+    and their biases otherwise (M does not divide the KV heads): each
+    rank computes the KV heads its query heads read from the whole leaf,
+    so its gradient is partial and is summed over the group. WHOLE for
+    every other leaf — norms, ``wo/b``, ``down/b``, and ``embed`` or
+    ``lm_head`` when M does not divide the vocabulary — which every rank
+    computes alike, so each keeps its slice of the same gradient. Raises
+    when a query, output or MLP projection is not split so: the route
+    needs M to divide the query heads and the MLP width."""
+    layout = shards.layout
+    out = []
+    for i, (shape, spec) in enumerate(zip(layout.shapes, shards.specs)):
+        path = path_str(layout.paths[i])
+        md = megatron_dim(path)
+        cls = WHOLE
+        if md is not None:
+            dim = md[0] % len(shape)
+            split = shards.model > 1 and spec[dim] is not None
+            if split and md[1]:
+                split = (shape[dim] // shards.model) % head_dim == 0
+            if split:
+                cls = VIEW
+            elif re.search(_KV, path):
+                cls = PARTIAL
+            elif any(re.search(p, path) for p in _REQUIRED):
+                raise ValueError(
+                    f"tensor parallelism over {shards.model} model ranks: "
+                    f"{path} {tuple(shape)} does not split on its Megatron "
+                    f"dim (spec {spec}); the model axis must divide the "
+                    "query heads and the MLP width")
+        out.append(cls)
+    return out
+
+
+class TPView:
+    """Model rank ``m``'s shard as the tree the model runs on
+    (sharding/tensor_parallel.py). ``unflatten(w)`` of the rank's (N_m,)
+    vector — a row of the cohort's (K, N_m) stack under vmap — gives the
+    layout's tree with every VIEW leaf the rank's slice in its local
+    shape (the Megatron dim cut M-fold) and every other leaf whole.
+
+    The shard is cut into its blocks by one ``torch.split`` (autograd
+    then pays one concatenation). The WHOLE and PARTIAL leaves are
+    gathered in one reduce-from-region over the model group
+    ("tp_leaf_gather"): each rank's pieces placed in a zero vector of
+    the leaves' whole size, summed (exact: one rank holds each element).
+    Backward, a WHOLE leaf's gradient is the same on every rank and each
+    keeps its slice; the PARTIAL leaves pass a copy-to-region, so their
+    gradient is summed over the group before the rank keeps its slice.
+    A leaf the layout gives to model rank 0 alone is WHOLE: every rank
+    computes with it, rank 0 keeps its gradient."""
+
+    def __init__(self, shards: ShardLayout, m: int, head_dim: int, tp):
+        self.shards, self.m, self.tp = shards, int(m), tp
+        self.layout = shards.layout
+        self.classes = tuple(tp_classes(shards, head_dim))
+        self.size = shards.sizes[self.m]
+        self._blocks = shards._blocks[self.m]
+        self._split = [b.size for b in self._blocks]
+        self._local = {}        # VIEW leaf -> its local shape
+        for b in self._blocks:
+            if self.classes[b.leaf] == VIEW:
+                shape = list(self.layout.shapes[b.leaf])
+                path = path_str(self.layout.paths[b.leaf])
+                shape[megatron_dim(path)[0] % len(shape)] = b.per
+                self._local[b.leaf] = tuple(shape)
+        self._gathered = [[i for i, c in enumerate(self.classes) if c == k]
+                          for k in (WHOLE, PARTIAL)]
+
+    def _placed(self, pieces, i: int, like: torch.Tensor) -> torch.Tensor:
+        """Leaf i whole (flat): this rank's piece in place, zeros
+        elsewhere."""
+        numel = int(self.layout.numels[i])
+        if i not in pieces:
+            return like.new_zeros(numel)
+        b, piece = pieces[i]
+        return torch.nn.functional.pad(
+            piece.view(b.pre, b.per, b.post),
+            (0, 0, b.lo, b.D - b.lo - b.per)).reshape(numel)
+
+    def unflatten(self, w: torch.Tensor):
+        if w.shape[-1] != self.size:
+            raise ValueError(f"shard has {w.shape[-1]} elements, rank "
+                             f"{self.m}'s layout {self.size}")
+        return self.tree(self.split(w))
+
+    def split(self, w: torch.Tensor):
+        """The shard's blocks, one a held leaf, as views of ``w``."""
+        return torch.split(w, self._split, dim=-1)
+
+    def tree(self, blocks):
+        """The model's tree from the shard's blocks (``split``'s, or
+        tensors of their own: a step that takes each block's gradient
+        apart needs no concatenation of them)."""
+        pieces = {b.leaf: (b, c) for b, c in zip(self._blocks, blocks)}
+        leaves: Dict[int, torch.Tensor] = {
+            i: pieces[i][1].view(shape) for i, shape in self._local.items()}
+        runs = [[self._placed(pieces, i, blocks[0]) for i in ids]
+                for ids in self._gathered]
+        if runs[0] or runs[1]:
+            sizes = [sum(int(self.layout.numels[i]) for i in ids)
+                     for ids in self._gathered]
+            whole = tpm.reduce_from_region(torch.cat(runs[0] + runs[1]),
+                                           self.tp, "tp_leaf_gather")
+            head, tail = torch.split(whole, sizes)
+            if sizes[1]:
+                tail = tpm.copy_to_region(tail, self.tp, "tp_leaf_gather")
+            for ids, run in zip(self._gathered, (head, tail)):
+                chunks = torch.split(run, [int(self.layout.numels[i])
+                                           for i in ids])
+                for i, c in zip(ids, chunks):
+                    leaves[i] = c.view(self.layout.shapes[i])
+        return tree_map(lambda i: leaves[i], self.layout.skeleton)
+

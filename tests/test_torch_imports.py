@@ -54,7 +54,8 @@ for must in ("repro_torch.optim.server", "repro_torch.core.samplers",
              "repro_torch.launch.distributed",
              "repro_torch.launch.mesh",
              "repro_torch.sharding.rules",
-             "repro_torch.sharding.layout"):
+             "repro_torch.sharding.layout",
+             "repro_torch.sharding.tensor_parallel"):
     assert must in names, (must, names)
 print("chip_smoke.main() ->", chip_smoke.main())   # CUDA is hidden
 """

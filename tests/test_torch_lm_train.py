@@ -188,16 +188,21 @@ def test_specs_match_the_references_eval_shape(arch):
 
 
 def test_steps_refuse_what_is_not_ported():
-    """Only the multi-device options raise now, citing item 13: the
-    expert-parallel MoE and sharding; an encoder-decoder and MoE groups
-    build their steps (held against the reference in
-    test_torch_encdec.py and test_torch_moe.py)."""
+    """Only the multi-device options not yet ported raise, citing item
+    13: the expert-parallel MoE and the tensor-parallel step of a
+    family without a Megatron form in the port (an SSM stack, item 13g);
+    ``shard_fn`` builds the steps (the MoE layers call it,
+    test_torch_tensor_parallel.py), as do an encoder-decoder and MoE
+    groups (held against the reference in test_torch_encdec.py and
+    test_torch_moe.py)."""
     cfg = get_config(DENSE, smoke=True)
     with pytest.raises(NotImplementedError, match="item 13"):
         steps.make_train_step(cfg, moe_impl="ep")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        steps.make_prefill_step(cfg, shapes.SHAPES["prefill_32k"],
-                                shard_fn=lambda x: x)
+    with pytest.raises(NotImplementedError, match="item 13g"):
+        steps.make_train_step(get_config(SSM, smoke=True),
+                              model_group=object())
+    assert callable(steps.make_prefill_step(
+        cfg, shapes.SHAPES["prefill_32k"], shard_fn=lambda x, role: x))
     fn, specs, has_states = steps.make_step(
         get_config("whisper-base", smoke=True), shapes.SHAPES["train_4k"])
     assert callable(fn) and not has_states and "frames" in specs["batch"]

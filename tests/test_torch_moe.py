@@ -410,8 +410,10 @@ def test_expert_parallel_and_sharding_cite_item_13():
     shape = shapes.SHAPES["prefill_32k"]
     with pytest.raises(NotImplementedError, match="item 13"):
         steps.make_train_step(cfg, moe_impl="ep")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        steps.make_decode_step(cfg, shape, shard_fn=lambda x, role: x)
+    with pytest.raises(NotImplementedError, match="item 13e"):
+        steps.make_train_step(cfg, model_group=object())
+    assert callable(steps.make_decode_step(cfg, shape,
+                                           shard_fn=lambda x, role: x))
     with pytest.raises(NotImplementedError, match="item 13"):
         tf.lm_forward(cfg, {}, torch.zeros(1, 2, dtype=torch.int64),
                       moe_impl="ep")
