@@ -262,6 +262,15 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               bytes at rest, step seconds and its Megatron collectives'
               count and ms a step. On four cards also federated
               StarCoder2-3B at full width, K = 5 on (1 x 4), 2 rounds.
+ 12c. moe parallel  the MoE layer on the mesh (--moe-parallel-worker):
+              DeepSeek-V2's full-width MoE layer tensor-parallel on
+              (1 x 2) and expert-parallel on (2 x 1) over 2 gloo ranks
+              of one card, each against one process's layer (output,
+              aux, every leaf's gradient within 1e-4 of its max, the
+              expert ids equal); Kimi-K2 SMOKE's federated run on the
+              tensor-parallel route against the CPU; on four cards
+              Kimi-K2 at full width and 2 layers, 3 steps on (1 x 4) TP
+              against (2 x 2) EP (phase_moe_parallel).
  13. lm fl    the reference example's federated LM run at its own size
               (repro_torch.examples.federated_llm_pretraining without
               --tiny: ~101M params, 20 clients, 5 a round, FedDPC) for 4
@@ -4605,6 +4614,649 @@ def phase_moe_parity():
         raise AssertionError("moe_parity: " + "; ".join(failures))
 
 
+# ---------------- moe_parallel: the MoE layer on the mesh ----------------
+
+MP_WORKER = "--moe-parallel-worker"
+MP_SEED = 0
+MP_B, MP_S = 2, 1024          # (a): DeepSeek-V2's layer on B x S tokens
+MP_EP_CF = 8.0                # EP against GShard: the reference's setting
+MP_RTOL = 1e-4                # (a): a rank against one process, of max |.|
+MP_FED_ROUNDS, MP_FED_COHORT, MP_FED_ETA = 2, 4, 0.05
+MP_FED_RTOL = 1e-4            # (c): card against the CPU, of max |.|
+MP_KIMI_CUT = {"num_layers": 2}          # (b): kimi_serve's depth cut
+MP_KIMI_STEPS, MP_KIMI_LR = 3, 0.01
+MP_FLIP_FRAC = 1e-3           # (b): expert assignments that may differ
+MP_LOSS_RTOL = 1e-4           # (b): TP against EP losses
+MP_MOVE_FRAC = 1e-2           # (b): a leaf's TP-EP gap against its movement
+
+
+def _mp_layer_layout(cfg):
+    """The flat layout of an MoE layer's tree {"mlp": init_moe(...)}: its
+    paths a decoder layer's, which the sharding rules read."""
+    return layout_of({"mlp": moe.init_moe("meta", cfg, torch.float32)})
+
+
+def _mp_routing(cfg, router, x, groups=1):
+    """Expert ids (G, T/G, k) of ``x`` through ``router``."""
+    logits = linear(router, x.reshape(groups, -1, x.shape[-1]).float())
+    return moe._route(cfg, logits)[1]
+
+
+def _mp_one_process(cfg, shards, r, groups, tag):
+    """One process's layer (moe_forward, ``groups`` token groups): forward
+    and backward of sum(out * proj) + aux on the seeded params and input,
+    run in rank r's turn (one whole layer on the card at a time, its
+    leaves and their gradients cut to the rank's pieces a leaf at a
+    time: no flat copy of either). Returns rank r's shard of the params
+    and of their gradient, and the output, aux, expert ids, input,
+    projection and seconds of the run."""
+    res = None
+    for turn in range(shards.ranks):
+        if turn == r:
+            gen = torch.Generator(device="cuda").manual_seed(MP_SEED)
+            p = {"mlp": moe.init_moe(gen, cfg, torch.float32)}
+            x = torch.randn((MP_B, MP_S, cfg.d_model), generator=gen,
+                            device="cuda")
+            proj = torch.randn(x.shape, generator=gen, device="cuda")
+            leaves = [t.requires_grad_(True) for t in tree_leaves(p)]
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            out, aux = moe.moe_forward(cfg, p["mlp"], x, groups=groups)
+            grads = list(torch.autograd.grad((out * proj).sum() + aux,
+                                             leaves))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - tic
+            with torch.no_grad():
+                idx = _mp_routing(cfg, p["mlp"]["router"], x, groups)
+            held = [i for i, _ in shards.held(r)]
+            cut = lambda ts: torch.cat([shards.leaf_piece(r, i, ts[i])
+                                        for i in held])
+            # one process's gradient waits on the host while the rank's
+            # own run holds the card with the other rank's
+            res = {"grad": cut(grads).cpu(), "out": out.detach(),
+                   "aux": float(aux), "idx": idx, "x": x, "proj": proj,
+                   "seconds": seconds}
+            del grads, out
+            res["shard"] = cut([t.detach() for t in leaves])
+            del p, leaves
+            gc.collect()
+            torch.cuda.empty_cache()
+        distributed.barrier(f"mp_{tag}_{turn}")
+    return res
+
+
+def _mp_leaf_errors(shards, r, got, want):
+    """Per leaf of shard r: max |got - want| over max |want| (0 for a
+    leaf it holds none of), reduced with MAX over the job."""
+    import torch.distributed as dist
+    err = torch.zeros(len(shards.layout.shapes), device="cuda")
+    at = 0
+    for i, shape in shards.held(r):
+        n = int(np.prod(shape))
+        g, w = got[at:at + n], want[at:at + n]
+        err[i] = (g - w).abs().max() / w.abs().max().clamp(min=1e-30)
+        at += n
+    dist.all_reduce(err, op=dist.ReduceOp.MAX)
+    return err
+
+
+def _mp_layer_line(run, ctx, cfg, shards, r, ref, got, timer, seconds,
+                   ids_equal):
+    """(a)'s line of one rank and form: the gates' numbers, what the rank
+    holds at rest, its peak, seconds and collectives."""
+    out, aux, grad = got
+    err = _mp_leaf_errors(shards, r, grad, ref["grad"].cuda())
+    worst = int(torch.argmax(err))
+    name = lambda i: "/".join(map(str, shards.layout.paths[i]))
+    experts = [i for i, _ in shards.held(r)
+               if re.search(r"mlp/(gate|up|down)$", name(i))]
+    held = dict(shards.held(r))
+    return {"phase": "moe_parallel", "run": run, "rank": r,
+            "backend": ctx.backend, "arch": cfg.name,
+            "tokens": MP_B * MP_S, "capacity_factor": cfg.capacity_factor,
+            "experts": cfg.num_experts, "top_k": cfg.top_k,
+            "bytes_at_rest": 4 * shards.sizes[r],
+            "expert_bytes_at_rest": 4 * sum(int(np.prod(held[i]))
+                                            for i in experts),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "seconds": seconds, "one_process_seconds": ref["seconds"],
+            "collectives": _tally(timer.timings_ms()),
+            "expert_ids_equal": ids_equal,
+            "out_rel": float((out - ref["out"]).abs().max()
+                             / ref["out"].abs().max()),
+            "aux_rel": abs(float(aux) - ref["aux"]) / abs(ref["aux"]),
+            "grad_rel": float(err[worst]), "worst_leaf": name(worst)}
+
+
+def _mp_tp_line(ctx):
+    """(a) TP: DeepSeek-V2's MoE layer at full width tensor-parallel over
+    the job's 2 ranks (1 x 2) at its capacity factor (1.25), against one
+    process's layer."""
+    import torch.distributed as dist
+    from repro_torch.core.round import _Collectives
+    from repro_torch.sharding.layout import ShardLayout, TPView
+    from repro_torch.sharding.tensor_parallel import TPContext
+    cfg = get_config(DEEPSEEK_ARCH)
+    r = ctx.process_id
+    shards = ShardLayout.from_sizes(_mp_layer_layout(cfg),
+                                    {"clients": 1, "model": 2})
+    ref = _mp_one_process(cfg, shards, r, 1, "tp")
+    tp = TPContext.of(dist.group.WORLD)
+    timer = _Collectives(dist.group.WORLD)
+    tp.timer = timer._run
+    view = TPView(shards, r, cfg.resolved_head_dim, tp)
+    torch.cuda.reset_peak_memory_stats()
+    shard = ref["shard"].requires_grad_(True)
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    tree = view.unflatten(shard)["mlp"]
+    out, aux = moe.moe_forward(cfg, tree, ref["x"], tp=tp)
+    (grad,) = torch.autograd.grad((out * ref["proj"]).sum() + aux, shard)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - tic
+    with torch.no_grad():
+        idx = _mp_routing(cfg, tree["router"], ref["x"])
+    both = [torch.empty_like(idx) for _ in range(2)]
+    dist.all_gather(both, idx)
+    same = all(torch.equal(b, ref["idx"]) for b in both)
+    line = _mp_layer_line("a_tp", ctx, cfg, shards, r, ref,
+                          (out.detach(), aux, grad), timer, seconds, same)
+    line["mesh"] = [1, 2]
+    return line
+
+
+def _mp_ep_line(ctx):
+    """(a) EP: the same layer expert-parallel on (2 x 1), each rank on its
+    row of the batch and its 80 experts, at capacity factor 8, against
+    one process's layer at 8 in two token groups (a rank's tokens each)."""
+    import torch.distributed as dist
+    from repro_torch.core.round import _Collectives
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import moe_ep
+    from repro_torch.sharding.layout import ShardLayout, TPView
+    cfg = get_config(DEEPSEEK_ARCH).with_(capacity_factor=MP_EP_CF)
+    r = ctx.process_id
+    mesh = make_debug_mesh(2, 1)
+    shards = ShardLayout.for_experts(_mp_layer_layout(cfg), 2, 1)
+    ref = _mp_one_process(cfg, shards, r, 2, "ep")
+    ep, _ = moe_ep.contexts(mesh)
+    timer = _Collectives(ep.group)
+    ep.timer = timer._run
+    view = TPView(shards, 0, cfg.resolved_head_dim, None, rank=r)
+    torch.cuda.reset_peak_memory_stats()
+    shard = ref["shard"].requires_grad_(True)
+    x, proj = ref["x"][r:r + 1], ref["proj"][r:r + 1]
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    tree = view.unflatten(shard)["mlp"]
+    out, aux = moe_ep.moe_forward_ep(cfg, tree, x, mesh=mesh, ep=ep)
+    (grad,) = torch.autograd.grad((out * proj).sum() + aux, shard)
+    # the leaves whole over the data axis: their gradient summed over it
+    at = 0
+    for i, shape in shards.held(r):
+        n = int(np.prod(shape))
+        if "data" not in shards.specs[i]:
+            g = grad[at:at + n]
+            ep._timed("data_grad_sum", g,
+                      lambda g=g: dist.all_reduce(g, group=ep.group))
+        at += n
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - tic
+    with torch.no_grad():
+        idx = _mp_routing(cfg, tree["router"], x)
+    ref["out"] = ref["out"][r:r + 1]
+    line = _mp_layer_line("a_ep", ctx, cfg, shards, r, ref,
+                          (out.detach(), aux, grad), timer, seconds,
+                          bool(torch.equal(idx[0], ref["idx"][r])))
+    line["mesh"] = [2, 1]
+    return line
+
+
+def _mp_fed_trainer(device, sharded):
+    """The CPU test's federated run of Kimi-K2 SMOKE (the training CLI's
+    LM task: 6 clients, 4 a round, FedDPC, MP_FED_ROUNDS rounds), on the
+    tensor-parallel route over (1 x 2) when ``sharded``."""
+    from types import SimpleNamespace
+    kw = {"shard_clients": True, "shard_model": 2} if sharded else {}
+    cfg = ExecConfig(rounds=MP_FED_ROUNDS, clients_per_round=MP_FED_COHORT,
+                     seed=0, eval_every=10 ** 9, batch_size=2, **kw)
+    args = SimpleNamespace(model=KIMI_ARCH, clients=6, seq_len=17, seed=0,
+                           alpha=0.5, batch_size=2)
+    params, loss_fn, source, _ = train_cli.build_lm_task(args, cfg, device)
+    return FederatedTrainer(
+        loss_fn, params, args.clients, source, cfg,
+        algo=AlgoConfig(name="feddpc", eta_l=MP_FED_ETA, eta_g=MP_FED_ETA),
+        device=device)
+
+
+def _mp_fed_line(ctx, out):
+    """(c): the federated run on the card over the job's 2 ranks; rank 0
+    writes the params it ends on for the CPU comparison."""
+    _ma_reset()
+    tr = _mp_fed_trainer("cuda", True)
+    with tr:
+        tr.run()
+    params = tr.full_params()
+    if ctx.process_id == 0:
+        np.save(os.path.join(out, "c_params.npy"), params.cpu().numpy())
+    line = _ma_line("fed", tr, ctx, MP_FED_ROUNDS)
+    line.update(phase="moe_parallel", run="c")
+    return line
+
+
+def _mp_leaf_init(layout, i):
+    """Leaf i of the reference's tree drawn alone on the card, from a seed
+    of its own (a shard is drawn a leaf at a time: the whole model does
+    not fit a card): norms 1, the embedding N(0, 0.02²), every other
+    leaf N(0, 1/fan_in) — init_lm's distributions."""
+    path = "/".join(map(str, layout.paths[i]))
+    shape = tuple(layout.shapes[i])
+    if path.endswith("scale"):
+        return torch.ones(shape, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(MP_SEED * 1000 + i)
+    x = torch.randn(shape, generator=gen, device="cuda")
+    return x.mul_(0.02 if path.endswith("embed")
+                  else 1.0 / math.sqrt(shape[-2]))
+
+
+def _mp_held_at(shards, r):
+    """{leaf: (start, size)} of shard r's pieces."""
+    out, at = {}, 0
+    for i, shape in shards.held(r):
+        n = int(np.prod(shape))
+        out[i] = (at, n)
+        at += n
+    return out
+
+
+def _mp_kimi_run(ctx, form, out):
+    """(b), one form: MP_KIMI_STEPS SGD steps of make_train_step(remat=
+    "full") on Kimi-K2 at full width and 2 layers, f32, at capacity
+    factor 8: "tp" over the job's 4 ranks as one model group (1 x 4),
+    "ep" on make_debug_mesh(2, 2). Returns the rank's line, its shard
+    after the first step on the host and its layout; each rank writes
+    the MoE layer's expert ids of each step's forward."""
+    import torch.distributed as dist
+    from repro_torch.core.round import _Collectives
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import moe_ep
+    cfg = get_config(KIMI_ARCH).with_(capacity_factor=MP_EP_CF,
+                                      **MP_KIMI_CUT)
+    r = ctx.process_id
+    if form == "tp":
+        # the aux of two token groups, as the (2 x 2) mesh's two expert
+        # shards take it
+        step = lm_steps.make_train_step(cfg, lr=MP_KIMI_LR, remat="full",
+                                        moe_groups=2,
+                                        model_group=dist.group.WORLD)
+    else:
+        step = lm_steps.make_train_step(cfg, lr=MP_KIMI_LR, remat="full",
+                                        moe_impl="ep",
+                                        moe_mesh=make_debug_mesh(2, 2))
+    shards = step.shards
+    layout = shards.layout
+    shard = torch.empty(shards.sizes[r], device="cuda")
+    for i, (a, n) in _mp_held_at(shards, r).items():
+        leaf = _mp_leaf_init(layout, i)
+        shard[a:a + n] = shards.leaf_piece(r, i, leaf)
+        del leaf
+    gen = torch.Generator(device="cuda").manual_seed(MP_SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_TRAIN_B, LM_TRAIN_S + 1),
+                           generator=gen, device="cuda")
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    timer = _Collectives(dist.group.WORLD)
+    for c in (step.tp, getattr(step, "ep", None)):
+        if c is not None:
+            c.timer = timer._run
+    ids = []
+    route = moe._route
+
+    def recording(cfg_, logits):
+        g, i, a = route(cfg_, logits)
+        if len(ids) == len(losses):     # the step's forward, not remat's
+            ids.append(i.detach().cpu())
+        return g, i, a
+    moe._route = moe_ep._route = recording
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, seconds, coll = [], [], []
+    try:
+        for _ in range(MP_KIMI_STEPS):
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            shard, loss = step(shard, batch)
+            losses.append(float(loss))
+            seconds.append(time.perf_counter() - tic)
+            coll.append(_tally(timer.timings_ms()))
+            timer.timings = []
+            if len(losses) == 1:
+                # the comparison's point: both forms from one start, one
+                # step on (later steps part where their routes part)
+                host = shard.to("cpu", copy=True)
+    finally:
+        moe._route = moe_ep._route = route
+    coords = getattr(step, "coords", (0, r))
+    if coords[1] == 0:
+        torch.save(torch.stack(ids), os.path.join(
+            out, f"b_{form}_ids_d{coords[0]}.pt"))
+    line = {"phase": "moe_parallel", "run": f"b_{form}", "rank": r,
+            "backend": ctx.backend, "arch": cfg.name,
+            "layers": cfg.num_layers, "mesh": [1, 4] if form == "tp"
+            else [2, 2], "N": layout.size, "N_r": shards.sizes[r],
+            "bytes_at_rest": 4 * shards.sizes[r], "batch": LM_TRAIN_B,
+            "seq_len": LM_TRAIN_S, "capacity_factor": MP_EP_CF,
+            "experts": cfg.num_experts, "top_k": cfg.top_k,
+            "losses": losses, "step_seconds": seconds,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "collectives_per_step": coll}
+    del shard, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line, host, shards
+
+
+_MP_STACKS = (r"mlp/gate$", r"mlp/up$", r"mlp/down$")
+
+
+def _mp_kimi_compare(r, tp, ep, experts):
+    """Every leaf of the two forms' params after the first step,
+    elementwise on rank r's
+    EP piece: the TP pieces all-gathered a leaf at a time and laid out
+    whole, the EP piece cut from it, against how far the steps moved it
+    from the seeded start. Returns, per leaf, (2, 2, L): the max and the
+    sum of squares of the gap and of the movement; and the same per
+    expert, (2, 2, 3, E), over its slice of each of the three expert
+    stacks. Reduced over the job (a leaf the data rows both hold counts
+    twice in both terms of a ratio)."""
+    import torch.distributed as dist
+    (tp_host, tp_shards), (ep_host, ep_shards) = tp, ep
+    layout = tp_shards.layout
+    nleaves = len(layout.shapes)
+    per_leaf = torch.zeros((2, 2, nleaves), device="cuda")
+    per_expert = torch.zeros((2, 2, len(_MP_STACKS), experts),
+                             device="cuda")
+    tp_at, ep_at = _mp_held_at(tp_shards, r), _mp_held_at(ep_shards, r)
+    held = dict(ep_shards.held(r))
+    world = tp_shards.ranks
+    d = r // ep_shards.model
+    for i in range(nleaves):
+        sizes = [sum(b.size for b in tp_shards._leaf_blocks(q, i))
+                 for q in range(world)]
+        a, n = ep_at.get(i, (0, 0))
+        start = (ep_shards.leaf_piece(r, i, _mp_leaf_init(layout, i))
+                 if n else None)
+        mine = torch.zeros(max(sizes), device="cuda")
+        if i in tp_at:
+            ta, tn = tp_at[i]
+            mine[:tn] = tp_host[ta:ta + tn].cuda()
+        parts = [torch.empty_like(mine) for _ in range(world)]
+        dist.all_gather(parts, mine)
+        del mine
+        if n:
+            whole = tp_shards.leaf_from_pieces(i, parts)
+            del parts
+            want = ep_shards.leaf_piece(r, i, whole)
+            del whole
+            got = ep_host[a:a + n].cuda()
+            path = "/".join(map(str, layout.paths[i]))
+            k = next((k for k, pat in enumerate(_MP_STACKS)
+                      if re.search(pat, path)), None)
+            for j, g in enumerate(((got - want).abs(),
+                                   (want - start).abs())):
+                per_leaf[0, j, i] = g.max()
+                per_leaf[1, j, i] = g.square().sum()
+                if k is None:
+                    continue
+                # the expert dim of a stack (..., E, D, F): -3
+                v = g.view(held[i]).movedim(-3, 0)
+                v = v.reshape(v.shape[0], -1)
+                lo = d * v.shape[0]
+                seg = per_expert[0, j, k, lo:lo + v.shape[0]]
+                torch.maximum(seg, v.amax(1), out=seg)
+                per_expert[1, j, k, lo:lo + v.shape[0]] += v.square().sum(1)
+            del got, want, start
+        else:
+            del parts
+        torch.cuda.empty_cache()
+    for t, op in ((per_leaf[0], dist.ReduceOp.MAX),
+                  (per_leaf[1], dist.ReduceOp.SUM),
+                  (per_expert[0], dist.ReduceOp.MAX),
+                  (per_expert[1], dist.ReduceOp.SUM)):
+        part = t.contiguous()
+        dist.all_reduce(part, op=op)
+        t.copy_(part)
+    return per_leaf, per_expert
+
+
+def _mp_kept(ids, buckets, cap):
+    """Whether each assignment of ``ids`` (T, k) keeps its slot when the
+    tokens are cut into ``buckets`` equal runs and each (run, expert)
+    holds ``cap`` slots in token order (the GShard groups of the TP
+    form; the EP form's experts, which take their assignments source by
+    source in token order, are one run at its per-expert capacity)."""
+    t, k = ids.shape
+    run = (torch.arange(t) // (t // buckets))[:, None].expand(t, k)
+    key = (run * (int(ids.max()) + 1) + ids).reshape(-1)
+    order = torch.argsort(key, stable=True)
+    counts = torch.bincount(key)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.empty_like(key)
+    rank[order] = torch.arange(key.numel()) - starts[key[order]]
+    return (rank < cap).reshape(t, k)
+
+
+def _mp_flips(out, cfg):
+    """The EP form's expert ids against the TP form's, step by step: an
+    assignment flips where it is not among the other form's top-k of
+    its token. A token is perturbed where one flips, or where one is
+    dropped (past its capacity) in one form and kept in the other.
+    Returns (assignments, flips a step, drops a step in each form, the
+    experts that served a perturbed token in either form)."""
+    from repro_torch.models import moe_ep
+    tp = torch.load(os.path.join(out, "b_tp_ids_d0.pt"))
+    ep = torch.cat([torch.load(os.path.join(out, f"b_ep_ids_d{d}.pt"))
+                    for d in range(2)], dim=2)
+    tp, ep = (t.reshape(t.shape[0], -1, t.shape[-1]) for t in (tp, ep))
+    steps, tokens, k = tp.shape
+    gone = (tp.unsqueeze(-1) != ep.unsqueeze(-2)).all(-1)   # tp's not in ep
+    tp_cap = moe.capacity_per_group(cfg, tokens // 2)
+    send = moe_ep._send_capacity(cfg, tokens // 2, 2)
+    ep_cap = moe.round_capacity(2 * send // (cfg.num_experts // 2))
+    drops, perturbed = [], gone.any(-1)
+    for s in range(steps):
+        kt, ke = _mp_kept(tp[s], 2, tp_cap), _mp_kept(ep[s], 1, ep_cap)
+        drops.append([int((~kt).sum()), int((~ke).sum())])
+        # a kept-in-one, dropped-in-the-other assignment of the same id
+        same = tp[s].unsqueeze(-1) == ep[s].unsqueeze(-2)
+        differ = same & (kt.unsqueeze(-1) != ke.unsqueeze(-2))
+        perturbed[s] |= differ.any(-1).any(-1)
+    touched = set(tp[perturbed].reshape(-1).tolist()) \
+        | set(ep[perturbed].reshape(-1).tolist())
+    return (int(tp.numel()), gone.sum(dim=(1, 2)).tolist(), drops,
+            sorted(touched))
+
+
+def _mp_b_gates(lines, flips):
+    """(b)'s line and gates. Over the MP_KIMI_STEPS steps: flips at most
+    MP_FLIP_FRAC of the assignments, losses within MP_LOSS_RTOL. After
+    the first step, where both forms start from the same params and
+    route alike (no flip, no drop: a gate of its own), every leaf within
+    MP_MOVE_FRAC of its movement, max |w_EP - w_TP| over max
+    |w_TP - w_0|. Later steps are not compared leaf by leaf: a token
+    routed otherwise (a rounding flip, or a drop that GShard's per-group
+    capacity makes and EP's per-expert one does not) gives each expert
+    it reaches, and from there every token those experts serve, another
+    update. Each expert's own gaps are printed (an expert that barely
+    moved reads an ulp of |w| as a large share of its movement)."""
+    assignments, per_step, drops, touched = flips
+    first = {x["run"]: x for x in lines if x["rank"] == 0
+             and x["run"].startswith("b_")}
+    b = first["b_tp"]
+    loss_rel = max(abs(a - c) / abs(c) for a, c in
+                   zip(first["b_ep"]["losses"], b["losses"]))
+    line = {"phase": "moe_parallel", "run": "b", "assignments": assignments,
+            "flips_per_step": per_step,
+            "flip_frac": sum(per_step) / assignments,
+            "drops_per_step_tp_ep": drops, "experts_perturbed": touched,
+            "loss_rel_ep_vs_tp": loss_rel,
+            "first_step_routes_alike": per_step[0] == 0
+            and drops[0][0] == drops[0][1] == 0}
+    for tag in ("max", "norm"):
+        line[f"leaf_{tag}_gap_over_move"] = b[f"leaf_{tag}_gap_over_move"]
+        line[f"worst_leaf_{tag}"] = b[f"worst_leaf_{tag}"]
+        line[f"expert_{tag}_gap_over_move"] = [
+            max(r) for r in b[f"expert_{tag}_gap_over_move"]]
+    emit(line)
+    if not (sum(per_step) <= MP_FLIP_FRAC * assignments
+            and loss_rel <= MP_LOSS_RTOL
+            and line["first_step_routes_alike"]
+            and line["leaf_max_gap_over_move"] <= MP_MOVE_FRAC):
+        return [f"b: {line}"]
+    return []
+
+
+def _moe_parallel_worker(out: str) -> int:
+    """One rank of the moe_parallel phase: (a) and (c) on a job of 2
+    ranks, (b) on a job of 4; writes its lines."""
+    ctx = distributed.maybe_initialize()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lines = []
+    if ctx.num_processes == 2:
+        for fn in (_mp_tp_line, _mp_ep_line):
+            lines.append(fn(ctx))
+            gc.collect()
+            torch.cuda.empty_cache()
+        lines.append(_mp_fed_line(ctx, out))
+    else:
+        tp = _mp_kimi_run(ctx, "tp", out)
+        ep = _mp_kimi_run(ctx, "ep", out)
+        per_leaf, per_expert = _mp_kimi_compare(ctx.process_id, tp[1:],
+                                                ep[1:], tp[0]["experts"])
+        layout = tp[2].layout
+        name = lambda i: "/".join(map(str, layout.paths[i]))
+        every = torch.ones(len(layout.paths), dtype=torch.bool,
+                           device="cuda")
+
+        def ratios(t, norm):
+            """gap over movement: of the max, or of the 2-norm"""
+            a, b = (t[1, 0], t[1, 1]) if norm else (t[0, 0], t[0, 1])
+            if norm:
+                a, b = a.sqrt(), b.sqrt()
+            return a / b.clamp(min=1e-30)
+        for norm, tag in ((True, "norm"), (False, "max")):
+            rel = torch.where(every, ratios(per_leaf, norm), 0.0)
+            worst = int(torch.argmax(rel))
+            for line in (tp[0], ep[0]):
+                line[f"leaf_{tag}_gap_over_move"] = float(rel[worst])
+                line[f"worst_leaf_{tag}"] = name(worst)
+                line[f"expert_{tag}_gap_over_move"] = ratios(
+                    per_expert, norm).tolist()          # (3 stacks, E)
+        lines += [tp[0], ep[0]]
+    with open(os.path.join(out, f"rank{ctx.process_id}.json"), "w") as fh:
+        json.dump(lines, fh)
+    return 0
+
+
+def _mp_spawn(out, ranks, backend):
+    # the ranks share a card with this process's cache: segments that
+    # grow in place keep a rank's freed blocks usable
+    env = {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+    if backend == "nccl":
+        env["NCCL_SOCKET_IFNAME"] = os.environ.get("NCCL_SOCKET_IFNAME", "lo")
+    distributed.spawn_local(
+        [sys.executable, os.path.abspath(__file__), MP_WORKER, out], ranks,
+        backend=backend, local_devices=1 if backend == "gloo" else None,
+        env=env, timeout_s=900)
+    lines = []
+    for r in range(ranks):
+        with open(os.path.join(out, f"rank{r}.json")) as fh:
+            lines += json.load(fh)
+    return lines
+
+
+def phase_moe_parallel():
+    """The MoE layer on the mesh (--moe-parallel-worker), after tp_train:
+
+    (a) one card, 2 gloo ranks: DeepSeek-V2's MoE layer at full width
+        (160 experts + 2 shared, d 5120, moe_d_ff 1536, top-6; the
+        experts 15.1 GB in f32), f32, B·S = 2 x 1,024, forward and
+        backward of sum(out * proj) + aux: tensor-parallel on (1 x 2) at
+        the config's capacity factor, and expert-parallel on (2 x 1) at
+        8, each against one process's layer at the same factor (EP's in
+        two token groups), run in each rank's turn: the output, aux and
+        every leaf's gradient within MP_RTOL of its max, the expert ids
+        equal (across the TP ranks and to one process's);
+    (c) the same job: the CPU test's federated Kimi-K2 SMOKE run on the
+        trainer's tensor-parallel route, (1 x 2), K = 4, 2 rounds, one
+        feddpc_dots and one feddpc_batched_epilogue a rank a round,
+        against one process's run on the CPU (MP_FED_RTOL);
+    (b) four cards or more, 4 NCCL ranks: Kimi-K2 at full width, 2 layers
+        (1 dense + 1 MoE, kimi_serve's cut; 19.9e9 params, f32), B = 2 x
+        1,024, MP_KIMI_STEPS SGD steps at capacity factor 8 on (1 x 4)
+        TP and on (2 x 2) EP, the two held against each other (one
+        process cannot hold the model): expert-id flips at most
+        MP_FLIP_FRAC of the assignments, losses within MP_LOSS_RTOL,
+        and after the first step, where both start from one point and
+        route alike, every leaf within MP_MOVE_FRAC of its movement
+        (``_mp_b_gates``).
+
+    Each rank prints its peak, its bytes at rest, its seconds and its
+    collectives' count and ms."""
+    cards = torch.cuda.device_count()
+    tic = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # what this process still holds on the card beside the ranks
+    emit({"phase": "moe_parallel",
+          "parent_allocated_gib": torch.cuda.memory_allocated() / 2 ** 30,
+          "parent_reserved_gib": torch.cuda.memory_reserved() / 2 ** 30})
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mp_") as out:
+        lines = _mp_spawn(out, 2, "gloo")
+        want = _mp_fed_trainer("cpu", False)
+        with want:
+            want.run()
+        got = torch.from_numpy(np.load(os.path.join(out, "c_params.npy")))
+        fed_rel = float((got - want.flat).abs().max()
+                        / want.flat.abs().max())
+        flips = None
+        if cards >= 4:
+            lines += _mp_spawn(out, 4, "nccl")
+            flips = _mp_flips(out, get_config(KIMI_ARCH).with_(
+                capacity_factor=MP_EP_CF))
+    for line in lines:
+        emit(line)
+    failures = []
+    for line in (x for x in lines if x["run"] in ("a_tp", "a_ep")):
+        if not (line["out_rel"] <= MP_RTOL and line["aux_rel"] <= MP_RTOL
+                and line["grad_rel"] <= MP_RTOL
+                and line["expert_ids_equal"]):
+            failures.append(f"{line['run']} rank {line['rank']}: {line}")
+    fed = [x for x in lines if x["run"] == "c"]
+    want_losses = [h.train_loss for h in want.history]
+    loss_rel = max(abs(a - b) / abs(b) for x in fed
+                   for a, b in zip(x["losses"], want_losses))
+    emit({"phase": "moe_parallel", "run": "c", "card_vs_cpu_params_rel":
+          fed_rel, "card_vs_cpu_loss_rel": loss_rel,
+          "losses_cpu": want_losses})
+    for x in fed:
+        if (x["launches"] != x["expected_launches"]
+                or x["route"] != "tensor_parallel"
+                or set(x["collective_ms_per_round"])
+                & {"param_all_gather", "all_to_all"}):
+            failures.append(f"c rank {x['rank']}: {x}")
+    if not (fed_rel <= MP_FED_RTOL and loss_rel <= MP_FED_RTOL):
+        failures.append(f"c: params {fed_rel}, losses {loss_rel}")
+    if flips is not None:
+        failures += _mp_b_gates(lines, flips)
+    emit({"phase": "moe_parallel", "cards": cards,
+          "runs": sorted({x["run"] for x in lines}),
+          "seconds": time.perf_counter() - tic})
+    if failures:
+        raise AssertionError("moe_parallel: " + "; ".join(failures))
+
+
+
 def phase_serve_batched():
     """The batched serving example (repro_torch.examples.serve_batched:
     StarCoder2-3B, Falcon-Mamba-7B and DeepSeek-V2 SMOKE, batch 4, prompt
@@ -4644,6 +5296,8 @@ def main() -> int:
         return _async_ranks_worker(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == TP_WORKER:
         return _tp_worker(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == MP_WORKER:
+        return _moe_parallel_worker(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs a card",
               file=sys.stderr)
@@ -4686,6 +5340,7 @@ def main() -> int:
     rows.append(ss_row)
     phase_serve_parity(SSM_ARCH)
     phase_tp_train(phase_lm_train())
+    phase_moe_parallel()
     phase_lm_fl()
     phase_serve(VLM_ARCH, "flash_attention")
     phase_quickstart()

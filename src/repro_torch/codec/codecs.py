@@ -37,7 +37,7 @@ import torch
 
 from repro_torch.codec.base import DeltaCodec, register_codec
 from repro_torch.core import jax_prng
-from repro_torch.kernels.feddpc_project.ref import dequant_ref
+from repro_torch.kernels.feddpc_project.ref import dequant_ref, per_column
 from repro_torch.kernels.int8_sr import ops as sr_ops
 
 
@@ -64,12 +64,6 @@ def _payload_bytes(numels: Sequence[int], itemsize: int) -> int:
     return int(sum(numels)) * itemsize + 8 * len(numels)
 
 
-def _per_column(v: torch.Tensor, leaf_offsets: torch.Tensor, n: int):
-    """(K, L) per-leaf scalars -> (K, N), each repeated over its leaf."""
-    counts = (leaf_offsets[1:] - leaf_offsets[:-1]).to(v.device)
-    return torch.repeat_interleave(v, counts, dim=1, output_size=n)
-
-
 class _QuantCodec(DeltaCodec):
     """Shared plumbing: per-leaf scalars, then one element-wise pass."""
 
@@ -85,8 +79,8 @@ class _QuantCodec(DeltaCodec):
         x = stacked.float()
         n = x.shape[1]
         scale, zero = self._leaf_scalars(x, leaf_offsets, shard)
-        y = ((x - _per_column(zero, leaf_offsets, n))
-             / _per_column(scale, leaf_offsets, n))
+        y = ((x - per_column(zero, leaf_offsets, n))
+             / per_column(scale, leaf_offsets, n))
         return {"q": self._quantize(y), "scale": scale, "zero": zero}
 
     def decode_cohort(self, payload, leaf_offsets):

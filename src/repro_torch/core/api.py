@@ -88,7 +88,7 @@ params, the server state, the optimizer's moments and the
 error-feedback accumulator (sharding/layout.ShardLayout under
 sharding/rules.cohort_param_specs): N_m of the N columns. The route of
 local training is chosen at construction from the task's model family
-(core/round.cohort_local_update): a dense decoder's LM task
+(core/round.cohort_local_update): a GQA decoder's LM task, dense or MoE
 (transformer.LMLoss) trains tensor-parallel — every model rank trains
 every row of the client slice on its shard, so a slice with fewer rows
 than M trains too; any other task (the vision models) gathers the params

@@ -658,11 +658,11 @@ def cohort_local_update(loss_fn: Callable, layout: FlatLayout,
     sharding/tensor_parallel.TPContext, or None. The route is chosen
     here, once, from the task's model family: on the model axis a loss
     that trains tensor-parallel (``tensor_parallel.trains_tensor_parallel``:
-    transformer.LMLoss of a dense decoder) trains (K, N_m) working
-    copies of the rank's shard through sharding/layout.TPView; any other
-    (the vision models, whose convolutions have no Megatron form in the
-    reference's rules) trains full-width rows of the gathered params
-    (RankShard)."""
+    transformer.LMLoss of a GQA decoder, dense or MoE) trains (K, N_m)
+    working copies of the rank's shard through sharding/layout.TPView;
+    any other (the vision models, whose convolutions have no Megatron
+    form in the reference's rules) trains full-width rows of the gathered
+    params (RankShard)."""
     tp = None
     if model_group is not None and tpm.trains_tensor_parallel(loss_fn):
         tp = tpm.TPContext.of(model_group)
@@ -745,7 +745,7 @@ def make_fl_round_step(loss_fn: Callable, layout: FlatLayout, eta_l: float,
     this rank's shards under ``cohort_param_specs(params_template,
     mesh)`` (the reference's tree of the params; shapes only); it raises
     without ``params_template``, as the reference does. A ``loss_fn``
-    that trains tensor-parallel (transformer.LMLoss of a dense decoder)
+    that trains tensor-parallel (transformer.LMLoss of a GQA decoder)
     takes the reference's route — each silo a model-parallel replica,
     Megatron-sharded over ``model``: the batches are the client slice's
     silos, the same on each of its model ranks. Any other loss trains

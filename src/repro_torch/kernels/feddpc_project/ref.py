@@ -94,17 +94,32 @@ def buffer_fold_ref(d: torch.Tensor, p: torch.Tensor, w: torch.Tensor,
                                 scales.float() * wgts.float(), eta_g)
 
 
+def column_leaves(leaf_offsets: torch.Tensor, n: int,
+                  device=None) -> torch.Tensor:
+    """(N,) int64: the leaf of each of the N columns (an empty leaf owns
+    none). A binary search of the leaf ends: ``repeat_interleave`` does
+    the same, but wakes the intra-op thread pool on every call, however
+    few the columns, which is slow on a busy host."""
+    offsets = leaf_offsets.to(device)
+    return torch.bucketize(torch.arange(n, device=device), offsets[1:],
+                           right=True)
+
+
+def per_column(v: torch.Tensor, leaf_offsets: torch.Tensor,
+               n: int) -> torch.Tensor:
+    """(..., L) per-leaf scalars -> (..., N), each repeated over its
+    leaf's columns."""
+    return v.index_select(-1, column_leaves(leaf_offsets, n, v.device))
+
+
 def dequant_ref(q: torch.Tensor, qscale: torch.Tensor, qzero: torch.Tensor,
                 leaf_offsets: torch.Tensor) -> torch.Tensor:
     """The codec's dequant on the flat payload: column c of leaf l of row
     j is q[j, c] * qscale[j, l] + qzero[j, l], in f32 (a multiply, then
     an add: two roundings)."""
-    counts = (leaf_offsets[1:] - leaf_offsets[:-1]).to(q.device)
     n = q.shape[-1]
-    s = torch.repeat_interleave(qscale.float(), counts, dim=-1,
-                                output_size=n)
-    z = torch.repeat_interleave(qzero.float(), counts, dim=-1,
-                                output_size=n)
+    s = per_column(qscale.float(), leaf_offsets, n)
+    z = per_column(qzero.float(), leaf_offsets, n)
     return q.float() * s + z
 
 

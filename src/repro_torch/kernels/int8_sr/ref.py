@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.feddpc_project.ref import column_leaves
+
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -68,8 +70,7 @@ def int8_sr_quantize_ref(x: torch.Tensor, scale: torch.Tensor,
     dev = x.device
     offsets = leaf_offsets.to(dev)
     counts = offsets[1:] - offsets[:-1]
-    leaf = torch.repeat_interleave(
-        torch.arange(counts.numel(), device=dev), counts, output_size=n)
+    leaf = column_leaves(offsets, n, dev)
     j = torch.arange(n, device=dev) - offsets[leaf]
     if leaf_blocks is None:
         numel = counts[leaf]

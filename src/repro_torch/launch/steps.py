@@ -15,16 +15,22 @@ the reference's trees (``params_spec``: ``init_lm``'s or
 ``init_encdec``'s key tree; ``states_spec``: the stacked caches of
 ``init_states`` or ``init_decoder_states``). The steps run the port's
 decoders (transformer.py) and the encoder-decoder (encdec.py). MoE
-layers route their tokens in ``moe_groups`` groups on one device and
-call ``shard_fn(tensor, role)``, the reference's placement hook, at its
-three points (models/moe.py); ``moe_impl="ep"`` (the expert-parallel
-MoE, ROADMAP Queue 1 item 13c) raises.
+layers route their tokens in ``moe_groups`` groups and call
+``shard_fn(tensor, role)``, the reference's placement hook, at its three
+points (models/moe.py).
 
 ``make_train_step(cfg, model_group=...)`` is the reference's train step
 jit'd with ``param_specs`` in-shardings, written out by hand: Megatron
-tensor parallelism over the model group for the dense decoder family
-(sharding/tensor_parallel.py), each rank stepping its shard of the
-flat parameter vector.
+tensor parallelism over the model group for the dense decoder family and
+the MoE decoders whose attention is GQA (sharding/tensor_parallel.py,
+models/moe.py's tensor-parallel experts), each rank stepping its shard
+of the flat parameter vector. ``make_train_step(cfg, moe_impl="ep",
+moe_mesh=make_debug_mesh(S, M))`` is the reference's expert-parallel
+step (models/moe_ep.py) on every rank of a (data, model) mesh: the
+expert stacks split on E over ``data`` and on their ffn dim over
+``model``, the rest Megatron over ``model``, each rank on its rows of
+the batch. The prefill and decode steps serve on one process: "ep"
+raises there (serving over ranks is ROADMAP Queue 1 item 13i).
 """
 from __future__ import annotations
 
@@ -38,11 +44,13 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.shapes import InputShape
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import encdec as encdec_mod
+from repro_torch.models import moe_ep as moe_ep_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import META
 from repro_torch.sharding import tensor_parallel as tpm
 from repro_torch.sharding.layout import ShardLayout, TPView
+from repro_torch.sharding.rules import mesh_axes
 
 WINDOW = 4096                 # sliding window for dense long-context decode
 
@@ -149,7 +157,7 @@ def states_spec(cfg: ArchConfig, shape: InputShape):
 
 def make_train_step(cfg: ArchConfig, lr: float = 1e-3, remat: str = "full",
                     attn_impl: str = "auto", moe_groups: int = 1,
-                    shard_fn=None, moe_impl: str = "gshard",
+                    shard_fn=None, moe_impl: str = "gshard", moe_mesh=None,
                     microbatches: int = 1, model_group=None):
     """(params, batch) -> (new_params, loss). Plain SGD, so a step is
     forward + backward + apply (the paper's local client step), under
@@ -173,12 +181,23 @@ def make_train_step(cfg: ArchConfig, lr: float = 1e-3, remat: str = "full",
     sharding/rules.cohort_param_specs on a (1 x M) mesh —
     ``train_step.shards`` (a sharding/layout.ShardLayout) scatters and
     gathers it. Every rank steps the same batch; the loss is
-    the same on each. The dense decoder family only: MoE, MLA, Mamba
-    and encoder-decoder stacks raise, each citing its ROADMAP item."""
+    the same on each. The families of
+    ``transformer.tensor_parallel_refusal``: GQA decoders with dense or
+    MoE MLPs; MLA, Mamba and encoder-decoder stacks raise, each citing
+    its ROADMAP item.
+
+    ``moe_impl="ep"`` with ``moe_mesh`` (launch/mesh.make_debug_mesh(S,
+    M) over the job's S·M ranks) makes it this rank's expert-parallel
+    step (``_make_ep_train_step``): (shard, batch) -> (shard, loss), the
+    batch whole (every rank takes its rows), the shard the rank's of
+    ``train_step.shards`` (sharding/layout.ShardLayout.for_experts)."""
     tf._check_moe_impl(moe_impl)
+    if moe_impl == "ep":
+        return _make_ep_train_step(cfg, lr, remat, attn_impl, microbatches,
+                                   moe_mesh)
     if model_group is not None:
         return _make_tp_train_step(cfg, lr, remat, attn_impl, microbatches,
-                                   model_group)
+                                   model_group, moe_groups)
 
     def loss_of(tree, batch):
         if cfg.is_encoder_decoder:
@@ -230,7 +249,8 @@ def _microbatches(batch, n: int):
     return [{k: c[m] for k, c in chunks.items()} for m in range(n)]
 
 
-def _make_tp_train_step(cfg, lr, remat, attn_impl, microbatches, group):
+def _make_tp_train_step(cfg, lr, remat, attn_impl, microbatches, group,
+                        moe_groups=1):
     """make_train_step's tensor-parallel form (its docstring)."""
     tf.check_tensor_parallel(cfg)
     model = dist.get_world_size(group)
@@ -239,17 +259,31 @@ def _make_tp_train_step(cfg, lr, remat, attn_impl, microbatches, group):
     tp = tpm.TPContext.of(group)
     view = TPView(shards, tp.rank, cfg.resolved_head_dim, tp)
 
+    def loss_of(tree, batch):
+        return tf.loss_fn(cfg, tree, batch, remat=remat, attn_impl=attn_impl,
+                          moe_groups=moe_groups, tp=tp)
+
+    train_step = _shard_step(view, loss_of, lr, microbatches)
+    train_step.shards, train_step.view, train_step.tp = shards, view, tp
+    return train_step
+
+
+def _shard_step(view, loss_of, lr, microbatches, rows=None, grad_sync=None):
+    """(shard, batch) -> (shard, loss): SGD on a rank's shard, each held
+    leaf a block of its own (its gradient applied and dropped, never
+    concatenated into an (N_m,) gradient). ``rows(batch)`` is the rank's
+    part of a (micro)batch; ``grad_sync(grads)`` completes the gradients
+    before the step (in place)."""
+    rows = rows or (lambda b: b)
+
     def grads_of(blocks, batch):
-        loss = tf.loss_fn(cfg, view.tree(blocks), batch, remat=remat,
-                          attn_impl=attn_impl, tp=tp)
+        loss = loss_of(view.tree(blocks), rows(batch))
         return loss.detach(), list(torch.autograd.grad(loss, blocks))
 
     def train_step(shard, batch):
         if shard.shape != (view.size,):
-            raise ValueError(f"rank {tp.rank}'s shard is ({view.size},), "
+            raise ValueError(f"rank {view.m}'s shard is ({view.size},), "
                              f"got {tuple(shard.shape)}")
-        # each block a leaf of its own: its gradient is applied and
-        # dropped, never concatenated into an (N_m,) gradient
         blocks = [b.detach().requires_grad_(True)
                   for b in view.split(shard)]
         if microbatches <= 1:
@@ -266,13 +300,76 @@ def _make_tp_train_step(cfg, lr, remat, attn_impl, microbatches, group):
             loss = loss / microbatches
             for g in grads:
                 g.div_(microbatches)
+        if grad_sync is not None:
+            grad_sync(grads)
         with torch.no_grad():
             for i, b in enumerate(blocks):
                 b.sub_(grads[i].mul_(lr))       # p - lr·g, in place
                 grads[i] = None
         return shard, loss
 
-    train_step.shards, train_step.view, train_step.tp = shards, view, tp
+    return train_step
+
+
+def _make_ep_train_step(cfg, lr, remat, attn_impl, microbatches, mesh):
+    """make_train_step's expert-parallel form on this rank of ``mesh``.
+
+    Rank (d, m) holds its shard of ``ShardLayout.for_experts``: its E/S
+    experts' F/M columns, the other leaves Megatron over the model axis
+    (and whole over ``data``). It runs the forward on rows [d·B/S,
+    (d+1)·B/S) of the batch (of each microbatch), the MoE layers through
+    moe_ep.moe_forward_ep. ``transformer.loss_fn`` makes its loss the
+    whole batch's and its gradient this rank's share, so:
+
+      * an expert block's gradient is complete as it comes: the reverse
+        all-to-all's backward brings every rank's tokens' cotangents to
+        the experts that served them, each already its share of the
+        whole batch's mean (no 1/S, which the step would owe a loss
+        averaged over the ranks' local means);
+      * every other leaf's gradient is summed over the data group
+        ("data_grad_sum", one all-reduce a leaf), so the data rows'
+        copies step alike.
+
+    The loss is the same on every rank."""
+    if mesh is None:
+        raise ValueError("moe_impl='ep' needs moe_mesh "
+                         "(launch/mesh.make_debug_mesh)")
+    sizes = mesh_axes(mesh)
+    data, model = sizes["data"], sizes["model"]
+    d, m = (int(c) for c in mesh.get_coordinate())
+    ep, tp = moe_ep_mod.contexts(mesh, "data")
+    if tp is not None:
+        tf.check_tensor_parallel(cfg)
+    shards = ShardLayout.for_experts(bridge.layout_of(params_spec(cfg)),
+                                     data, model)
+    view = TPView(shards, m, cfg.resolved_head_dim, tp, rank=d * model + m)
+    held = [i for i, _ in shards.held(d * model + m)]
+    common = [j for j, i in enumerate(held)
+              if "data" not in shards.specs[i]]
+
+    def rows(batch):
+        b = batch["tokens"].shape[0]
+        if b % data:
+            raise ValueError(f"a batch of {b} rows over {data} data ranks")
+        per = b // data
+        return {k: v[d * per:(d + 1) * per] for k, v in batch.items()}
+
+    def grad_sync(grads):
+        if ep is None:
+            return
+        for j in common:
+            g = grads[j]
+            ep._timed("data_grad_sum", g, lambda g=g: dist.all_reduce(
+                g, group=ep.group))
+
+    def loss_of(tree, batch):
+        return tf.loss_fn(cfg, tree, batch, remat=remat, attn_impl=attn_impl,
+                          moe_impl="ep", moe_mesh=mesh, ep=ep, tp=tp)
+
+    train_step = _shard_step(view, loss_of, lr, microbatches, rows,
+                             grad_sync)
+    train_step.shards, train_step.view = shards, view
+    train_step.tp, train_step.ep, train_step.coords = tp, ep, (d, m)
     return train_step
 
 
@@ -285,7 +382,7 @@ def make_prefill_step(cfg: ArchConfig, shape: InputShape,
     frames, tokens) with states {"decoder": the per-layer caches
     (encdec.init_decoder_states), ...} -> ({"decoder", "enc_out"},
     last_token_logits)."""
-    tf._check_moe_impl(moe_impl)
+    tf._check_moe_impl(moe_impl, serving=True)
     window = effective_window(cfg, shape)
 
     if cfg.is_encoder_decoder:
@@ -314,7 +411,7 @@ def make_decode_step(cfg: ArchConfig, shape: InputShape,
     """(params, states, tokens (B, 1), positions (B, 1)) -> (states,
     logits). An encoder-decoder's states are {"decoder", "enc_out"}: the
     step attends across to "enc_out" and carries it on."""
-    tf._check_moe_impl(moe_impl)
+    tf._check_moe_impl(moe_impl, serving=True)
     window = effective_window(cfg, shape)
 
     if cfg.is_encoder_decoder:

@@ -212,8 +212,9 @@ def build_lm_task(args, cfg: ExecConfig, device: torch.device):
     holdout = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
                for k, v in lm_batch(tokens[:LM_HOLDOUT]).items()}
 
-    # with --model-shards M a dense decoder trains tensor-parallel over
-    # the model group (transformer.LMLoss; core/round.cohort_local_update)
+    # with --model-shards M a GQA decoder (dense or MoE) trains
+    # tensor-parallel over the model group (transformer.LMLoss;
+    # core/round.cohort_local_update)
     loss_fn = tf.LMLoss(arch)
 
     def eval_fn(p):    # negative perplexity proxy -> the "accuracy" slot

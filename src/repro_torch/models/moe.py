@@ -1,11 +1,10 @@
 """Mixture-of-Experts layer (counterpart of repro/models/moe.py): a top-k
 router and capacity-slotted gather/scatter dispatch.
 
-Tokens are routed in G groups of T_g tokens (``groups``; single-device
-here: the reference sets G to the mesh's token shards, which item 13c
-brings). Each (group, expert) has C slots, C = ceil(T_g * k / E * cf)
-floored at MIN_CAPACITY and rounded up to a multiple of 8 (of 128 from
-128 on). An assignment's slot is its rank among the group's assignments
+Tokens are routed in G groups of T_g tokens (``groups``; the reference
+sets G to the mesh's token shards). Each (group, expert) has C slots,
+C = ceil(T_g * k / E * cf) floored at MIN_CAPACITY and rounded up to a
+multiple of 8 (of 128 from 128 on). An assignment's slot is its rank among the group's assignments
 to its expert, by a STABLE sort on the expert id (token order within an
 expert); assignments ranked past C are dropped into a dummy slot E·C
 that is sliced off. Dispatch is a gather of the slots' tokens (the dummy
@@ -21,8 +20,27 @@ descending sort, which does the same. The aux loss is the Switch
 load-balance term, E * sum(mean prob * assignment share), averaged over
 groups and scaled by ``router_aux_coef``.
 
+**Tensor-parallel experts** (``tp``, a sharding/tensor_parallel.TPContext
+of the model group; the tree sharding/layout.TPView's): each expert's
+ffn dim is split over the group — ``gate``/``up`` (E, D, F/M), ``down``
+(E, F/M, D), the reference's rules ``mlp/(gate|up)`` (EXPERT, None,
+model) and ``mlp/down`` (EXPERT, model, None) — and the shared experts
+are Megatron's MLP. Every rank routes every token from the same input,
+exactly as one process does, so all ranks fill the same slots; the
+input passes one copy-to-region (the router, the dispatch and the
+shared experts read it: their gradients are partial and are summed);
+the experts' outputs are partial over the group, are weighted by their
+gates and combined, the shared experts' partial added, and ONE
+reduce-from-region of the (B, S, D) output sums them (the reference's
+deferred sum, models/moe_ep.py: T·D numbers cross the group, not
+E·C·D). The router's gradient through the gates is partial too
+(sharding/layout.tp_classes sums it: PARTIAL), and the aux loss keeps
+its gradient on model rank 0 (``tensor_parallel.grad_on_first``), so it
+counts once in those sums.
+
 Every op is out of place and batches under ``torch.func.vmap``, so the
-FL trainer's ``vmap(grad)`` over a cohort trains an MoE decoder.
+FL trainer's ``vmap(grad)`` over a cohort trains an MoE decoder, on one
+device or tensor-parallel.
 """
 from __future__ import annotations
 
@@ -34,6 +52,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import (fold_rng, init_linear, linear,
                                        normal, split_rng)
+from repro_torch.sharding import tensor_parallel as tpm
 
 MIN_CAPACITY = 4
 
@@ -61,12 +80,18 @@ def init_moe(rng, cfg, dtype):
     return p
 
 
-def capacity_per_group(cfg, tokens_per_group: int) -> int:
-    c = int(math.ceil(tokens_per_group * cfg.top_k / cfg.num_experts
-                      * cfg.capacity_factor))
+def round_capacity(c: int) -> int:
+    """``c`` slots floored at MIN_CAPACITY and rounded up to a multiple
+    of 8 (of 128 from 128 on)."""
     c = max(c, MIN_CAPACITY)
     mult = 128 if c >= 128 else 8
     return ((c + mult - 1) // mult) * mult
+
+
+def capacity_per_group(cfg, tokens_per_group: int) -> int:
+    return round_capacity(int(math.ceil(
+        tokens_per_group * cfg.top_k / cfg.num_experts
+        * cfg.capacity_factor)))
 
 
 def _counts(idx: torch.Tensor, e: int, dtype) -> torch.Tensor:
@@ -121,20 +146,22 @@ def _slot_tables(cfg, idx: torch.Tensor, gates: torch.Tensor, cap: int):
 
 
 def moe_forward(cfg, p, x: torch.Tensor, *, groups: int = 1,
-                shard_fn: Optional[Callable] = None
+                shard_fn: Optional[Callable] = None, tp=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (out (B, S, D), router_aux_coef * aux). ``groups``
     token groups (1 when B·S does not divide). ``shard_fn(tensor, role)``
     is called where the reference calls it (its placement hook): on the
     dispatched tokens (G, E, C, D), "dispatched"; the experts' hidden
     (G, E, C, F), "expert_hidden"; and the gated outputs (G, E·C, D),
-    "combine"; its result is used in their place."""
+    "combine"; its result is used in their place. ``tp``: this rank's
+    part of the tensor-parallel layer (module docstring)."""
     b, s, d = x.shape
     shard_fn = shard_fn or (lambda z, role: z)
     t_total = b * s
     g = groups if t_total % groups == 0 else 1
     tg = t_total // g
     e = cfg.num_experts
+    x = tpm.copy_to_region(x, tp)
     xt = x.reshape(g, tg, d)
     logits = linear(p["router"], xt.float())
     gates, idx, aux = _route(cfg, logits)
@@ -160,9 +187,26 @@ def moe_forward(cfg, p, x: torch.Tensor, *, groups: int = 1,
         0, rows, ye.reshape(g * e * cap, d))
     out = out.reshape(g, tg + 1, d)[:, :tg].reshape(b, s, d)
 
+    out = shared_experts(cfg, p, x, out, tp)
+    return out, tpm.grad_on_first(cfg.router_aux_coef * aux, tp)
+
+
+def shared_experts(cfg, p, x: torch.Tensor, out: torch.Tensor, tp=None
+                   ) -> torch.Tensor:
+    """``out`` (B, S, D), the routed experts' output, plus the shared
+    experts' on ``x``. With ``tp`` both are partial over the model group
+    (the shared experts' down-projection row-parallel): the sum is
+    reduced once here, and the down-projection's bias, if any, added
+    after it."""
+    b, s, d = x.shape
     if cfg.num_shared_experts:
         sh = p["shared"]
-        xs = x.reshape(t_total, d)
+        xs = x.reshape(b * s, d)
         hs = F.silu(linear(sh["gate"], xs)) * linear(sh["up"], xs)
-        out = out + linear(sh["down"], hs).reshape(b, s, d)
-    return out, cfg.router_aux_coef * aux
+        if tp is None:
+            return out + linear(sh["down"], hs).reshape(b, s, d)
+        out = out + (hs @ sh["down"]["w"]).reshape(b, s, d)
+    out = tpm.reduce_from_region(out, tp)
+    if cfg.num_shared_experts and "b" in p["shared"]["down"]:
+        out = out + p["shared"]["down"]["b"]
+    return out

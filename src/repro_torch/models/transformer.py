@@ -40,18 +40,24 @@ route: attention by the reference's rule between its plain einsum and
 blocked forms (``attention.sdpa(impl="plain")``) and the Mamba mixer
 through its plain scan, on every device — neither hand-written kernel
 has a backward, nor has the reference's (attention.py's docstring). The
-MoE layers group their tokens on one device (``moe_groups``); the
-expert-parallel form (``moe_impl="ep"``) is ROADMAP Queue 1 item 13c.
+MoE layers route their tokens in ``moe_groups`` groups (models/moe.py,
+"gshard"), tensor-parallel over a model group with ``tp``; or, with
+``moe_impl="ep"`` and ``moe_mesh`` a (data, model) mesh, expert-parallel
+(models/moe_ep.py): each rank runs the forward on its rows of the batch
+and its experts, the rest of the layer Megatron over the mesh's model
+axis, and ``loss_fn`` is the rank's share of the whole batch's loss.
 """
 from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import moe_ep as moe_ep_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm, fold_rng,
                                        init_linear, init_mlp, init_norm,
@@ -108,18 +114,15 @@ def _check_config(cfg):
 
 def tensor_parallel_refusal(cfg) -> Optional[str]:
     """Why ``cfg`` has no tensor-parallel form in the port (the ROADMAP
-    Queue 1 item that queues it), or None for the dense decoder family:
-    GQA attention and dense MLP layers alone (StarCoder2, Phi-4-mini,
-    Minitron, Command-R, the LLaVA trunk and any stack of their
-    layers)."""
+    Queue 1 item that queues it), or None for a family that has one: GQA
+    attention with dense MLP layers (StarCoder2, Phi-4-mini, Minitron,
+    Command-R, the LLaVA trunk and any stack of their layers) or MoE
+    layers (Kimi-K2: each expert's ffn dim over the model axis,
+    models/moe.py)."""
     kinds = [kind for kind, _ in layer_specs(cfg)]
     if cfg.is_encoder_decoder:
         return (f"{cfg.name}: the tensor-parallel encoder-decoder is ROADMAP "
                 "Queue 1 item 13h")
-    if any(is_moe for _, is_moe in layer_specs(cfg)):
-        return (f"{cfg.name}: tensor-parallel MoE experts (each expert's "
-                "ffn dim over the model axis, the psum item 13c reuses) are "
-                "ROADMAP Queue 1 item 13e")
     if cfg.attention == "mla" and "attn" in kinds:
         return (f"{cfg.name}: tensor-parallel MLA is ROADMAP Queue 1 item "
                 "13f")
@@ -138,13 +141,33 @@ def check_tensor_parallel(cfg):
         raise NotImplementedError(why)
 
 
-def _check_moe_impl(moe_impl: str):
-    if moe_impl != "gshard":
+MOE_IMPLS = ("gshard", "ep")
+
+
+def _mesh_contexts(moe_mesh, ep, tp):
+    """(ep, tp) of the expert-parallel forward: the given contexts, the
+    missing ones found from ``moe_mesh`` (None for an axis of one
+    rank)."""
+    if moe_mesh is None:
+        raise ValueError("moe_impl='ep' runs over a (data, model) mesh: "
+                         "pass moe_mesh (launch/mesh.make_debug_mesh)")
+    if ep is None or tp is None:
+        ep_m, tp_m = moe_ep_mod.contexts(moe_mesh)
+        ep = ep_m if ep is None else ep
+        tp = tp_m if tp is None else tp
+    return ep, tp
+
+
+def _check_moe_impl(moe_impl: str, serving: bool = False):
+    """"gshard" (models/moe.py) everywhere; "ep" (models/moe_ep.py) in
+    full-sequence training forwards, not in serving."""
+    if moe_impl not in MOE_IMPLS:
+        raise ValueError(f"moe_impl={moe_impl!r}: one of {MOE_IMPLS}")
+    if serving and moe_impl == "ep":
         raise NotImplementedError(
-            f"moe_impl={moe_impl!r}: the port routes MoE tokens on one "
-            "device ('gshard'); the expert-parallel MoE (moe_ep, its "
-            "all-to-all over the expert axis) is not ported, ROADMAP Queue "
-            "1 item 13c")
+            "moe_impl='ep': the expert-parallel MoE trains over a (data, "
+            "model) mesh of ranks; serving over ranks (the caches and "
+            "states over the mesh) is ROADMAP Queue 1 item 13i")
 
 
 # ---------------- single layer ----------------
@@ -170,11 +193,14 @@ def _init_layer(rng, cfg, spec, dtype):
 
 
 def _layer_forward(cfg, spec, p, x, positions, state, *, window, attn_impl,
-                   ssm_impl, moe_groups, shard_fn=None, tp=None):
+                   ssm_impl, moe_groups, shard_fn=None, tp=None,
+                   moe_impl="gshard", moe_mesh=None, ep=None):
     """-> (x, new_state, aux): aux is the MoE layer's scaled aux loss, or
     None for a layer without MoE. ``tp``: the tensor-parallel layer (the
-    attention and MLP in Megatron's form; lm_forward admits the dense
-    family only)."""
+    attention, MLP and experts in Megatron's form; lm_forward admits the
+    families of ``tensor_parallel_refusal``); ``moe_impl="ep"``: the MoE
+    layer expert-parallel over ``moe_mesh`` (``ep`` its expert axis's
+    context)."""
     kind, is_moe = spec
     h = apply_norm(cfg.norm, p["norm1"], x)
     if kind == "attn":
@@ -188,9 +214,13 @@ def _layer_forward(cfg, spec, p, x, positions, state, *, window, attn_impl,
     if cfg.arch_type == "ssm":
         return x, new_state, None
     h2 = apply_norm(cfg.norm, p["norm2"], x)
+    if is_moe and moe_impl == "ep":
+        out, aux = moe_ep_mod.moe_forward_ep(cfg, p["mlp"], h2,
+                                             mesh=moe_mesh, ep=ep, tp=tp)
+        return x + out, new_state, aux
     if is_moe:
         out, aux = moe_mod.moe_forward(cfg, p["mlp"], h2, groups=moe_groups,
-                                       shard_fn=shard_fn)
+                                       shard_fn=shard_fn, tp=tp)
         return x + out, new_state, aux
     return x + apply_mlp(cfg.mlp, p["mlp"], h2, tp), new_state, None
 
@@ -314,7 +344,7 @@ def lm_forward(cfg, params, tokens, positions=None, *, embeds=None,
                attn_impl: str = "auto", ssm_impl: str = "auto",
                logits_slice_last: bool = False, remat: str = "none",
                moe_groups: int = 1, moe_impl: str = "gshard",
-               shard_fn=None, tp=None):
+               moe_mesh=None, shard_fn=None, tp=None, ep=None):
     """Returns (logits, new_states, aux_loss): the MoE layers' scaled aux
     losses summed in f32 (0 without MoE).
 
@@ -327,20 +357,26 @@ def lm_forward(cfg, params, tokens, positions=None, *, embeds=None,
     "full", full-sequence forwards only) checkpoints each layer for the
     backward (``_remat``); it needs plain autograd, not torch.func.
     ``moe_groups`` token groups route each MoE layer (moe.moe_forward);
-    ``moe_impl`` "gshard" (the single-device dispatch) — "ep" raises,
-    citing item 13c; ``shard_fn(tensor, role)`` is the reference's MoE
-    placement hook (moe.moe_forward).
+    ``moe_impl`` "gshard" (that dispatch) or "ep" (moe_ep.moe_forward_ep
+    over ``moe_mesh``, launch/mesh.make_debug_mesh: this rank's rows of
+    the batch, its experts; a full-sequence forward; ``ep`` and ``tp``
+    the mesh's axes' contexts, found from the mesh when not given);
+    ``shard_fn(tensor, role)`` is the reference's MoE placement hook
+    (moe.moe_forward).
 
     ``tp`` (a sharding/tensor_parallel.TPContext, full-sequence forwards
-    of the dense decoder family) runs this model rank's part of a
-    Megatron tensor-parallel forward on the tree of
+    of the families ``tensor_parallel_refusal`` admits) runs this model
+    rank's part of a Megatron tensor-parallel forward on the tree of
     sharding/layout.TPView: the embedding looked up vocab-parallel when
     it is split on V, each layer's attention and MLP on the rank's heads
     and d_ff slice with one all-reduce after ``wo`` and one after
-    ``down``, and the logits of the rank's vocab slice when the head is
-    split (the whole logits otherwise). The rest is replicated."""
+    ``down`` (an MoE layer's after the combine, moe.py), and the logits
+    of the rank's vocab slice when the head is split (the whole logits
+    otherwise). The rest is replicated."""
     _check_config(cfg)
-    _check_moe_impl(moe_impl)
+    _check_moe_impl(moe_impl, serving=states is not None)
+    if moe_impl == "ep":
+        ep, tp = _mesh_contexts(moe_mesh, ep, tp)
     if tp is not None:
         check_tensor_parallel(cfg)
     if remat not in REMATS:
@@ -357,7 +393,8 @@ def lm_forward(cfg, params, tokens, positions=None, *, embeds=None,
     new_states = None if states is None else []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     kw = {"window": window, "attn_impl": attn_impl, "ssm_impl": ssm_impl,
-          "moe_groups": moe_groups, "shard_fn": shard_fn, "tp": tp}
+          "moe_groups": moe_groups, "shard_fn": shard_fn, "tp": tp,
+          "moe_impl": moe_impl, "moe_mesh": moe_mesh, "ep": ep}
     for i, (spec, p) in enumerate(zip(layer_specs(cfg),
                                       layer_params(cfg, params))):
         if states is None:
@@ -400,10 +437,21 @@ def loss_fn(cfg, params, batch, *, attn_impl: str = "auto",
     (``remat`` under plain autograd only). With ``tp`` in them, logits
     split over the vocab give the vocab-parallel cross entropy
     (sharding/tensor_parallel.cross_entropy); the loss is the same on
-    every model rank."""
+    every model rank.
+
+    With ``moe_impl="ep"`` the batch is this rank's rows over the mesh's
+    data axis: the loss is the whole batch's (the valid labels counted
+    over the data group, the rows' sums summed over it), the same on
+    every rank, and its gradient this rank's share — summed over the
+    data group it is the whole loss's (launch/steps.py)."""
     tokens = batch["tokens"]
     labels = batch["labels"]
     embeds = batch.get("patch_embeds")
+    ep = None
+    if fw_kw.get("moe_impl") == "ep":
+        ep, fw_kw["tp"] = _mesh_contexts(fw_kw.get("moe_mesh"),
+                                         fw_kw.get("ep"), fw_kw.get("tp"))
+        fw_kw["ep"] = ep
     logits, _, aux = lm_forward(
         cfg, params, tokens, embeds=embeds,
         attn_impl="plain" if attn_impl == "auto" else attn_impl,
@@ -412,8 +460,12 @@ def loss_fn(cfg, params, batch, *, attn_impl: str = "auto",
         # logits cover [patches + text]; labels only the text part
         logits = logits[:, embeds.shape[1]:, :]
     ce = tpm.cross_entropy(logits, labels, fw_kw.get("tp"), cfg.vocab_size)
-    loss = ce.sum() / torch.clamp((labels >= 0).sum(), min=1)
-    return loss + aux
+    valid = (labels >= 0).sum()
+    if ep is None:
+        return ce.sum() / torch.clamp(valid, min=1) + aux
+    valid = ep._collective("ep_all_reduce", valid, dist.ReduceOp.SUM)
+    return tpm.reduce_from_region(ce.sum() / torch.clamp(valid, min=1), ep,
+                                  "ep_all_reduce") + aux
 
 
 class LMLoss:

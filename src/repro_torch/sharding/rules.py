@@ -224,10 +224,18 @@ def _default_policy(mesh, pol: Optional[ShardingPolicy]) -> ShardingPolicy:
 def param_specs(params: Tree, mesh,
                 pol: Optional[ShardingPolicy] = None) -> Tree:
     pol = _default_policy(mesh, pol)
-    sizes = mesh_axes(mesh)
-    leaves = [_leaf_spec(path_str(p), _shape(x), pol, sizes)
-              for p, x in tree_leaves_with_path(params)]
-    return _unflatten(params, leaves)
+    pairs = [(path_str(p), _shape(x))
+             for p, x in tree_leaves_with_path(params)]
+    return _unflatten(params, leaf_specs(pairs, mesh_axes(mesh), pol))
+
+
+def leaf_specs(paths_shapes: Sequence[Tuple[str, Tuple[int, ...]]],
+               axis_sizes: Dict[str, int],
+               pol: ShardingPolicy) -> List[PartitionSpec]:
+    """``param_specs`` on (path, shape) pairs: the name rules alone (a
+    leaf no rule shards replicates)."""
+    return [_leaf_spec(pstr, shape, pol, axis_sizes)
+            for pstr, shape in paths_shapes]
 
 
 def _batch_spec(batch_size: int, pol: ShardingPolicy, axis_sizes):

@@ -13,11 +13,16 @@ group, this rank's place in it and its size. The Megatron operators are
   reduce-from-region  all-reduce (sum) forward, identity backward — the
                       output of a row-parallel layer;
   all-reduce max      forward only (no gradient), for the vocab-parallel
-                      cross entropy's shift.
+                      cross entropy's shift;
+  all-to-all          equal chunks of the leading dim exchanged, and the
+                      gradient exchanged back — the expert-parallel MoE's
+                      token exchange over the data group
+                      (models/moe_ep.py; a ``TPContext`` of that group).
 
-Each has a ``vmap`` rule that issues its collective ONCE on the whole
-batched tensor, so under the cohort's ``vmap(grad_and_value(...))``
-(core/client.py) K clients cost one collective, not K. Every collective
+Each but the all-to-all has a ``vmap`` rule that issues its collective
+ONCE on the whole batched tensor, so under the cohort's
+``vmap(grad_and_value(...))`` (core/client.py) K clients cost one
+collective, not K. Every collective
 works on a fresh tensor (a clone the collective then writes), so no
 input of a transform is written in place.
 
@@ -29,10 +34,10 @@ exponentials over the group (two all-reduces of (B, S) scalars, and one
 for the gold logit) instead of all-gathering (B, S, V) logits: a rank
 holds V/M of the logits and the loss moves B·S numbers, not B·S·V.
 
-The model code (models/attention.py, layers.py, transformer.py) takes
-a ``tp`` context and reads from its weights' shapes which blocks are
-split: the tree it runs on is sharding/layout.TPView's view of the
-rank's shard.
+The model code (models/attention.py, layers.py, moe.py, moe_ep.py,
+transformer.py) takes a ``tp`` context and reads from its weights'
+shapes which blocks are split: the tree it runs on is
+sharding/layout.TPView's view of the rank's shard.
 """
 from __future__ import annotations
 
@@ -59,12 +64,28 @@ class TPContext:
 
     def _collective(self, name: str, x: torch.Tensor, op) -> torch.Tensor:
         out = x.detach().clone(memory_format=torch.contiguous_format)
-        run = lambda: dist.all_reduce(out, op=op, group=self.group)
+        self._timed(name, out, lambda: dist.all_reduce(out, op=op,
+                                                        group=self.group))
+        return out
+
+    def _timed(self, name: str, x: torch.Tensor, run) -> None:
         if self.timer is None:
             run()
         else:
-            self.timer(name, out, run)
-        return out
+            self.timer(name, x, run)
+
+    def exchange(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """The all-to-all of ``x``'s leading dim in ``size`` equal
+        chunks: chunk j goes to rank j, and chunk j of the result came
+        from rank j. Gloo moves host memory only, so under gloo a CUDA
+        tensor travels through a host copy."""
+        x = x.detach().contiguous()
+        host = x.is_cuda and dist.get_backend(self.group) == "gloo"
+        src = x.cpu() if host else x
+        out = torch.empty_like(src)
+        self._timed(name, x, lambda: dist.all_to_all_single(
+            out, src, group=self.group))
+        return out.to(x.device) if host else out
 
 
 class _CopyToRegion(torch.autograd.Function):
@@ -103,6 +124,21 @@ class _ReduceFromRegion(torch.autograd.Function):
         return _ReduceFromRegion.apply(x, tp, name), in_dims[0]
 
 
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(x, tp, name):
+        return tp.exchange(name, x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.tp, ctx.name = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, g):
+        # equal chunks: the exchange is its own transpose
+        return _AllToAll.apply(g, ctx.tp, ctx.name), None, None
+
+
 class _AllReduceMax(torch.autograd.Function):
     @staticmethod
     def forward(x, tp):
@@ -131,6 +167,27 @@ def reduce_from_region(x: torch.Tensor, tp: Optional[TPContext],
                        name: str = "tp_all_reduce") -> torch.Tensor:
     """The sum over the model group; the gradient passed as it is."""
     return x if tp is None else _ReduceFromRegion.apply(x, tp, name)
+
+
+def all_to_all(x: torch.Tensor, tp: Optional[TPContext],
+               name: str = "ep_all_to_all") -> torch.Tensor:
+    """The all-to-all of ``x``'s leading dim over the group
+    (``TPContext.exchange``); the gradient goes back the same way. An
+    integer tensor carries no gradient. (Not under ``vmap``: the
+    expert-parallel step that uses it trains one model, not a cohort.)"""
+    if tp is None:
+        return x
+    if not x.is_floating_point():
+        return tp.exchange(name, x)
+    return _AllToAll.apply(x, tp, name)
+
+
+def grad_on_first(x: torch.Tensor, tp: Optional[TPContext]
+                  ) -> torch.Tensor:
+    """``x`` with its gradient kept on model rank 0 alone: a term every
+    rank computes alike (the MoE aux loss) whose inputs' gradients are
+    summed over the group enters it once."""
+    return x if tp is None or tp.rank == 0 else x.detach()
 
 
 def all_reduce_max(x: torch.Tensor, tp: Optional[TPContext]
@@ -188,7 +245,8 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 def trains_tensor_parallel(loss_fn) -> bool:
     """Whether a task's loss trains tensor-parallel on the model axis: a
-    models/transformer.LMLoss of the dense decoder family (its
-    ``tensor_parallel``). Any other loss — the vision models' — keeps
-    the full-width row split (core/round.RankShard)."""
+    models/transformer.LMLoss of a decoder family with a Megatron form
+    (its ``tensor_parallel``: GQA attention with dense MLPs or MoE
+    experts). Any other loss — the vision models' — keeps the full-width
+    row split (core/round.RankShard)."""
     return bool(getattr(loss_fn, "tensor_parallel", False))

@@ -16,6 +16,7 @@ from repro.core import runtime as ref_runtime
 from repro_torch.core import api
 from repro_torch.core import async_engine as engine_mod
 from repro_torch.core import runtime
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 ROUNDS = 3
 EXP = ("ExponentialRuntime", (("mean", 1.0),))

@@ -42,6 +42,7 @@ from repro.core.samplers import UniformSampler as RefUniform
 from repro_torch import bridge
 from repro_torch.core import async_engine
 from repro_torch.launch import distributed
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(ROOT, "tests", "_torch_async_ranks_worker.py")

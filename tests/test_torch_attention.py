@@ -20,6 +20,7 @@ from repro_torch.configs import starcoder2_3b
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.models import attention
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}

@@ -16,6 +16,7 @@ from repro.core import baselines as ref_baselines
 from repro_torch import bridge
 from repro_torch.core import baselines
 from repro_torch.core.round import ID_SENTINEL
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 K, NUM_CLIENTS, ROUNDS, ETA_G = 5, 12, 3, 0.3
 RTOL, ATOL = 1e-5, 1e-6

@@ -7,6 +7,7 @@ import torch
 
 from _torch_parity import ref_params
 from repro_torch import bridge
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("name", ["lenet5", "resnet18"])

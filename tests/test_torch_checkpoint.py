@@ -17,6 +17,7 @@ import _torch_resume_check as rc
 from repro.checkpoint import checkpoint as ref_ckpt
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.core import faults
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _state(seed):

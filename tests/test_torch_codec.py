@@ -14,6 +14,7 @@ from repro.codec import make_codec as ref_make_codec
 from repro.codec.base import sanitized_residual as ref_sanitized_residual
 from repro_torch.bridge import layout_of
 from repro_torch.codec import codec_names, make_codec, sanitized_residual
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 K = 4
 LOSSY = ["bf16", "int8", "int8_sym"]

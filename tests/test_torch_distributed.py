@@ -13,6 +13,7 @@ import pytest
 from repro_torch.launch import distributed, mesh
 from repro_torch.sharding.rules import (edge_pieces, local_row_range,
                                         padded_rows)
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENV = {"PYTHONPATH": os.path.join(ROOT, "src")}

@@ -24,6 +24,7 @@ from repro_torch.codec import make_codec
 from repro_torch.core import api, baselines, feddpc, projection
 from repro_torch.core.faults import FaultPlan
 from repro_torch.core.round import ID_SENTINEL
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 K, NUM_CLIENTS, ROUNDS, ETA_G, EDGES = 6, 12, 3, 0.3, 2
 RTOL, ATOL = 1e-5, 1e-6

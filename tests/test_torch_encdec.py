@@ -33,6 +33,7 @@ from repro_torch.core import jax_prng
 from repro_torch.launch import serve, steps
 from repro_torch.models import encdec
 from repro_torch.models.layers import sinusoidal_positions
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCH = "whisper-base"

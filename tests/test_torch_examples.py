@@ -21,6 +21,7 @@ from repro_torch.examples import federated_llm_pretraining as llm
 from repro_torch.examples import heterogeneity_study as study
 from repro_torch.examples import quickstart
 from repro_torch.examples import serve_batched
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 ROUNDS = 2

@@ -16,6 +16,7 @@ from repro.core import guards as ref_guards
 from repro.core import round as ref_round
 from repro_torch.core import faults, guards
 from repro_torch.core import round as round_mod
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 PLANS = [
     dict(seed=0, nan_rate=0.1, explode_rate=0.1, explode_rounds=(1, 2, 3)),

@@ -11,6 +11,7 @@ import torch
 from repro.kernels.feddpc_project import ops as ref_ops
 from repro.kernels.feddpc_project import ref as ref_ref
 from repro_torch.kernels.feddpc_project import ops, ref
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 SHAPES = [(1, 37), (3, 1000), (7, 70001)]
 

@@ -31,6 +31,7 @@ from repro.kernels.flash_attention import ops as ref_fa_ops
 from repro.kernels.flash_attention import ref as ref_fa_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 TOL = {"float32": 2e-5, "bfloat16": 4e-2}
 DTYPES = {"float32": (jnp.float32, torch.float32),

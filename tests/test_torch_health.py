@@ -16,6 +16,7 @@ from repro.health import monitor as ref_monitor
 from repro_torch.core.faults import FaultPlan
 from repro_torch.health.monitor import (HealthConfig, HealthMonitor,
                                         JsonlHealthSink)
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 NAN, INF = float("nan"), float("inf")
 

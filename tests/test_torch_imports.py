@@ -7,6 +7,7 @@ import sys
 from pathlib import Path
 
 import pytest
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -46,6 +47,7 @@ for must in ("repro_torch.optim.server", "repro_torch.core.samplers",
              "repro_torch.examples.federated_llm_pretraining",
              "repro_torch.models.encdec",
              "repro_torch.models.moe",
+             "repro_torch.models.moe_ep",
              "repro_torch.configs.whisper_base",
              "repro_torch.configs.deepseek_v2_236b",
              "repro_torch.configs.jamba_1_5_large_398b",

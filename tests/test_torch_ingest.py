@@ -27,6 +27,7 @@ from repro_torch.ingest.placement import CohortPlacer
 from repro_torch.ingest.prefetch import CohortPrefetcher
 from repro_torch.ingest.sources import ListDataSource
 from repro_torch.ingest.stack import stack_cohort, stack_cohort_into
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "fixtures", "data")

@@ -18,6 +18,7 @@ from repro_torch.codec import make_codec
 from repro_torch.core import jax_prng
 from repro_torch.kernels.int8_sr import ops as sr_ops
 from repro_torch.kernels.int8_sr import ref as sr_ref
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 K = 4
 EXP = ("ExponentialRuntime", (("mean", 1.0),))

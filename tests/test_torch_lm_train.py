@@ -29,6 +29,7 @@ from repro_torch.kernels.ssm_scan import ops as ss_ops
 from repro_torch.launch import steps
 from repro_torch.launch import train
 from repro_torch.models import transformer as tf
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 DENSE, SSM, VLM = "starcoder2-3b", "falcon-mamba-7b", "llava-next-mistral-7b"
 ARCHS = (DENSE, SSM, VLM)
@@ -189,15 +190,17 @@ def test_specs_match_the_references_eval_shape(arch):
 
 def test_steps_refuse_what_is_not_ported():
     """Only the multi-device options not yet ported raise, citing item
-    13: the expert-parallel MoE and the tensor-parallel step of a
-    family without a Megatron form in the port (an SSM stack, item 13g);
-    ``shard_fn`` builds the steps (the MoE layers call it,
+    13: serving with the expert-parallel MoE (item 13i; its training
+    step is ported, test_torch_moe_parallel.py) and the tensor-parallel
+    step of a family without a Megatron form in the port (an SSM stack,
+    item 13g); ``shard_fn`` builds the steps (the MoE layers call it,
     test_torch_tensor_parallel.py), as do an encoder-decoder and MoE
     groups (held against the reference in test_torch_encdec.py and
     test_torch_moe.py)."""
     cfg = get_config(DENSE, smoke=True)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        steps.make_train_step(cfg, moe_impl="ep")
+    with pytest.raises(NotImplementedError, match="item 13i"):
+        steps.make_prefill_step(cfg, shapes.SHAPES["prefill_32k"],
+                                moe_impl="ep")
     with pytest.raises(NotImplementedError, match="item 13g"):
         steps.make_train_step(get_config(SSM, smoke=True),
                               model_group=object())

@@ -55,6 +55,7 @@ from repro_torch.launch import distributed, steps
 from repro_torch.sharding import rules
 from repro_torch.sharding.layout import ShardLayout
 from repro_torch.sharding.rules import P
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(ROOT, "tests", "_torch_model_axis_worker.py")

@@ -18,6 +18,7 @@ from repro_torch import bridge
 from repro_torch.configs import paper_lenet5, paper_resnet18
 from repro_torch.core import jax_prng
 from repro_torch.models import layers, vision
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 PORT_CONFIGS = {"lenet5": paper_lenet5.SMOKE,
                 "resnet18": paper_resnet18.SMOKE}

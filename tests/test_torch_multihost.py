@@ -25,6 +25,7 @@ from repro.core import api as ref_api
 from repro.core.faults import FaultPlan as RefFaultPlan
 from repro_torch import bridge
 from repro_torch.launch import distributed
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(ROOT, "tests", "_torch_multihost_worker.py")

@@ -10,6 +10,7 @@ from _torch_parity import assert_regime_matches
 from repro.optim import optimizers as ref_optimizers
 from repro.optim import server as ref_server
 from repro_torch.optim import optimizers, server
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 STEPS = 5
 RTOL = 1e-6

@@ -15,6 +15,7 @@ from repro_torch import bridge
 from repro_torch.core import jax_prng
 from repro_torch.launch import train
 from repro_torch.models import vision
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 SHAPES = [(10, 7), (10, 3, 3, 16), (5,), (10, 11), (3,), ()]
 SEEDS = [0, 5, 123456, -1]

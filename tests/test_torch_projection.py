@@ -12,6 +12,7 @@ from repro.core import feddpc as ref_feddpc
 from repro.core import projection as ref_proj
 from repro_torch import bridge
 from repro_torch.core import baselines, feddpc, projection
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 K = 5
 DIAG_KEYS = ("mean_coef", "mean_cos_angle", "mean_scale", "mean_norm_delta",

@@ -25,6 +25,7 @@ from repro_torch.core.runtime import ExponentialRuntime
 from repro_torch.core.samplers import MarkovSampler, UniformSampler
 from repro_torch.launch import train
 from repro_torch.optim import server
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

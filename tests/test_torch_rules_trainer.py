@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 from _torch_parity import assert_runs_match, port_trainer, run_reference
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 ROUNDS = 3
 NEW_RULES = ("fedprox", "fedexp", "fedga", "fedcm", "fedvarp",

@@ -12,6 +12,7 @@ from _torch_parity import assert_regime_matches
 from repro.core import samplers as ref_samplers
 from repro_torch.core import samplers
 from repro_torch.launch import train
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 ROUNDS = 8
 

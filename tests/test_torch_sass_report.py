@@ -4,6 +4,7 @@ found by name, the hot loop as the backward branch around the most state
 exponentials (not the softplus's, with its log, nor a loop with fewer),
 the instruction mix and the FP32 pipe's share of it."""
 import chip_smoke as cs
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 SASS = """
 \tcode for sm_90a

@@ -23,6 +23,7 @@ from repro_torch import bridge
 from repro_torch.configs.base import ArchConfig, get_config
 from repro_torch.launch import serve
 from repro_torch.models import transformer as tf
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 DENSE = ("starcoder2-3b", "phi4-mini-3.8b", "minitron-8b", "command-r-35b")
@@ -164,22 +165,24 @@ def test_serve_cli_on_cpu():
 def test_unported_archs_raise(arch):
     """Every arch id is ported now: full and SMOKE configs build (the
     reference's numbers); an unknown id raises, and so does the one MoE
-    path left, the expert-parallel form, citing item 13."""
+    path left, serving with the expert-parallel form (a forward with
+    states), citing item 13i."""
     for smoke in (False, True):
         assert dataclasses.asdict(get_config(arch, smoke=smoke)) == \
             dataclasses.asdict(ref_get_config(arch, smoke=smoke))
     with pytest.raises(KeyError):
         get_config("no-such-arch")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 13i"):
         tf.lm_forward(get_config(arch, smoke=True), {},
-                      torch.zeros(1, 2, dtype=torch.int64), moe_impl="ep")
+                      torch.zeros(1, 2, dtype=torch.int64), moe_impl="ep",
+                      states=[])
 
 
 def test_non_dense_layers_raise():
     """MoE, hybrid and MLA stacks build, prefill and serve now (held
     against the reference in test_torch_moe.py); what still raises: an
     embedding prefix outside a VLM, an SSM stack with MoE layers (it has
-    no MLP) and the expert-parallel MoE."""
+    no MLP) and serving with the expert-parallel MoE."""
     moe = ArchConfig(name="tiny-moe", arch_type="moe", moe=True,
                      num_experts=4, top_k=2, moe_d_ff=64, d_model=32,
                      num_heads=2, num_kv_heads=2, d_ff=64, vocab_size=64)
@@ -201,9 +204,9 @@ def test_non_dense_layers_raise():
                                           {"k", "v", "pos", "idx"}]
     tokens, _ = serve.serve_lm(hybrid, 1, 4, 2, device="cpu")
     assert tokens.shape == (1, 2)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 13i"):
         tf.lm_forward(hybrid, {}, torch.zeros(1, 2, dtype=torch.int64),
-                      moe_impl="ep")
+                      moe_impl="ep", states=states)
     # an SSM stack with MoE layers does not pass
     ssm_moe = get_config(SSM, smoke=True).with_(moe=True, num_experts=4,
                                                 top_k=2, moe_d_ff=64)

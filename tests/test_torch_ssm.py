@@ -26,6 +26,7 @@ from repro_torch.configs.base import get_config
 from repro_torch.kernels.ssm_scan import ops as ss_ops
 from repro_torch.kernels.ssm_scan import ref as ss_ref
 from repro_torch.models import ssm
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 ARCH = "falcon-mamba-7b"
 # the reference's own kernel tolerances (tests/test_kernels.py): f32 sums

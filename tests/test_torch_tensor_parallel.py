@@ -53,6 +53,7 @@ from repro_torch.models import transformer as tf
 from repro_torch.sharding import layout as layout_mod
 from repro_torch.sharding.layout import (PARTIAL, VIEW, WHOLE, ShardLayout,
                                          tp_classes)
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(ROOT, "tests", "_torch_tp_worker.py")
@@ -481,14 +482,16 @@ def test_tp_view_refuses_an_axis_that_splits_heads():
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("deepseek-v2-236b", "13e"), ("jamba-1.5-large-398b", "13e"),
+    ("deepseek-v2-236b", "13f"), ("jamba-1.5-large-398b", "13g"),
     ("falcon-mamba-7b", "13g"), ("whisper-base", "13h"),
     ("mla", "13f")])
 def test_queued_families_refuse_tensor_parallelism(arch, item):
-    """MoE, MLA, Mamba and the encoder-decoder have no tensor-parallel
-    form yet: make_train_step over a model group and lm_forward with a
-    TP context raise, each citing its ROADMAP item; their LMLoss keeps
-    the row split (tensor_parallel False), the dense families do not."""
+    """MLA, Mamba and the encoder-decoder have no tensor-parallel form
+    yet (an MoE stack with one of them cites it: DeepSeek-V2 MLA, Jamba
+    the Mamba mixer): make_train_step over a model group and lm_forward
+    with a TP context raise, each citing its ROADMAP item; their LMLoss
+    keeps the row split (tensor_parallel False), the dense families and
+    Kimi-K2 (GQA with MoE experts) do not."""
     if arch == "mla":
         cfg = get_config("deepseek-v2-236b", smoke=True).with_(moe=False)
     else:
@@ -501,7 +504,8 @@ def test_queued_families_refuse_tensor_parallelism(arch, item):
             tf.lm_forward(cfg, {}, torch.zeros(1, 2, dtype=torch.int64),
                           tp=object())
     for dense in ("starcoder2-3b", "phi4-mini-3.8b", "minitron-8b",
-                  "command-r-35b", "llava-next-mistral-7b"):
+                  "command-r-35b", "llava-next-mistral-7b",
+                  "kimi-k2-1t-a32b"):
         assert tf.LMLoss(get_config(dense, smoke=True)).tensor_parallel
 
 

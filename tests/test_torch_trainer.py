@@ -20,6 +20,7 @@ from repro_torch.core.samplers import UniformSampler
 from repro_torch.data import dirichlet, synthetic
 from repro_torch.ingest import images, stack
 from repro_torch.launch import train
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 ROUNDS = 3
 

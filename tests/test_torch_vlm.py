@@ -21,6 +21,7 @@ from repro_torch.core import jax_prng
 from repro_torch.launch import serve
 from repro_torch.models import frontend
 from repro_torch.models import transformer as tf
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 VLM = "llava-next-mistral-7b"
 ATOL = RTOL = 1e-4
