@@ -271,6 +271,16 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               tensor-parallel route against the CPU; on four cards
               Kimi-K2 at full width and 2 layers, 3 steps on (1 x 4) TP
               against (2 x 2) EP (phase_moe_parallel).
+ 12d. tp families  the last three families tensor-parallel
+              (--tp-families-worker): DeepSeek-V2's full-width MLA layer
+              and Jamba's Mamba mixer over 2 gloo ranks of one card, each
+              against one process's layer (output and gradients within
+              1e-4 of their max), Whisper-base's train step against
+              whisper_train's (losses, every leaf); the SMOKE LM runs of
+              DeepSeek-V2, Jamba and Falcon-Mamba on (1 x 2) against the
+              CPU (2 + 2 FedDPC launches a rank); on four cards
+              DeepSeek-V2 and Jamba at 2 layers on (1 x 4) against one
+              process and (1 x 2) (phase_tp_families).
  13. lm fl    the reference example's federated LM run at its own size
               (repro_torch.examples.federated_llm_pretraining without
               --tiny: ~101M params, 20 clients, 5 a round, FedDPC) for 4
@@ -395,8 +405,10 @@ from repro_torch.launch import distributed  # noqa: E402
 from repro_torch.launch import steps as lm_steps  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.serve import serve_encdec, serve_lm  # noqa: E402
+from repro_torch.models import attention as attn_model  # noqa: E402
 from repro_torch.models import encdec  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
+from repro_torch.models import ssm as ssm_model  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.models.layers import linear  # noqa: E402
 from repro_torch.models.vision import (init_vision,  # noqa: E402
@@ -4744,7 +4756,7 @@ def _mp_tp_line(ctx):
     tp = TPContext.of(dist.group.WORLD)
     timer = _Collectives(dist.group.WORLD)
     tp.timer = timer._run
-    view = TPView(shards, r, cfg.resolved_head_dim, tp)
+    view = TPView(shards, r, cfg, tp)
     torch.cuda.reset_peak_memory_stats()
     shard = ref["shard"].requires_grad_(True)
     torch.cuda.synchronize()
@@ -4782,7 +4794,7 @@ def _mp_ep_line(ctx):
     ep, _ = moe_ep.contexts(mesh)
     timer = _Collectives(ep.group)
     ep.timer = timer._run
-    view = TPView(shards, 0, cfg.resolved_head_dim, None, rank=r)
+    view = TPView(shards, 0, cfg, None, rank=r)
     torch.cuda.reset_peak_memory_stats()
     shard = ref["shard"].requires_grad_(True)
     x, proj = ref["x"][r:r + 1], ref["proj"][r:r + 1]
@@ -4812,15 +4824,16 @@ def _mp_ep_line(ctx):
     return line
 
 
-def _mp_fed_trainer(device, sharded):
-    """The CPU test's federated run of Kimi-K2 SMOKE (the training CLI's
-    LM task: 6 clients, 4 a round, FedDPC, MP_FED_ROUNDS rounds), on the
-    tensor-parallel route over (1 x 2) when ``sharded``."""
+def _mp_fed_trainer(device, sharded, arch=KIMI_ARCH):
+    """The CPU test's federated run of ``arch``'s SMOKE config (Kimi-K2's
+    by default; the training CLI's LM task: 6 clients, 4 a round,
+    FedDPC, MP_FED_ROUNDS rounds), on the tensor-parallel route over
+    (1 x 2) when ``sharded``."""
     from types import SimpleNamespace
     kw = {"shard_clients": True, "shard_model": 2} if sharded else {}
     cfg = ExecConfig(rounds=MP_FED_ROUNDS, clients_per_round=MP_FED_COHORT,
                      seed=0, eval_every=10 ** 9, batch_size=2, **kw)
-    args = SimpleNamespace(model=KIMI_ARCH, clients=6, seq_len=17, seed=0,
+    args = SimpleNamespace(model=arch, clients=6, seq_len=17, seed=0,
                            alpha=0.5, batch_size=2)
     params, loss_fn, source, _ = train_cli.build_lm_task(args, cfg, device)
     return FederatedTrainer(
@@ -4847,12 +4860,20 @@ def _mp_fed_line(ctx, out):
 def _mp_leaf_init(layout, i):
     """Leaf i of the reference's tree drawn alone on the card, from a seed
     of its own (a shard is drawn a leaf at a time: the whole model does
-    not fit a card): norms 1, the embedding N(0, 0.02²), every other
+    not fit a card): norms 1, the embedding N(0, 0.02²), init_mamba's
+    constants for A's log, D, dt's bias and the conv's bias, every other
     leaf N(0, 1/fan_in) — init_lm's distributions."""
     path = "/".join(map(str, layout.paths[i]))
     shape = tuple(layout.shapes[i])
-    if path.endswith("scale"):
+    if path.endswith("a_log"):
+        return torch.log(torch.arange(1, shape[-1] + 1, dtype=torch.float32,
+                                      device="cuda")).expand(shape).clone()
+    if path.endswith("scale") or path.endswith("d_skip"):
         return torch.ones(shape, device="cuda")
+    if path.endswith("dt_proj/b"):
+        return torch.full(shape, -4.6, device="cuda")
+    if path.endswith("conv_b"):
+        return torch.zeros(shape, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(MP_SEED * 1000 + i)
     x = torch.randn(shape, generator=gen, device="cuda")
     return x.mul_(0.02 if path.endswith("embed")
@@ -5158,14 +5179,14 @@ def _moe_parallel_worker(out: str) -> int:
     return 0
 
 
-def _mp_spawn(out, ranks, backend):
+def _mp_spawn(out, ranks, backend, worker=MP_WORKER):
     # the ranks share a card with this process's cache: segments that
     # grow in place keep a rank's freed blocks usable
     env = {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
     if backend == "nccl":
         env["NCCL_SOCKET_IFNAME"] = os.environ.get("NCCL_SOCKET_IFNAME", "lo")
     distributed.spawn_local(
-        [sys.executable, os.path.abspath(__file__), MP_WORKER, out], ranks,
+        [sys.executable, os.path.abspath(__file__), worker, out], ranks,
         backend=backend, local_devices=1 if backend == "gloo" else None,
         env=env, timeout_s=900)
     lines = []
@@ -5257,6 +5278,571 @@ def phase_moe_parallel():
 
 
 
+TF_WORKER = "--tp-families-worker"
+TF_SEED = 0
+TF_B, TF_S = 2, 1024          # (a), (b): B x S tokens
+TF_FED_ARCHS = (DEEPSEEK_ARCH, JAMBA_ARCH, SSM_ARCH)     # (c), SMOKE
+TF_B_ARCHS = (DEEPSEEK_ARCH, JAMBA_ARCH)                 # (b), four cards
+TF_B_STEPS, TF_B_LR = 3, 0.01
+TF_ZERO_GRAD = r"wk/b$"       # (a) Whisper: leaves whose exact gradient is 0
+TF_EPS = float(np.finfo(np.float32).eps)     # (b): one rounding of |w|
+# (b)'s depth cuts: deepseek_serve's and jamba_serve's (MOE_SERVE)
+TF_B_CUT = {arch: cut for arch, cut, _ in MOE_SERVE}
+
+
+def _tf_layer(cfg, kind):
+    """(init(rng), forward(tree, x, tp) -> out) of one full-width layer's
+    mixer in a tree {"mixer": ...} whose paths a decoder layer's are
+    (the sharding rules read them): DeepSeek-V2's MLA ("mla", the plain
+    attention) or Jamba's Mamba mixer ("mamba", the plain scan) — the
+    training route's forwards."""
+    pos = torch.arange(TF_S, device="cuda")[None].expand(TF_B, TF_S)
+    if kind == "mla":
+        init = lambda rng: {"mixer": attn_model.init_mla(rng, cfg,
+                                                         torch.float32)}
+        fwd = lambda p, x, tp: attn_model.mla_forward(
+            cfg, p["mixer"], x, pos, impl="plain", tp=tp)[0]
+    else:
+        init = lambda rng: {"mixer": ssm_model.init_mamba(rng, cfg,
+                                                          torch.float32)}
+        fwd = lambda p, x, tp: ssm_model.mamba_forward(
+            cfg, p["mixer"], x, impl="reference", tp=tp)[0]
+    return init, fwd
+
+
+def _tf_one_process(cfg, shards, r, init, fwd, tag):
+    """One process's layer: forward and backward of sum(out * proj) on the
+    seeded params and input, run in rank r's turn (one whole layer on the
+    card at a time), its leaves and their gradients cut to the rank's
+    pieces a leaf at a time. Returns rank r's shard of the params and of
+    their gradient (on the host), and the output, input, projection and
+    seconds of the run."""
+    res = None
+    for turn in range(shards.ranks):
+        if turn == r:
+            gen = torch.Generator(device="cuda").manual_seed(TF_SEED)
+            p = init(gen)
+            x = torch.randn((TF_B, TF_S, cfg.d_model), generator=gen,
+                            device="cuda")
+            proj = torch.randn(x.shape, generator=gen, device="cuda")
+            leaves = [t.requires_grad_(True) for t in tree_leaves(p)]
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            out = fwd(p, x, None)
+            grads = list(torch.autograd.grad((out * proj).sum(), leaves))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - tic
+            held = [i for i, _ in shards.held(r)]
+            cut = lambda ts: torch.cat([shards.leaf_piece(r, i, ts[i])
+                                        for i in held])
+            res = {"grad": cut(grads).cpu(), "out": out.detach(), "x": x,
+                   "proj": proj, "seconds": seconds,
+                   "shard": cut([t.detach() for t in leaves])}
+            del grads, out, p, leaves
+            gc.collect()
+            torch.cuda.empty_cache()
+        distributed.barrier(f"tf_{tag}_{turn}", timeout_s=600)
+    return res
+
+
+def _tf_layer_line(ctx, arch, kind):
+    """(a), one layer: the mixer at full width tensor-parallel over the
+    job's 2 ranks (1 x 2), against one process's layer: the output and
+    every leaf's gradient against their max."""
+    import torch.distributed as dist
+    from repro_torch.core.round import _Collectives
+    from repro_torch.sharding.layout import ShardLayout, TPView
+    from repro_torch.sharding.tensor_parallel import TPContext
+    cfg = get_config(arch)
+    r = ctx.process_id
+    init, fwd = _tf_layer(cfg, kind)
+    shards = ShardLayout.from_sizes(layout_of(init("meta")),
+                                    {"clients": 1, "model": 2})
+    ref = _tf_one_process(cfg, shards, r, init, fwd, kind)
+    tp = TPContext.of(dist.group.WORLD)
+    timer = _Collectives(dist.group.WORLD)
+    tp.timer = timer._run
+    view = TPView(shards, r, cfg, tp)
+    torch.cuda.reset_peak_memory_stats()
+    shard = ref["shard"].requires_grad_(True)
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    out = fwd(view.unflatten(shard), ref["x"], tp)
+    (grad,) = torch.autograd.grad((out * ref["proj"]).sum(), shard)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - tic
+    err = _mp_leaf_errors(shards, r, grad, ref["grad"].cuda())
+    worst = int(torch.argmax(err))
+    name = lambda i: "/".join(map(str, shards.layout.paths[i]))
+    return {"phase": "tp_families", "run": f"a_{kind}", "rank": r,
+            "backend": ctx.backend, "arch": cfg.name, "mesh": [1, 2],
+            "tokens": TF_B * TF_S, "params": shards.layout.size,
+            "classes": dict(collections.Counter(view.classes)),
+            "bytes_at_rest": 4 * shards.sizes[r],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "seconds": seconds, "one_process_seconds": ref["seconds"],
+            "collectives": _tally(timer.timings_ms()),
+            "out_rel": float((out.detach() - ref["out"]).abs().max()
+                             / ref["out"].abs().max()),
+            "grad_rel": float(err[worst]), "worst_leaf": name(worst)}
+
+
+def _tf_whisper_tree(cfg, gen):
+    """Whisper-base from ``gen`` (seed 0; whisper_train's draw) in the
+    reference's tree (the encoder's and decoder's layers stacked), and
+    whisper_train's batch drawn after it."""
+    params = encdec.init_encdec(cfg, gen, torch.float32)
+    for part in ("encoder", "decoder"):
+        params[part] = tf._stack_trees(params[part])
+    b, t = WHISPER_TRAIN_B, WHISPER_TRAIN_T
+    frames = torch.randn((b, cfg.encoder_seq_len, cfg.d_model),
+                         generator=gen, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (b, t + 1), generator=gen,
+                           device="cuda")
+    return params, {"frames": frames, "tokens": tokens[:, :-1],
+                    "labels": tokens[:, 1:]}
+
+
+def _tf_whisper_line(ctx):
+    """(a), Whisper-base whole: WHISPER_TRAIN_STEPS SGD steps of
+    make_train_step(model_group=) over the job's 2 ranks at
+    whisper_train's batch, against whisper_train's one-process step run
+    in each rank's turn: the losses, and every leaf of the params the
+    steps end on against its max |w| and against how far one process's
+    steps moved it."""
+    import torch.distributed as dist
+    from repro_torch.core.round import _Collectives
+    cfg = get_config(WHISPER_ARCH)
+    r = ctx.process_id
+    step = lm_steps.make_train_step(cfg, lr=WHISPER_TRAIN_LR,
+                                    model_group=dist.group.WORLD)
+    shards = step.shards
+    held = [i for i, _ in shards.held(r)]
+    ref = None
+    for turn in range(shards.ranks):
+        if turn == r:
+            params, batch = _tf_whisper_tree(
+                cfg, torch.Generator(device="cuda").manual_seed(0))
+            cut = lambda p: torch.cat([shards.leaf_piece(r, i, t) for i, t
+                                       in enumerate(tree_leaves(p))
+                                       if i in held])
+            start = cut(params)
+            one = lm_steps.make_train_step(cfg, lr=WHISPER_TRAIN_LR)
+            losses, seconds = [], []
+            for _ in range(WHISPER_TRAIN_STEPS):
+                torch.cuda.synchronize()
+                tic = time.perf_counter()
+                params, loss = one(params, batch)
+                losses.append(float(loss))
+                seconds.append(time.perf_counter() - tic)
+            ref = {"start": start, "end": cut(params), "batch": batch,
+                   "losses": losses, "seconds": seconds}
+            del params, one
+            gc.collect()
+            torch.cuda.empty_cache()
+        distributed.barrier(f"tf_whisper_{turn}", timeout_s=600)
+    timer = _Collectives(dist.group.WORLD)
+    step.tp.timer = timer._run
+    torch.cuda.reset_peak_memory_stats()
+    shard = ref["start"].clone()
+    losses, seconds, coll = [], [], []
+    for _ in range(WHISPER_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        shard, loss = step(shard, ref["batch"])
+        losses.append(float(loss))
+        seconds.append(time.perf_counter() - tic)
+        coll.append(_tally(timer.timings_ms()))
+        timer.timings = []
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    nleaves = len(shards.layout.shapes)
+    top, move, err = (torch.zeros(nleaves, device="cuda") for _ in range(3))
+    for x in shards._blocks[r]:
+        part = slice(x.at, x.at + x.size)
+        want = ref["end"][part]
+        top[x.leaf] = want.abs().max()
+        move[x.leaf] = (want - ref["start"][part]).abs().max()
+        err[x.leaf] = (shard[part] - want).abs().max()
+    for t in (err, top, move):
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    name = lambda i: "/".join(map(str, shards.layout.paths[i]))
+    # the keys' biases: softmax does not see a shift common to every key,
+    # so their exact gradient is 0 and they move by rounding alone (their
+    # numbers printed apart, not gated)
+    keys = torch.tensor([bool(re.search(TF_ZERO_GRAD, name(i)))
+                         for i in range(nleaves)], device="cuda")
+    rel = torch.where(keys, 0.0, err / top.clamp(min=1e-30))
+    of_move = torch.where(keys, 0.0, err / move.clamp(min=1e-30))
+    worst, worst_move = int(torch.argmax(rel)), int(torch.argmax(of_move))
+    return {"phase": "tp_families", "run": "a_whisper", "rank": r,
+            "backend": ctx.backend, "arch": cfg.name, "mesh": [1, 2],
+            "batch": WHISPER_TRAIN_B, "frames": cfg.encoder_seq_len,
+            "target_len": WHISPER_TRAIN_T, "params": shards.layout.size,
+            "classes": dict(collections.Counter(step.view.classes)),
+            "bytes_at_rest": 4 * shards.sizes[r], "peak_gib": peak,
+            "losses": losses, "losses_one_process": ref["losses"],
+            "loss_max_rel": max(abs(a - b) / abs(b) for a, b in
+                                zip(losses, ref["losses"])),
+            "leaf_max_rel": float(rel[worst]), "worst_leaf": name(worst),
+            "leaf_max_err_over_move": float(of_move[worst_move]),
+            "worst_leaf_of_move": name(worst_move),
+            "key_bias_max_err": float(err[keys].max()),
+            "key_bias_max_abs": float(top[keys].max()),
+            "step_seconds": seconds, "one_process_step_seconds":
+            ref["seconds"], "tp_collectives_per_step": coll}
+
+
+def _tf_fed_line(ctx, out, arch):
+    """(c), one family: the federated run on the card over the job's 2
+    ranks; rank 0 writes the params it ends on for the CPU comparison."""
+    _ma_reset()
+    tr = _mp_fed_trainer("cuda", True, arch)
+    with tr:
+        tr.run()
+    params = tr.full_params()
+    if ctx.process_id == 0:
+        np.save(os.path.join(out, f"c_{arch}.npy"), params.cpu().numpy())
+    line = _ma_line("fed", tr, ctx, MP_FED_ROUNDS)
+    line.update(phase="tp_families", run="c", arch=arch)
+    return line
+
+
+def _tf_b_shard(shards, r, step_fn, batch, steps, timer, ids):
+    """The rank's shard of the seeded params (leaf by leaf) and
+    ``steps`` SGD steps of ``step_fn`` on it (_tf_b_steps)."""
+    shard = torch.empty(shards.sizes[r], device="cuda")
+    for i, (a, n) in _mp_held_at(shards, r).items():
+        leaf = _mp_leaf_init(shards.layout, i)
+        shard[a:a + n] = shards.leaf_piece(r, i, leaf)
+        del leaf
+    return _tf_b_steps(lambda s: step_fn(s, batch), shard, steps, timer,
+                       ids)
+
+
+def _tf_b_tree(layout):
+    """The seeded params whole on the card (one process's tree, views of
+    one vector drawn leaf by leaf)."""
+    flat = torch.empty(layout.size, device="cuda")
+    at = 0
+    for i, n in enumerate(layout.numels):
+        flat[at:at + n] = _mp_leaf_init(layout, i).reshape(-1)
+        at += int(n)
+    return layout.unflatten(flat)
+
+
+def _tf_b_steps(step, state, steps, timer, ids):
+    """``steps`` calls of ``step`` on ``state`` (a shard or a tree) ->
+    (losses, seconds, collectives a step, the state after the first step
+    on the host, peak GiB), recording each step's expert ids in ``ids``
+    (moe._route: the step's forward, not remat's)."""
+    route = moe._route
+    losses, seconds, coll = [], [], []
+
+    def recording(cfg_, logits):
+        g, i, a = route(cfg_, logits)
+        if len(ids) == len(losses):
+            ids.append(i.detach().cpu())
+        return g, i, a
+    moe._route = recording
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    first = None
+    try:
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            state, loss = step(state)
+            losses.append(float(loss))
+            seconds.append(time.perf_counter() - tic)
+            if timer is not None:
+                coll.append(_tally(timer.timings_ms()))
+                timer.timings = []
+            if first is None:
+                first = state
+                if isinstance(state, torch.Tensor):
+                    first = state.to("cpu", copy=True)
+                else:
+                    first = [t.to("cpu", copy=True)
+                             for t in tree_leaves(state)]
+    finally:
+        moe._route = route
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, seconds, coll, first, peak
+
+
+def _tf_b_run(ctx, arch):
+    """(b), one model at its depth cut: TF_B_STEPS SGD steps of
+    make_train_step(model_group=, remat="full") over the job's 4 ranks
+    (1 x 4), against DeepSeek-V2's one-process step on rank 0's card, or
+    Jamba-1.5's (1 x 2) run on ranks 0 and 1 (one card cannot hold its
+    params and gradients). Returns the rank's line; the params after
+    the first step are compared a leaf at a time (_tf_b_compare)."""
+    import torch.distributed as dist
+    from repro_torch.core.round import _Collectives
+    from repro_torch.sharding.layout import ShardLayout
+    cfg = get_config(arch).with_(**TF_B_CUT[arch])
+    r = ctx.process_id
+    world = dist.group.WORLD
+    gen = torch.Generator(device="cuda").manual_seed(TF_SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (TF_B, TF_S + 1),
+                           generator=gen, device="cuda")
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    step = lm_steps.make_train_step(cfg, lr=TF_B_LR, remat="full",
+                                    model_group=world)
+    shards = step.shards
+    timer = _Collectives(world)
+    step.tp.timer = timer._run
+    tp_ids = []
+    tp = _tf_b_shard(shards, r, step, batch, TF_B_STEPS, timer, tp_ids)
+    del step
+    ref_ids, ref = [], None
+    if arch == DEEPSEEK_ARCH:
+        ref_shards = ShardLayout.from_sizes(shards.layout,
+                                            {"clients": 1, "model": 1})
+        if r == 0:
+            one = lm_steps.make_train_step(cfg, lr=TF_B_LR, remat="full")
+            # the tree alone holds its vector: the step's first output
+            # frees it
+            ref = _tf_b_steps(lambda p: one(p, batch),
+                              _tf_b_tree(shards.layout), TF_B_STEPS, None,
+                              ref_ids)
+            ref = ref[:3] + (torch.cat([t.reshape(-1) for t in ref[3]]),
+                             ref[4])
+            del one
+    else:
+        ref_shards = ShardLayout.from_sizes(shards.layout,
+                                            {"clients": 1, "model": 2})
+        pair = dist.new_group([0, 1])      # every rank joins its creation
+        if r < 2:
+            two = lm_steps.make_train_step(cfg, lr=TF_B_LR, remat="full",
+                                           model_group=pair)
+            ref = _tf_b_shard(ref_shards, r, two, batch, TF_B_STEPS, None,
+                              ref_ids)
+            del two
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    per_leaf = _tf_b_compare(r, shards, tp[3], ref_shards,
+                             None if ref is None else ref[3])
+    name = lambda i: "/".join(map(str, shards.layout.paths[i]))
+    top, move, err = per_leaf
+    rel = err / top.clamp(min=1e-30)
+    of_move = err / move.clamp(min=1e-30)
+    # the step's apply, w - lr·g, rounds each form's params once: an ulp
+    # of the leaf's largest |w| may part them whatever their gradients,
+    # and a leaf that moved a few dozen ulps in the step (MLA's k_up,
+    # Mamba's a_log) reads it as a few % of its movement, so the gate
+    # reads the gap past that one rounding
+    past = (err - TF_EPS * top).clamp(min=0) / move.clamp(min=1e-30)
+    worst, worst_move = int(torch.argmax(rel)), int(torch.argmax(of_move))
+    worst_past = int(torch.argmax(past))
+    order = torch.argsort(of_move, descending=True)[:3].tolist()
+    line = {"phase": "tp_families", "run": "b", "rank": r,
+            "backend": ctx.backend, "arch": cfg.name,
+            "layers": cfg.num_layers, "mesh": [1, 4],
+            "against": "one_process" if arch == DEEPSEEK_ARCH else "1x2",
+            "N": shards.layout.size, "N_r": shards.sizes[r],
+            "bytes_at_rest": 4 * shards.sizes[r], "batch": TF_B,
+            "seq_len": TF_S, "losses": tp[0], "step_seconds": tp[1],
+            "peak_gib": tp[4], "collectives_per_step": tp[2],
+            "first_step_leaf_max_rel": float(rel[worst]),
+            "worst_leaf": name(worst),
+            "first_step_leaf_max_err_over_move": float(of_move[worst_move]),
+            "worst_leaf_of_move": name(worst_move),
+            "its_move_rel": float(move[worst_move] / top[worst_move]),
+            "first_step_leaf_max_err_past_ulp_over_move":
+            float(past[worst_past]), "worst_leaf_past_ulp": name(worst_past),
+            "top3_err_over_move": [
+                [name(i), float(of_move[i]), float(move[i] / top[i]),
+                 float(err[i] / top[i])] for i in order]}
+    if ref is not None:
+        line.update(ref_losses=ref[0], ref_step_seconds=ref[1],
+                    ref_peak_gib=ref[4])
+    if r == 0 and tp_ids:
+        flips = [int((a.reshape(-1, a.shape[-1]).unsqueeze(-1)
+                      != b.reshape(-1, b.shape[-1]).unsqueeze(-2))
+                     .all(-1).sum()) for a, b in zip(tp_ids, ref_ids)]
+        line.update(assignments=int(tp_ids[0].numel()),
+                    flips_per_step=flips)
+    return line
+
+
+def _tf_b_compare(r, shards, got, ref_shards, ref):
+    """Per leaf, over the job (MAX): max |w_ref| and max |w_ref - w_0| of
+    the comparison's params after the first step, and max |w_TP - w_ref|,
+    each rank over its (1 x 4) piece. The comparison's pieces (``ref``
+    on the ranks of ``ref_shards``: the whole vector on rank 0, or the
+    (1 x 2) shards) are broadcast a leaf at a time and laid out whole on
+    every rank, which cuts its piece from it."""
+    import torch.distributed as dist
+    nleaves = len(shards.layout.shapes)
+    out = torch.zeros((3, nleaves), device="cuda")
+    at = _mp_held_at(shards, r)
+    ref_at = [_mp_held_at(ref_shards, q) for q in range(ref_shards.ranks)]
+    for i in range(nleaves):
+        pieces = []
+        for q in range(ref_shards.ranks):
+            a, n = ref_at[q].get(i, (0, 0))
+            buf = (ref[a:a + n].cuda() if q == r else
+                   torch.empty(n, device="cuda"))
+            if n:
+                dist.broadcast(buf, q)
+            pieces.append(buf)
+        if i in at:
+            whole = ref_shards.leaf_from_pieces(i, pieces)
+            del pieces
+            want = shards.leaf_piece(r, i, whole)
+            del whole
+            start = shards.leaf_piece(r, i, _mp_leaf_init(shards.layout, i))
+            a, n = at[i]
+            g = got[a:a + n].cuda()
+            out[0, i] = want.abs().max()
+            out[1, i] = (want - start).abs().max()
+            out[2, i] = (g - want).abs().max()
+            del want, start, g
+        else:
+            del pieces
+        torch.cuda.empty_cache()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX)
+    return out[0], out[1], out[2]
+
+
+def _tp_families_worker(out: str) -> int:
+    """One rank of the tp_families phase: (a) and (c) on a job of 2 ranks,
+    (b) on a job of 4; writes its lines."""
+    ctx = distributed.maybe_initialize()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lines = []
+    if ctx.num_processes == 2:
+        for fn in (lambda: _tf_layer_line(ctx, DEEPSEEK_ARCH, "mla"),
+                   lambda: _tf_layer_line(ctx, JAMBA_ARCH, "mamba"),
+                   lambda: _tf_whisper_line(ctx)):
+            lines.append(fn())
+            gc.collect()
+            torch.cuda.empty_cache()
+        for arch in TF_FED_ARCHS:
+            lines.append(_tf_fed_line(ctx, out, arch))
+    else:
+        for arch in TF_B_ARCHS:
+            lines.append(_tf_b_run(ctx, arch))
+            gc.collect()
+            torch.cuda.empty_cache()
+    with open(os.path.join(out, f"rank{ctx.process_id}.json"), "w") as fh:
+        json.dump(lines, fh)
+    return 0
+
+
+def phase_tp_families(pair: bool = True):
+    """Tensor-parallel local training for MLA, the Mamba mixer and the
+    encoder-decoder (--tp-families-worker), after moe_parallel:
+
+    (a) one card, 2 gloo ranks on (1 x 2), full width, f32, random
+        weights from seed 0: DeepSeek-V2's MLA layer (d 5120, 128
+        heads, q_lora 1536, kv_lora 512) and Jamba-1.5's Mamba mixer (d
+        8192, d_inner 16,384, N 16) on B·S = 2 x 1,024 tokens, forward
+        and backward of sum(out * proj), each against one process's
+        layer run in the rank's turn (the output and every leaf's
+        gradient within MP_RTOL of their max); Whisper-base whole, 3 SGD
+        steps of make_train_step(model_group=) at whisper_train's batch
+        against whisper_train's step (losses within TP_RTOL, every leaf
+        within TP_RTOL of its max |w| and within TP_MOVE_FRAC of its
+        movement);
+    (c) the same job: the training CLI's LM task on DeepSeek-V2,
+        Jamba-1.5 and Falcon-Mamba SMOKE (FedDPC lam = 1, K = 4 of 6, 2
+        rounds) on the tensor-parallel route over (1 x 2), against one
+        process on the CPU (MP_FED_RTOL), one feddpc_dots and one
+        feddpc_batched_epilogue a rank a round, on shards;
+    (b) four cards or more, 4 NCCL ranks: TF_B_STEPS SGD steps of
+        make_train_step(model_group=, remat="full") on (1 x 4), B = 2 x
+        1,024: DeepSeek-V2 at deepseek_serve's 2-layer cut against one
+        process's step on one card, Jamba-1.5 at jamba_serve's against
+        its own (1 x 2) run on two of the cards (one card cannot hold
+        its params and gradients); losses within TP_RTOL, and after the
+        first step, where both start alike, every leaf's gap past one
+        rounding of its largest |w| (TF_EPS: the apply's) within
+        TP_MOVE_FRAC of its movement (compared a leaf at a time). On
+        fewer cards one line says that (b) needs four.
+
+    ``pair=False`` runs (b) alone (a four-card call for it alone).
+    Each rank prints its peak, its bytes at rest, its seconds and its
+    collectives' count and ms."""
+    cards = torch.cuda.device_count()
+    tic = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # what this process still holds on the card beside the ranks
+    emit({"phase": "tp_families",
+          "parent_allocated_gib": torch.cuda.memory_allocated() / 2 ** 30,
+          "parent_reserved_gib": torch.cuda.memory_reserved() / 2 ** 30})
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tf_") as out:
+        lines = _mp_spawn(out, 2, "gloo", TF_WORKER) if pair else []
+        fed = {}
+        for arch in TF_FED_ARCHS if pair else ():
+            want = _mp_fed_trainer("cpu", False, arch)
+            with want:
+                want.run()
+            got = torch.from_numpy(np.load(os.path.join(out,
+                                                        f"c_{arch}.npy")))
+            fed[arch] = (float((got - want.flat).abs().max()
+                               / want.flat.abs().max()),
+                         [h.train_loss for h in want.history])
+        if cards >= 4:
+            lines += _mp_spawn(out, 4, "nccl", TF_WORKER)
+    for line in lines:
+        emit(line)
+    failures = []
+    for line in (x for x in lines if x["run"] in ("a_mla", "a_mamba")):
+        if not (line["out_rel"] <= MP_RTOL and line["grad_rel"] <= MP_RTOL):
+            failures.append(f"{line['run']} rank {line['rank']}: {line}")
+    for line in (x for x in lines if x["run"] == "a_whisper"):
+        if not (line["loss_max_rel"] <= TP_RTOL
+                and line["leaf_max_rel"] <= TP_RTOL
+                and line["leaf_max_err_over_move"] <= TP_MOVE_FRAC):
+            failures.append(f"a_whisper rank {line['rank']}: {line}")
+    for arch, (params_rel, want_losses) in fed.items():
+        got = [x for x in lines if x["run"] == "c" and x["arch"] == arch]
+        loss_rel = max(abs(a - b) / abs(b) for x in got
+                       for a, b in zip(x["losses"], want_losses))
+        emit({"phase": "tp_families", "run": "c", "arch": arch,
+              "card_vs_cpu_params_rel": params_rel,
+              "card_vs_cpu_loss_rel": loss_rel, "losses_cpu": want_losses})
+        for x in got:
+            if (x["launches"] != x["expected_launches"]
+                    or x["route"] != "tensor_parallel"
+                    or set(x["collective_ms_per_round"])
+                    & {"param_all_gather", "all_to_all"}):
+                failures.append(f"c {arch} rank {x['rank']}: {x}")
+        if not (len(got) == 2 and params_rel <= MP_FED_RTOL
+                and loss_rel <= MP_FED_RTOL):
+            failures.append(f"c {arch}: params {params_rel}, losses "
+                            f"{loss_rel}")
+    if cards >= 4:
+        for arch in TF_B_ARCHS:
+            got = [x for x in lines if x["run"] == "b"
+                   and x["arch"] == get_config(arch).name]
+            ref = next(x for x in got if "ref_losses" in x)
+            loss_rel = max(abs(a - b) / abs(b) for x in got
+                           for a, b in zip(x["losses"], ref["ref_losses"]))
+            emit({"phase": "tp_families", "run": "b", "arch": arch,
+                  "loss_rel": loss_rel})
+            if not (len(got) == 4 and loss_rel <= TP_RTOL
+                    and all(x["first_step_leaf_max_err_past_ulp_over_move"]
+                            <= TP_MOVE_FRAC for x in got)):
+                failures.append(f"b {arch}: losses {loss_rel}, {got[0]}")
+    else:
+        emit({"phase": "tp_families", "run": "b",
+              "skipped": f"(b) needs four cards; {cards} present"})
+    emit({"phase": "tp_families", "cards": cards,
+          "runs": sorted({x["run"] for x in lines}),
+          "seconds": time.perf_counter() - tic})
+    if failures:
+        raise AssertionError("tp_families: " + "; ".join(failures))
+
+
 def phase_serve_batched():
     """The batched serving example (repro_torch.examples.serve_batched:
     StarCoder2-3B, Falcon-Mamba-7B and DeepSeek-V2 SMOKE, batch 4, prompt
@@ -5298,6 +5884,8 @@ def main() -> int:
         return _tp_worker(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == MP_WORKER:
         return _moe_parallel_worker(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == TF_WORKER:
+        return _tp_families_worker(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs a card",
               file=sys.stderr)
@@ -5341,6 +5929,7 @@ def main() -> int:
     phase_serve_parity(SSM_ARCH)
     phase_tp_train(phase_lm_train())
     phase_moe_parallel()
+    phase_tp_families()
     phase_lm_fl()
     phase_serve(VLM_ARCH, "flash_attention")
     phase_quickstart()

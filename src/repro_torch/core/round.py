@@ -66,8 +66,8 @@ each shard quantizes with the whole leaf's scale.
 
 That is the row split, the route of the vision models (their
 convolutions have no Megatron form in the reference's rules). A task
-whose loss trains tensor-parallel — transformer.LMLoss of a dense
-decoder — takes the reference's own route instead, chosen once when the
+whose loss trains tensor-parallel — transformer.LMLoss of any decoder
+family or Whisper's widths — takes the reference's own route instead, chosen once when the
 round is built (``cohort_local_update``): every model rank trains all of
 the slice's rows on its shard, Megatron-parallel
 (sharding/tensor_parallel.py, sharding/layout.TPView), so 3. and 4. go
@@ -658,7 +658,7 @@ def cohort_local_update(loss_fn: Callable, layout: FlatLayout,
     sharding/tensor_parallel.TPContext, or None. The route is chosen
     here, once, from the task's model family: on the model axis a loss
     that trains tensor-parallel (``tensor_parallel.trains_tensor_parallel``:
-    transformer.LMLoss of a GQA decoder, dense or MoE) trains (K, N_m)
+    transformer.LMLoss of every decoder family) trains (K, N_m)
     working copies of the rank's shard through sharding/layout.TPView;
     any other (the vision models, whose convolutions have no Megatron
     form in the reference's rules) trains full-width rows of the gathered
@@ -666,7 +666,7 @@ def cohort_local_update(loss_fn: Callable, layout: FlatLayout,
     tp = None
     if model_group is not None and tpm.trains_tensor_parallel(loss_fn):
         tp = tpm.TPContext.of(model_group)
-        layout = TPView(shards, tp.rank, loss_fn.head_dim, tp)
+        layout = TPView(shards, tp.rank, loss_fn.cfg, tp)
         loss_fn = functools.partial(loss_fn, tp=tp)
     local = client_mod.make_cohort_local_update(
         loss_fn, layout, eta_l, optimizer=optimizer,
@@ -745,7 +745,7 @@ def make_fl_round_step(loss_fn: Callable, layout: FlatLayout, eta_l: float,
     this rank's shards under ``cohort_param_specs(params_template,
     mesh)`` (the reference's tree of the params; shapes only); it raises
     without ``params_template``, as the reference does. A ``loss_fn``
-    that trains tensor-parallel (transformer.LMLoss of a GQA decoder)
+    that trains tensor-parallel (transformer.LMLoss)
     takes the reference's route — each silo a model-parallel replica,
     Megatron-sharded over ``model``: the batches are the client slice's
     silos, the same on each of its model ranks. Any other loss trains

@@ -21,9 +21,11 @@ points (models/moe.py).
 
 ``make_train_step(cfg, model_group=...)`` is the reference's train step
 jit'd with ``param_specs`` in-shardings, written out by hand: Megatron
-tensor parallelism over the model group for the dense decoder family and
-the MoE decoders whose attention is GQA (sharding/tensor_parallel.py,
-models/moe.py's tensor-parallel experts), each rank stepping its shard
+tensor parallelism over the model group for every family — dense and
+MoE decoders with GQA or MLA attention, Mamba and hybrid stacks, the
+encoder-decoder (sharding/tensor_parallel.py, models/moe.py's
+tensor-parallel experts, attention.mla_forward's and
+ssm.mamba_forward's ``tp``, encdec.py's) — each rank stepping its shard
 of the flat parameter vector. ``make_train_step(cfg, moe_impl="ep",
 moe_mesh=make_debug_mesh(S, M))`` is the reference's expert-parallel
 step (models/moe_ep.py) on every rank of a (data, model) mesh: the
@@ -181,10 +183,11 @@ def make_train_step(cfg: ArchConfig, lr: float = 1e-3, remat: str = "full",
     sharding/rules.cohort_param_specs on a (1 x M) mesh —
     ``train_step.shards`` (a sharding/layout.ShardLayout) scatters and
     gathers it. Every rank steps the same batch; the loss is
-    the same on each. The families of
-    ``transformer.tensor_parallel_refusal``: GQA decoders with dense or
-    MoE MLPs; MLA, Mamba and encoder-decoder stacks raise, each citing
-    its ROADMAP item.
+    the same on each. Every family: GQA and MLA decoders with dense or
+    MoE MLPs, Mamba and hybrid stacks (``remat`` as one process's), and
+    the encoder-decoder (``encdec.encdec_loss_fn``, no remat); a model
+    axis that does not divide the heads, the MLP width or d_inner
+    raises, naming the leaf (sharding/layout.tp_classes).
 
     ``moe_impl="ep"`` with ``moe_mesh`` (launch/mesh.make_debug_mesh(S,
     M) over the job's S·M ranks) makes it this rank's expert-parallel
@@ -252,14 +255,16 @@ def _microbatches(batch, n: int):
 def _make_tp_train_step(cfg, lr, remat, attn_impl, microbatches, group,
                         moe_groups=1):
     """make_train_step's tensor-parallel form (its docstring)."""
-    tf.check_tensor_parallel(cfg)
     model = dist.get_world_size(group)
     shards = ShardLayout.from_sizes(bridge.layout_of(params_spec(cfg)),
                                     {"clients": 1, "model": model})
     tp = tpm.TPContext.of(group)
-    view = TPView(shards, tp.rank, cfg.resolved_head_dim, tp)
+    view = TPView(shards, tp.rank, cfg, tp)
 
     def loss_of(tree, batch):
+        if cfg.is_encoder_decoder:
+            return encdec_mod.encdec_loss_fn(cfg, tree, batch,
+                                             attn_impl=attn_impl, tp=tp)
         return tf.loss_fn(cfg, tree, batch, remat=remat, attn_impl=attn_impl,
                           moe_groups=moe_groups, tp=tp)
 
@@ -338,11 +343,9 @@ def _make_ep_train_step(cfg, lr, remat, attn_impl, microbatches, mesh):
     data, model = sizes["data"], sizes["model"]
     d, m = (int(c) for c in mesh.get_coordinate())
     ep, tp = moe_ep_mod.contexts(mesh, "data")
-    if tp is not None:
-        tf.check_tensor_parallel(cfg)
     shards = ShardLayout.for_experts(bridge.layout_of(params_spec(cfg)),
                                      data, model)
-    view = TPView(shards, m, cfg.resolved_head_dim, tp, rank=d * model + m)
+    view = TPView(shards, m, cfg, tp, rank=d * model + m)
     held = [i for i, _ in shards.held(d * model + m)]
     common = [j for j, i in enumerate(held)
               if "data" not in shards.specs[i]]

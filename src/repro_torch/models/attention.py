@@ -200,12 +200,14 @@ def _cache_write(cache, k, v, positions):
 
 
 def _tp_kv(cfg, p, x, tp, heads):
-    """K and V (B, S, ·, HD) for this rank's ``heads`` query heads under
-    tensor parallelism. ``wk``/``wv`` split over the model group (M
-    divides the KV heads): the rank's own KV heads, whose groups are its
-    query heads'. Whole (sharding/layout.PARTIAL): the KV heads its query
-    heads read, computed from their columns — one a query head when the
-    rank's heads do not cover whole groups."""
+    """K and V (B, S, ·, HD) of ``x`` (the keys' source: the layer's
+    input, or the encoder's output for cross-attention) for this rank's
+    ``heads`` query heads under tensor parallelism. ``wk``/``wv`` split
+    over the model group (M divides the KV heads): the rank's own KV
+    heads, whose groups are its query heads'. Whole
+    (sharding/layout.PARTIAL): the KV heads its query heads read,
+    computed from their columns — one a query head when the rank's heads
+    do not cover whole groups."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     if p["wk"]["w"].shape[-1] < cfg.num_kv_heads * hd:
@@ -317,11 +319,15 @@ def init_mla_cache(cfg, batch, capacity, dtype, device=None):
             "idx": 0}
 
 
-def _mla_q(cfg, p, x, positions):
+def _mla_q(cfg, p, x, positions, tp=None):
+    """The queries' nope and RoPE parts (B, S, heads, ·): all heads, or
+    with ``tp`` this rank's (``q_up`` column-parallel on the latent,
+    which enters the region after its norm)."""
     b, s, _ = x.shape
     nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-    q = linear(p["q_up"], _rms(linear(p["q_down"], x), p["q_norm"]["scale"]))
-    q = q.reshape(b, s, cfg.num_heads, nope + rope)
+    c_q = _rms(linear(p["q_down"], x), p["q_norm"]["scale"])
+    q = linear(p["q_up"], tpm.copy_to_region(c_q, tp))
+    q = q.reshape(b, s, -1, nope + rope)
     cos, sin = rope_frequencies(rope, cfg.rope_theta, positions)
     return q[..., :nope], apply_rope(q[..., nope:], cos, sin)
 
@@ -336,17 +342,35 @@ def _mla_kv_compress(cfg, p, x, positions):
     return c_kv, k_rope
 
 
-def mla_forward(cfg, p, x, positions, *, window=0, cache=None, impl="auto"):
+def mla_forward(cfg, p, x, positions, *, window=0, cache=None, impl="auto",
+                tp=None):
     """MLA attention, x (B, S, D) -> (out, new_cache). The cache holds the
     COMPRESSED kv (c_kv + the shared k_rope). Decode (S = 1 with a cache)
     is the absorbed form; otherwise per-head K and V are materialised
     from the latent (the whole cache when there is one) and V is padded
-    to the query-key head dim for ``sdpa`` (module docstring)."""
+    to the query-key head dim for ``sdpa`` (module docstring).
+
+    ``tp`` (sharding/tensor_parallel.TPContext; full-sequence forwards)
+    runs Megatron's MLA on this rank's heads. Every rank computes
+    ``q_down``, ``kv_down``, the two latent norms and k_rope's RoPE alike
+    from x, which enters no region (x reaches ``wo`` only through them:
+    a copy-to-region of x as well would sum its gradient once more). The
+    region starts after them: c_q, c_kv and k_rope each pass a
+    copy-to-region, ``q_up``/``k_up``/``v_up`` are column-parallel on the
+    rank's heads and ``wo`` row-parallel."""
     b, s, _ = x.shape
-    h, nope, rope, vd = (cfg.num_heads, cfg.qk_nope_head_dim,
-                         cfg.qk_rope_head_dim, cfg.v_head_dim)
-    q_nope, q_rope = _mla_q(cfg, p, x, positions)
+    if tp is not None and cache is not None:
+        raise NotImplementedError(
+            "tensor-parallel MLA trains (full-sequence forwards); "
+            "tensor-parallel serving (latent caches over the model axis) "
+            "is ROADMAP Queue 1 item 13i")
+    nope, rope, vd = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                      cfg.v_head_dim)
+    q_nope, q_rope = _mla_q(cfg, p, x, positions, tp)
+    h = q_nope.shape[2]
     c_kv, k_rope = _mla_kv_compress(cfg, p, x, positions)
+    c_kv = tpm.copy_to_region(c_kv, tp)
+    k_rope = tpm.copy_to_region(k_rope, tp)
     if cache is not None:
         new_cache = _ring_write(cache, {"c_kv": c_kv, "k_rope": k_rope},
                                 positions)
@@ -381,7 +405,7 @@ def mla_forward(cfg, p, x, positions, *, window=0, cache=None, impl="auto"):
             v = torch.nn.functional.pad(v, (0, nope + rope - vd))
         out = sdpa(q, k, v, positions, k_pos, window=window, impl=impl)
         out = out[..., :vd].reshape(b, s, h * vd)
-    return linear(p["wo"], out), new_cache
+    return row_parallel(p["wo"], out, tp), new_cache
 
 
 # =====================  unified entry  =====================
@@ -395,12 +419,8 @@ def init_attention(rng, cfg, dtype):
 def attention_forward(cfg, p, x, positions, *, window=0, cache=None,
                       impl="auto", tp=None):
     if cfg.attention == "mla":
-        if tp is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: tensor-parallel MLA (q_up/k_up/v_up over the "
-                "model axis) is ROADMAP Queue 1 item 13f")
         return mla_forward(cfg, p, x, positions, window=window, cache=cache,
-                           impl=impl)
+                           impl=impl, tp=tp)
     return gqa_forward(cfg, p, x, positions, window=window, cache=cache,
                        impl=impl, tp=tp)
 

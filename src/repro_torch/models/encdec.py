@@ -30,6 +30,19 @@ Parameters come in either of two trees, as in transformer.py:
            reference's numbers; the forward reads layer i as views.
 
 Decoder states are a list of per-layer GQA caches (attention.init_cache).
+
+**Tensor-parallel** (``tp``, a sharding/tensor_parallel.TPContext;
+teacher-forced training): the encoder's self-attention and MLP and the
+decoder's self-attention and MLP take the decoder stack's Megatron form
+(attention.gqa_forward, layers.apply_mlp): each rank's heads and d_ff
+slice, one all-reduce after ``wo`` and one after ``down``. Cross-
+attention runs ``wq`` on its copied input and ``wk``/``wv``
+column-parallel on the encoder's output, which passes one
+copy-to-region for all decoder layers (their partial gradients into it
+summed once). The embedding and head are vocab-parallel when the model
+axis divides the vocabulary (the logits and the cross entropy then stay
+split, sharding/tensor_parallel.cross_entropy), whole otherwise
+(Whisper-base's 51,865).
 """
 from __future__ import annotations
 
@@ -40,9 +53,10 @@ import torch
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm, init_linear,
                                        init_mlp, init_norm, linear, normal,
-                                       rng_device, sinusoidal_positions,
-                                       split_rng)
+                                       rng_device, row_parallel,
+                                       sinusoidal_positions, split_rng)
 from repro_torch.models.transformer import _map, _stack_trees
+from repro_torch.sharding import tensor_parallel as tpm
 
 
 def _init_enc_layer(rng, cfg, dtype):
@@ -110,10 +124,16 @@ def _layers(tree, n: int) -> List:
     return [_map(lambda x, i=i: x[i], tree) for i in range(n)]
 
 
-def _split_heads(cfg, p, x, kv_src):
-    """q from x, k and v from kv_src, each (B, S, heads, HD)."""
+def _split_heads(cfg, p, x, kv_src, tp=None):
+    """q from x, k and v from kv_src, each (B, S, heads, HD): every head,
+    or with ``tp`` this rank's query heads and the KV heads they read
+    (attention._tp_kv); the caller puts x and kv_src in the region."""
     hd = cfg.resolved_head_dim
-    q = linear(p["wq"], x).reshape(*x.shape[:2], cfg.num_heads, hd)
+    q = linear(p["wq"], x)
+    heads = q.shape[-1] // hd
+    q = q.reshape(*x.shape[:2], heads, hd)
+    if tp is not None:
+        return (q, *attn_mod._tp_kv(cfg, p, kv_src, tp, heads))
     k = linear(p["wk"], kv_src).reshape(*kv_src.shape[:2],
                                         cfg.num_kv_heads, hd)
     v = linear(p["wv"], kv_src).reshape(*kv_src.shape[:2],
@@ -129,28 +149,32 @@ def _all_visible(b: int, s: int, t: int, device):
     return q_pos, k_pos
 
 
-def encode(cfg, params, frames, attn_impl="auto"):
-    """frames (B, T_enc, D), the stubbed conv output -> (B, T_enc, D)."""
+def encode(cfg, params, frames, attn_impl="auto", tp=None):
+    """frames (B, T_enc, D), the stubbed conv output -> (B, T_enc, D).
+    ``tp``: this model rank's part of the tensor-parallel encoder (module
+    docstring); the output is whole on every rank."""
     b, t, d = frames.shape
     x = frames + sinusoidal_positions(t, d).to(device=frames.device,
                                                dtype=frames.dtype)[None]
     q_pos, k_pos = _all_visible(b, t, t, frames.device)
     for lp in _layers(params["encoder"], cfg.encoder_layers):
-        h = apply_norm(cfg.norm, lp["norm1"], x)
-        q, k, v = _split_heads(cfg, lp["attn"], h, h)
+        h = tpm.copy_to_region(apply_norm(cfg.norm, lp["norm1"], x), tp)
+        q, k, v = _split_heads(cfg, lp["attn"], h, h, tp)
         o = attn_mod.sdpa(q, k, v, q_pos, k_pos, impl=attn_impl)
-        x = x + linear(lp["attn"]["wo"], o.reshape(b, t, -1))
+        x = x + row_parallel(lp["attn"]["wo"], o.reshape(b, t, -1), tp)
         h2 = apply_norm(cfg.norm, lp["norm2"], x)
-        x = x + apply_mlp(cfg.mlp, lp["mlp"], h2)
+        x = x + apply_mlp(cfg.mlp, lp["mlp"], h2, tp)
     return apply_norm(cfg.norm, params["enc_norm"], x)
 
 
-def _cross_attention(cfg, lp, x, enc_out, attn_impl):
+def _cross_attention(cfg, lp, x, enc_out, attn_impl, tp=None):
+    """Cross-attention of x over ``enc_out`` (with ``tp``: already in the
+    region, ``decode``)."""
     b, s, _ = x.shape
-    q, k, v = _split_heads(cfg, lp, x, enc_out)
+    q, k, v = _split_heads(cfg, lp, tpm.copy_to_region(x, tp), enc_out, tp)
     q_pos, k_pos = _all_visible(b, s, enc_out.shape[1], x.device)
     o = attn_mod.sdpa(q, k, v, q_pos, k_pos, impl=attn_impl)
-    return linear(lp["wo"], o.reshape(b, s, -1))
+    return row_parallel(lp["wo"], o.reshape(b, s, -1), tp)
 
 
 def decoder_positions(positions: torch.Tensor, d: int) -> torch.Tensor:
@@ -165,31 +189,44 @@ def decoder_positions(positions: torch.Tensor, d: int) -> torch.Tensor:
 
 def decode(cfg, params, tokens, enc_out, positions=None, *,
            states: Optional[List] = None, window: int = 0,
-           attn_impl="auto"):
+           attn_impl="auto", tp=None):
     """tokens (B, S), enc_out (B, T_enc, D); ``states`` the per-layer
     self-attention caches (init_decoder_states; written in place), None
-    for a teacher-forced pass. Returns (logits, new_states)."""
+    for a teacher-forced pass. Returns (logits, new_states). ``tp``
+    (teacher-forced passes): this model rank's part of the
+    tensor-parallel decoder (module docstring); the logits are the
+    rank's vocab slice when the head is split."""
     b, s = tokens.shape
+    if tp is not None and states is not None:
+        raise NotImplementedError(
+            "the tensor-parallel encoder-decoder trains (teacher-forced "
+            "passes); tensor-parallel serving is ROADMAP Queue 1 item 13i")
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=tokens.device)[None].expand(b, s)
-    x = params["embed"][tokens]
+    x = tpm.embed_lookup(params["embed"], tokens, tp, cfg.vocab_size)
     x = x + decoder_positions(positions, cfg.d_model).to(x.dtype)
+    # the decoder layers' k/v inputs: their gradients summed over the
+    # group once
+    enc_in = tpm.copy_to_region(enc_out, tp)
     new_states = None if states is None else []
     for i, lp in enumerate(_layers(params["decoder"], cfg.num_layers)):
         h = apply_norm(cfg.norm, lp["norm1"], x)
         att, nst = attn_mod.gqa_forward(
             cfg, lp["self_attn"], h, positions, window=window,
-            cache=None if states is None else states[i], impl=attn_impl)
+            cache=None if states is None else states[i], impl=attn_impl,
+            tp=tp)
         x = x + att
         hx = apply_norm(cfg.norm, lp["norm_x"], x)
-        x = x + _cross_attention(cfg, lp["cross_attn"], hx, enc_out,
-                                 attn_impl)
+        x = x + _cross_attention(cfg, lp["cross_attn"], hx, enc_in,
+                                 attn_impl, tp)
         h2 = apply_norm(cfg.norm, lp["norm2"], x)
-        x = x + apply_mlp(cfg.mlp, lp["mlp"], h2)
+        x = x + apply_mlp(cfg.mlp, lp["mlp"], h2, tp)
         if states is not None:
             new_states.append(nst)
     x = apply_norm(cfg.norm, params["final_norm"], x)
+    if params["lm_head"]["w"].shape[-1] < cfg.vocab_size:
+        x = tpm.copy_to_region(x, tp)      # the vocab-parallel head
     return linear(params["lm_head"], x), new_states
 
 
@@ -200,19 +237,18 @@ def init_decoder_states(cfg, batch, capacity, dtype=None,
             for _ in range(cfg.num_layers)]
 
 
-def encdec_loss_fn(cfg, params, batch, attn_impl="auto"):
+def encdec_loss_fn(cfg, params, batch, attn_impl="auto", tp=None):
     """Teacher-forced cross entropy of {"frames", "tokens", "labels"}
     (-100 = ignore), logits in f32, the mean over valid labels. On the
     training route: "auto" attention is the reference's plain rule
-    (``sdpa(impl="plain")``) on every device, as transformer.loss_fn."""
+    (``sdpa(impl="plain")``) on every device, as transformer.loss_fn.
+    With ``tp`` (a sharding/layout.TPView tree), logits split over the
+    vocab give the vocab-parallel cross entropy; the loss is the same on
+    every model rank."""
     impl = "plain" if attn_impl == "auto" else attn_impl
-    enc_out = encode(cfg, params, batch["frames"], impl)
-    logits, _ = decode(cfg, params, batch["tokens"], enc_out, attn_impl=impl)
-    logits = logits.float()
+    enc_out = encode(cfg, params, batch["frames"], impl, tp)
+    logits, _ = decode(cfg, params, batch["tokens"], enc_out, attn_impl=impl,
+                       tp=tp)
     labels = batch["labels"]
-    valid = labels >= 0
-    safe = torch.where(valid, labels, 0).long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
-    ce = torch.where(valid, logz - gold, 0.0)
-    return ce.sum() / torch.clamp(valid.sum(), min=1)
+    ce = tpm.cross_entropy(logits, labels, tp, cfg.vocab_size)
+    return ce.sum() / torch.clamp((labels >= 0).sum(), min=1)

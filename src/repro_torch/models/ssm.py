@@ -24,6 +24,21 @@ chain or gate around it.
 Parameters keep the reference's tree and names; ``a_log`` and ``d_skip``
 are f32 whatever the model dtype, and dt is computed in f32 from the
 (model-dtype) projection.
+
+**Tensor-parallel** (``tp``, a sharding/tensor_parallel.TPContext; the
+training forward): each model rank runs the mixer on its d_inner / M
+channels — the reference's rules (sharding/rules.py) cut ``conv_w``,
+``conv_b``, ``dt_proj``, ``a_log`` and ``d_skip`` on d_inner and
+``x_proj`` and ``out_proj`` on their d_inner rows. ``in_proj`` (D, 2 ·
+d_inner) holds u's columns then z's, which the rules cut contiguously,
+so the rank reads its u and z columns of the whole leaf
+(sharding/layout.PARTIAL: gathered, its gradient summed over the group).
+x passes a copy-to-region; ``x_proj`` is row-parallel, and since its
+output feeds every channel's B and C and the rank's dt, the sum is
+followed by a copy-to-region (an all-reduce each way: without it, the
+input gradient of ``x_proj`` would miss the other ranks' channels);
+``out_proj`` is row-parallel. The scan is the plain one, on the rank's
+channels, as training takes it in both packages.
 """
 from __future__ import annotations
 
@@ -36,7 +51,8 @@ import torch.nn.functional as F
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.kernels.ssm_scan import ref as ssm_ref
 from repro_torch.models.layers import (init_linear, linear, normal,
-                                       rng_device, split_rng)
+                                       rng_device, row_parallel, split_rng)
+from repro_torch.sharding import tensor_parallel as tpm
 
 IMPLS = ("auto", "reference")
 
@@ -73,41 +89,63 @@ def init_ssm_state(cfg, batch, dtype, device=None):
     }
 
 
-def _ssm_params(cfg, p, u):
+def _ssm_params(cfg, p, u, tp=None):
     """u: (..., d_in) -> dt's raw value (..., d_in) f32 (x_proj's dt rows
     times W_dt; the scan adds the bias and takes softplus), B/C (..., st)
-    f32."""
+    f32. With ``tp``, u and d_in are the rank's channels and ``x_proj``
+    is summed over the group (module docstring)."""
     st, dtr = cfg.ssm_state, cfg.resolved_dt_rank
-    proj = linear(p["x_proj"], u)
+    proj = tpm.copy_to_region(row_parallel(p["x_proj"], u, tp), tp)
     dt = proj[..., :dtr].float() @ p["dt_proj"]["w"].float()
     b = proj[..., dtr:dtr + st].float()
     c = proj[..., dtr + st:].float()
     return dt, b, c
 
 
-def _scan(cfg, p, u_c, z, h0, impl):
+def _scan(cfg, p, u_c, z, h0, impl, tp=None):
     """The selective scan of u_c (B, S, d_in) post-conv/silu from h0, with
     dt's bias and softplus and the gate by z folded in -> (y * silu(z) in
     u_c's dtype, h_final f32)."""
     a = -torch.exp(p["a_log"])
-    dt, bmat, cmat = _ssm_params(cfg, p, u_c)
+    dt, bmat, cmat = _ssm_params(cfg, p, u_c, tp)
     scan = ssm_ops.ssm_scan if impl == "auto" else ssm_ref.ssm_scan_ref
     return scan(u_c, dt, bmat, cmat, a, p["d_skip"], h0,
                 dt_bias=p["dt_proj"]["b"].float(), dt_softplus=True, z=z)
 
 
+def _in_proj(cfg, p, x, tp):
+    """u and z (B, S, d_in) of x: every channel's, or with ``tp`` the
+    rank's d_in / M channels of each, from the whole ``in_proj``."""
+    d_in = cfg.ssm_d_inner
+    if tp is None:
+        xz = linear(p["in_proj"], x)
+        return xz[..., :d_in], xz[..., d_in:]
+    per = p["conv_w"].shape[-1]
+    lo = tp.rank * per
+    w = p["in_proj"]["w"]
+    x = tpm.copy_to_region(x, tp)
+    return x @ w[..., lo:lo + per], x @ w[..., d_in + lo:d_in + lo + per]
+
+
 def mamba_forward(cfg, p, x, *, state: Optional[dict] = None,
-                  impl: str = "auto") -> Tuple[torch.Tensor, dict]:
+                  impl: str = "auto", tp=None) -> Tuple[torch.Tensor, dict]:
     """x: (B, S, D). state None -> full-sequence scan (prefill; returns
     the state for continuation); state given with S > 1 -> a prefill
-    continuation from it; state given with S == 1 -> one decode step."""
+    continuation from it; state given with S == 1 -> one decode step.
+    ``tp``: this model rank's channels of a full-sequence forward
+    (module docstring); its state holds those channels."""
     if impl not in IMPLS:
         raise ValueError(f"mamba_forward: impl must be one of {IMPLS}, got "
                          f"{impl!r}")
+    if tp is not None and state is not None:
+        raise NotImplementedError(
+            "the tensor-parallel Mamba mixer trains (full-sequence "
+            "forwards); tensor-parallel serving (SSM states over the model "
+            "axis) is ROADMAP Queue 1 item 13i")
     b, s, _ = x.shape
-    d_in, cw = cfg.ssm_d_inner, cfg.ssm_conv
-    xz = linear(p["in_proj"], x)
-    u, z = xz[..., :d_in], xz[..., d_in:]
+    cw = cfg.ssm_conv
+    u, z = _in_proj(cfg, p, x, tp)
+    d_in = u.shape[-1]
 
     if state is None or s > 1:
         prev = (state["conv"] if state is not None
@@ -117,7 +155,7 @@ def mamba_forward(cfg, p, x, *, state: Optional[dict] = None,
         conv_in = u_ext[:, -(s + cw - 1):]
         u_c = F.silu(_conv_causal_from(p, conv_in, s, cw))
         out, h_last = _scan(cfg, p, u_c, z,
-                            None if state is None else state["h"], impl)
+                            None if state is None else state["h"], impl, tp)
         # a copy: a view would keep the whole (B, S + cw - 1, d_in) u_ext
         # alive in every layer's state (16 GiB at B 8, S 1024, f32)
         new_state = {"conv": u_ext[:, -(cw - 1):].to(u.dtype).clone(),
@@ -130,7 +168,7 @@ def mamba_forward(cfg, p, x, *, state: Optional[dict] = None,
         out, h = _scan(cfg, p, u_c, z, state["h"], impl)
         new_state = {"conv": conv_window[:, 1:], "h": h}
 
-    return linear(p["out_proj"], out), new_state
+    return row_parallel(p["out_proj"], out, tp), new_state
 
 
 def _conv_causal_from(p, u_ext, s, window):

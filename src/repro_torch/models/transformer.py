@@ -112,35 +112,6 @@ def _check_config(cfg):
             "MoE")
 
 
-def tensor_parallel_refusal(cfg) -> Optional[str]:
-    """Why ``cfg`` has no tensor-parallel form in the port (the ROADMAP
-    Queue 1 item that queues it), or None for a family that has one: GQA
-    attention with dense MLP layers (StarCoder2, Phi-4-mini, Minitron,
-    Command-R, the LLaVA trunk and any stack of their layers) or MoE
-    layers (Kimi-K2: each expert's ffn dim over the model axis,
-    models/moe.py)."""
-    kinds = [kind for kind, _ in layer_specs(cfg)]
-    if cfg.is_encoder_decoder:
-        return (f"{cfg.name}: the tensor-parallel encoder-decoder is ROADMAP "
-                "Queue 1 item 13h")
-    if cfg.attention == "mla" and "attn" in kinds:
-        return (f"{cfg.name}: tensor-parallel MLA is ROADMAP Queue 1 item "
-                "13f")
-    if "ssm" in kinds:
-        return (f"{cfg.name}: the tensor-parallel Mamba mixer (d_inner over "
-                "the model axis, x_proj's row-parallel reduction) is ROADMAP "
-                "Queue 1 item 13g")
-    return None
-
-
-def check_tensor_parallel(cfg):
-    """Raise NotImplementedError unless ``cfg`` trains tensor-parallel
-    (``tensor_parallel_refusal``)."""
-    why = tensor_parallel_refusal(cfg)
-    if why is not None:
-        raise NotImplementedError(why)
-
-
 MOE_IMPLS = ("gshard", "ep")
 
 
@@ -197,9 +168,9 @@ def _layer_forward(cfg, spec, p, x, positions, state, *, window, attn_impl,
                    moe_impl="gshard", moe_mesh=None, ep=None):
     """-> (x, new_state, aux): aux is the MoE layer's scaled aux loss, or
     None for a layer without MoE. ``tp``: the tensor-parallel layer (the
-    attention, MLP and experts in Megatron's form; lm_forward admits the
-    families of ``tensor_parallel_refusal``); ``moe_impl="ep"``: the MoE
-    layer expert-parallel over ``moe_mesh`` (``ep`` its expert axis's
+    mixer — GQA or MLA attention, or the Mamba mixer —, MLP and experts
+    in Megatron's form); ``moe_impl="ep"``: the MoE layer
+    expert-parallel over ``moe_mesh`` (``ep`` its expert axis's
     context)."""
     kind, is_moe = spec
     h = apply_norm(cfg.norm, p["norm1"], x)
@@ -209,7 +180,8 @@ def _layer_forward(cfg, spec, p, x, positions, state, *, window, attn_impl,
             impl=attn_impl, tp=tp)
     else:
         mixed, new_state = ssm_mod.mamba_forward(cfg, p["mixer"], h,
-                                                 state=state, impl=ssm_impl)
+                                                 state=state, impl=ssm_impl,
+                                                 tp=tp)
     x = x + mixed
     if cfg.arch_type == "ssm":
         return x, new_state, None
@@ -365,20 +337,20 @@ def lm_forward(cfg, params, tokens, positions=None, *, embeds=None,
     (moe.moe_forward).
 
     ``tp`` (a sharding/tensor_parallel.TPContext, full-sequence forwards
-    of the families ``tensor_parallel_refusal`` admits) runs this model
-    rank's part of a Megatron tensor-parallel forward on the tree of
-    sharding/layout.TPView: the embedding looked up vocab-parallel when
-    it is split on V, each layer's attention and MLP on the rank's heads
-    and d_ff slice with one all-reduce after ``wo`` and one after
-    ``down`` (an MoE layer's after the combine, moe.py), and the logits
-    of the rank's vocab slice when the head is split (the whole logits
-    otherwise). The rest is replicated."""
+    of every family) runs this model rank's part of a Megatron
+    tensor-parallel forward on the tree of sharding/layout.TPView: the
+    embedding looked up vocab-parallel when it is split on V, each
+    layer's attention and MLP on the rank's heads and d_ff slice with
+    one all-reduce after ``wo`` and one after ``down`` (an MoE layer's
+    after the combine, moe.py; MLA's heads after replicated latents,
+    attention.mla_forward; a Mamba layer on the rank's d_inner channels,
+    ssm.mamba_forward), and the logits of the rank's vocab slice when the
+    head is split (the whole logits otherwise). The rest is
+    replicated."""
     _check_config(cfg)
     _check_moe_impl(moe_impl, serving=states is not None)
     if moe_impl == "ep":
         ep, tp = _mesh_contexts(moe_mesh, ep, tp)
-    if tp is not None:
-        check_tensor_parallel(cfg)
     if remat not in REMATS:
         raise ValueError(f"lm_forward: remat must be one of {REMATS}, got "
                          f"{remat!r}")
@@ -471,22 +443,18 @@ def loss_fn(cfg, params, batch, *, attn_impl: str = "auto",
 class LMLoss:
     """A decoder's causal-LM task loss, ``loss(params, batch)`` =
     ``loss_fn(cfg, params, batch, **kw)``, and its tensor-parallel form
-    ``loss(params, batch, tp=ctx)`` on a sharding/layout.TPView tree.
-    ``tensor_parallel`` says whether the family trains so
-    (``tensor_parallel_refusal``): a trainer or round step on a
-    (clients, model) mesh picks its route from it once, when it is
+    ``loss(params, batch, tp=ctx)`` on a sharding/layout.TPView tree of
+    ``cfg``'s params. ``tensor_parallel`` says that the task trains so:
+    every family the port builds has a Megatron form (a model axis that
+    does not divide its heads, MLP width or d_inner raises in
+    sharding/layout.tp_classes, naming the leaf). A trainer or round step
+    on a (clients, model) mesh picks its route from it once, when it is
     built (core/round.py)."""
+
+    tensor_parallel = True
 
     def __init__(self, cfg, **kw):
         self.cfg, self.kw = cfg, kw
-
-    @property
-    def tensor_parallel(self) -> bool:
-        return tensor_parallel_refusal(self.cfg) is None
-
-    @property
-    def head_dim(self) -> int:
-        return self.cfg.resolved_head_dim
 
     def __call__(self, params, batch, tp=None):
         return loss_fn(self.cfg, params, batch, tp=tp, **self.kw)

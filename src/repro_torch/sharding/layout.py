@@ -307,65 +307,100 @@ class ShardLayout:
 
 VIEW, WHOLE, PARTIAL = "view", "whole", "partial"
 
-# the leaves Megatron splits: regex over the "/"-joined path -> the
-# split dim, counted from the end (the rules' convention), and whether
-# the split must fall on attention-head boundaries
+# the leaves Megatron splits, in the order they are tried (the first
+# pattern that fits a path decides, as in the reference's rules: MLA's
+# q_up/k_up/v_up before the MLP's up, its q_down/kv_down before down):
+# regex over the "/"-joined path -> the split dim, counted from the end
+# (the rules' convention), and the head width the split must fall on a
+# multiple of ("head_widths" names it; None: any split). A dim of None
+# is a leaf every rank computes with whole.
 MEGATRON = (
-    (r"(wq|wk|wv)/[wb]$", -1, True),         # column-parallel
-    (r"wo/w$", -2, True),                    # row-parallel
-    (r"mlp/(gate|up)$", -1, False),          # MoE experts (E, D, F)
-    (r"mlp/down$", -2, False),               # MoE experts (E, F, D)
-    (r"(gate|up)/[wb]$", -1, False),         # column-parallel
-    (r"down/w$", -2, False),                 # row-parallel
-    (r"(^|/)embed$", -2, False),             # vocab-parallel
-    (r"lm_head/w$", -1, False),
+    (r"(q_down|kv_down)/w$", None, None),    # MLA's latents: whole
+    (r"q_up/w$", -1, "qk"),                  # column-parallel
+    (r"k_up/w$", -1, "nope"),
+    (r"v_up/w$", -1, "v"),
+    (r"(wq|wk|wv)/[wb]$", -1, "head"),       # column-parallel
+    (r"wo/w$", -2, "out"),                   # row-parallel
+    (r"mlp/(gate|up)$", -1, None),           # MoE experts (E, D, F)
+    (r"mlp/down$", -2, None),                # MoE experts (E, F, D)
+    (r"(gate|up)/[wb]$", -1, None),          # column-parallel
+    (r"down/w$", -2, None),                  # row-parallel
+    (r"(^|/)embed$", -2, None),              # vocab-parallel
+    (r"lm_head/w$", -1, None),
+    # the Mamba mixer: its d_inner channels over the group
+    (r"(conv_w|conv_b|d_skip)$", -1, None),
+    (r"dt_proj/[wb]$", -1, None),
+    (r"a_log$", -2, None),
+    (r"(x_proj|out_proj)/w$", -2, None),     # row-parallel
 )
 _KV = r"(wk|wv)/[wb]$"
-# the MoE router: every rank routes from the whole (D, E) weight, and its
-# gradient through the gates is partial (the experts' outputs are, before
-# the combine's sum over the group), so it is summed
-_ROUTER = r"router/[wb]$"
-# the leaves the route needs split: attention, MLP and experts in parallel
-_REQUIRED = (r"wq/w$", r"wo/w$", r"(gate|up)/w$", r"down/w$",
-             r"mlp/(gate|up)$", r"mlp/down$")
+# gathered whole, their gradient summed over the group: the MoE router
+# (every rank routes from the whole (D, E) weight, and its gradient
+# through the gates is partial: the experts' outputs are, before the
+# combine's sum) and Mamba's in_proj (D, 2·d_inner), u's columns then
+# z's, which the rules cut contiguously (at M = 2 rank 0 would hold all
+# of u): each rank reads its u and its z columns of the whole leaf
+_PARTIAL = (r"router/[wb]$", r"in_proj/w$")
+# the leaves the route needs split: attention, MLP, experts and the
+# Mamba mixer's channels in parallel
+_REQUIRED = (r"wq/w$", r"q_up/w$", r"k_up/w$", r"v_up/w$", r"wo/w$",
+             r"(gate|up)/w$", r"down/w$", r"mlp/(gate|up)$", r"mlp/down$",
+             r"conv_w$", r"conv_b$", r"dt_proj/[wb]$", r"a_log$",
+             r"d_skip$", r"(x_proj|out_proj)/w$")
+
+
+def head_widths(cfg) -> Dict[str, int]:
+    """The head width of each head-aligned MEGATRON entry of ``cfg``
+    (an ArchConfig): GQA's head dim for wq/wk/wv; MLA's query-key
+    width (nope + rope) for q_up, nope for k_up, the value width for
+    v_up; ``wo``'s rows are the value heads (MLA) or the heads."""
+    nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    head = cfg.resolved_head_dim
+    return {"head": head, "qk": nope + rope, "nope": nope,
+            "v": cfg.v_head_dim,
+            "out": cfg.v_head_dim if cfg.attention == "mla" else head}
 
 
 def megatron_dim(path: str):
-    """(split dim from the end, head-aligned) of a Megatron-split leaf's
-    path, or None for a leaf Megatron replicates."""
+    """(split dim from the end or None, head-width name or None) of the
+    first MEGATRON entry that fits ``path``, or None for a leaf no entry
+    names (Megatron replicates it)."""
     for pat, dim, heads in MEGATRON:
         if re.search(pat, path):
             return dim, heads
     return None
 
 
-def tp_classes(shards: ShardLayout, head_dim: int) -> List[str]:
-    """Each leaf's class on the tensor-parallel route over ``shards``:
+def tp_classes(shards: ShardLayout, cfg) -> List[str]:
+    """Each leaf's class on the tensor-parallel route over ``shards`` of
+    ``cfg``'s params (an ArchConfig: the head widths, ``head_widths``):
     VIEW where the layout splits the leaf on its Megatron dim (on head
     boundaries for the attention projections): the rank's shard is its
     tensor-parallel weight, viewed in place. PARTIAL for ``wk``/``wv``
     and their biases otherwise (M does not divide the KV heads): each
     rank computes the KV heads its query heads read from the whole leaf,
     so its gradient is partial and is summed over the group; and for the
-    MoE router, whose gradient through the gates is partial (the
-    experts' outputs are summed over the group after the combine). WHOLE
-    for every other leaf — norms, ``wo/b``, ``down/b``, and ``embed`` or
-    ``lm_head`` when M does not divide the vocabulary — which every rank
-    computes alike, so each keeps its slice of the same gradient. Raises
-    when a query, output, MLP or expert projection is not split so: the
-    route needs M to divide the query heads, the MLP width and the
-    experts' ffn dim."""
+    MoE router and Mamba's ``in_proj`` (``_PARTIAL``). WHOLE for every
+    other leaf — norms, ``wo/b``, ``down/b``, MLA's ``q_down`` and
+    ``kv_down``, and ``embed`` or ``lm_head`` when M does not divide the
+    vocabulary — which every rank computes alike, so each keeps its
+    slice of the same gradient. Raises, naming the leaf, when a query,
+    output, MLP, expert or Mamba channel projection is not split so: the
+    route needs M to divide the query heads, the MLP width, the experts'
+    ffn dim and d_inner."""
+    widths = head_widths(cfg)
     layout = shards.layout
     out = []
     for i, (shape, spec) in enumerate(zip(layout.shapes, shards.specs)):
         path = path_str(layout.paths[i])
         md = megatron_dim(path)
-        cls = PARTIAL if re.search(_ROUTER, path) else WHOLE
-        if md is not None:
+        cls = (PARTIAL if any(re.search(p, path) for p in _PARTIAL)
+               else WHOLE)
+        if md is not None and md[0] is not None:
             dim = md[0] % len(shape)
             split = shards.model > 1 and spec[dim] is not None
             if split and md[1]:
-                split = (shape[dim] // shards.model) % head_dim == 0
+                split = (shape[dim] // shards.model) % widths[md[1]] == 0
             if split:
                 cls = VIEW
             elif re.search(_KV, path):
@@ -375,13 +410,15 @@ def tp_classes(shards: ShardLayout, head_dim: int) -> List[str]:
                     f"tensor parallelism over {shards.model} model ranks: "
                     f"{path} {tuple(shape)} does not split on its Megatron "
                     f"dim (spec {spec}); the model axis must divide the "
-                    "query heads, the MLP width and the experts' ffn dim")
+                    "query heads, the MLP width, the experts' ffn dim and "
+                    "the Mamba mixer's d_inner")
         out.append(cls)
     return out
 
 
 class TPView:
-    """Model rank ``m``'s shard as the tree the model runs on
+    """Model rank ``m``'s shard of ``cfg``'s params (an ArchConfig,
+    whose head widths ``tp_classes`` reads) as the tree the model runs on
     (sharding/tensor_parallel.py). ``unflatten(w)`` of the rank's (N_m,)
     vector — a row of the cohort's (K, N_m) stack under vmap — gives the
     layout's tree with every VIEW leaf the rank's slice in its local
@@ -402,13 +439,13 @@ class TPView:
     A leaf the layout gives to model rank 0 alone is WHOLE: every rank
     computes with it, rank 0 keeps its gradient."""
 
-    def __init__(self, shards: ShardLayout, m: int, head_dim: int, tp,
+    def __init__(self, shards: ShardLayout, m: int, cfg, tp,
                  rank: int = None):
         self.shards, self.m, self.tp = shards, int(m), tp
         r = self.m if rank is None else int(rank)
         self.layout = shards.layout
         nleaves = len(self.layout.shapes)
-        self.classes = (tuple(tp_classes(shards, head_dim))
+        self.classes = (tuple(tp_classes(shards, cfg))
                         if shards.model > 1 else (VIEW,) * nleaves)
         self.size = shards.sizes[r]
         self._held = shards.held(r)

@@ -35,7 +35,7 @@ for the gold logit) instead of all-gathering (B, S, V) logits: a rank
 holds V/M of the logits and the loss moves B·S numbers, not B·S·V.
 
 The model code (models/attention.py, layers.py, moe.py, moe_ep.py,
-transformer.py) takes a ``tp`` context and reads from its weights'
+ssm.py, encdec.py, transformer.py) takes a ``tp`` context and reads from its weights'
 shapes which blocks are split: the tree it runs on is
 sharding/layout.TPView's view of the rank's shard.
 """
@@ -245,8 +245,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 def trains_tensor_parallel(loss_fn) -> bool:
     """Whether a task's loss trains tensor-parallel on the model axis: a
-    models/transformer.LMLoss of a decoder family with a Megatron form
-    (its ``tensor_parallel``: GQA attention with dense MLPs or MoE
-    experts). Any other loss — the vision models' — keeps the full-width
-    row split (core/round.RankShard)."""
+    models/transformer.LMLoss (its ``tensor_parallel``: every decoder
+    family has a Megatron form). Any other loss — the vision models' —
+    keeps the full-width row split (core/round.RankShard)."""
     return bool(getattr(loss_fn, "tensor_parallel", False))

@@ -130,7 +130,7 @@ def tp_layer(out, rank, group, model, tag):
     cfg = get_config(ARCH, smoke=True)
     flat, layout, shards = layer_shards(cfg, model)
     tp = TPContext.of(group)
-    view = TPView(shards, tp.rank, cfg.resolved_head_dim, tp)
+    view = TPView(shards, tp.rank, cfg, tp)
     x, proj = (torch.from_numpy(a) for a in layer_inputs(
         LAYER_B, LAYER_S, cfg.d_model))
     shard = shards.scatter(flat, tp.rank).requires_grad_(True)
@@ -156,7 +156,7 @@ def ep_layer(out, rank, mesh):
     d, m = mesh.get_coordinate()
     flat, layout, shards = layer_shards(cfg, 2, data=2)
     ep, tp = moe_ep.contexts(mesh)
-    view = TPView(shards, m, cfg.resolved_head_dim, tp, rank=d * 2 + m)
+    view = TPView(shards, m, cfg, tp, rank=d * 2 + m)
     x, proj = layer_inputs(EP_B, EP_S, cfg.d_model)
     per = EP_B // 2
     x = torch.from_numpy(x[d * per:(d + 1) * per])

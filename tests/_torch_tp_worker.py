@@ -193,7 +193,7 @@ def dense_family_grads(out, rank, model):
         shards = ShardLayout.from_sizes(layout, {"clients": 1,
                                                  "model": model})
         tp = TPContext.of(dist.group.WORLD)
-        view = TPView(shards, rank, cfg.resolved_head_dim, tp)
+        view = TPView(shards, rank, cfg, tp)
         rng = np.random.RandomState(3)
         toks = rng.randint(0, cfg.vocab_size, (2, 2, 13)).astype(np.int64)
         batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}

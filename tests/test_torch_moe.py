@@ -33,6 +33,7 @@ from repro_torch.core import jax_prng
 from repro_torch.launch import steps
 from repro_torch.models import attention, moe
 from repro_torch.models import transformer as tf
+from _torch_one_rank import check_tp_route
 from _torch_threads import one_intra_op_thread  # noqa: F401
 
 DEEPSEEK, JAMBA, KIMI = ("deepseek-v2-236b", "jamba-1.5-large-398b",
@@ -408,14 +409,14 @@ def test_grouped_train_step_matches_the_reference():
 
 def test_expert_parallel_and_sharding_cite_item_13():
     """The expert-parallel MoE trains over a mesh (item 13c, ported):
-    without one it raises; serving with it cites item 13i, and
-    DeepSeek-V2 over a model group its MLA's item 13f."""
+    without one it raises; serving with it cites item 13i. DeepSeek-V2
+    over a model group builds its tensor-parallel step (its MLA, item
+    13f, ported: tests/_torch_one_rank.py)."""
     cfg = get_config(DEEPSEEK, smoke=True)
     shape = shapes.SHAPES["prefill_32k"]
     with pytest.raises(ValueError, match="moe_mesh"):
         steps.make_train_step(cfg, moe_impl="ep")
-    with pytest.raises(NotImplementedError, match="item 13f"):
-        steps.make_train_step(cfg, model_group=object())
+    check_tp_route(cfg)
     assert callable(steps.make_decode_step(cfg, shape,
                                            shard_fn=lambda x, role: x))
     for make in (steps.make_prefill_step, steps.make_decode_step):

@@ -55,6 +55,7 @@ from repro_torch.models import moe_ep
 from repro_torch.models import transformer as tf
 from repro_torch.sharding.layout import (PARTIAL, VIEW, ShardLayout,
                                          tp_classes)
+from _torch_one_rank import check_tp_route
 from _torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -418,11 +419,10 @@ def test_kimi_classes_and_expert_bytes_at_full_size(model):
     the shared experts are VIEW, the router PARTIAL, and a rank's expert
     stacks at rest are E·3·D·F/M × 4 bytes a MoE layer."""
     cfg = get_config(w.ARCH)
-    assert tf.tensor_parallel_refusal(cfg) is None
     assert tf.LMLoss(cfg).tensor_parallel
     layout = bridge.layout_of(steps.params_spec(cfg))
     shards = ShardLayout.from_sizes(layout, {"clients": 1, "model": model})
-    classes = tp_classes(shards, cfg.resolved_head_dim)
+    classes = tp_classes(shards, cfg)
     paths = ["/".join(map(str, p)) for p in layout.paths]
     expert = [i for i, p in enumerate(paths)
               if re.search(r"mlp/(gate|up|down)$", p)]
@@ -443,10 +443,10 @@ def test_kimi_classes_and_expert_bytes_at_full_size(model):
 @pytest.mark.parametrize("arch,item", [
     ("deepseek-v2-236b", "13f"), ("jamba-1.5-large-398b", "13g")])
 def test_moe_families_still_refused_cite_their_items(arch, item):
-    cfg = get_config(arch, smoke=True)
-    assert not tf.LMLoss(cfg).tensor_parallel
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        steps.make_train_step(cfg, model_group=object())
+    """The MoE families whose mixer items 13f (MLA) and 13g (Mamba)
+    queued build their tensor-parallel step now and train on the route
+    (tests/_torch_one_rank.py)."""
+    check_tp_route(get_config(arch, smoke=True))
 
 
 def test_serving_with_ep_and_the_production_mesh_refuse():

@@ -22,7 +22,8 @@ from numpy seeds, weights carried by ``bridge``:
   (iv)  an async int8 + error-feedback cell on (1 x 2), and a TP round's
         checkpoint resumed in one process;
   (v)   the TP view's leaf classes at full size (StarCoder2-3B and the
-        ~101M LM example at M = 2 and 4), and what still refuses.
+        ~101M LM example at M = 2 and 4), and the families that once
+        refused (MLA, Mamba, the encoder-decoder) on their route.
 """
 import functools
 import json
@@ -53,6 +54,7 @@ from repro_torch.models import transformer as tf
 from repro_torch.sharding import layout as layout_mod
 from repro_torch.sharding.layout import (PARTIAL, VIEW, WHOLE, ShardLayout,
                                          tp_classes)
+from _torch_one_rank import check_tp_route
 from _torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -430,8 +432,7 @@ def _classes(cfg, model):
     layout = bridge.layout_of(steps.params_spec(cfg))
     shards = ShardLayout.from_sizes(layout, {"clients": 1, "model": model})
     return shards, {"/".join(map(str, p)): c for p, c in
-                    zip(layout.paths, tp_classes(shards,
-                                                 cfg.resolved_head_dim))}
+                    zip(layout.paths, tp_classes(shards, cfg))}
 
 
 @pytest.mark.parametrize("model", [2, 4])
@@ -461,7 +462,7 @@ def test_tp_view_classes_at_full_size(name, model):
         torch.empty(shards.layout.size, device="meta"))
     want_shapes = [tuple(t.shape) for t in bridge.tree_leaves(tree)]
     for m in range(model):
-        view = layout_mod.TPView(shards, m, cfg.resolved_head_dim, None)
+        view = layout_mod.TPView(shards, m, cfg, None)
         assert view.classes == tuple(classes.values())
         for i, shape in enumerate(want_shapes):
             local = view._local.get(i, shape)
@@ -486,23 +487,19 @@ def test_tp_view_refuses_an_axis_that_splits_heads():
     ("falcon-mamba-7b", "13g"), ("whisper-base", "13h"),
     ("mla", "13f")])
 def test_queued_families_refuse_tensor_parallelism(arch, item):
-    """MLA, Mamba and the encoder-decoder have no tensor-parallel form
-    yet (an MoE stack with one of them cites it: DeepSeek-V2 MLA, Jamba
-    the Mamba mixer): make_train_step over a model group and lm_forward
-    with a TP context raise, each citing its ROADMAP item; their LMLoss
-    keeps the row split (tensor_parallel False), the dense families and
-    Kimi-K2 (GQA with MoE experts) do not."""
+    """The families ROADMAP items 13f-13h queued — MLA (DeepSeek-V2, and
+    with dense MLPs), the Mamba mixer (Jamba, Falcon-Mamba) and the
+    encoder-decoder (Whisper) — now refuse no more: their LMLoss trains
+    tensor-parallel, their SMOKE tree splits over 2 model ranks, and
+    make_train_step over a model group (of one rank here) builds and
+    steps as one process (tests/_torch_one_rank.py; M = 2 and 4 against
+    the reference in test_torch_tp_families.py). The dense families and
+    Kimi-K2 train so too."""
     if arch == "mla":
         cfg = get_config("deepseek-v2-236b", smoke=True).with_(moe=False)
     else:
         cfg = get_config(arch, smoke=True)
-    assert not tf.LMLoss(cfg).tensor_parallel
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        steps.make_train_step(cfg, model_group=object())
-    if not cfg.is_encoder_decoder:
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            tf.lm_forward(cfg, {}, torch.zeros(1, 2, dtype=torch.int64),
-                          tp=object())
+    check_tp_route(cfg)
     for dense in ("starcoder2-3b", "phi4-mini-3.8b", "minitron-8b",
                   "command-r-35b", "llava-next-mistral-7b",
                   "kimi-k2-1t-a32b"):
