@@ -281,6 +281,25 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               CPU (2 + 2 FedDPC launches a rank); on four cards
               DeepSeek-V2 and Jamba at 2 layers on (1 x 4) against one
               process and (1 x 2) (phase_tp_families).
+ 12e. tp serve  serving over the model axis (--tp-serve-worker):
+              make_prefill_step / make_decode_step with model_group= on
+              2 gloo ranks of one card, each rank's params cut once from
+              leaves drawn on the card, B = 8, greedy: StarCoder2-3B
+              full (f32, bf16; 1,024 + 32 tokens; 30 x 32 flash launches a
+              rank on 12 heads over 1 KV head, 61 sums and 1 all-gather a
+              decode step), Falcon-Mamba-7B full (bf16, f32; 64 x 32
+              ssm_scan launches a rank on 4,096 channels), DeepSeek-V2,
+              Jamba-1.5 and Kimi-K2 at MOE_SERVE's cuts and Whisper-base
+              (a prefill and 8 decode steps), DeepSeek-V2 with
+              moe_impl="ep" on (2 x 1) at capacity factor 8; each against
+              one process on the same leaves with the ranks' tokens
+              forced (f32 logits within 1e-3 x max|logit|, bf16 top-1 >=
+              90 %); a rank's peak, cache bytes, prefill s, tok/s and
+              each decode step's collectives (no parameter gather). On
+              four cards also StarCoder2-3B on (1 x 4) and Kimi-K2
+              expert-parallel on (2 x 2) over NCCL (phase_tp_serve). The
+              attention and ssm kernels phases hold the kernels at its
+              shapes (FA_CASES' and SS_CASES' tp_* entries).
  13. lm fl    the reference example's federated LM run at its own size
               (repro_torch.examples.federated_llm_pretraining without
               --tiny: ~101M params, 20 clients, 5 a round, FedDPC) for 4
@@ -360,6 +379,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -375,6 +395,7 @@ from repro_torch.bridge import (layout_of, tree_leaves,  # noqa: E402
                                 tree_map)
 from repro_torch.configs import paper_lenet5, paper_resnet18  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.configs.shapes import SHAPES  # noqa: E402
 from repro_torch.core import projection as proj  # noqa: E402
 from repro_torch.core.api import (AlgoConfig, ExecConfig,  # noqa: E402
                                   FederatedTrainer)
@@ -478,6 +499,9 @@ FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 4e-2}
 BF16_STEPS_TOL = 2
 SERVE_ARCH = "starcoder2-3b"
 VLM_ARCH = "llava-next-mistral-7b"
+# the VLM's serve phase at full width, its depth cut (32 layers) for the
+# smoke's time: every layer is the same decoder layer
+VLM_SERVE_CUT = {"num_layers": 8}
 SERVE_B, SERVE_PROMPT, SERVE_GEN = 8, 1024, 32
 SERVE_STEPS = 8               # teacher-forced steps, kernel vs plain path
 SMOKE_STEPS = 4               # ... and card vs CPU on the SMOKE config
@@ -508,10 +532,17 @@ FA_CASES = (
     ("mla_short_prefill", 8, 8, 64, 128, 128, 192, 0, 0.0, 56, 0, False),
     ("kimi_prefill", 8, 1024, 1024, 64, 8, 112, 0, 0.0, 0, 0, False),
     ("kimi_decode", 8, 1, 1056, 64, 8, 112, 0, 0.0, 16, 1039, False),
+    # the tp_serve phase's shapes on a rank of (1 x 2): StarCoder2-3B's
+    # 12 query heads on 1 KV head (prefill, and a decode over 1,056 slots),
+    # DeepSeek-V2's 64 MLA heads at D 192
+    ("tp_prefill", 8, 1024, 1056, 12, 1, 128, 0, 0.0, 32, 0, False),
+    ("tp_decode", 8, 1, 1056, 12, 1, 128, 0, 0.0, 16, 1039, False),
+    ("tp_mla_prefill", 8, 1024, 1024, 64, 64, 192, 0, 0.0, 0, 0, False),
 )
 FA_TIMED = ("prefill", "decode", "decode_long", "whisper_encoder",
             "whisper_cross_decode", "mla_prefill", "mla_short_prefill",
-            "kimi_prefill", "kimi_decode")
+            "kimi_prefill", "kimi_decode", "tp_prefill", "tp_decode",
+            "tp_mla_prefill")
 # the flash-attention kernels' names (a profile's key contains one)
 FA_KERNEL_NAMES = ("fa_fwd_kernel", "fa_mma_kernel", "fa_split_kernel",
                    "fa_split_mma_kernel")
@@ -525,6 +556,10 @@ SS_REPLACES = "src/repro/kernels/ssm_scan/kernel.py:65"
 SS_TOL = {torch.float32: 2e-4, torch.bfloat16: 4e-2}
 SS_H_TOL = 2e-4
 SSM_ARCH = "falcon-mamba-7b"
+# its serve phase at full width, its depth cut (64 layers) for the smoke's
+# time, most of it the plain path's scan, step by step; tp_serve (b)
+# serves all 64 layers
+SSM_SERVE_CUT = {"num_layers": 16}
 # (label, B, S, D_in, N, a carried-in state h0)
 SS_CASES = (
     ("prefill", 8, 1024, 8192, 16, False),
@@ -532,10 +567,14 @@ SS_CASES = (
     ("continuation", 8, 100, 8192, 16, True),
     ("ragged", 2, 100, 96, 8, False),
     ("ragged_short", 1, 17, 64, 4, False),
+    # the tp_serve phase's: Falcon-Mamba's 4,096 channels a rank of
+    # (1 x 2) (Jamba's 8,192 a rank are "prefill"'s and "decode"'s D_in)
+    ("tp_prefill", 8, 1024, 4096, 16, False),
+    ("tp_decode", 8, 1, 4096, 16, True),
 )
-SS_TIMED = ("prefill", "decode")
+SS_TIMED = ("prefill", "decode", "tp_prefill", "tp_decode")
 # ... also run in the fused form (dt_bias, dt_softplus, z)
-SS_FUSED = ("prefill", "decode", "ragged")
+SS_FUSED = ("prefill", "decode", "ragged", "tp_prefill", "tp_decode")
 # the ssm_scan kernels' names (a profile's key or a SASS function holds one)
 SS_KERNEL_NAMES = ("ssm_scan_kernel", "ssm_step_kernel")
 # the SFU's exponentials (MUFU.EX2): 16 per clock per SM on the H100's 132
@@ -581,30 +620,54 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, reps: int = 20, calls: int = 10):
+# a call slower than TIMING_SLOW_MS is timed in shorter and fewer
+# windows: about TIMING_WINDOW_MS of calls a window (one call at least),
+# and as many windows as take about TIMING_BUDGET_MS (TIMING_MIN_REPS at
+# least); its host launch path is nothing beside it
+TIMING_SLOW_MS = 1.0
+TIMING_WINDOW_MS = 10.0
+TIMING_BUDGET_MS = 200.0
+TIMING_MIN_REPS = 5
+
+
+def _window_ms(fn, n: int) -> float:
+    """CUDA-event time per call of ``n`` back-to-back calls of ``fn``."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def _windows(one_ms: float, reps: int, calls: int = 1):
+    """(reps, calls) for a call of ``one_ms``: as asked for a fast call,
+    cut to the timing budget for a slow one."""
+    if one_ms <= TIMING_SLOW_MS:
+        return reps, calls
+    calls = max(1, min(calls, int(TIMING_WINDOW_MS / one_ms)))
+    return min(reps, max(TIMING_MIN_REPS,
+                         int(TIMING_BUDGET_MS / (one_ms * calls)))), calls
+
+
+def cuda_ms(fn, reps: int = 20, calls: int = 10, one_call: bool = True):
     """(ms, one_call_ms), each the median over ``reps`` windows of the
     CUDA-event time per call, after warm-up: ``ms`` from windows of
     ``calls`` back-to-back calls — the queue stays full, so the host's
     launch path (checks, allocation, the ctypes call) hides behind the
     kernels — and ``one_call_ms`` from windows of one call, the host's
-    launch path included."""
-    for _ in range(3):
+    launch path included (None without ``one_call``). A slow call gets
+    fewer windows (``_windows``: the last warm-up call, timed, says how
+    slow)."""
+    for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    out = []
-    for n in (calls, 1):
-        times = []
-        for _ in range(reps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(n):
-                fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end) / n)
-        out.append(statistics.median(times))
-    return tuple(out)
+    reps, calls = _windows(_window_ms(fn, 1), reps, calls)
+    ms = statistics.median(_window_ms(fn, calls) for _ in range(reps))
+    return ms, (statistics.median(_window_ms(fn, 1) for _ in range(reps))
+                if one_call else None)
 
 
 def cuda_ms_cold(fn, reps: int = 20, spin: bool = False):
@@ -612,22 +675,18 @@ def cuda_ms_cold(fn, reps: int = 20, spin: bool = False):
     256 MB memset is queued just before each window, so the host's launch
     path also hides behind it. With ``spin``, a 0.1 ms spin on the card
     follows the memset, so that the launch path hides on a slow host too
-    (``ms_cold_spin``; ``ms_cold`` is without)."""
+    (``ms_cold_spin``; ``ms_cold`` is without). A slow call gets fewer
+    windows (``_windows``)."""
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     fn()
     torch.cuda.synchronize()
+    reps, _ = _windows(_window_ms(fn, 1), reps)
     times = []
     for _ in range(reps):
         flush.zero_()
         if spin:
             torch.cuda._sleep(200_000)         # ~0.1 ms at ~2 GHz
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(_window_ms(fn, 1))
     return statistics.median(times)
 
 
@@ -901,7 +960,7 @@ def phase_kernels():
              lambda: ref.batched_epilogue_ref(d, p, w, coefs, scales,
                                               ETA_G), epi_bytes, epi_flops)):
         ms, ms_one = cuda_ms(kern)
-        plain_ms, _ = cuda_ms(plain)
+        plain_ms, _ = cuda_ms(plain, one_call=False)
         b_ms, b_by = bound_ms(nbytes, flops)
         rows.append({"name": name, "route": "cuda", "source": SOURCE,
                      "replaces": REPLACES[name], "max_abs_err": err[name],
@@ -1038,7 +1097,7 @@ def phase_guard_epilogue():
     rows = {}
     for name, form, kern, plain, nbytes, flops in cases:
         ms, ms_one = cuda_ms(kern)
-        plain_ms, _ = cuda_ms(plain)
+        plain_ms, _ = cuda_ms(plain, one_call=False)
         b_ms, b_by = bound_ms(nbytes, flops)
         row = {"name": name, "route": "cuda", "source": SOURCE,
                "replaces": REPLACES[name], "max_abs_err": err[name],
@@ -1201,7 +1260,7 @@ def phase_folds():
                 offsets.numel() - 1,
                 inputs[0].element_size() if dequant else 4)
             ms, ms_one = cuda_ms(kern)
-            plain_ms, _ = cuda_ms(plain)
+            plain_ms, _ = cuda_ms(plain, one_call=False)
             b_ms, b_by = bound_ms(nbytes, flops)
             row = {"name": name, "route": "cuda", "source": SOURCE,
                    "replaces": REPLACES[name], "max_abs_err": err[name],
@@ -1346,7 +1405,7 @@ def phase_int8_sr():
                              f"differ from the plain version by {err}")
     ms, ms_one = cuda_ms(kern)
     plain_ms, _ = cuda_ms(lambda: _sr_plain(x, scale, offsets, keys),
-                          reps=3, calls=1)
+                          reps=3, calls=1, one_call=False)
     row = {"name": "int8_sr_quantize", "route": "cuda", "source": SR_SOURCE,
            "replaces": SR_REPLACES, "max_abs_err": err, "ms": ms,
            "ms_one_call": ms_one,
@@ -2403,11 +2462,98 @@ def _mr_check_losses(label, got, want):
     return max(rel)
 
 
+def mr_layout(cards: int):
+    """(ranks, backend) of the multirank job: min(4, cards) NCCL ranks
+    on two cards or more, 2 gloo ranks on one."""
+    return (min(4, cards), "nccl") if cards >= 2 else (2, "gloo")
+
+
+class _RankJob:
+    """A rank phase's job, started on a thread: this script run with
+    ``worker``'s flag as ``ranks`` processes (distributed.spawn_local,
+    ``env`` on top), writing into ``out`` (a directory of its own if none
+    is given). The phase's one-process runs, and the other jobs
+    start_rank_jobs started, overlap it."""
+
+    def __init__(self, worker, ranks, backend, timeout_s, env=None,
+                 out=None):
+        self._dir = (None if out is not None else
+                     tempfile.TemporaryDirectory(prefix="chip_smoke_job_"))
+        self.out = out if out is not None else self._dir.name
+        self.ranks = ranks
+        env = dict(env or {})
+        if backend == "nccl":
+            env["NCCL_SOCKET_IFNAME"] = os.environ.get("NCCL_SOCKET_IFNAME",
+                                                       "lo")
+        argv = [sys.executable, os.path.abspath(__file__), worker, self.out]
+
+        def run():
+            tic = time.perf_counter()
+            distributed.spawn_local(
+                argv, ranks, backend=backend,
+                local_devices=1 if backend == "gloo" else None, env=env,
+                timeout_s=timeout_s)
+            return time.perf_counter() - tic
+
+        pool = ThreadPoolExecutor(1)
+        self._done = pool.submit(run)
+        pool.shutdown(wait=False)
+
+    def wait(self) -> float:
+        """The job's seconds, once it has ended; raises what it raised."""
+        return self._done.result()
+
+    def lines(self) -> list:
+        """Once the job has ended, the lines its ranks wrote."""
+        self.wait()
+        lines = []
+        for r in range(self.ranks):
+            with open(os.path.join(self.out, f"rank{r}.json")) as fh:
+                lines += json.load(fh)
+        return lines
+
+    def close(self):
+        """Waits for the job, however it ends, and removes its own
+        ``out``."""
+        self._done.exception()
+        if self._dir is not None:
+            self._dir.cleanup()
+
+
+_JOBS = {}
+
+
+def _rank_job(worker, ranks, backend, timeout_s) -> _RankJob:
+    """The job start_rank_jobs started for ``worker``, or a new one, once
+    this process has handed its cached blocks back to the card."""
+    if worker in _JOBS:
+        return _JOBS.pop(worker)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return _RankJob(worker, ranks, backend, timeout_s)
+
+
+def start_rank_jobs():
+    """Starts the jobs of the multirank and async_ranks phases at once,
+    before the first of them: their ResNet18-GN ranks hold 4-6 GiB each
+    and are one thread each, so both jobs and the phases' one-process
+    runs share the card and the host's cores. (model_axis's ranks peak at
+    14 GiB in its LM run, beside one process's 30: its job overlaps its
+    own one-process runs only.)"""
+    gc.collect()
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    for worker, layout, timeout_s in ((MR_WORKER, mr_layout(cards), 480),
+                                      (AR_WORKER, ma_layout(cards), 480)):
+        _JOBS[worker] = _RankJob(worker, *layout, timeout_s)
+
+
 def phase_multirank():
     cards = torch.cuda.device_count()
-    ranks, backend = (min(4, cards), "nccl") if cards >= 2 else (2, "gloo")
+    ranks, backend = mr_layout(cards)
     k = mr_cohort(ranks)
     tic = time.perf_counter()
+    job = _rank_job(MR_WORKER, ranks, backend, 480)
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
@@ -2420,33 +2566,19 @@ def phase_multirank():
             del tr
         gc.collect()
         torch.cuda.empty_cache()
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_mr_") as out:
-            env = {}
-            if backend == "nccl":
-                env["NCCL_SOCKET_IFNAME"] = os.environ.get(
-                    "NCCL_SOCKET_IFNAME", "lo")
-            job_tic = time.perf_counter()
-            distributed.spawn_local(
-                [sys.executable, os.path.abspath(__file__), MR_WORKER, out],
-                ranks, backend=backend,
-                local_devices=1 if backend == "gloo" else None, env=env,
-                timeout_s=480)
-            job_s = time.perf_counter() - job_tic
-            lines = []
-            for r in range(ranks):
-                with open(os.path.join(out, f"rank{r}.json")) as fh:
-                    lines += json.load(fh)
-            params = {run: torch.load(os.path.join(out, f"{run}.pt"))
-                      for run in MR_RUNS}
-            with _mr_trainer(task, "b", k,
-                             resume_from=os.path.join(out, "ckpt")) as res:
-                if res.start_round != MR_CUT:
-                    raise AssertionError(f"multirank d: resumed at "
-                                         f"{res.start_round}")
-                res.run()
-            resumed = (res.history, res.flat.cpu())
+        lines, job_s, out = job.lines(), job.wait(), job.out
+        params = {run: torch.load(os.path.join(out, f"{run}.pt"))
+                  for run in MR_RUNS}
+        with _mr_trainer(task, "b", k,
+                         resume_from=os.path.join(out, "ckpt")) as res:
+            if res.start_round != MR_CUT:
+                raise AssertionError(f"multirank d: resumed at "
+                                     f"{res.start_round}")
+            res.run()
+        resumed = (res.history, res.flat.cpu())
     finally:
         torch.backends.cudnn.deterministic = deterministic
+        job.close()
     for line in lines:
         run = line["run"]
         per_round = {"feddpc_dots": 1,
@@ -2731,6 +2863,7 @@ def phase_model_axis():
     cards = torch.cuda.device_count()
     (ranks, backend), model = ma_layout(cards), MA_MODEL
     tic = time.perf_counter()
+    job = _rank_job(MA_WORKER, ranks, backend, 600)
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     single = {}
@@ -2753,36 +2886,22 @@ def phase_model_axis():
         del tr
         gc.collect()
         torch.cuda.empty_cache()
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_ma_") as out:
-            env = {}
-            if backend == "nccl":
-                env["NCCL_SOCKET_IFNAME"] = os.environ.get(
-                    "NCCL_SOCKET_IFNAME", "lo")
-            job_tic = time.perf_counter()
-            distributed.spawn_local(
-                [sys.executable, os.path.abspath(__file__), MA_WORKER, out],
-                ranks, backend=backend,
-                local_devices=1 if backend == "gloo" else None, env=env,
-                timeout_s=600)
-            job_s = time.perf_counter() - job_tic
-            lines = []
-            for r in range(ranks):
-                with open(os.path.join(out, f"rank{r}.json")) as fh:
-                    lines += json.load(fh)
-            for line in lines:
-                emit(line)
-            params = {run: torch.load(os.path.join(out, f"{run}.pt"))
-                      for run in (*MA_RUNS, "f")}
-            with _ma_trainer(task, MA_RUNS["a"][0], None,
-                             resume_from=os.path.join(out, "ckpt")) as res:
-                if res.start_round != MA_CUT:
-                    raise AssertionError(f"model_axis e: resumed at "
-                                         f"{res.start_round}")
-                res.run()
-            resumed = ([r.train_loss for r in res.history[MA_CUT:]],
-                       res.flat.cpu())
+        lines, job_s, out = job.lines(), job.wait(), job.out
+        for line in lines:
+            emit(line)
+        params = {run: torch.load(os.path.join(out, f"{run}.pt"))
+                  for run in (*MA_RUNS, "f")}
+        with _ma_trainer(task, MA_RUNS["a"][0], None,
+                         resume_from=os.path.join(out, "ckpt")) as res:
+            if res.start_round != MA_CUT:
+                raise AssertionError(f"model_axis e: resumed at "
+                                     f"{res.start_round}")
+            res.run()
+        resumed = ([r.train_loss for r in res.history[MA_CUT:]],
+                   res.flat.cpu())
     finally:
         torch.backends.cudnn.deterministic = deterministic
+        job.close()
     checks = [x for x in lines if x["run"] == "codec_check"]
     lines = [x for x in lines if x["run"] != "codec_check"]
     for name in ("int8", "int8_sr"):
@@ -2995,6 +3114,7 @@ def phase_async_ranks():
     ranks, backend = ma_layout(cards)
     k = mr_cohort(ranks)
     tic = time.perf_counter()
+    job = _rank_job(AR_WORKER, ranks, backend, 480)
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     single = {}
@@ -3013,37 +3133,23 @@ def phase_async_ranks():
         single["c"], single["d"] = single["a"], single["b"]
         gc.collect()
         torch.cuda.empty_cache()
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_ar_") as out:
-            env = {}
-            if backend == "nccl":
-                env["NCCL_SOCKET_IFNAME"] = os.environ.get(
-                    "NCCL_SOCKET_IFNAME", "lo")
-            job_tic = time.perf_counter()
-            distributed.spawn_local(
-                [sys.executable, os.path.abspath(__file__), AR_WORKER, out],
-                ranks, backend=backend,
-                local_devices=1 if backend == "gloo" else None, env=env,
-                timeout_s=480)
-            job_s = time.perf_counter() - job_tic
-            lines = []
-            for r in range(ranks):
-                with open(os.path.join(out, f"rank{r}.json")) as fh:
-                    lines += json.load(fh)
-            params = {run: torch.load(os.path.join(out, f"{run}.pt"))
-                      for run in AR_RUNS}
-            with _ar_trainer(task, "e", k, None,
-                             resume_from=os.path.join(out, "ckpt")) as res:
-                if (res.start_round != AR_CUT
-                        or not res._engine.inflight()):
-                    raise AssertionError(
-                        f"async_ranks e: resumed at {res.start_round} "
-                        f"with {len(res._engine.inflight())} in flight")
-                res.run()
-            resumed = ([r.train_loss for r in res.history[AR_CUT:]],
-                       res.flat.cpu())
-            del res
+        lines, job_s, out = job.lines(), job.wait(), job.out
+        params = {run: torch.load(os.path.join(out, f"{run}.pt"))
+                  for run in AR_RUNS}
+        with _ar_trainer(task, "e", k, None,
+                         resume_from=os.path.join(out, "ckpt")) as res:
+            if (res.start_round != AR_CUT
+                    or not res._engine.inflight()):
+                raise AssertionError(
+                    f"async_ranks e: resumed at {res.start_round} "
+                    f"with {len(res._engine.inflight())} in flight")
+            res.run()
+        resumed = ([r.train_loss for r in res.history[AR_CUT:]],
+                   res.flat.cpu())
+        del res
     finally:
         torch.backends.cudnn.deterministic = deterministic
+        job.close()
     launches = collections.Counter()
     for line in lines:
         run = line["run"]
@@ -3233,14 +3339,16 @@ def phase_attention():
                                      k_pos, **kw)
             ms, ms_one = cuda_ms(kern)
             plain_ms, _ = cuda_ms(functools.partial(
-                fa_ref.attention_ref, q, k, v, q_pos, k_pos, **kw))
+                fa_ref.attention_ref, q, k, v, q_pos, k_pos, **kw),
+                one_call=False)
             b_ms, b_by = bound_ms(nbytes, flops, peak)
             line.update({
                 "ms": ms, "ms_one_call": ms_one,
                 "ms_cold": cuda_ms_cold(kern),
                 "ms_cold_spin": cuda_ms_cold(kern, spin=True),
                 "plain_ms": plain_ms,
-                "library_ms": cuda_ms(lib)[0], "library_max_abs_err": lib_err,
+                "library_ms": cuda_ms(lib, one_call=False)[0],
+                "library_max_abs_err": lib_err,
                 "bound_ms": b_ms, "bound_by": b_by,
                 "pct_of_bound": 100.0 * b_ms / ms,
                 "peak_flop_per_s": peak, "bytes": nbytes, "flops": flops,
@@ -3381,8 +3489,8 @@ def phase_ssm_kernels():
                 plain = functools.partial(ss_ref.ssm_scan_ref, *args, **kw)
                 ms, ms_one = cuda_ms(kern)
                 # the plain version launches ~8 kernels a step: few windows
-                plain_ms, _ = cuda_ms(plain, reps=3, calls=1) if s > 1 \
-                    else cuda_ms(plain)
+                plain_ms, _ = cuda_ms(plain, reps=3, calls=1, one_call=False) \
+                    if s > 1 else cuda_ms(plain, one_call=False)
                 line.update({
                     "ms": ms, "ms_one_call": ms_one,
                     "ms_cold": cuda_ms_cold(kern),
@@ -3849,8 +3957,9 @@ def _lm_category(kernel: str) -> str:
     return "other"
 
 
-def phase_lm_train():
-    """One client's local training at full width and depth: StarCoder2-3B
+def phase_lm_train(cut=None):
+    """One client's local training at full width and depth — or the
+    config ``.with_(**cut)`` —: StarCoder2-3B
     (30 layers, d_model 3072, f32, random weights from seed 0), B = 2
     sequences of 1,024 tokens, LM_TRAIN_STEPS SGD steps through
     launch/steps.make_train_step(remat="full") — plain autograd, each
@@ -3859,8 +3968,8 @@ def phase_lm_train():
     either package). Bound: 6·N·tokens (forward and backward) plus
     2·N·tokens (the recomputed forward) f32 FLOP at the f32 peak.
     Returns {"losses", "params" the steps end on} (tp_train holds its
-    ranks against them)."""
-    cfg = get_config(LM_TRAIN_ARCH)
+    ranks against them, at TP_TRAIN_CUT)."""
+    cfg = get_config(LM_TRAIN_ARCH).with_(**(cut or {}))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -3884,6 +3993,7 @@ def phase_lm_train():
     flops = 8.0 * n_params * ntok
     bound, _ = bound_ms(0, flops)
     emit({"phase": "lm_train", "arch": cfg.name, "layers": cfg.num_layers,
+          "cut": cut or {},
           "d_model": cfg.d_model, "params": n_params, "dtype": "float32",
           "batch": LM_TRAIN_B, "seq_len": LM_TRAIN_S, "remat": "full",
           "lr": LM_TRAIN_LR, "losses": losses, "step_seconds": seconds,
@@ -3905,6 +4015,9 @@ def phase_lm_train():
 
 
 TP_WORKER = "--tp-worker"
+# (a)'s depth cut (30 layers) for the smoke's time: every layer is the
+# same decoder layer, and the width, the heads and the vocabulary are whole
+TP_TRAIN_CUT = {"num_layers": 8}
 TP_RTOL = 1e-4          # losses, and each leaf against its max |w|
 TP_MOVE_FRAC = 1e-2     # each leaf's error against how far it moved
 TP_ONE_PROCESS = "one_process"      # lm_train's run, handed to the ranks
@@ -3971,12 +4084,17 @@ def reference_pieces(cfg, params):
     return pieces
 
 
+def tp_train_config():
+    """StarCoder2-3B at TP_TRAIN_CUT: the config of tp_train's (a)."""
+    return get_config(LM_TRAIN_ARCH).with_(**TP_TRAIN_CUT)
+
+
 def _tp_hand_on(one_process, out: str) -> None:
     """Writes lm_train's run for the ranks into ``out``: its losses
     (json) and the params it ended on as the reference's flat vector
     (raw f32, one piece at a time off the card); then empties
     ``one_process``, so that the card holds the params no more."""
-    cfg = get_config(LM_TRAIN_ARCH)
+    cfg = tp_train_config()
     with open(os.path.join(out, TP_ONE_PROCESS + ".json"), "w") as fh:
         json.dump(one_process["losses"], fh)
     with open(os.path.join(out, TP_ONE_PROCESS + ".f32"), "wb") as fh:
@@ -4014,7 +4132,7 @@ def _tp_step_line(ctx, out: str):
     moved it (max |w_3 - w_0|)."""
     import torch.distributed as dist
     from repro_torch.core.round import _Collectives
-    cfg = get_config(LM_TRAIN_ARCH)
+    cfg = tp_train_config()
     m = ctx.process_id
     step = lm_steps.make_train_step(cfg, lr=LM_TRAIN_LR, remat="full",
                                     model_group=dist.group.WORLD)
@@ -4155,11 +4273,12 @@ def _tp_worker(out: str) -> int:
 
 def phase_tp_train(one_process):
     """Tensor-parallel local training at full width (--tp-worker):
-    (a) StarCoder2-3B, all 30 layers, f32, B = 2 x 1,024, LM_TRAIN_STEPS
+    (a) StarCoder2-3B, 8 of its 30 layers (TP_TRAIN_CUT), f32, B = 2 x
+    1,024, LM_TRAIN_STEPS
     SGD steps of make_train_step(remat="full") over a model group of the
     job's ranks (tp_layout: 2 gloo ranks on one card), each rank stepping
     its shard, held against ``one_process`` (phase_lm_train's losses and
-    the params its steps ended on, at the same seed): losses within
+    the params its steps ended on, at the same seed and cut): losses within
     TP_RTOL relative, every leaf within TP_RTOL of its max |w| and
     within TP_MOVE_FRAC of how far one process's steps moved it (a
     norm's gradient summed over the ranks, or a K/V gradient left
@@ -5179,21 +5298,17 @@ def _moe_parallel_worker(out: str) -> int:
     return 0
 
 
+# the ranks share a card with this process's cache: segments that grow
+# in place keep a rank's freed blocks usable
+MP_ENV = {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+
+
 def _mp_spawn(out, ranks, backend, worker=MP_WORKER):
-    # the ranks share a card with this process's cache: segments that
-    # grow in place keep a rank's freed blocks usable
-    env = {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
-    if backend == "nccl":
-        env["NCCL_SOCKET_IFNAME"] = os.environ.get("NCCL_SOCKET_IFNAME", "lo")
-    distributed.spawn_local(
-        [sys.executable, os.path.abspath(__file__), worker, out], ranks,
-        backend=backend, local_devices=1 if backend == "gloo" else None,
-        env=env, timeout_s=900)
-    lines = []
-    for r in range(ranks):
-        with open(os.path.join(out, f"rank{r}.json")) as fh:
-            lines += json.load(fh)
-    return lines
+    job = _RankJob(worker, ranks, backend, 900, MP_ENV, out)
+    try:
+        return job.lines()
+    finally:
+        job.close()
 
 
 def phase_moe_parallel():
@@ -5843,6 +5958,443 @@ def phase_tp_families(pair: bool = True):
         raise AssertionError("tp_families: " + "; ".join(failures))
 
 
+# ---------------- tp_serve: serving over the model axis ----------------
+
+TS_WORKER = "--tp-serve-worker"
+TS_SEED = 0
+TS_FORCED = SERVE_STEPS + 1   # (c), (d): a prefill and SERVE_STEPS decode steps
+TS_EP_PROMPT = 256            # (d): the all-to-all's buffers through the host
+TS_CUT = {arch: cut for arch, cut, _ in MOE_SERVE}
+F32, BF16 = torch.float32, torch.bfloat16
+# run -> (arch, config overrides, dtypes, (data, model) mesh, prompt
+# tokens (None: the encoder-decoder's frames), tokens generated, moe_impl)
+TS_RUNS = {
+    "a": (SERVE_ARCH, {}, (F32, BF16), (1, 2), SERVE_PROMPT, SERVE_GEN,
+          "gshard"),
+    "b": (SSM_ARCH, {}, (BF16,), (1, 2), SERVE_PROMPT, SERVE_GEN,
+          "gshard"),
+    "c_deepseek": (DEEPSEEK_ARCH, TS_CUT[DEEPSEEK_ARCH], (F32,), (1, 2),
+                   SERVE_PROMPT, TS_FORCED, "gshard"),
+    "c_jamba": (JAMBA_ARCH, TS_CUT[JAMBA_ARCH], (F32,), (1, 2),
+                SERVE_PROMPT, TS_FORCED, "gshard"),
+    "c_kimi": (KIMI_ARCH, TS_CUT[KIMI_ARCH], (BF16,), (1, 2), SERVE_PROMPT,
+               TS_FORCED, "gshard"),
+    "c_whisper": (WHISPER_ARCH, {}, (F32,), (1, 2), None, TS_FORCED,
+                  "gshard"),
+    "d": (DEEPSEEK_ARCH, {**TS_CUT[DEEPSEEK_ARCH],
+                          "capacity_factor": MP_EP_CF}, (F32,), (2, 1),
+          TS_EP_PROMPT, TS_FORCED, "ep"),
+}
+# four cards, NCCL: StarCoder2-3B with one KV head a rank, Kimi-K2's
+# expert-parallel form on (2 x 2)
+TS_FOUR = {
+    "e": (SERVE_ARCH, {}, (F32, BF16), (1, 4), SERVE_PROMPT, SERVE_GEN,
+          "gshard"),
+    "f": (KIMI_ARCH, {**TS_CUT[KIMI_ARCH], "capacity_factor": MP_EP_CF},
+          (BF16,), (2, 2), SERVE_PROMPT, TS_FORCED, "ep"),
+}
+# the runs whose collectives a decode step must match exactly (the
+# model group's sums, _ts_sums, and the logits' one all-gather)
+TS_EXACT = ("a", "b", "e")
+
+
+def _ts_config(spec, dtype):
+    arch, more = spec[0], spec[1]
+    return get_config(arch).with_(dtype=str(dtype)[6:], **more)
+
+
+def _ts_leaf(layout, dtypes, i):
+    """Leaf i of a serving layout drawn on the card in its dtype from a
+    seed of its own (_mp_leaf_init's distributions; a 1-D leaf that is no
+    norm scale, D or dt bias is 0, as init_linear's biases): an expert
+    stack a slice at a time, so no leaf is drawn whole in f32 beside a
+    rank's params."""
+    path = "/".join(map(str, layout.paths[i]))
+    shape = tuple(layout.shapes[i])
+    if len(shape) == 1 and not path.endswith(("scale", "d_skip",
+                                              "dt_proj/b")):
+        return torch.zeros(shape, dtype=dtypes[i], device="cuda")
+    if len(shape) == 3:
+        out = torch.empty(shape, dtype=dtypes[i], device="cuda")
+        for e in range(shape[0]):
+            gen = torch.Generator(device="cuda").manual_seed(
+                (TS_SEED * 1000 + i) * 1000 + e)
+            out[e] = torch.randn(shape[1:], generator=gen, device="cuda"
+                                 ).div_(math.sqrt(shape[1]))
+        return out
+    return _mp_leaf_init(layout, i).to(dtypes[i])
+
+
+def _ts_inputs(cfg, prompt, dtype):
+    """The prompts (B, prompt) or an encoder-decoder's frames, from a
+    seed: the same on every rank and in the parent."""
+    gen = torch.Generator(device="cuda").manual_seed(TS_SEED + 1)
+    if cfg.is_encoder_decoder:
+        return {"frames": torch.randn(
+            (SERVE_B, cfg.encoder_seq_len, cfg.d_model), generator=gen,
+            device="cuda").to(dtype)}
+    return {"prompts": torch.randint(0, cfg.vocab_size, (SERVE_B, prompt),
+                                     generator=gen, device="cuda")}
+
+
+def _ts_capacity(cfg, prompt, gen):
+    """Cache slots: a VLM's patches, the prompt and the generated tokens
+    (an encoder-decoder's: BOS and the generated tokens)."""
+    if cfg.is_encoder_decoder:
+        return gen
+    return (cfg.num_patches if cfg.modality == "vision" else 0) \
+        + prompt + gen
+
+
+def _ts_generate(cfg, prefill, decode, params, states, inputs, gen, dtype,
+                 forced=None, log=None):
+    """A prefill (the prompts after a VLM's zero patches; an
+    encoder-decoder's frames and BOS) and gen - 1 decode steps, each
+    feeding the greedy token — or, with ``forced`` (B, gen), column j
+    after step j. Returns (logits (gen, B, V) f32, tokens (B, gen),
+    prefill s, decode s, [len(log) after each step])."""
+    b = SERVE_B
+    marks = []
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        if cfg.is_encoder_decoder:
+            start = 1
+            bos = torch.zeros((b, 1), dtype=torch.int64, device="cuda")
+            states, logits = prefill(params, states, inputs["frames"], bos)
+        else:
+            p, embeds = _patch_prefix(cfg, b, dtype, "cuda")
+            start = p + inputs["prompts"].shape[1]
+            states, logits = prefill(params, states, inputs["prompts"],
+                                     embeds)
+        out = [logits[:, -1].float()]
+        toks = [forced[:, :1] if forced is not None
+                else torch.argmax(logits[:, -1], -1)[:, None]]
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - tic
+        marks.append(len(log) if log is not None else 0)
+        tic = time.perf_counter()
+        for i in range(gen - 1):
+            pos = torch.full((b, 1), start + i, dtype=torch.int32,
+                             device="cuda")
+            states, logits = decode(params, states, toks[-1], pos)
+            out.append(logits[:, -1].float())
+            toks.append(forced[:, i + 1:i + 2] if forced is not None
+                        else torch.argmax(logits[:, -1], -1)[:, None])
+            marks.append(len(log) if log is not None else 0)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - tic
+    return (torch.stack(out), torch.cat(toks, 1), prefill_s, decode_s,
+            marks)
+
+
+def _ts_steps(cfg, **kw):
+    return (lm_steps.make_prefill_step(cfg, SHAPES["prefill_32k"], **kw),
+            lm_steps.make_decode_step(cfg, SHAPES["decode_32k"], **kw))
+
+
+def _ts_sums(cfg, model):
+    """A decode step's model-group sums: one after each attention layer's
+    wo, two in a Mamba layer (x_proj's, out_proj's), one after each MLP
+    or MoE layer, and the vocab-parallel embedding's lookup."""
+    n = 0
+    for kind, _ in tf.layer_specs(cfg):
+        n += 1 if kind == "attn" else 2
+        n += cfg.arch_type != "ssm"
+    return n + (cfg.vocab_size % model == 0)
+
+
+def _ts_nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if torch.is_tensor(t))
+
+
+class _TSWrap:
+    """Records the heads of every flash_attention call and the channels
+    of every ssm_scan call the models make while it is entered: the
+    models' handles on the two ops modules are swapped for recorders that
+    call the wrappers (whose own counts go on)."""
+
+    def __enter__(self):
+        self.flash, self.scan = set(), set()
+        fa, ss = fa_ops.flash_attention, ss_ops.ssm_scan
+
+        def fa_rec(q, k, *a, **kw):
+            self.flash.add((int(q.shape[2]), int(k.shape[2]),
+                            int(q.shape[3])))
+            return fa(q, k, *a, **kw)
+
+        def ss_rec(u, *a, **kw):
+            self.scan.add(int(u.shape[-1]))
+            return ss(u, *a, **kw)
+        self._mods = attn_model.fa_ops, ssm_model.ssm_ops
+        attn_model.fa_ops = types.SimpleNamespace(flash_attention=fa_rec)
+        ssm_model.ssm_ops = types.SimpleNamespace(ssm_scan=ss_rec)
+        return self
+
+    def __exit__(self, *exc):
+        attn_model.fa_ops, ssm_model.ssm_ops = self._mods
+
+
+def _ts_rank_run(ctx, out, run, spec, dtype):
+    """One run of the ranks: ``spec``'s steps over the job (a model group,
+    or the expert-parallel mesh), the rank's params cut from leaves drawn
+    on the card in turns, a greedy generation from the seeded inputs.
+    Rank 0 saves the whole logits and tokens for the parent; returns the
+    rank's line."""
+    import torch.distributed as dist
+    from repro_torch.core.round import _Collectives
+    from repro_torch.launch import mesh as mesh_mod
+    cfg = _ts_config(spec, dtype)
+    _, _, _, (data, model), prompt, gen, moe_impl = spec
+    r = ctx.process_id
+    kw = {"moe_impl": moe_impl}
+    if moe_impl == "ep":
+        kw["moe_mesh"] = mesh_mod.make_debug_mesh(data, model)
+    else:
+        kw["model_group"] = dist.group.WORLD
+    prefill, decode = _ts_steps(cfg, **kw)
+    timer = _Collectives(dist.group.WORLD)
+    log = timer.timings
+    for srv in (prefill.serving, decode.serving):
+        for c in (srv.tp, srv.ep):
+            if c is not None:
+                c.timer = timer._run
+    srv = prefill.serving
+    dtypes = [t.dtype for t in tree_leaves(lm_steps.serving_spec(cfg))]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tic = time.perf_counter()
+    for turn in range(ctx.num_processes):    # one rank draws at a time
+        if turn == r:
+            params = srv.params(lambda i: _ts_leaf(srv.layout, dtypes, i))
+            gc.collect()
+            torch.cuda.empty_cache()
+        distributed.barrier(f"ts_{run}_{dtype}_{turn}", timeout_s=900)
+    setup_s = time.perf_counter() - tic
+    inputs = _ts_inputs(cfg, prompt, dtype)
+    states = srv.init_states(SERVE_B, _ts_capacity(cfg, prompt, gen), dtype,
+                             "cuda")
+    cache_bytes = _ts_nbytes(states)
+    _reset_serve_launches()                # this path starts here
+    with _TSWrap() as seen:
+        logits, tokens, prefill_s, decode_s, marks = _ts_generate(
+            cfg, prefill, decode, params, states, inputs, gen, dtype,
+            log=log)
+    launches = _serve_launches()
+    torch.cuda.synchronize()
+    named = [(n, s.elapsed_time(e)) for n, s, e in log]
+    steps_named = [[n for n, _ in named[a:b]]
+                   for a, b in zip(marks, marks[1:])]
+    per_step = [dict(collections.Counter(s)) for s in steps_named]
+    want = (_serve_want(cfg, gen) if not cfg.is_encoder_decoder else
+            {"flash_attention": cfg.encoder_layers + 2 * cfg.num_layers
+             * gen, "ssm_scan": 0})
+    if r == 0:
+        torch.save({"logits": logits.cpu(), "tokens": tokens.cpu()},
+                   os.path.join(out, f"{run}_{str(dtype)[6:]}.pt"))
+    line = {"phase": "tp_serve", "run": run, "rank": r,
+            "backend": ctx.backend, "arch": cfg.name, "dtype": str(dtype)[6:],
+            "mesh": [data, model], "moe_impl": moe_impl,
+            "layers": cfg.num_layers, "cut": spec[1], "batch": SERVE_B,
+            "prompt_len": prompt, "gen": gen,
+            "params_bytes": _ts_nbytes(params), "cache_bytes": cache_bytes,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "setup_s": setup_s, "prefill_s": prefill_s, "decode_s": decode_s,
+            "tok_per_s": SERVE_B * (gen - 1) / max(decode_s, 1e-9),
+            **{f"{k}_launches": v for k, v in launches.items()},
+            "expected_launches": want,
+            "flash_heads_kv_d": sorted(seen.flash),
+            "ssm_channels": sorted(seen.scan),
+            "prefill_collectives": _tally(named[:marks[0]]),
+            "decode_collectives": _tally(named[marks[0]:]),
+            "decode_step_collectives": per_step[0] if per_step else {},
+            "decode_steps_alike": all(s == per_step[0] for s in per_step),
+            "tokens_sum": int(tokens.sum())}
+    if moe_impl != "ep":
+        line["expected_decode_step_sums"] = _ts_sums(cfg, model)
+        line["kv_heads_rank"] = len(srv.view.kv_heads())
+    del params, states, logits, prefill, decode, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def _tp_serve_worker(out: str) -> int:
+    """One rank of the tp_serve phase: TS_RUNS on a job of 2 ranks,
+    TS_FOUR on a job of 4; writes its lines."""
+    ctx = distributed.maybe_initialize()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = TS_RUNS if ctx.num_processes == 2 else TS_FOUR
+    lines = []
+    for run, spec in runs.items():
+        for dtype in spec[2]:
+            lines.append(_ts_rank_run(ctx, out, run, spec, dtype))
+    with open(os.path.join(out, f"rank{ctx.process_id}.json"), "w") as fh:
+        json.dump(lines, fh)
+    return 0
+
+
+def _ts_one_process(run, spec, dtype, tokens):
+    """One process's run of ``spec`` on the same leaves and inputs, the
+    ranks' ``tokens`` forced (the expert-parallel form's against the
+    GShard dispatch at the same capacity factor: nothing drops at 8):
+    (logits, fields)."""
+    cfg = _ts_config(spec, dtype)
+    prompt, gen = spec[4], spec[5]
+    prefill, decode = _ts_steps(cfg)
+    srv = prefill.serving
+    dtypes = [t.dtype for t in tree_leaves(lm_steps.serving_spec(cfg))]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = srv.params(lambda i: _ts_leaf(srv.layout, dtypes, i))
+    states = srv.init_states(SERVE_B, _ts_capacity(cfg, prompt, gen), dtype,
+                             "cuda")
+    fields = {"one_process_params_bytes": _ts_nbytes(params),
+              "one_process_cache_bytes": _ts_nbytes(states)}
+    logits, _, prefill_s, decode_s, _ = _ts_generate(
+        cfg, prefill, decode, params, states, _ts_inputs(cfg, prompt, dtype),
+        gen, dtype, forced=tokens.to("cuda"))
+    fields.update(
+        one_process_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        one_process_prefill_s=prefill_s,
+        one_process_tok_per_s=SERVE_B * (gen - 1) / max(decode_s, 1e-9))
+    del params, states, prefill, decode, srv
+    logits = logits.cpu()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return logits, fields
+
+
+def _ts_gates(label, dtype, got, want):
+    """The serve gates, ranks against one process on (gen, B, V) f32
+    logits: f32 within SERVE_F32_RTOL x max|logit|, bf16 top-1 >=
+    SERVE_BF16_TOP1, all finite."""
+    finite = bool(torch.isfinite(got).all() & torch.isfinite(want).all())
+    diff = float((got - want).abs().max())
+    scale = max(1.0, float(want.abs().max()))
+    top1 = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    fields = {"ranks_vs_one_process_max_abs_logit_diff": diff,
+              "max_abs_logit": float(want.abs().max()),
+              "ranks_vs_one_process_top1": top1, "logits_finite": finite}
+    if not finite:
+        return fields, f"{label}: non-finite logits"
+    if dtype == F32 and not diff <= SERVE_F32_RTOL * scale:
+        return fields, (f"{label}: logits differ by {diff} > "
+                        f"{SERVE_F32_RTOL} x {scale}")
+    if dtype == BF16 and not top1 >= SERVE_BF16_TOP1:
+        return fields, f"{label}: top-1 agreement {top1}"
+    return fields, None
+
+
+def _ts_check_line(x):
+    """A rank line's own gates: the exact launches, the kernels on the
+    rank's heads and channels, and each decode step's collectives (no
+    parameter or state gather; exact in TS_EXACT)."""
+    bad = []
+    got = {k: x[f"{k}_launches"] for k in x["expected_launches"]}
+    if got != x["expected_launches"]:
+        bad.append(f"launches {got} != {x['expected_launches']}")
+    cfg = _ts_config((TS_RUNS | TS_FOUR)[x["run"]], F32)
+    model = x["mesh"][1]
+    if x["run"] in ("a", "e"):
+        want = [[cfg.num_heads // model, x["kv_heads_rank"],
+                 cfg.resolved_head_dim]]
+        if [list(h) for h in x["flash_heads_kv_d"]] != want:
+            bad.append(f"flash heads {x['flash_heads_kv_d']} != {want}")
+    if x["run"] == "b" and x["ssm_channels"] != [cfg.ssm_d_inner // model]:
+        bad.append(f"ssm channels {x['ssm_channels']}")
+    step = x["decode_step_collectives"]
+    if not x["decode_steps_alike"] or set(step) & {"tp_leaf_gather",
+                                                   "state_gather"}:
+        bad.append(f"decode step collectives {step}")
+    if x["run"] in TS_EXACT and step != {
+            "tp_all_reduce": x["expected_decode_step_sums"],
+            "tp_all_gather": 1}:
+        bad.append(f"decode step collectives {step}, expected "
+                   f"{x['expected_decode_step_sums']} sums and 1 gather")
+    return bad
+
+
+def phase_tp_serve(pair: bool = True):
+    """Tensor-parallel serving (--tp-serve-worker), after tp_families:
+    make_prefill_step / make_decode_step over a model group of ranks
+    (launch/steps._Serving), each rank's params cut once from leaves
+    drawn on the card (seed 0, a leaf at a time, the ranks in turns),
+    greedy generation from seeded prompts, B = 8:
+
+    (a) StarCoder2-3B, full (30 layers; 24 heads on 2 KV heads: 12 a
+        rank on 1 KV head), (1 x 2), f32 and bf16, 1,024-token prompts,
+        32 generated: 30 x 32 flash_attention launches a rank, 61 sums
+        and 1 all-gather a decode step;
+    (b) Falcon-Mamba-7B, full (64 layers, d_inner 4,096 a rank), (1 x 2),
+        bf16 (f32 left out for the smoke's time): 64 x 32 ssm_scan
+        launches a rank;
+    (c) DeepSeek-V2 (MLA + tensor-parallel MoE, f32), Jamba-1.5 (the
+        hybrid, f32) and Kimi-K2 (bf16) at MOE_SERVE's cuts, and
+        Whisper-base whole (f32), (1 x 2): a prefill and 8 decode steps;
+    (d) DeepSeek-V2 at its cut with moe_impl="ep" on (2 x 1), capacity
+        factor 8, 256-token prompts: each data rank its 4 rows;
+    and on four cards or more, over NCCL: (e) (a) on (1 x 4), one KV head
+    a rank; (f) Kimi-K2 expert-parallel on (2 x 2), bf16.
+
+    2 gloo ranks on one card. After the ranks have left the card, one
+    process runs each on the same leaves and inputs with the ranks'
+    tokens forced (the expert-parallel runs against the GShard dispatch
+    at capacity factor 8): logits within SERVE_F32_RTOL x max|logit| in
+    f32, top-1 >= SERVE_BF16_TOP1 in bf16. Each rank line holds its
+    peak, params and cache bytes beside one process's, prefill s and
+    decode tok/s, the kernels' launches (exact) on its heads and
+    channels, each decode step's collectives (no parameter gather), and
+    the card's name and power limit. ``pair=False`` runs the four-card
+    runs alone."""
+    cards = torch.cuda.device_count()
+    tic = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = _smi("name,power.limit")
+    emit({"phase": "tp_serve",
+          "parent_allocated_gib": torch.cuda.memory_allocated() / 2 ** 30,
+          "parent_reserved_gib": torch.cuda.memory_reserved() / 2 ** 30})
+    runs = dict(TS_RUNS) if pair else {}
+    if cards >= 4:
+        runs.update(TS_FOUR)
+    failures = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ts_") as out:
+        lines = _mp_spawn(out, 2, "gloo", TS_WORKER) if pair else []
+        if cards >= 4:
+            lines += _mp_spawn(out, 4, "nccl", TS_WORKER)
+        for run, spec in runs.items():
+            for dtype in spec[2]:
+                name = str(dtype)[6:]
+                saved = torch.load(os.path.join(out, f"{run}_{name}.pt"))
+                want, one = _ts_one_process(run, spec, dtype,
+                                            saved["tokens"])
+                gates, failure = _ts_gates(f"tp_serve {run} {name}", dtype,
+                                           saved["logits"], want)
+                if failure:
+                    failures.append(failure)
+                ranks = [x for x in lines
+                         if x["run"] == run and x["dtype"] == name]
+                if len({x["tokens_sum"] for x in ranks}) != 1:
+                    failures.append(f"{run} {name}: ranks' tokens differ")
+                for x in ranks:
+                    emit({**x, **one, "smi": smi})
+                    failures += [f"{run} {name} rank {x['rank']}: {b}"
+                                 for b in _ts_check_line(x)]
+                emit({"phase": "tp_serve", "run": run, "dtype": name,
+                      "ranks": len(ranks), **gates, "smi": smi})
+    if cards < 4:
+        emit({"phase": "tp_serve", "run": "e,f",
+              "skipped": f"(e) and (f) need four cards; {cards} present"})
+    emit({"phase": "tp_serve", "cards": cards, "runs": sorted(runs),
+          "seconds": time.perf_counter() - tic})
+    if failures:
+        raise AssertionError("tp_serve: " + "; ".join(failures))
+
+
 def phase_serve_batched():
     """The batched serving example (repro_torch.examples.serve_batched:
     StarCoder2-3B, Falcon-Mamba-7B and DeepSeek-V2 SMOKE, batch 4, prompt
@@ -5873,6 +6425,16 @@ def phase_serve_batched():
                       get_config(arch, smoke=True).vocab_size)
 
 
+def _clocked(phase, *args, **kw):
+    """phase(*args, **kw), its wall time printed as a "clock" line."""
+    tic = time.perf_counter()
+    out = phase(*args, **kw)
+    emit({"phase": "clock", "of": phase.__name__[6:],
+          "args": [a for a in args if isinstance(a, str)],
+          "seconds": time.perf_counter() - tic})
+    return out
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == MR_WORKER:
         return _multirank_worker(sys.argv[2])
@@ -5886,20 +6448,25 @@ def main() -> int:
         return _moe_parallel_worker(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == TF_WORKER:
         return _tp_families_worker(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == TS_WORKER:
+        return _tp_serve_worker(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs a card",
               file=sys.stderr)
         return 1
-    smi = phase_build()
-    rows = phase_kernels() + phase_folds() + phase_guard_epilogue()
-    sr_row = phase_int8_sr()
-    project_launches = phase_project_and_scale()
-    launches = phase_trainer()
-    phase_ingest()
-    phase_checkpoint()
-    phase_multirank()
-    phase_model_axis()
-    rank_launches = phase_async_ranks()
+    t0 = time.perf_counter()
+    smi = _clocked(phase_build)
+    rows = (_clocked(phase_kernels) + _clocked(phase_folds)
+            + _clocked(phase_guard_epilogue))
+    sr_row = _clocked(phase_int8_sr)
+    project_launches = _clocked(phase_project_and_scale)
+    launches = _clocked(phase_trainer)
+    _clocked(phase_ingest)
+    _clocked(phase_checkpoint)
+    start_rank_jobs()
+    _clocked(phase_multirank)
+    rank_launches = _clocked(phase_async_ranks)
+    _clocked(phase_model_axis)
     # the one-client epilogue's path is project_and_scale, not a round
     launches["feddpc_fused_epilogue"] = \
         project_launches["feddpc_fused_epilogue"]
@@ -5916,33 +6483,37 @@ def main() -> int:
         if not rank_launches.get(name):
             raise AssertionError(f"{name} never launched on the ranks of "
                                  "the async_ranks phase")
-    phase_parity()
-    fa_row = phase_attention()
-    fa_row["launches"] = phase_serve(SERVE_ARCH, "flash_attention")
+    _clocked(phase_parity)
+    fa_row = _clocked(phase_attention)
+    fa_row["launches"] = _clocked(phase_serve, SERVE_ARCH, "flash_attention")
     fa_row["rank_launches"] = 0
     rows.append(fa_row)
-    phase_serve_parity(SERVE_ARCH)
-    ss_row = phase_ssm_kernels()
-    ss_row["launches"] = phase_serve(SSM_ARCH, "ssm_scan")
+    _clocked(phase_serve_parity, SERVE_ARCH)
+    ss_row = _clocked(phase_ssm_kernels)
+    ss_row["launches"] = _clocked(phase_serve, SSM_ARCH, "ssm_scan",
+                                  cut=SSM_SERVE_CUT)
     ss_row["rank_launches"] = 0
     rows.append(ss_row)
-    phase_serve_parity(SSM_ARCH)
-    phase_tp_train(phase_lm_train())
-    phase_moe_parallel()
-    phase_tp_families()
-    phase_lm_fl()
-    phase_serve(VLM_ARCH, "flash_attention")
-    phase_quickstart()
-    phase_lm_parity()
-    phase_serve(WHISPER_ARCH, "flash_attention")
+    _clocked(phase_serve_parity, SSM_ARCH)
+    _clocked(phase_lm_train)
+    _clocked(phase_tp_train, _clocked(phase_lm_train, TP_TRAIN_CUT))
+    _clocked(phase_moe_parallel)
+    _clocked(phase_tp_families)
+    _clocked(phase_tp_serve)
+    _clocked(phase_lm_fl)
+    _clocked(phase_serve, VLM_ARCH, "flash_attention", cut=VLM_SERVE_CUT)
+    _clocked(phase_quickstart)
+    _clocked(phase_lm_parity)
+    _clocked(phase_serve, WHISPER_ARCH, "flash_attention")
     for arch, cut, dtypes in MOE_SERVE:
-        phase_serve(arch, "flash_attention", dtypes, cut)
-    phase_whisper_train()
-    phase_moe_parity()
-    phase_serve_batched()
+        _clocked(phase_serve, arch, "flash_attention", dtypes, cut)
+    _clocked(phase_whisper_train)
+    _clocked(phase_moe_parity)
+    _clocked(phase_serve_batched)
     keys = ("name", "route", "source", "replaces", "launches",
             "rank_launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
+    emit({"phase": "clock", "of": "all", "seconds": time.perf_counter() - t0})
     emit({"kernels": [{k: row[k] for k in keys} for row in rows]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -31,8 +31,22 @@ moe_mesh=make_debug_mesh(S, M))`` is the reference's expert-parallel
 step (models/moe_ep.py) on every rank of a (data, model) mesh: the
 expert stacks split on E over ``data`` and on their ffn dim over
 ``model``, the rest Megatron over ``model``, each rank on its rows of
-the batch. The prefill and decode steps serve on one process: "ep"
-raises there (serving over ranks is ROADMAP Queue 1 item 13i).
+the batch.
+
+``make_prefill_step`` and ``make_decode_step`` take the same
+``model_group=`` and the reference's ``moe_impl``/``moe_mesh``: the
+reference's serving steps jit'd with ``param_specs`` and
+``rules.state_specs`` on a mesh, written out by hand (``_Serving``).
+Each rank runs its heads, MLP slice, experts and d_inner channels on
+its own params (``step.serving.params``: cut once, so no step gathers a
+parameter) and states (``step.serving.init_states``: each attention
+cache the rank's KV heads, MLA's latent whole, each SSM state the rank's
+channels; on an expert-parallel mesh the data rank's rows of the batch),
+and gets back the WHOLE last-position logits, as the reference's
+``out_shardings=None``: the vocab-parallel head's slices all-gathered
+over the model group once a step, an expert-parallel step's rows over
+the data group. ``step.serving.gather_states`` puts the ranks' states
+back into the whole tree.
 """
 from __future__ import annotations
 
@@ -376,63 +390,205 @@ def _make_ep_train_step(cfg, lr, remat, attn_impl, microbatches, mesh):
     return train_step
 
 
+def serving_tree(cfg: ArchConfig, params):
+    """The serving tree (models/transformer.py's and encdec.py's: a list
+    of layer trees) of the reference's tree ``params``: views of its
+    stacked leaves, a leaf a layer."""
+    if cfg.is_encoder_decoder:
+        out = {k: v for k, v in params.items()
+               if k not in ("encoder", "decoder")}
+        out["encoder"] = encdec_mod._layers(params["encoder"],
+                                            cfg.encoder_layers)
+        out["decoder"] = encdec_mod._layers(params["decoder"],
+                                            cfg.num_layers)
+        return out
+    out = {k: params[k] for k in ("embed", "final_norm", "lm_head")
+           if k in params}
+    out["layers"] = tf.layer_params(cfg, params)
+    return out
+
+
+def serving_spec(cfg: ArchConfig):
+    """``serving_tree`` of ``params_spec(cfg)``: meta tensors."""
+    return serving_tree(cfg, params_spec(cfg))
+
+
+class _Serving:
+    """A serving step's place on the ranks: one process (``tp`` and
+    ``ep`` None, every method the identity or one process's own), a
+    model group of M ranks (Megatron over it), or a rank (d, m) of an
+    expert-parallel (data, model) mesh. ``view`` is the rank's
+    sharding/layout.TPView over ``serving_spec(cfg)``'s layout:
+    ShardLayout.from_sizes's (1 x M) shards, or ShardLayout.for_experts'."""
+
+    def __init__(self, cfg, model_group=None, moe_impl="gshard",
+                 moe_mesh=None):
+        self.cfg = cfg
+        self.tp = self.ep = self.view = None
+        self.data, self.d = 1, 0
+        layout = bridge.layout_of(serving_spec(cfg))
+        if moe_impl == "ep":
+            if moe_mesh is None:
+                raise ValueError("moe_impl='ep' serves over a (data, model) "
+                                 "mesh: pass moe_mesh "
+                                 "(launch/mesh.make_debug_mesh)")
+            if model_group is not None:
+                raise ValueError("moe_impl='ep' takes its model axis from "
+                                 "moe_mesh, not model_group")
+            sizes = mesh_axes(moe_mesh)
+            self.data, model = sizes["data"], sizes["model"]
+            self.d, m = (int(c) for c in moe_mesh.get_coordinate())
+            self.ep, self.tp = moe_ep_mod.contexts(moe_mesh, "data")
+            shards = ShardLayout.for_experts(layout, self.data, model)
+            self.view = TPView(shards, m, cfg, self.tp,
+                               rank=self.d * model + m)
+        elif model_group is not None:
+            self.tp = tpm.TPContext.of(model_group)
+            shards = ShardLayout.from_sizes(
+                layout, {"clients": 1, "model": self.tp.size})
+            self.view = TPView(shards, self.tp.rank, cfg, self.tp)
+        self.layout = layout
+
+    def params(self, source, device=None):
+        """The rank's serving params, cut once (TPView.serving_params;
+        ``source`` a callable ``leaf(i)`` of ``serving_spec``'s layout,
+        or the rank's shard). On one process: the whole tree of
+        ``source``'s leaves."""
+        if self.view is None:
+            if not callable(source):
+                return self.layout.unflatten(source.to(device or
+                                                       source.device))
+
+            def one(i):
+                x = source(i)
+                return x.to(device or x.device)
+            return bridge.tree_map(one, self.layout.skeleton)
+        return self.view.serving_params(source, device)
+
+    def init_states(self, batch, capacity, dtype=None, device=None):
+        """The rank's empty states for ``batch`` prompts (all of them:
+        an expert-parallel rank holds its rows) in caches of
+        ``capacity``: an LM's per-layer list, an encoder-decoder's
+        {"decoder": [...]}."""
+        on = device if self.view is None else META
+        if self.cfg.is_encoder_decoder:
+            whole = {"decoder": encdec_mod.init_decoder_states(
+                self.cfg, batch, capacity, dtype, on)}
+        else:
+            whole = tf.init_states(self.cfg, batch, capacity, dtype, on)
+        if self.view is None:
+            return whole
+        return self.view.serving_states(whole, device)
+
+    def gather_states(self, states):
+        """The whole tree of every rank's states (collectives, every
+        rank alike; TPView.gather_states)."""
+        if self.view is None:
+            return states
+        return self.view.gather_states(states, self.ep)
+
+    def rows(self, x):
+        """This rank's rows of a batch input (all of them but on an
+        expert-parallel mesh's data ranks)."""
+        if x is None or self.data == 1:
+            return x
+        if x.shape[0] % self.data:
+            raise ValueError(f"a batch of {x.shape[0]} rows over "
+                             f"{self.data} data ranks")
+        per = x.shape[0] // self.data
+        return x[self.d * per:(self.d + 1) * per]
+
+    def logits(self, x):
+        """The whole logits: the vocab slices over the model group, then
+        the rows over the data group (all-gathers, once a step)."""
+        if x.shape[-1] < self.cfg.vocab_size:
+            x = tpm.gather_from_region(x, self.tp, -1)
+        return tpm.gather_from_region(x, self.ep, 0)
+
+
 def make_prefill_step(cfg: ArchConfig, shape: InputShape,
                       attn_impl: str = "auto", moe_groups: int = 1,
-                      shard_fn=None, moe_impl: str = "gshard"):
+                      shard_fn=None, moe_impl: str = "gshard",
+                      moe_mesh=None, model_group=None):
     """(params, states, tokens, patch_embeds=None) -> (new_states,
     last_token_logits). ``states`` the port's per-layer list
     (transformer.init_states). An encoder-decoder's is (params, states,
     frames, tokens) with states {"decoder": the per-layer caches
     (encdec.init_decoder_states), ...} -> ({"decoder", "enc_out"},
-    last_token_logits)."""
-    tf._check_moe_impl(moe_impl, serving=True)
+    last_token_logits).
+
+    ``model_group`` (a process group of M ranks, each on its device):
+    this rank's tensor-parallel step, on its params and states
+    (``prefill_step.serving``, a ``_Serving``: ``params(source)`` cuts
+    them once, ``init_states`` makes them); the inputs are the whole
+    batch on every rank and the logits come back whole.
+    ``moe_impl="ep"`` with ``moe_mesh`` (launch/mesh.make_debug_mesh(S,
+    M)): this rank's expert-parallel step, on its rows of the batch
+    (its states hold those), the logits whole."""
+    tf._check_moe_impl(moe_impl)
     window = effective_window(cfg, shape)
+    srv = _Serving(cfg, model_group, moe_impl, moe_mesh)
 
     if cfg.is_encoder_decoder:
         def prefill_encdec(params, states, frames, tokens):
-            enc_out = encdec_mod.encode(cfg, params, frames, attn_impl)
+            enc_out = encdec_mod.encode(cfg, params, srv.rows(frames),
+                                        attn_impl, tp=srv.tp)
             logits, dec_states = encdec_mod.decode(
-                cfg, params, tokens, enc_out, states=states["decoder"],
-                window=window, attn_impl=attn_impl)
+                cfg, params, srv.rows(tokens), enc_out,
+                states=states["decoder"], window=window, attn_impl=attn_impl,
+                tp=srv.tp)
             return ({"decoder": dec_states, "enc_out": enc_out},
-                    logits[:, -1:, :])
+                    srv.logits(logits[:, -1:, :]))
+        prefill_encdec.serving = srv
         return prefill_encdec
 
     def prefill(params, states, tokens, patch_embeds=None):
         logits, new_states, _ = tf.lm_forward(
-            cfg, params, tokens, embeds=patch_embeds, states=states,
-            window=window, attn_impl=attn_impl, logits_slice_last=True,
-            moe_groups=moe_groups, shard_fn=shard_fn)
-        return new_states, logits
+            cfg, params, srv.rows(tokens), embeds=srv.rows(patch_embeds),
+            states=states, window=window, attn_impl=attn_impl,
+            logits_slice_last=True, moe_groups=moe_groups,
+            shard_fn=shard_fn, moe_impl=moe_impl, moe_mesh=moe_mesh,
+            tp=srv.tp, ep=srv.ep)
+        return new_states, srv.logits(logits)
 
+    prefill.serving = srv
     return prefill
 
 
 def make_decode_step(cfg: ArchConfig, shape: InputShape,
                      attn_impl: str = "auto", moe_groups: int = 1,
-                     shard_fn=None, moe_impl: str = "gshard"):
+                     shard_fn=None, moe_impl: str = "gshard",
+                     moe_mesh=None, model_group=None):
     """(params, states, tokens (B, 1), positions (B, 1)) -> (states,
     logits). An encoder-decoder's states are {"decoder", "enc_out"}: the
-    step attends across to "enc_out" and carries it on."""
-    tf._check_moe_impl(moe_impl, serving=True)
+    step attends across to "enc_out" and carries it on. ``model_group``,
+    ``moe_impl`` and ``moe_mesh`` as ``make_prefill_step``'s: the same
+    params and states serve both steps."""
+    tf._check_moe_impl(moe_impl)
     window = effective_window(cfg, shape)
+    srv = _Serving(cfg, model_group, moe_impl, moe_mesh)
 
     if cfg.is_encoder_decoder:
         def decode_encdec(params, states, tokens, positions):
             logits, dec_states = encdec_mod.decode(
-                cfg, params, tokens, states["enc_out"], positions=positions,
-                states=states["decoder"], window=window, attn_impl=attn_impl)
+                cfg, params, srv.rows(tokens), states["enc_out"],
+                positions=srv.rows(positions), states=states["decoder"],
+                window=window, attn_impl=attn_impl, tp=srv.tp)
             return ({"decoder": dec_states, "enc_out": states["enc_out"]},
-                    logits)
+                    srv.logits(logits))
+        decode_encdec.serving = srv
         return decode_encdec
 
     def decode(params, states, tokens, positions):
         logits, new_states, _ = tf.lm_forward(
-            cfg, params, tokens, positions=positions, states=states,
-            window=window, attn_impl=attn_impl, logits_slice_last=True,
-            moe_groups=moe_groups, shard_fn=shard_fn)
-        return new_states, logits
+            cfg, params, srv.rows(tokens), positions=srv.rows(positions),
+            states=states, window=window, attn_impl=attn_impl,
+            logits_slice_last=True, moe_groups=moe_groups,
+            shard_fn=shard_fn, moe_impl=moe_impl, moe_mesh=moe_mesh,
+            tp=srv.tp, ep=srv.ep)
+        return new_states, srv.logits(logits)
 
+    decode.serving = srv
     return decode
 
 

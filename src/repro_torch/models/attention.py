@@ -202,32 +202,27 @@ def _cache_write(cache, k, v, positions):
 def _tp_kv(cfg, p, x, tp, heads):
     """K and V (B, S, ·, HD) of ``x`` (the keys' source: the layer's
     input, or the encoder's output for cross-attention) for this rank's
-    ``heads`` query heads under tensor parallelism. ``wk``/``wv`` split
-    over the model group (M divides the KV heads): the rank's own KV
-    heads, whose groups are its query heads'. Whole
-    (sharding/layout.PARTIAL): the KV heads its query heads read,
-    computed from their columns — one a query head when the rank's heads
-    do not cover whole groups."""
+    ``heads`` query heads under tensor parallelism: the KV heads [lo, hi)
+    they read (sharding/tensor_parallel.kv_span), from ``wk``/``wv``
+    holding just those heads — split over the model group when M divides
+    the KV heads, or cut so for serving (sharding/layout.TPView.
+    serving_params) — or from their columns of the whole leaves
+    (sharding/layout.PARTIAL). When the rank's heads do not cover the
+    heads' groups evenly, one KV head a query head (index-selected)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    if p["wk"]["w"].shape[-1] < cfg.num_kv_heads * hd:
-        return (linear(p["wk"], x).reshape(b, s, -1, hd),
-                linear(p["wv"], x).reshape(b, s, -1, hd))
-    group = cfg.num_heads // cfg.num_kv_heads
-    q0 = tp.rank * heads
-    lo, hi = q0 // group, (q0 + heads - 1) // group + 1
-    cols = slice(lo * hd, hi * hd)
-
-    def project(lin):
-        sel = {k: v[..., cols] for k, v in lin.items()}
-        return linear(sel, x).reshape(b, s, hi - lo, hd)
-    k, v = project(p["wk"]), project(p["wv"])
-    per = heads // (hi - lo)
-    if per * (hi - lo) == heads and all(
-            (q0 + j) // group - lo == j // per for j in range(heads)):
+    lo, hi, sel = tpm.kv_span(cfg.num_heads, cfg.num_kv_heads, tp.rank,
+                              heads)
+    wk, wv = p["wk"], p["wv"]
+    if wk["w"].shape[-1] != (hi - lo) * hd:         # the whole leaves
+        cols = slice(lo * hd, hi * hd)
+        wk, wv = ({k: t[..., cols] for k, t in lin.items()}
+                  for lin in (wk, wv))
+    k = linear(wk, x).reshape(b, s, hi - lo, hd)
+    v = linear(wv, x).reshape(b, s, hi - lo, hd)
+    if sel is None:
         return k, v
-    idx = torch.tensor([(q0 + j) // group - lo for j in range(heads)],
-                       device=x.device)
+    idx = torch.tensor(sel, device=x.device)
     return k.index_select(2, idx), v.index_select(2, idx)
 
 
@@ -238,18 +233,16 @@ def gqa_forward(cfg, p, x, positions, *, window=0, cache=None, impl="auto",
     cache None  -> full-sequence self attention (prefill without a cache);
     cache given -> write the S tokens into it (prefill fills, decode S = 1)
                    and attend to the whole cache.
-    ``tp`` (sharding/tensor_parallel.TPContext; full-sequence forwards)
-    runs Megatron's attention on this rank's query heads: ``wq`` (and
-    ``wk``/``wv`` when split) column-parallel after a copy-to-region of
-    x, ``wo`` row-parallel, its bias added after the sum (_tp_kv).
-    Returns (out, new_cache)."""
+    ``tp`` (sharding/tensor_parallel.TPContext) runs Megatron's attention
+    on this rank's query heads: ``wq`` (and ``wk``/``wv`` when split)
+    column-parallel after a copy-to-region of x, ``wo`` row-parallel, its
+    bias added after the sum (_tp_kv). Serving with ``tp``, the cache
+    holds the KV heads _tp_kv gives the rank (KV / M when M divides the
+    KV heads; else the heads its query block spans, or one a query head
+    where the block splits a group unevenly); ``pos`` and ``idx`` are
+    the same on every rank. Returns (out, new_cache)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    if tp is not None and cache is not None:
-        raise NotImplementedError(
-            "tensor-parallel attention trains (full-sequence forwards); "
-            "tensor-parallel serving (KV caches over the model axis, "
-            "rules.state_specs) is ROADMAP Queue 1 item 13i")
     x = tpm.copy_to_region(x, tp)
     q = linear(p["wq"], x)
     heads = q.shape[-1] // hd
@@ -350,20 +343,18 @@ def mla_forward(cfg, p, x, positions, *, window=0, cache=None, impl="auto",
     from the latent (the whole cache when there is one) and V is padded
     to the query-key head dim for ``sdpa`` (module docstring).
 
-    ``tp`` (sharding/tensor_parallel.TPContext; full-sequence forwards)
-    runs Megatron's MLA on this rank's heads. Every rank computes
-    ``q_down``, ``kv_down``, the two latent norms and k_rope's RoPE alike
-    from x, which enters no region (x reaches ``wo`` only through them:
-    a copy-to-region of x as well would sum its gradient once more). The
-    region starts after them: c_q, c_kv and k_rope each pass a
-    copy-to-region, ``q_up``/``k_up``/``v_up`` are column-parallel on the
-    rank's heads and ``wo`` row-parallel."""
+    ``tp`` (sharding/tensor_parallel.TPContext) runs Megatron's MLA on
+    this rank's heads. Every rank computes ``q_down``, ``kv_down``, the
+    two latent norms and k_rope's RoPE alike from x, which enters no
+    region (x reaches ``wo`` only through them: a copy-to-region of x as
+    well would sum its gradient once more). The region starts after
+    them: c_q, c_kv and k_rope each pass a copy-to-region,
+    ``q_up``/``k_up``/``v_up`` are column-parallel on the rank's heads
+    and ``wo`` row-parallel. Serving with ``tp``, the latent cache is
+    whole on every rank (each writes the same c_kv and k_rope), the
+    absorbed decode runs on the rank's heads and the prefill's kernel on
+    H / M heads."""
     b, s, _ = x.shape
-    if tp is not None and cache is not None:
-        raise NotImplementedError(
-            "tensor-parallel MLA trains (full-sequence forwards); "
-            "tensor-parallel serving (latent caches over the model axis) "
-            "is ROADMAP Queue 1 item 13i")
     nope, rope, vd = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
                       cfg.v_head_dim)
     q_nope, q_rope = _mla_q(cfg, p, x, positions, tp)

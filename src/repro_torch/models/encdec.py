@@ -42,7 +42,11 @@ copy-to-region for all decoder layers (their partial gradients into it
 summed once). The embedding and head are vocab-parallel when the model
 axis divides the vocabulary (the logits and the cross entropy then stay
 split, sharding/tensor_parallel.cross_entropy), whole otherwise
-(Whisper-base's 51,865).
+(Whisper-base's 51,865). Serving with ``tp`` (``decode`` with
+``states``), each self-attention cache holds the rank's KV heads
+(attention.gqa_forward), ``enc_out`` is whole on every rank, and the
+cross K/V are recomputed on the rank's heads each step, as one process
+does.
 """
 from __future__ import annotations
 
@@ -192,15 +196,10 @@ def decode(cfg, params, tokens, enc_out, positions=None, *,
            attn_impl="auto", tp=None):
     """tokens (B, S), enc_out (B, T_enc, D); ``states`` the per-layer
     self-attention caches (init_decoder_states; written in place), None
-    for a teacher-forced pass. Returns (logits, new_states). ``tp``
-    (teacher-forced passes): this model rank's part of the
-    tensor-parallel decoder (module docstring); the logits are the
-    rank's vocab slice when the head is split."""
+    for a teacher-forced pass. Returns (logits, new_states). ``tp``: this
+    model rank's part of the tensor-parallel decoder (module docstring);
+    the logits are the rank's vocab slice when the head is split."""
     b, s = tokens.shape
-    if tp is not None and states is not None:
-        raise NotImplementedError(
-            "the tensor-parallel encoder-decoder trains (teacher-forced "
-            "passes); tensor-parallel serving is ROADMAP Queue 1 item 13i")
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=tokens.device)[None].expand(b, s)

@@ -155,8 +155,17 @@ def row_parallel(p, h: torch.Tensor, tp=None) -> torch.Tensor:
     """``linear(p, h)`` of a row-parallel layer: with a tensor-parallel
     context ``tp`` (sharding/tensor_parallel.py) ``p["w"]`` holds this
     rank's rows and ``h`` its columns, the product is summed over the
-    model group, and the (whole) bias is added after the sum."""
-    y = tpm.reduce_from_region(h @ p["w"], tp)
+    model group, and the (whole) bias is added after the sum. In a
+    dtype narrower than f32 the rank's partial product and the sum stay
+    f32 and are rounded once, as one process's product is (f32
+    accumulation, one rounding): partials rounded each to bf16 part the
+    ranks' result from one process's by a rounding a layer, which 64
+    Mamba layers grow into other top-1 tokens."""
+    if tp is not None and h.element_size() < 4:
+        y = tpm.reduce_from_region(h.float() @ p["w"].float(), tp)
+        y = y.to(h.dtype)
+    else:
+        y = tpm.reduce_from_region(h @ p["w"], tp)
     if "b" in p:
         y = y + p["b"]
     return y

@@ -38,7 +38,13 @@ output feeds every channel's B and C and the rank's dt, the sum is
 followed by a copy-to-region (an all-reduce each way: without it, the
 input gradient of ``x_proj`` would miss the other ranks' channels);
 ``out_proj`` is row-parallel. The scan is the plain one, on the rank's
-channels, as training takes it in both packages.
+channels, as training takes it in both packages. Serving with ``tp``
+(a prefill or decode with ``state``), the state holds the rank's
+channels — ``conv`` (B, W − 1, d_inner / M), ``h`` (B, d_inner / M, N),
+rules.state_specs' split — the scan is ``impl``'s (the kernel on the
+card) on those channels, and ``in_proj`` may come cut to the rank's u and
+z columns, (D, 2 · d_inner / M), once when the serving params are built
+(sharding/layout.TPView.serving_params).
 """
 from __future__ import annotations
 
@@ -115,15 +121,19 @@ def _scan(cfg, p, u_c, z, h0, impl, tp=None):
 
 def _in_proj(cfg, p, x, tp):
     """u and z (B, S, d_in) of x: every channel's, or with ``tp`` the
-    rank's d_in / M channels of each, from the whole ``in_proj``."""
+    rank's d_in / M channels of each, from the whole ``in_proj`` or from
+    its rank's u and z columns (cut for serving)."""
     d_in = cfg.ssm_d_inner
     if tp is None:
         xz = linear(p["in_proj"], x)
         return xz[..., :d_in], xz[..., d_in:]
     per = p["conv_w"].shape[-1]
-    lo = tp.rank * per
     w = p["in_proj"]["w"]
     x = tpm.copy_to_region(x, tp)
+    if w.shape[-1] == 2 * per:
+        xz = x @ w
+        return xz[..., :per], xz[..., per:]
+    lo = tp.rank * per
     return x @ w[..., lo:lo + per], x @ w[..., d_in + lo:d_in + lo + per]
 
 
@@ -132,16 +142,11 @@ def mamba_forward(cfg, p, x, *, state: Optional[dict] = None,
     """x: (B, S, D). state None -> full-sequence scan (prefill; returns
     the state for continuation); state given with S > 1 -> a prefill
     continuation from it; state given with S == 1 -> one decode step.
-    ``tp``: this model rank's channels of a full-sequence forward
-    (module docstring); its state holds those channels."""
+    ``tp``: this model rank's channels (module docstring); its state
+    holds those channels."""
     if impl not in IMPLS:
         raise ValueError(f"mamba_forward: impl must be one of {IMPLS}, got "
                          f"{impl!r}")
-    if tp is not None and state is not None:
-        raise NotImplementedError(
-            "the tensor-parallel Mamba mixer trains (full-sequence "
-            "forwards); tensor-parallel serving (SSM states over the model "
-            "axis) is ROADMAP Queue 1 item 13i")
     b, s, _ = x.shape
     cw = cfg.ssm_conv
     u, z = _in_proj(cfg, p, x, tp)
@@ -165,7 +170,7 @@ def mamba_forward(cfg, p, x, *, state: Optional[dict] = None,
         conv_window = torch.cat([state["conv"], u], dim=1)    # (B, cw, d_in)
         u_c = F.silu(torch.einsum("bwd,wd->bd", conv_window, p["conv_w"])
                      + p["conv_b"])[:, None, :]
-        out, h = _scan(cfg, p, u_c, z, state["h"], impl)
+        out, h = _scan(cfg, p, u_c, z, state["h"], impl, tp)
         new_state = {"conv": conv_window[:, 1:], "h": h}
 
     return row_parallel(p["out_proj"], out, tp), new_state

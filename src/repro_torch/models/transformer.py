@@ -129,16 +129,11 @@ def _mesh_contexts(moe_mesh, ep, tp):
     return ep, tp
 
 
-def _check_moe_impl(moe_impl: str, serving: bool = False):
-    """"gshard" (models/moe.py) everywhere; "ep" (models/moe_ep.py) in
-    full-sequence training forwards, not in serving."""
+def _check_moe_impl(moe_impl: str):
+    """"gshard" (models/moe.py) or "ep" (models/moe_ep.py, over a mesh:
+    ``_mesh_contexts``), in training and in serving alike."""
     if moe_impl not in MOE_IMPLS:
         raise ValueError(f"moe_impl={moe_impl!r}: one of {MOE_IMPLS}")
-    if serving and moe_impl == "ep":
-        raise NotImplementedError(
-            "moe_impl='ep': the expert-parallel MoE trains over a (data, "
-            "model) mesh of ranks; serving over ranks (the caches and "
-            "states over the mesh) is ROADMAP Queue 1 item 13i")
 
 
 # ---------------- single layer ----------------
@@ -330,14 +325,16 @@ def lm_forward(cfg, params, tokens, positions=None, *, embeds=None,
     backward (``_remat``); it needs plain autograd, not torch.func.
     ``moe_groups`` token groups route each MoE layer (moe.moe_forward);
     ``moe_impl`` "gshard" (that dispatch) or "ep" (moe_ep.moe_forward_ep
-    over ``moe_mesh``, launch/mesh.make_debug_mesh: this rank's rows of
-    the batch, its experts; a full-sequence forward; ``ep`` and ``tp``
-    the mesh's axes' contexts, found from the mesh when not given);
+    over ``moe_mesh``, launch/mesh.make_debug_mesh: ``tokens`` are this
+    rank's rows of the batch — in a prefill or decode, ``states`` hold
+    those rows alone —, the MoE layers run its experts; ``ep`` and
+    ``tp`` the mesh's axes' contexts, found from the mesh when not
+    given);
     ``shard_fn(tensor, role)`` is the reference's MoE placement hook
     (moe.moe_forward).
 
-    ``tp`` (a sharding/tensor_parallel.TPContext, full-sequence forwards
-    of every family) runs this model rank's part of a Megatron
+    ``tp`` (a sharding/tensor_parallel.TPContext; every family, with or
+    without ``states``) runs this model rank's part of a Megatron
     tensor-parallel forward on the tree of sharding/layout.TPView: the
     embedding looked up vocab-parallel when it is split on V, each
     layer's attention and MLP on the rank's heads and d_ff slice with
@@ -346,9 +343,11 @@ def lm_forward(cfg, params, tokens, positions=None, *, embeds=None,
     attention.mla_forward; a Mamba layer on the rank's d_inner channels,
     ssm.mamba_forward), and the logits of the rank's vocab slice when the
     head is split (the whole logits otherwise). The rest is
-    replicated."""
+    replicated. Its states are the rank's (sharding/layout.TPView.
+    serving_states: each attention cache the rank's KV heads, or MLA's
+    whole latent; each SSM state the rank's channels)."""
     _check_config(cfg)
-    _check_moe_impl(moe_impl, serving=states is not None)
+    _check_moe_impl(moe_impl)
     if moe_impl == "ep":
         ep, tp = _mesh_contexts(moe_mesh, ep, tp)
     if remat not in REMATS:

@@ -33,6 +33,16 @@ copies step together: their gradients are summed over the data group).
 A leaf cut on two dims is one strided block for each index of the dims
 before the first cut (the stacked layers' groups), the blocks together
 the rank's local tensor, row-major.
+
+**Serving over the model group** (launch/steps.make_prefill_step /
+make_decode_step with ``model_group=`` or an expert-parallel mesh):
+``TPView.serving_params`` cuts a rank's tree once, from whole leaves or
+from its shard — its VIEW slices, the WHOLE leaves whole, and the
+PARTIAL ones cut to what the rank reads (``wk``/``wv`` to the KV heads
+its query heads read, Mamba's ``in_proj`` to its u and z columns, the
+router whole) — so a step gathers no parameter. ``serving_states``
+gives the rank's caches and SSM states, ``gather_states`` the whole
+tree back (collectives, every rank alike).
 """
 from __future__ import annotations
 
@@ -441,8 +451,9 @@ class TPView:
 
     def __init__(self, shards: ShardLayout, m: int, cfg, tp,
                  rank: int = None):
-        self.shards, self.m, self.tp = shards, int(m), tp
+        self.shards, self.m, self.tp, self.cfg = shards, int(m), tp, cfg
         r = self.m if rank is None else int(rank)
+        self.r = r
         self.layout = shards.layout
         nleaves = len(self.layout.shapes)
         self.classes = (tuple(tp_classes(shards, cfg))
@@ -514,3 +525,158 @@ class TPView:
                 for i, c in zip(ids, chunks):
                     leaves[i] = c.view(self.layout.shapes[i])
         return tree_map(lambda i: leaves[i], self.layout.skeleton)
+
+    # ---- serving: the rank's params and states, cut once ----
+
+    def _serving_cut(self, i: int, leaf: torch.Tensor) -> torch.Tensor:
+        """What the rank keeps of a PARTIAL leaf: ``wk``/``wv`` (and
+        their biases) the columns of the KV heads its query heads read,
+        ``in_proj`` its u columns then its z columns; the router whole."""
+        path = path_str(self.layout.paths[i])
+        cfg, model = self.cfg, self.shards.model
+        if re.search(_KV, path):
+            lo, hi, _ = tpm.kv_span(cfg.num_heads, cfg.num_kv_heads, self.m,
+                                    cfg.num_heads // model)
+            hd = cfg.resolved_head_dim
+            return leaf[..., lo * hd:hi * hd]
+        if re.search(r"in_proj/w$", path):
+            d_in = cfg.ssm_d_inner
+            per = d_in // model
+            lo = self.m * per
+            return torch.cat([leaf[..., lo:lo + per],
+                              leaf[..., d_in + lo:d_in + lo + per]], -1)
+        return leaf
+
+    def serving_params(self, source, device=None):
+        """The rank's serving tree (the layout's structure), cut once:
+        every VIEW leaf the rank's slice in its local shape, every WHOLE
+        leaf whole, every PARTIAL leaf as ``_serving_cut`` leaves it — no
+        step gathers a parameter. ``source``: a callable ``leaf(i)`` ->
+        leaf i of the layout whole, on any device (read a leaf at a time:
+        the rank copies what it keeps to ``device``, by default the
+        leaf's), or the rank's (N_m,) shard, whose WHOLE and PARTIAL
+        leaves are gathered over the model group a leaf at a time (a
+        collective each, every rank alike, in the layout's order)."""
+        if callable(source):
+            whole = source
+        else:
+            pieces = {i: c for (i, _), c in zip(self._held,
+                                               self.split(source))}
+
+            def whole(i):
+                return tpm.reduce_from_region(
+                    self._placed(pieces, i, source), self.tp,
+                    "tp_leaf_gather").view(self.layout.shapes[i])
+        leaves = {}
+        for i in range(len(self.layout.shapes)):
+            if self.classes[i] == VIEW:
+                local = self._local[i]
+                if callable(source):
+                    piece = self.shards.leaf_piece(self.r, i, whole(i))
+                else:
+                    piece = pieces[i]
+                keep = piece.view(local)
+            else:
+                keep = whole(i)
+                if self.classes[i] == PARTIAL:
+                    keep = self._serving_cut(i, keep)
+            leaves[i] = keep.to(device or keep.device, copy=True)
+        return tree_map(lambda i: leaves[i], self.layout.skeleton)
+
+    def kv_heads(self, m: int = None) -> List[int]:
+        """The KV heads (whole-model numbers) in model rank m's KV cache,
+        in its order (attention._tp_kv); all of them on one rank."""
+        cfg, model = self.cfg, self.shards.model
+        m = self.m if m is None else m
+        if model == 1 or not cfg.num_kv_heads:      # or no attention
+            return list(range(cfg.num_kv_heads))
+        lo, hi, sel = tpm.kv_span(cfg.num_heads, cfg.num_kv_heads, m,
+                                  cfg.num_heads // model)
+        return list(range(lo, hi)) if sel is None else [lo + j for j in sel]
+
+    def _state_cut(self, name: str, shape) -> Dict[int, int]:
+        """{dim: the rank's size} of a serving-state leaf of the whole
+        tree: rows over the data ranks (dim 0), ``k``/``v`` on their KV
+        heads (dim 2), ``conv`` (dim 2) and ``h`` (dim 1) on the rank's
+        d_inner channels (rules.state_specs' split); ``pos``, MLA's
+        ``c_kv`` and ``k_rope`` and ``enc_out`` whole but their rows."""
+        cut = {0: shape[0] // self.shards.data}
+        model = self.shards.model
+        if name in ("k", "v"):
+            cut[2] = len(self.kv_heads())
+        elif name == "conv":
+            cut[2] = shape[2] // model
+        elif name == "h":
+            cut[1] = shape[1] // model
+        return cut
+
+    def serving_states(self, states, device=None):
+        """The rank's empty serving states from the whole tree
+        (transformer.init_states' list, an encoder-decoder's
+        {"decoder": [...]}; meta tensors will do): each leaf at
+        ``_state_cut``'s shape, ``pos`` -1 and the rest 0, ``idx`` as
+        given, on ``device`` (torch's default device when None)."""
+        b = _state_leaves(states)[0][1].shape[0]
+        if b % self.shards.data:
+            raise ValueError(f"a batch of {b} rows over {self.shards.data} "
+                             "data ranks")
+
+        def one(name, x):
+            if not torch.is_tensor(x):
+                return x
+            shape = list(x.shape)
+            for dim, n in self._state_cut(name, shape).items():
+                shape[dim] = n
+            return torch.full(shape, -1 if name == "pos" else 0,
+                              dtype=x.dtype, device=device)
+        return _map_states(states, one)
+
+    def gather_states(self, states, ep=None):
+        """The whole tree of the ranks' serving states (``serving_states``'
+        inverse): ``k``/``v`` placed by ``kv_heads`` of each model rank,
+        ``conv`` and ``h`` concatenated over the model group, every leaf's
+        rows over the data group ``ep`` (a TPContext, or None). Collectives
+        in the tree's order: every rank calls it alike."""
+        model, tp = self.shards.model, self.tp
+
+        def one(name, x):
+            if not torch.is_tensor(x):
+                return x
+            if model > 1 and name in ("k", "v"):
+                heads = [self.kv_heads(m) for m in range(model)]
+                most = max(len(h) for h in heads)
+                pad = torch.nn.functional.pad(
+                    x, (0, 0, 0, most - x.shape[2]))
+                parts = tp.all_gather("state_gather", pad, 2).split(most, 2)
+                shape = list(x.shape)
+                shape[2] = self.cfg.num_kv_heads
+                out = x.new_zeros(shape)
+                for h, part in zip(heads, parts):
+                    out[:, :, h] = part[:, :, :len(h)]
+                x = out
+            elif model > 1 and name in ("conv", "h"):
+                x = tp.all_gather("state_gather", x, 2 if name == "conv"
+                                  else 1)
+            if ep is not None:
+                x = ep.all_gather("state_gather", x, 0)
+            return x
+        return _map_states(states, one)
+
+
+def _map_states(tree, fn, name=None):
+    """``fn(key, leaf)`` over a states tree of dicts and lists, ``key``
+    the leaf's own dict key."""
+    if isinstance(tree, dict):
+        return {k: _map_states(v, fn, k) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_states(v, fn, name) for v in tree)
+    return fn(name, tree)
+
+
+def _state_leaves(tree, name=None) -> List[tuple]:
+    """[(key, tensor)] of a states tree, in ``_map_states``' order."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in _state_leaves(v, k)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _state_leaves(v, name)]
+    return [(name, tree)] if torch.is_tensor(tree) else []

@@ -17,7 +17,10 @@ group, this rank's place in it and its size. The Megatron operators are
   all-to-all          equal chunks of the leading dim exchanged, and the
                       gradient exchanged back — the expert-parallel MoE's
                       token exchange over the data group
-                      (models/moe_ep.py; a ``TPContext`` of that group).
+                      (models/moe_ep.py; a ``TPContext`` of that group);
+  all-gather          forward only, serving's: the vocab-parallel head's
+                      logit slices, and the data ranks' rows of an
+                      expert-parallel step's logits (launch/steps.py).
 
 Each but the all-to-all has a ``vmap`` rule that issues its collective
 ONCE on the whole batched tensor, so under the cohort's
@@ -33,6 +36,11 @@ the vocab, and the cross entropy takes its max and its sum of
 exponentials over the group (two all-reduces of (B, S) scalars, and one
 for the gold logit) instead of all-gathering (B, S, V) logits: a rank
 holds V/M of the logits and the loss moves B·S numbers, not B·S·V.
+
+Serving runs the same operators under ``torch.inference_mode``: each
+forward collective runs as in training, and nothing records a backward.
+``kv_span`` is the arithmetic of which KV heads a rank's query heads read
+(models/attention._tp_kv; the rank's KV cache, sharding/layout.py).
 
 The model code (models/attention.py, layers.py, moe.py, moe_ep.py,
 ssm.py, encdec.py, transformer.py) takes a ``tp`` context and reads from its weights'
@@ -85,6 +93,20 @@ class TPContext:
         out = torch.empty_like(src)
         self._timed(name, x, lambda: dist.all_to_all_single(
             out, src, group=self.group))
+        return out.to(x.device) if host else out
+
+    def all_gather(self, name: str, x: torch.Tensor,
+                   dim: int = -1) -> torch.Tensor:
+        """The ranks' ``x`` (one shape on every rank) concatenated along
+        ``dim`` in rank order; under gloo a CUDA tensor travels through
+        a host copy, as in ``exchange``."""
+        x = x.detach().contiguous()
+        host = x.is_cuda and dist.get_backend(self.group) == "gloo"
+        src = x.cpu() if host else x
+        parts = [torch.empty_like(src) for _ in range(self.size)]
+        self._timed(name, x, lambda: dist.all_gather(parts, src,
+                                                     group=self.group))
+        out = torch.cat(parts, dim)
         return out.to(x.device) if host else out
 
 
@@ -180,6 +202,31 @@ def all_to_all(x: torch.Tensor, tp: Optional[TPContext],
     if not x.is_floating_point():
         return tp.exchange(name, x)
     return _AllToAll.apply(x, tp, name)
+
+
+def gather_from_region(x: torch.Tensor, tp: Optional[TPContext],
+                       dim: int = -1,
+                       name: str = "tp_all_gather") -> torch.Tensor:
+    """The ranks' slices of ``x`` along ``dim`` concatenated in rank order
+    (an all-gather; forward only: serving's logits)."""
+    return x if tp is None else tp.all_gather(name, x, dim)
+
+
+def kv_span(num_heads: int, num_kv_heads: int, rank: int, heads: int):
+    """(lo, hi, sel) of the query heads [rank·heads, (rank+1)·heads): the
+    KV heads [lo, hi) they read, and ``sel`` None when each of those is
+    read by heads / (hi − lo) consecutive query heads (grouped attention
+    over hi − lo heads), else for each query head the index in [0, hi −
+    lo) of its KV head (one KV head a query head)."""
+    group = num_heads // num_kv_heads
+    q0 = rank * heads
+    lo, hi = q0 // group, (q0 + heads - 1) // group + 1
+    sel = [(q0 + j) // group - lo for j in range(heads)]
+    per = heads // (hi - lo)
+    if per * (hi - lo) == heads and all(s == j // per
+                                        for j, s in enumerate(sel)):
+        sel = None
+    return lo, hi, sel
 
 
 def grad_on_first(x: torch.Tensor, tp: Optional[TPContext]

@@ -190,16 +190,17 @@ def test_specs_match_the_references_eval_shape(arch):
 
 
 def test_steps_refuse_what_is_not_ported():
-    """Only the multi-device options not yet ported raise, citing item
-    13: serving with the expert-parallel MoE (item 13i; its training
-    step is ported, test_torch_moe_parallel.py). An SSM stack builds its
+    """What the steps still refuse: serving with the expert-parallel MoE
+    without its (data, model) mesh, a ValueError naming moe_mesh (with
+    one it serves, item 13i: test_torch_tp_serve.py; its training step,
+    test_torch_moe_parallel.py). An SSM stack builds its
     tensor-parallel step (the Mamba mixer, item 13g, ported:
     tests/_torch_one_rank.py); ``shard_fn`` builds the steps (the MoE
     layers call it, test_torch_tensor_parallel.py), as do an
     encoder-decoder and MoE groups (held against the reference in
     test_torch_encdec.py and test_torch_moe.py)."""
     cfg = get_config(DENSE, smoke=True)
-    with pytest.raises(NotImplementedError, match="item 13i"):
+    with pytest.raises(ValueError, match="moe_mesh"):
         steps.make_prefill_step(cfg, shapes.SHAPES["prefill_32k"],
                                 moe_impl="ep")
     check_tp_route(get_config(SSM, smoke=True))

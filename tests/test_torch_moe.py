@@ -408,8 +408,9 @@ def test_grouped_train_step_matches_the_reference():
 
 
 def test_expert_parallel_and_sharding_cite_item_13():
-    """The expert-parallel MoE trains over a mesh (item 13c, ported):
-    without one it raises; serving with it cites item 13i. DeepSeek-V2
+    """The expert-parallel MoE trains and serves over a mesh (items 13c and
+    13i, ported): without one both raise a ValueError naming moe_mesh.
+    DeepSeek-V2
     over a model group builds its tensor-parallel step (its MLA, item
     13f, ported: tests/_torch_one_rank.py)."""
     cfg = get_config(DEEPSEEK, smoke=True)
@@ -420,7 +421,7 @@ def test_expert_parallel_and_sharding_cite_item_13():
     assert callable(steps.make_decode_step(cfg, shape,
                                            shard_fn=lambda x, role: x))
     for make in (steps.make_prefill_step, steps.make_decode_step):
-        with pytest.raises(NotImplementedError, match="item 13i"):
+        with pytest.raises(ValueError, match="moe_mesh"):
             make(cfg, shape, moe_impl="ep")
     with pytest.raises(ValueError, match="moe_mesh"):
         tf.lm_forward(cfg, {}, torch.zeros(1, 2, dtype=torch.int64),

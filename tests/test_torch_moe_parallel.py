@@ -450,14 +450,15 @@ def test_moe_families_still_refused_cite_their_items(arch, item):
 
 
 def test_serving_with_ep_and_the_production_mesh_refuse():
-    """Serving takes no "ep" (item 13i: serving over ranks); the dry-run's
-    production mesh is item 15; a mesh wider than one process needs a
-    job."""
+    """Serving with "ep" needs its mesh (item 13i, ported:
+    test_torch_tp_serve.py; without one a ValueError naming moe_mesh);
+    the dry-run's production mesh is item 15; a mesh wider than one
+    process needs a job."""
     cfg = get_config(w.ARCH, smoke=True)
     shape = type("S", (), {"long_context": False, "seq_len": 8,
                            "global_batch": 1})()
     for make in (steps.make_prefill_step, steps.make_decode_step):
-        with pytest.raises(NotImplementedError, match="item 13i"):
+        with pytest.raises(ValueError, match="moe_mesh"):
             make(cfg, shape, moe_impl="ep")
     with pytest.raises(NotImplementedError, match="item 15"):
         mesh_mod.make_production_mesh()

@@ -164,15 +164,16 @@ def test_serve_cli_on_cpu():
                                   "whisper-base"])
 def test_unported_archs_raise(arch):
     """Every arch id is ported now: full and SMOKE configs build (the
-    reference's numbers); an unknown id raises, and so does the one MoE
-    path left, serving with the expert-parallel form (a forward with
-    states), citing item 13i."""
+    reference's numbers); an unknown id raises, and so does a forward
+    with the expert-parallel MoE and states but no mesh: it serves over
+    a (data, model) mesh (item 13i, ported: tests/test_torch_tp_serve.py)
+    and without one raises a ValueError naming moe_mesh."""
     for smoke in (False, True):
         assert dataclasses.asdict(get_config(arch, smoke=smoke)) == \
             dataclasses.asdict(ref_get_config(arch, smoke=smoke))
     with pytest.raises(KeyError):
         get_config("no-such-arch")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13i"):
+    with pytest.raises(ValueError, match="moe_mesh"):
         tf.lm_forward(get_config(arch, smoke=True), {},
                       torch.zeros(1, 2, dtype=torch.int64), moe_impl="ep",
                       states=[])
@@ -182,7 +183,8 @@ def test_non_dense_layers_raise():
     """MoE, hybrid and MLA stacks build, prefill and serve now (held
     against the reference in test_torch_moe.py); what still raises: an
     embedding prefix outside a VLM, an SSM stack with MoE layers (it has
-    no MLP) and serving with the expert-parallel MoE."""
+    no MLP) and serving with the expert-parallel MoE without its mesh
+    (with one it serves: tests/test_torch_tp_serve.py)."""
     moe = ArchConfig(name="tiny-moe", arch_type="moe", moe=True,
                      num_experts=4, top_k=2, moe_d_ff=64, d_model=32,
                      num_heads=2, num_kv_heads=2, d_ff=64, vocab_size=64)
@@ -204,7 +206,7 @@ def test_non_dense_layers_raise():
                                           {"k", "v", "pos", "idx"}]
     tokens, _ = serve.serve_lm(hybrid, 1, 4, 2, device="cpu")
     assert tokens.shape == (1, 2)
-    with pytest.raises(NotImplementedError, match="item 13i"):
+    with pytest.raises(ValueError, match="moe_mesh"):
         tf.lm_forward(hybrid, {}, torch.zeros(1, 2, dtype=torch.int64),
                       moe_impl="ep", states=states)
     # an SSM stack with MoE layers does not pass

@@ -51,6 +51,7 @@ from repro_torch.models import attention, encdec, ssm
 from repro_torch.models import transformer as tf
 from repro_torch.sharding.layout import (PARTIAL, VIEW, WHOLE, ShardLayout,
                                          tp_classes)
+from repro_torch.sharding.tensor_parallel import TPContext
 from _torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -314,17 +315,56 @@ def test_an_axis_that_splits_a_head_or_d_inner_raises(arch, smoke, model,
 
 
 def test_tp_serving_of_the_families_cites_item_13i():
-    """The tensor-parallel MLA, Mamba and encoder-decoder train; serving
-    with a cache or state over the model axis is item 13i."""
-    tp = object()
-    with pytest.raises(NotImplementedError, match="item 13i"):
-        attention.mla_forward(get_config("deepseek-v2-236b", smoke=True),
-                              {}, torch.zeros(1, 1, 8), None, cache={},
-                              tp=tp)
-    with pytest.raises(NotImplementedError, match="item 13i"):
-        ssm.mamba_forward(get_config("falcon-mamba-7b", smoke=True), {},
-                          torch.zeros(1, 1, 8), state={}, tp=tp)
-    with pytest.raises(NotImplementedError, match="item 13i"):
-        encdec.decode(get_config("whisper-base", smoke=True), {},
-                      torch.zeros(1, 1, dtype=torch.int64),
-                      torch.zeros(1, 2, 8), states=[], tp=tp)
+    """Item 13i, ported: the tensor-parallel MLA, Mamba mixer and
+    encoder-decoder serve with a cache or state on the model axis (over
+    ranks: tests/test_torch_tp_serve.py). On a model group of one rank
+    (its sum the identity), a prefill and a decode step with ``tp`` give
+    one process's outputs and states bit for bit."""
+    one = TPContext(group=None, rank=0, size=1,
+                    timer=lambda name, x, run: None)
+    rng = np.random.RandomState(3)
+    for arch in ("deepseek-v2-236b", "falcon-mamba-7b", "whisper-base"):
+        cfg = get_config(arch, smoke=True)
+        toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 6)))
+        if cfg.is_encoder_decoder:
+            params = encdec.init_encdec(cfg, torch.Generator().manual_seed(0),
+                                        torch.float32)
+            enc = torch.from_numpy(rng.randn(2, cfg.encoder_seq_len,
+                                             cfg.d_model).astype(np.float32))
+
+            def run(tp):
+                states = encdec.init_decoder_states(cfg, 2, 7, torch.float32)
+                out, states = encdec.decode(cfg, params, toks, enc,
+                                            states=states, tp=tp)
+                step, states = encdec.decode(
+                    cfg, params, toks[:, :1], enc, states=states, tp=tp,
+                    positions=torch.full((2, 1), 6, dtype=torch.int32))
+                return [out, step] + [c[k] for c in states for k in "kv"]
+        else:
+            params = tf.init_lm(cfg, torch.Generator().manual_seed(0),
+                                torch.float32)
+            mixers = [lp["mixer"] for lp in params["layers"]]
+            h = torch.from_numpy(rng.randn(2, 6, cfg.d_model).astype(
+                np.float32))
+            pos = torch.arange(6, dtype=torch.int32)[None].expand(2, 6)
+            fwd = (attention.mla_forward if cfg.attention == "mla"
+                   and cfg.arch_type != "ssm" else None)
+
+            def run(tp):
+                outs = []
+                for p, st in zip(mixers, tf.init_states(cfg, 2, 7,
+                                                        torch.float32)):
+                    if fwd is None:
+                        o, st = ssm.mamba_forward(cfg, p, h, state=st, tp=tp)
+                        o2, st = ssm.mamba_forward(cfg, p, h[:, :1],
+                                                   state=st, tp=tp)
+                    else:
+                        o, st = fwd(cfg, p, h, pos, cache=st, tp=tp)
+                        o2, st = fwd(cfg, p, h[:, :1], pos[:, :1] + 6,
+                                     cache=st, tp=tp)
+                    outs += [o, o2] + [v for v in st.values()
+                                       if torch.is_tensor(v)]
+                return outs
+        with torch.inference_mode():
+            for got, want in zip(run(one), run(None)):
+                assert torch.equal(got, want), arch
