@@ -17,6 +17,15 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               must not be 0; ptxas's registers and spills of each ssm_scan
               kernel and the SASS instruction mix of its hot loop, with
               the FP32-issue time it implies at the prefill shape.
+ 1b. dryrun   the dry-run of the production meshes on meta tensors, no
+              card (repro_torch/launch/dryrun.py, each a process of its
+              own, the three at once): the dryrun_demo example with its
+              defaults (StarCoder2-3B decode_32k on the 16 x 16 mesh),
+              then DeepSeek-V2 prefill_32k on the 2 x 16 x 16 mesh, then
+              one FedDPC round (--fl-round); each must exit 0 within
+              DRYRUN_TIMEOUT_S. Prints each report's dominant term and
+              its three terms' seconds (against an H100's data-sheet
+              figures) and each run's wall seconds.
   2. kernels  holds every kernel against its plain PyTorch version on the
               card: the reduction pass and the batched epilogue at the
               main path's shape (K=10 clients x N=11,220,132 ResNet18-GN
@@ -707,6 +716,70 @@ def _smi(query: str, fmt: str = "csv,noheader") -> str:
         ["nvidia-smi", f"--query-gpu={query}", f"--format={fmt}"],
         capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+DRYRUN_TIMEOUT_S = 300
+DRYRUN_RUNS = (
+    ("demo", ["src/repro_torch/examples/dryrun_demo.py"]),
+    ("demo_deepseek_multi_pod", ["src/repro_torch/examples/dryrun_demo.py",
+                                 "--arch", "deepseek-v2-236b", "--shape",
+                                 "prefill_32k", "--multi-pod"]),
+    ("fl_round", ["-m", "repro_torch.launch.dryrun", "--fl-round"]))
+_UNITS = {"s": 1.0, "ms": 1e-3, "us": 1e-6}
+
+
+def _dryrun_reports(text: str) -> list:
+    """Each roofline report in a dry-run's output (roofline_report's
+    lines): its title, dominant term and the three terms in seconds."""
+    reports = []
+    for line in text.splitlines():
+        if line.startswith("### "):
+            reports.append({"title": line[4:]})
+        elif reports and (m := re.match(
+                r"- (compute|memory|collective)\s+term: ([0-9.]+)(us|ms|s)\b",
+                line)):
+            reports[-1][f"t_{m[1]}_s"] = float(m[2]) * _UNITS[m[3]]
+        elif reports and (m := re.match(r"- dominant: \*\*(\w+)\*\*",
+                                        line)):
+            reports[-1]["dominant"] = m[1]
+    return reports
+
+
+def _dryrun_one(label, args):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(ROOT, "src")]
+        + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    tic = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, *args], cwd=ROOT, env=env,
+                              capture_output=True, text=True,
+                              timeout=DRYRUN_TIMEOUT_S)
+        rc, out, err = proc.returncode, proc.stdout, proc.stderr
+    except subprocess.TimeoutExpired as e:
+        rc, out, err = None, e.stdout or "", f"timed out ({e})"
+        out = out if isinstance(out, str) else out.decode()
+    return {"phase": "dryrun", "run": label, "args": args, "returncode": rc,
+            "seconds": time.perf_counter() - tic,
+            "reports": _dryrun_reports(out),
+            "tail": (out + "\n" + err).strip().splitlines()[-3:]}
+
+
+def phase_dryrun():
+    """The dry-run's three runs (DRYRUN_RUNS), at once, each a process of
+    its own on the CPU (the card hidden): each must exit 0 with a
+    roofline report."""
+    with ThreadPoolExecutor(max_workers=len(DRYRUN_RUNS)) as pool:
+        lines = list(pool.map(lambda r: _dryrun_one(*r), DRYRUN_RUNS))
+    bad = []
+    for line in lines:
+        emit(line)
+        if line["returncode"] != 0 or not line["reports"] or any(
+                "dominant" not in r for r in line["reports"]):
+            bad.append(line["run"])
+    if bad:
+        raise AssertionError(f"dryrun: {bad} failed")
 
 
 def phase_build() -> str:
@@ -6456,6 +6529,7 @@ def main() -> int:
         return 1
     t0 = time.perf_counter()
     smi = _clocked(phase_build)
+    _clocked(phase_dryrun)
     rows = (_clocked(phase_kernels) + _clocked(phase_folds)
             + _clocked(phase_guard_epilogue))
     sr_row = _clocked(phase_int8_sr)

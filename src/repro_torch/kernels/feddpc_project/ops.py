@@ -19,7 +19,10 @@ Each wrapper checks device, dtype, shape and contiguity, then
   * for CUDA tensors launches its kernel on the current stream (or
     raises — there is no fallback), and adds one to its ``launches``
     count, only there;
-  * for CPU tensors calls the plain version in ``ref.py``.
+  * for CPU tensors calls the plain version in ``ref.py``;
+  * for meta tensors (``feddpc_dots`` and ``feddpc_batched_epilogue``,
+    the synchronous round's two) returns meta outputs and records one
+    launch's cost (kernels.meta_cost), for the dry-run.
 
 The kernels are compiled at first use with ``nvcc`` into a shared library
 with a plain C interface, loaded with ``ctypes`` (``kernels/_build.py``).
@@ -32,7 +35,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.core import projection as proj
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, meta_cost
 from repro_torch.kernels.feddpc_project import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "feddpc_project.cu"
@@ -92,16 +95,18 @@ def _check_launch(lib, err: int, name: str):
                            f"({lib.feddpc_error_string(err).decode()})")
 
 
-def _check(name: str, d: torch.Tensor, dtypes, **named: torch.Tensor):
+def _check(name: str, d: torch.Tensor, dtypes, meta: bool = False,
+           **named: torch.Tensor):
     """d (K, N) of one of ``dtypes`` plus named f32 tensors whose shape
     follows from the name: 'p', 'w' (N,); 'coefs', 'scales', 'wgts'
     (K,); 'qscale', 'qzero' (K, L) with L from qscale. All contiguous,
-    on one device (CPU or CUDA)."""
+    on one device (CPU or CUDA, or meta where ``meta``)."""
     if d.dim() != 2 or d.shape[0] < 1 or d.shape[1] < 1:
         raise ValueError(f"{name}: d must be (K, N) with K, N >= 1, got "
                          f"{tuple(d.shape)}")
     k, n = d.shape
-    if d.device.type not in ("cpu", "cuda"):
+    if d.device.type not in (("cpu", "cuda", "meta") if meta
+                             else ("cpu", "cuda")):
         raise ValueError(f"{name}: tensors on {d.device} are not supported")
     if d.dtype not in dtypes:
         raise TypeError(f"{name}: d must be one of {list(dtypes)}, got "
@@ -162,11 +167,18 @@ def feddpc_dots(d: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     [<d_j,p>, <d_j,d_j>, <p,p>] per client row j, all rows in one launch.
     The kernel writes per-block partials (K, G, 3); one ``torch.sum``
     over G finishes them."""
-    _check("feddpc_dots", d, (torch.float32,), p=p)
+    _check("feddpc_dots", d, (torch.float32,), meta=True, p=p)
     if d.device.type == "cpu":
         return ref.dots_ref(d, p)
-    lib = _load()
     k, n = d.shape
+    if d.device.type == "meta":
+        # the bound's count: d and p read once, the (K, 3) result written
+        # once (the per-block partials, a library query, left out); 4
+        # FLOPs an element of d, 2 an element of p
+        meta_cost("feddpc_dots", 4 * k * n + 2 * n,
+                  4 * ((k + 1) * n + 3 * k))
+        return torch.empty((k, 3), dtype=torch.float32, device=d.device)
+    lib = _load()
     partials = torch.empty((k, dots_num_blocks(n), 3),
                            device=d.device, dtype=torch.float32)
     with torch.cuda.device(d.device):
@@ -283,10 +295,18 @@ def feddpc_batched_epilogue(d: torch.Tensor, p: torch.Tensor,
     (new_w, delta_t), both new (N,) f32 tensors:
     delta_t = mean_j scale_j (d_j - coef_j p), new_w = w - eta_g delta_t.
     f32 w only."""
-    _check("feddpc_batched_epilogue", d, (torch.float32,), p=p, w=w,
-           coefs=coefs, scales=scales)
+    _check("feddpc_batched_epilogue", d, (torch.float32,), meta=True, p=p,
+           w=w, coefs=coefs, scales=scales)
     if d.device.type == "cpu":
         return ref.batched_epilogue_ref(d, p, w, coefs, scales, eta_g)
+    if d.device.type == "meta":
+        # the bound's count: d, p, w, coefs and scales read once, w' and
+        # delta_t written once; 4 FLOPs an element of d, 3 a column
+        k, n = d.shape
+        meta_cost("feddpc_batched_epilogue", 4 * k * n + 3 * n,
+                  4 * (k * n + 4 * n + 2 * k))
+        return torch.empty_like(w), torch.empty((n,), dtype=torch.float32,
+                                                device=d.device)
     out = _fold("feddpc_batched_epilogue", d, p, w, coefs, scales, None,
                 eta_g)
     feddpc_batched_epilogue.launches += 1

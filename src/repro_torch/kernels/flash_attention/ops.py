@@ -11,7 +11,9 @@ has the reference's — then
   * for CUDA tensors launches the kernel on the current stream (or
     raises — there is no fallback) and adds one to its ``launches``
     count, only there;
-  * for CPU tensors calls the plain version, ``ref.attention_ref``.
+  * for CPU tensors calls the plain version, ``ref.attention_ref``;
+  * for meta tensors returns a meta output and records one launch's cost
+    (``meta_work``; kernels.meta_cost), for the dry-run.
 
 ``plan`` picks the kernel's body (its route) from the shapes. A call with
 at most 16 rows a (batch, KV head) — a row is a (query, group head) pair,
@@ -40,7 +42,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _build, refuse_training
+from repro_torch.kernels import _build, meta_cost, nbytes, refuse_training
 from repro_torch.kernels.flash_attention import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
@@ -107,7 +109,7 @@ def _check(q, k, v, q_pos, k_pos):
         if pos.dtype.is_floating_point or pos.dtype == torch.bool:
             raise TypeError(f"{name}: positions must be integers, got "
                             f"{pos.dtype}")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{name}: tensors on {q.device} are not supported")
     for t in (k, v, q_pos, k_pos):
         if t.device != q.device:
@@ -157,11 +159,41 @@ def _split_scratch(index: int, stream: int, n_part: int, n_count: int):
     return part, counters
 
 
+def visible_pairs(sq: int, sk: int, window: int = 0) -> int:
+    """The (query, key) pairs that ``sq`` queries see over ``sk`` keys
+    when the keys hold positions 0 .. sk-1 and the queries the sq
+    positions from max(sk - sq, 0): a causal prefill from 0 (sq == sk)
+    or a decode over a full cache (sq = 1). Query p sees the keys j <= p
+    with p - j < ``window`` (0: no window)."""
+    p = torch.arange(max(sk - sq, 0), max(sk - sq, 0) + sq)
+    lo = (p - window + 1).clamp(min=0) if window else torch.zeros_like(p)
+    return int((p.clamp(max=sk - 1) - lo + 1).clamp(min=0).sum())
+
+
+def meta_work(q, k, v, q_pos, k_pos, window=0, all_visible=False):
+    """(FLOPs, bytes) of one launch, the formula behind the kernel's
+    bound: 4·D FLOPs for each visible (query head, key) pair — on meta
+    no position is known, so the pairs are every pair where the caller
+    says so (``all_visible``), else ``visible_pairs``' layout, the one
+    the serving steps give (the kernel skips the masked pairs) — and q,
+    k, v and the int32 positions read once, the output written once."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    pairs = sq * sk if all_visible else visible_pairs(sq, sk, window)
+    return (4 * d * h * b * pairs,
+            2 * nbytes(q) + nbytes(k, v) + 4 * (q_pos.numel()
+                                                + k_pos.numel()))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_pos: torch.Tensor, k_pos: torch.Tensor, *,
-                    window: int = 0, soft_cap: float = 0.0) -> torch.Tensor:
+                    window: int = 0, soft_cap: float = 0.0,
+                    all_visible: bool = False) -> torch.Tensor:
     """(B, Sq, H, D) attention output in q's dtype (f32 or bf16); query
-    head h reads KV head h // (H / KV)."""
+    head h reads KV head h // (H / KV). ``all_visible``: the caller's
+    positions make every key visible to every query (an encoder,
+    cross-attention); the positions decide what is computed, and only
+    the meta route, which cannot read them, counts by it."""
     _check(q, k, v, q_pos, k_pos)
     refuse_training("flash_attention", TRAINING_ROUTE, q, k, v)
     if q.device.type == "cpu":
@@ -172,6 +204,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d % 4 or d > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: the kernel takes D a multiple "
                          f"of 4 up to {MAX_HEAD_DIM}, got {d}")
+    if q.device.type == "meta":
+        meta_cost("flash_attention", *meta_work(q, k, v, q_pos, k_pos,
+                                                window, all_visible))
+        return torch.empty_like(q)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     q_pos = q_pos.to(torch.int32).contiguous()
     k_pos = k_pos.to(torch.int32).contiguous()

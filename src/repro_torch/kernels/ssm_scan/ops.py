@@ -21,7 +21,9 @@ the reference's training never calls its scan kernel — then
     dim is contiguous: the model's slices of one projection), launches
     the kernel on the current stream (or raises — there is no fallback)
     and adds one to its ``launches`` count, only there;
-  * for CPU tensors calls the plain version, ``ref.ssm_scan_ref``.
+  * for CPU tensors calls the plain version, ``ref.ssm_scan_ref``;
+  * for meta tensors returns meta outputs and records one launch's cost
+    (``meta_work``; kernels.meta_cost), for the dry-run.
 
 There is no padding path: the kernel masks ragged S and D_in itself. It
 is compiled at first use with ``nvcc`` into a shared library with a plain
@@ -35,7 +37,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build, refuse_training
+from repro_torch.kernels import _build, meta_cost, nbytes, refuse_training
 from repro_torch.kernels.ssm_scan import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssm_scan.cu"
@@ -99,7 +101,7 @@ def _check(u, dt, b, c, a, d_skip, h0, dt_bias, z):
     for key, (t, _) in want.items():
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: {key} must be float32, got {t.dtype}")
-    if u.device.type not in ("cpu", "cuda"):
+    if u.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{name}: tensors on {u.device} are not supported")
     for key, (t, _) in shapes.items():
         if t.device != u.device:
@@ -112,6 +114,27 @@ def _rows(t):
     if t.stride(-1) != 1:
         t = t.contiguous()
     return t, t.stride(0), t.stride(1)
+
+
+def meta_work(u, dt, b, c, a, d_skip, h0=None, dt_bias=None,
+              dt_softplus=False, z=None) -> Tuple[int, int]:
+    """(f32 FLOPs, bytes) of one launch, the formula behind the kernel's
+    bound: each input read once, y and h_final written once; per (batch,
+    step, channel, state) dt*a, h*decay + du*b and acc + h*c (6 FLOPs),
+    per (batch, step, channel) du, d*u and the sum (3), with dt's bias
+    and softplus 3 more and with the gate 3 more (its exponentials and
+    logarithms, on the SFU, are not FLOPs)."""
+    bsz, s, d_in = u.shape
+    n = b.shape[-1]
+    elems = bsz * s * d_in
+    flops = 6 * elems * n + 3 * elems
+    if dt_bias is not None or dt_softplus:
+        flops += 3 * elems
+    if z is not None:
+        flops += 3 * elems
+    moved = (2 * nbytes(u) + nbytes(dt, b, c, a, d_skip, h0, dt_bias, z)
+             + 4 * bsz * d_in * n)
+    return flops, moved
 
 
 def ssm_scan(u: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
@@ -137,6 +160,12 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     if n > MAX_STATE or bsz > 65535:
         raise ValueError(f"ssm_scan: the kernel takes N up to {MAX_STATE} "
                          f"and B up to 65535, got N = {n}, B = {bsz}")
+    if u.device.type == "meta":
+        meta_cost("ssm_scan", *meta_work(u, dt, b, c, a, d_skip, h0,
+                                         dt_bias, dt_softplus, z))
+        return (torch.empty_like(u),
+                torch.empty((bsz, d_in, n), dtype=torch.float32,
+                            device=u.device))
     u, dt, a, d_skip = (t.contiguous() for t in (u, dt, a, d_skip))
     h0, dt_bias = (None if t is None else t.contiguous()
                    for t in (h0, dt_bias))

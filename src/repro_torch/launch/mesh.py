@@ -15,8 +15,9 @@ process groups that carry the cohort round's collectives
 mesh of the expert-parallel train step (models/moe_ep.py,
 launch/steps.make_train_step(moe_impl="ep")), rank = d·M + m; a 1 x 1
 one without a job is this process alone (``LocalMesh``: no group, no
-collective). The reference's production mesh of the dry-run tooling (512
-placeholder devices) is not ported (ROADMAP Queue 1, item 15).
+collective). ``make_production_mesh`` is the dry-run's (16, 16) or
+(2, 16, 16) mesh over a fake process group of 256 or 512 ranks
+(launch/dryrun.py).
 """
 from __future__ import annotations
 
@@ -104,13 +105,58 @@ def make_debug_mesh(data: int = 1, model: int = 1):
                             mesh_dim_names=("data", "model"))
 
 
+# multi_pod -> (the mesh over the fake group, its 1-D mesh of the data
+# axes)
+_production = {}
+
+
 def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's dry-run mesh over 512 placeholder devices has no
-    port yet."""
-    raise NotImplementedError(
-        "make_production_mesh: the dry-run's mesh of 512 placeholder "
-        "devices (a (16, 16) or (2, 16, 16) TPU v5e layout) has no port; "
-        "it is ROADMAP Queue 1 item 15")
+    """The dry-run's production mesh (launch/dryrun.py): the (16, 16)
+    ``("data", "model")`` mesh of 256 ranks, or with ``multi_pod`` the
+    (2, 16, 16) ``("pod", "data", "model")`` mesh of 512, as a
+    ``DeviceMesh`` over a FAKE process group (torch's "fake" backend:
+    its collectives move nothing and return at once) in which this
+    process is rank 0, rank = (p·16 + d)·16 + m. The steps run on meta
+    tensors over it; each collective is recorded, not carried out.
+
+    Like the reference's dry-run, which fixes its 512 placeholder
+    devices at JAX's start, it needs a process of its own: it starts the
+    global group, and raises if a real job's group is already up. Called
+    again for the other mesh it starts the fake group anew (its world
+    size changes). The multi-pod mesh's ``mesh["pod", "data"]`` is
+    flattened once: the 32 ranks of the data axes, the group of the
+    gradient sums (``production_data_group``)."""
+    world = 512 if multi_pod else 256
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError(
+                "make_production_mesh: a real job's process group is up "
+                f"({dist.get_backend()}); the dry-run's fake 256- and "
+                "512-rank meshes need a process of their own")
+        if multi_pod in _production:
+            return _production[multi_pod][0]
+        dist.destroy_process_group()
+    _production.clear()
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    if multi_pod:
+        mesh = init_device_mesh("cpu", (2, 16, 16),
+                                mesh_dim_names=("pod", "data", "model"))
+        data = mesh["pod", "data"]._flatten("pod_data")
+    else:
+        mesh = init_device_mesh("cpu", (16, 16),
+                                mesh_dim_names=("data", "model"))
+        data = mesh["data"]
+    _production[multi_pod] = (mesh, data)
+    return mesh
+
+
+def production_data_group(mesh):
+    """The process group of ``make_production_mesh``'s data axes: "data"
+    (16 ranks), or pod x data flattened (32 ranks)."""
+    return next(d for m, d in _production.values() if m is mesh).get_group()
 
 
 def axis_group(mesh, axis: str):

@@ -173,8 +173,9 @@ def states_spec(cfg: ArchConfig, shape: InputShape):
 
 def make_train_step(cfg: ArchConfig, lr: float = 1e-3, remat: str = "full",
                     attn_impl: str = "auto", moe_groups: int = 1,
-                    shard_fn=None, moe_impl: str = "gshard", moe_mesh=None,
-                    microbatches: int = 1, model_group=None):
+                    shard_fn=None, scan_unroll=1, moe_impl: str = "gshard",
+                    moe_mesh=None, microbatches: int = 1, model_group=None,
+                    data_group=None):
     """(params, batch) -> (new_params, loss). Plain SGD, so a step is
     forward + backward + apply (the paper's local client step), under
     plain autograd: ``remat="full"`` checkpoints each layer
@@ -200,8 +201,23 @@ def make_train_step(cfg: ArchConfig, lr: float = 1e-3, remat: str = "full",
     the same on each. Every family: GQA and MLA decoders with dense or
     MoE MLPs, Mamba and hybrid stacks (``remat`` as one process's), and
     the encoder-decoder (``encdec.encdec_loss_fn``, no remat); a model
-    axis that does not divide the heads, the MLP width or d_inner
-    raises, naming the leaf (sharding/layout.tp_classes).
+    axis that does not divide MLA's heads, the MLP width or d_inner
+    raises, naming the leaf (sharding/layout.tp_classes); a GQA attention
+    whose heads M does not divide runs whole on every rank.
+
+    ``data_group`` as well (a process group of S ranks over the data
+    axis, each a model group's rank of the same coordinate): the
+    tensor-parallel step of a (data, model) mesh, the reference's train
+    step jit'd with ``param_specs`` and ``batch_specs`` — each data rank
+    runs its rows [d·B/S, (d+1)·B/S) of the batch (the batch given
+    whole; every row where S does not divide B, as the reference
+    replicates it), and every gradient block is summed over the data
+    group and divided by S before the step ("data_grad_sum", one
+    all-reduce a block), so the data ranks' copies step alike.
+
+    ``scan_unroll`` is the reference's and is ignored: the reference
+    unrolls its layer scan so that XLA's cost analysis counts every
+    layer; the port's layers run in a Python loop, each counted.
 
     ``moe_impl="ep"`` with ``moe_mesh`` (launch/mesh.make_debug_mesh(S,
     M) over the job's S·M ranks) makes it this rank's expert-parallel
@@ -214,7 +230,10 @@ def make_train_step(cfg: ArchConfig, lr: float = 1e-3, remat: str = "full",
                                    moe_mesh)
     if model_group is not None:
         return _make_tp_train_step(cfg, lr, remat, attn_impl, microbatches,
-                                   model_group, moe_groups)
+                                   model_group, moe_groups, data_group)
+    if data_group is not None:
+        raise ValueError("data_group= is the (data, model) form of the "
+                         "tensor-parallel step: pass model_group= too")
 
     def loss_of(tree, batch):
         if cfg.is_encoder_decoder:
@@ -267,8 +286,9 @@ def _microbatches(batch, n: int):
 
 
 def _make_tp_train_step(cfg, lr, remat, attn_impl, microbatches, group,
-                        moe_groups=1):
-    """make_train_step's tensor-parallel form (its docstring)."""
+                        moe_groups=1, data_group=None):
+    """make_train_step's tensor-parallel form (its docstring), with
+    ``data_group`` its (data, model) form."""
     model = dist.get_world_size(group)
     shards = ShardLayout.from_sizes(bridge.layout_of(params_spec(cfg)),
                                     {"clients": 1, "model": model})
@@ -282,7 +302,26 @@ def _make_tp_train_step(cfg, lr, remat, attn_impl, microbatches, group,
         return tf.loss_fn(cfg, tree, batch, remat=remat, attn_impl=attn_impl,
                           moe_groups=moe_groups, tp=tp)
 
-    train_step = _shard_step(view, loss_of, lr, microbatches)
+    rows = grad_sync = None
+    if data_group is not None:
+        dp = tpm.TPContext.of(data_group)
+
+        def rows(batch):
+            b = next(iter(batch.values())).shape[0]
+            if b % dp.size:
+                return batch            # whole on every data rank
+            per = b // dp.size
+            return {k: v[dp.rank * per:(dp.rank + 1) * per]
+                    for k, v in batch.items()}
+
+        def grad_sync(grads):
+            for g in grads:
+                dp._timed("data_grad_sum", g, lambda g=g: dist.all_reduce(
+                    g, group=dp.group))
+                g.div_(dp.size)
+
+    train_step = _shard_step(view, loss_of, lr, microbatches, rows,
+                             grad_sync)
     train_step.shards, train_step.view, train_step.tp = shards, view, tp
     return train_step
 

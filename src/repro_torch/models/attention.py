@@ -19,8 +19,9 @@ Full-sequence attention (``sdpa``) has these implementations:
   * "kernel":    the hand-written CUDA kernel, ``kernels/flash_attention``
     (its plain version on CPU tensors).
 "auto" is "kernel" for every call on a CUDA tensor, prefill and decode,
-so the card never runs a plain version on the serving path; on the CPU
-it is "plain".
+so the card never runs a plain version on the serving path, and on a
+meta tensor (the dry-run's serving step is the card's: the kernel's
+wrapper records its cost); on the CPU it is "plain".
 
 The training route is "plain", on every device. Neither the flash
 kernel nor the reference's Pallas kernel has a backward, and the
@@ -143,19 +144,23 @@ def _sdpa_blocked(q, k, v, q_pos, k_pos, window, soft_cap=0.0):
     return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
 
 
-def sdpa(q, k, v, q_pos, k_pos, window=0, soft_cap=0.0, impl="auto"):
+def sdpa(q, k, v, q_pos, k_pos, window=0, soft_cap=0.0, impl="auto",
+         all_visible=False):
     """Full-sequence attention, q (B,Sq,H,D), k/v (B,Sk,KV,D), positions
-    (B,Sq)/(B,Sk) -> (B,Sq,H,D); ``impl`` in IMPLS (module docstring)."""
+    (B,Sq)/(B,Sk) -> (B,Sq,H,D); ``impl`` in IMPLS (module docstring).
+    ``all_visible``: the positions make every key visible (the kernel's
+    meta count reads it: fa_ops.flash_attention)."""
     if impl not in IMPLS:
         raise ValueError(f"sdpa: impl must be one of {IMPLS}, got {impl!r}")
     if impl == "auto":
-        impl = "kernel" if q.device.type == "cuda" else "plain"
+        impl = "kernel" if q.device.type in ("cuda", "meta") else "plain"
     if impl == "plain":
         impl = ("blocked" if (k.shape[1] > BLOCKED_THRESHOLD
                               and q.shape[1] > 8) else "reference")
     if impl == "kernel":
         return fa_ops.flash_attention(q, k, v, q_pos, k_pos, window=window,
-                                      soft_cap=soft_cap)
+                                      soft_cap=soft_cap,
+                                      all_visible=all_visible)
     if impl == "blocked":
         return _sdpa_blocked(q, k, v, q_pos, k_pos, window, soft_cap)
     return _sdpa_reference(q, k, v, _mask_bias(q_pos, k_pos, window),
@@ -226,6 +231,18 @@ def _tp_kv(cfg, p, x, tp, heads):
     return k.index_select(2, idx), v.index_select(2, idx)
 
 
+def tp_of(cfg, tp):
+    """The context ``cfg``'s GQA attention runs under: ``tp``, or None
+    where its weights are whole on every rank of the group (the model
+    axis does not divide the query heads: tensor_parallel.
+    attention_whole, which sharding/layout's classes follow) — every rank
+    then computes every head as one process does, and nothing is summed
+    after ``wo``."""
+    if tp is not None and tpm.attention_whole(cfg, tp.size):
+        return None
+    return tp
+
+
 def gqa_forward(cfg, p, x, positions, *, window=0, cache=None, impl="auto",
                 tp=None):
     """x (B, S, D), positions (B, S) int absolute positions.
@@ -240,9 +257,12 @@ def gqa_forward(cfg, p, x, positions, *, window=0, cache=None, impl="auto",
     holds the KV heads _tp_kv gives the rank (KV / M when M divides the
     KV heads; else the heads its query block spans, or one a query head
     where the block splits a group unevenly); ``pos`` and ``idx`` are
-    the same on every rank. Returns (out, new_cache)."""
+    the same on every rank. Weights whole on every rank (``tp_of``) run
+    as one process's, the cache every KV head. Returns (out,
+    new_cache)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
+    tp = tp_of(cfg, tp)
     x = tpm.copy_to_region(x, tp)
     q = linear(p["wq"], x)
     heads = q.shape[-1] // hd

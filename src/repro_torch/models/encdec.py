@@ -42,7 +42,11 @@ copy-to-region for all decoder layers (their partial gradients into it
 summed once). The embedding and head are vocab-parallel when the model
 axis divides the vocabulary (the logits and the cross entropy then stay
 split, sharding/tensor_parallel.cross_entropy), whole otherwise
-(Whisper-base's 51,865). Serving with ``tp`` (``decode`` with
+(Whisper-base's 51,865). Where the model axis does not divide the
+heads (Whisper-base's 8 at M = 16) every attention is whole on every
+rank (attention.tp_of; tensor_parallel.attention_whole): no region, no
+sum after ``wo``, every head computed by each rank; the MLP stays
+split. Serving with ``tp`` (``decode`` with
 ``states``), each self-attention cache holds the rank's KV heads
 (attention.gqa_forward), ``enc_out`` is whole on every rank, and the
 cross K/V are recomputed on the rank's heads each step, as one process
@@ -59,7 +63,7 @@ from repro_torch.models.layers import (apply_mlp, apply_norm, init_linear,
                                        init_mlp, init_norm, linear, normal,
                                        rng_device, row_parallel,
                                        sinusoidal_positions, split_rng)
-from repro_torch.models.transformer import _map, _stack_trees
+from repro_torch.models.transformer import _stack_trees, unstack
 from repro_torch.sharding import tensor_parallel as tpm
 
 
@@ -122,10 +126,10 @@ def init_encdec(cfg, rng, dtype=None):
 
 def _layers(tree, n: int) -> List:
     """A list of per-layer trees, from a list or from one tree of stacked
-    leaves (views ``leaf[i]``)."""
+    leaves (views ``leaf[i]``, transformer.unstack)."""
     if isinstance(tree, (list, tuple)):
         return list(tree)
-    return [_map(lambda x, i=i: x[i], tree) for i in range(n)]
+    return unstack(tree, n)
 
 
 def _split_heads(cfg, p, x, kv_src, tp=None):
@@ -162,10 +166,12 @@ def encode(cfg, params, frames, attn_impl="auto", tp=None):
                                                dtype=frames.dtype)[None]
     q_pos, k_pos = _all_visible(b, t, t, frames.device)
     for lp in _layers(params["encoder"], cfg.encoder_layers):
-        h = tpm.copy_to_region(apply_norm(cfg.norm, lp["norm1"], x), tp)
-        q, k, v = _split_heads(cfg, lp["attn"], h, h, tp)
-        o = attn_mod.sdpa(q, k, v, q_pos, k_pos, impl=attn_impl)
-        x = x + row_parallel(lp["attn"]["wo"], o.reshape(b, t, -1), tp)
+        ta = attn_mod.tp_of(cfg, tp)
+        h = tpm.copy_to_region(apply_norm(cfg.norm, lp["norm1"], x), ta)
+        q, k, v = _split_heads(cfg, lp["attn"], h, h, ta)
+        o = attn_mod.sdpa(q, k, v, q_pos, k_pos, impl=attn_impl,
+                          all_visible=True)
+        x = x + row_parallel(lp["attn"]["wo"], o.reshape(b, t, -1), ta)
         h2 = apply_norm(cfg.norm, lp["norm2"], x)
         x = x + apply_mlp(cfg.mlp, lp["mlp"], h2, tp)
     return apply_norm(cfg.norm, params["enc_norm"], x)
@@ -177,7 +183,8 @@ def _cross_attention(cfg, lp, x, enc_out, attn_impl, tp=None):
     b, s, _ = x.shape
     q, k, v = _split_heads(cfg, lp, tpm.copy_to_region(x, tp), enc_out, tp)
     q_pos, k_pos = _all_visible(b, s, enc_out.shape[1], x.device)
-    o = attn_mod.sdpa(q, k, v, q_pos, k_pos, impl=attn_impl)
+    o = attn_mod.sdpa(q, k, v, q_pos, k_pos, impl=attn_impl,
+                      all_visible=True)
     return row_parallel(lp["wo"], o.reshape(b, s, -1), tp)
 
 
@@ -205,11 +212,14 @@ def decode(cfg, params, tokens, enc_out, positions=None, *,
                                  device=tokens.device)[None].expand(b, s)
     x = tpm.embed_lookup(params["embed"], tokens, tp, cfg.vocab_size)
     x = x + decoder_positions(positions, cfg.d_model).to(x.dtype)
-    # the decoder layers' k/v inputs: their gradients summed over the
-    # group once
-    enc_in = tpm.copy_to_region(enc_out, tp)
+    layers = _layers(params["decoder"], cfg.num_layers)
+    # the cross-attention's context (None where its heads are whole on
+    # every rank: attention.tp_of), and the decoder layers' k/v inputs:
+    # their gradients summed over the group once
+    cross = attn_mod.tp_of(cfg, tp)
+    enc_in = tpm.copy_to_region(enc_out, cross)
     new_states = None if states is None else []
-    for i, lp in enumerate(_layers(params["decoder"], cfg.num_layers)):
+    for i, lp in enumerate(layers):
         h = apply_norm(cfg.norm, lp["norm1"], x)
         att, nst = attn_mod.gqa_forward(
             cfg, lp["self_attn"], h, positions, window=window,
@@ -218,7 +228,7 @@ def decode(cfg, params, tokens, enc_out, positions=None, *,
         x = x + att
         hx = apply_norm(cfg.norm, lp["norm_x"], x)
         x = x + _cross_attention(cfg, lp["cross_attn"], hx, enc_in,
-                                 attn_impl, tp)
+                                 attn_impl, cross)
         h2 = apply_norm(cfg.norm, lp["norm2"], x)
         x = x + apply_mlp(cfg.mlp, lp["mlp"], h2, tp)
         if states is not None:

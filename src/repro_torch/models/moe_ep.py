@@ -95,7 +95,11 @@ def _bucket_ranks(key: torch.Tensor, buckets: int) -> torch.Tensor:
     order (a stable sort on the bucket id)."""
     n = key.numel()
     order = torch.argsort(key, stable=True)
-    counts = torch.bincount(key, minlength=buckets)
+    # a fixed-length count (bincount has no meta kernel: the dry-run);
+    # integer sums, exact on every device
+    counts = torch.zeros(buckets, dtype=key.dtype,
+                         device=key.device).index_add_(
+        0, key, torch.ones_like(key))
     starts = torch.cumsum(counts, 0) - counts
     ranked = torch.arange(n, device=key.device) - starts[key[order]]
     return torch.zeros_like(key).scatter(0, order, ranked)

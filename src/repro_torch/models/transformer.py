@@ -214,17 +214,36 @@ def _stack_trees(trees):
     return torch.stack(trees)
 
 
+def unstack(tree, n: int) -> List:
+    """[the tree of every leaf's ``leaf[g]``, for g < n]: views, each
+    stacked leaf unbound once. Its gradient is then one stack of the n
+    pieces' gradients; a view ``leaf[g]`` taken a layer at a time would
+    give each layer's backward a zero tensor of the whole stacked leaf
+    to add up, bytes that grow with the square of the depth."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][g] for k in tree} for g in range(n)]
+    if isinstance(tree, (list, tuple)):
+        parts = [unstack(v, n) for v in tree]
+        return [type(tree)(p[g] for p in parts) for g in range(n)]
+    pieces = torch.unbind(tree, 0)
+    if len(pieces) != n:
+        raise ValueError(f"a stacked leaf of {len(pieces)} for {n} layers")
+    return list(pieces)
+
+
 def layer_params(cfg, params) -> List:
     """The per-layer parameter trees in execution order, from either tree
     (module docstring): the serving tree's list, or views ``stack[j][g]``
-    of the reference's stacked groups (under ``torch.func.vmap`` too)."""
+    of the reference's stacked groups (``unstack``; under
+    ``torch.func.vmap`` too)."""
     if "layers" in params:
         return list(params["layers"])
     _, period, groups = stack_plan(cfg)
+    stacks = [unstack(params["stack"][j], groups) for j in range(period)]
     layers = list(params["prefix_layers"])
     for g in range(groups):
-        layers += [_map(lambda x: x[g], params["stack"][j])
-                   for j in range(period)]
+        layers += [stacks[j][g] for j in range(period)]
     return layers
 
 
@@ -445,8 +464,9 @@ class LMLoss:
     ``loss(params, batch, tp=ctx)`` on a sharding/layout.TPView tree of
     ``cfg``'s params. ``tensor_parallel`` says that the task trains so:
     every family the port builds has a Megatron form (a model axis that
-    does not divide its heads, MLP width or d_inner raises in
-    sharding/layout.tp_classes, naming the leaf). A trainer or round step
+    does not divide MLA's heads, the MLP width or d_inner raises in
+    sharding/layout.tp_classes, naming the leaf; a GQA attention whose
+    heads it does not divide runs whole on every rank). A trainer or round step
     on a (clients, model) mesh picks its route from it once, when it is
     built (core/round.py)."""
 

@@ -54,6 +54,7 @@ import torch
 
 from repro_torch.bridge import FlatLayout, tree_map
 from repro_torch.sharding import tensor_parallel as tpm
+from repro_torch.sharding.tensor_parallel import attention_whole
 from repro_torch.sharding.rules import (ShardingPolicy, cohort_leaf_specs,
                                         leaf_specs, mesh_axes, path_str)
 
@@ -344,6 +345,9 @@ MEGATRON = (
     (r"(x_proj|out_proj)/w$", -2, None),     # row-parallel
 )
 _KV = r"(wk|wv)/[wb]$"
+# a GQA attention's leaves, WHOLE where the model axis does not divide
+# the query heads (``attention_whole``)
+_ATTN = r"(wq|wk|wv|wo)/[wb]$"
 # gathered whole, their gradient summed over the group: the MoE router
 # (every rank routes from the whole (D, E) weight, and its gradient
 # through the gates is partial: the experts' outputs are, before the
@@ -394,18 +398,26 @@ def tp_classes(shards: ShardLayout, cfg) -> List[str]:
     other leaf — norms, ``wo/b``, ``down/b``, MLA's ``q_down`` and
     ``kv_down``, and ``embed`` or ``lm_head`` when M does not divide the
     vocabulary — which every rank computes alike, so each keeps its
-    slice of the same gradient. Raises, naming the leaf, when a query,
-    output, MLP, expert or Mamba channel projection is not split so: the
-    route needs M to divide the query heads, the MLP width, the experts'
-    ffn dim and d_inner."""
+    slice of the same gradient. A GQA attention whose query heads M does
+    not divide (``attention_whole``: StarCoder2-3B's and Phi-4-mini's 24
+    heads, Whisper-base's 8, at M = 16) is WHOLE, ``wq``/``wk``/``wv``/
+    ``wo`` and their biases: every rank computes every head, with no sum
+    after ``wo``, and a serving cache holds every KV head. Raises, naming
+    the leaf, when an MLA query or output, MLP, expert or Mamba channel
+    projection is not split so: the route needs M to divide MLA's heads,
+    the MLP width, the experts' ffn dim and d_inner."""
     widths = head_widths(cfg)
     layout = shards.layout
+    whole_attn = attention_whole(cfg, shards.model)
     out = []
     for i, (shape, spec) in enumerate(zip(layout.shapes, shards.specs)):
         path = path_str(layout.paths[i])
         md = megatron_dim(path)
         cls = (PARTIAL if any(re.search(p, path) for p in _PARTIAL)
                else WHOLE)
+        if whole_attn and re.search(_ATTN, path):
+            out.append(WHOLE)
+            continue
         if md is not None and md[0] is not None:
             dim = md[0] % len(shape)
             split = shards.model > 1 and spec[dim] is not None
@@ -458,6 +470,7 @@ class TPView:
         nleaves = len(self.layout.shapes)
         self.classes = (tuple(tp_classes(shards, cfg))
                         if shards.model > 1 else (VIEW,) * nleaves)
+        self.attn_whole = attention_whole(cfg, shards.model)
         self.size = shards.sizes[r]
         self._held = shards.held(r)
         self._split = [int(np.prod(shape, dtype=np.int64))
@@ -507,18 +520,23 @@ class TPView:
         if runs[0] or runs[1]:
             sizes = [sum(int(self.layout.numels[i]) for i in ids)
                      for ids in self._gathered]
-            if sizes[1]:
-                # the PARTIAL leaves' backward sum is a collective every
-                # rank must join, also one that holds no piece of them:
-                # one element of its shard, times 0, ties the run to it
-                runs[1].append(blocks[0].reshape(-1)[:1] * 0)
-                sizes[1] += 1
+            # the PARTIAL leaves' backward sum is a collective every rank
+            # must join, also one that holds no piece of them; and a rank
+            # that holds no piece of the WHOLE leaves (every attention
+            # leaf model rank 0's, attention_whole) must still see them
+            # require grad, or its backward skips a sum the others make:
+            # one element of its shard, times 0, ties the run to it
+            tie = blocks[0].reshape(-1)[:1] * 0
+            runs[1 if sizes[1] else 0].append(tie)
+            sizes[1 if sizes[1] else 0] += 1
             whole = tpm.reduce_from_region(torch.cat(runs[0] + runs[1]),
                                            self.tp, "tp_leaf_gather")
             head, tail = torch.split(whole, sizes)
             if sizes[1]:
                 tail = tpm.copy_to_region(tail, self.tp,
                                           "tp_leaf_gather")[:-1]
+            else:
+                head = head[:-1]
             for ids, run in zip(self._gathered, (head, tail)):
                 chunks = torch.split(run, [int(self.layout.numels[i])
                                            for i in ids])
@@ -585,10 +603,11 @@ class TPView:
 
     def kv_heads(self, m: int = None) -> List[int]:
         """The KV heads (whole-model numbers) in model rank m's KV cache,
-        in its order (attention._tp_kv); all of them on one rank."""
+        in its order (attention._tp_kv); all of them on one rank, or
+        where the attention is whole (``attention_whole``)."""
         cfg, model = self.cfg, self.shards.model
         m = self.m if m is None else m
-        if model == 1 or not cfg.num_kv_heads:      # or no attention
+        if model == 1 or not cfg.num_kv_heads or self.attn_whole:
             return list(range(cfg.num_kv_heads))
         lo, hi, sel = tpm.kv_span(cfg.num_heads, cfg.num_kv_heads, m,
                                   cfg.num_heads // model)
@@ -642,7 +661,7 @@ class TPView:
         def one(name, x):
             if not torch.is_tensor(x):
                 return x
-            if model > 1 and name in ("k", "v"):
+            if model > 1 and name in ("k", "v") and not self.attn_whole:
                 heads = [self.kv_heads(m) for m in range(model)]
                 most = max(len(h) for h in heads)
                 pad = torch.nn.functional.pad(

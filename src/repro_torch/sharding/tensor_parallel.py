@@ -212,6 +212,16 @@ def gather_from_region(x: torch.Tensor, tp: Optional[TPContext],
     return x if tp is None else tp.all_gather(name, x, dim)
 
 
+def attention_whole(cfg, model: int) -> bool:
+    """Whether ``model`` ranks (> 1) run ``cfg``'s GQA attention whole:
+    M does not divide the query heads, so every rank computes every head
+    (sharding/layout.tp_classes classes its leaves WHOLE, and
+    models/attention.tp_of runs it without ``tp``; GSPMD would split the
+    heads mid-way)."""
+    return (model > 1 and cfg.attention == "gqa" and bool(cfg.num_heads)
+            and cfg.num_heads % model != 0)
+
+
 def kv_span(num_heads: int, num_kv_heads: int, rank: int, heads: int):
     """(lo, hi, sel) of the query heads [rank·heads, (rank+1)·heads): the
     KV heads [lo, hi) they read, and ``sel`` None when each of those is

@@ -449,18 +449,22 @@ def test_moe_families_still_refused_cite_their_items(arch, item):
     check_tp_route(get_config(arch, smoke=True))
 
 
-def test_serving_with_ep_and_the_production_mesh_refuse():
+def test_serving_with_ep_and_the_production_mesh_refuse(monkeypatch):
     """Serving with "ep" needs its mesh (item 13i, ported:
     test_torch_tp_serve.py; without one a ValueError naming moe_mesh);
-    the dry-run's production mesh is item 15; a mesh wider than one
-    process needs a job."""
+    the dry-run's production mesh (item 15, ported: test_torch_dryrun.py)
+    refuses a real job's process group; a mesh wider than one process
+    needs a job."""
     cfg = get_config(w.ARCH, smoke=True)
     shape = type("S", (), {"long_context": False, "seq_len": 8,
                            "global_batch": 1})()
     for make in (steps.make_prefill_step, steps.make_decode_step):
         with pytest.raises(ValueError, match="moe_mesh"):
             make(cfg, shape, moe_impl="ep")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        mesh_mod.make_production_mesh()
     with pytest.raises(RuntimeError, match="process group"):
         mesh_mod.make_debug_mesh(2, 2)
+    import torch.distributed as dist
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_backend", lambda group=None: "gloo")
+    with pytest.raises(RuntimeError, match="a process of their own"):
+        mesh_mod.make_production_mesh()

@@ -476,10 +476,26 @@ def test_tp_view_classes_at_full_size(name, model):
 
 
 def test_tp_view_refuses_an_axis_that_splits_heads():
-    """The route needs M to divide the query heads (and d_ff): 8 model
-    ranks over StarCoder2 SMOKE's 4 heads raise, naming the leaf."""
-    with pytest.raises(ValueError, match="query heads"):
-        _classes(get_config(w.ARCH, smoke=True), 8)
+    """A model axis that does not divide the query heads runs the
+    attention whole on every rank: 8 model ranks over StarCoder2 SMOKE's
+    4 heads class wq/wk/wv/wo (and their biases) WHOLE — every rank
+    computes every head, nothing is summed after wo, a cache holds every
+    KV head (sharding/layout.attention_whole; over ranks:
+    test_torch_tp_whole_attention.py) — and still split the MLP. The
+    route still needs M to divide the MLP width: 3 ranks over its 512
+    raise, naming the leaf."""
+    cfg = get_config(w.ARCH, smoke=True)
+    assert layout_mod.attention_whole(cfg, 8)
+    assert not layout_mod.attention_whole(cfg, 4)
+    _, classes = _classes(cfg, 8)
+    attn = [p for p in classes if re.search(r"(wq|wk|wv|wo)/[wb]$", p)]
+    assert attn and all(classes[p] == WHOLE for p in attn)
+    assert all(classes[p] == VIEW for p in classes
+               if re.search(r"(up|down)/w$", p))
+    view = layout_mod.TPView(_classes(cfg, 8)[0], 5, cfg, None)
+    assert view.kv_heads() == list(range(cfg.num_kv_heads))
+    with pytest.raises(ValueError, match=r"(up|down)/w .*does not split"):
+        _classes(cfg, 3)
 
 
 @pytest.mark.parametrize("arch,item", [
